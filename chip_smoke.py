@@ -12,13 +12,16 @@ package beside it. Phases, each raising on failure:
 2. kernels at EC 8+4 with 1 MiB blocks (B=16, k=8, S=131072): K1
    gf2_matmul for encode, a 4-missing reconstruct, per-block weights with
    3 failure patterns and a ragged S=87382; K2 mxsum_digest over the
-   [B*12, S] shards with lengths 0, 1, 513 and S among the rows. Each is
+   [B*12, S] shards with lengths 0, 1, 513 and S among the rows (PUT),
+   and over their first B*8 (GET verify) and B*4 rows (heal). Each is
    held byte-equal to its plain PyTorch version on the same inputs
-   (tolerance: exact, all integer work) and timed with CUDA events
-   (median of 20 runs after warm-up, L2 flushed and the launches queued
-   behind a short device spin before each run, so host launch overhead
-   stays out of the device time); K2 is also timed beside torch._int_mm,
-   the library call that computes its main contraction;
+   (tolerance: exact, all integer work) and timed at every one of those
+   shapes with CUDA events (median of 20 runs after warm-up, L2 flushed
+   and the launches queued behind a short device spin before each run,
+   so host launch overhead stays out of the device time), beside its
+   bound and the share of it reached; K1 also beside its plain version,
+   K2 beside torch._int_mm, the library call that computes its main
+   contraction;
 3. S3: the port's server on 12 tmp drives (device="cuda"), driven over
    http.client with the port's SigV4 signer: PUT 256 MiB, 9 MiB + 12,345 B
    and 1 KiB objects; GET back byte-equal with ETag == md5; a ranged GET;
@@ -41,15 +44,12 @@ import http.client
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
 import urllib.parse
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
 ACCESS, SECRET = "smokeadmin", "smokesecret123"
 K, M, B, S = 8, 4, 16, 131072   # EC 8+4, 1 MiB blocks: S = 1 MiB / 8
 
@@ -61,36 +61,6 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _median_ms(fn, flush, runs: int = 20, warm: int = 3) -> float:
-    """Median device time of fn() over `runs` runs, in ms. Before each run
-    the L2 cache is flushed (the caller's data is not in L2) and the card
-    spins for ~1 ms, so the host has queued both events and fn's launches
-    before the card reaches them: the time between the events is the
-    card's work, not the Python launch overhead."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(runs):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_phase(seed: int) -> dict:
     """K1 and K2 on the card against their plain versions; returns the
     kernel records of the result line (launches filled in later)."""
@@ -98,6 +68,8 @@ def kernel_phase(seed: int) -> dict:
     import torch
 
     from minio_tpu_torch.ops import gf, mxsum, rs
+    from minio_tpu_torch.utils.cudatime import (gf2_bound_ms, median_ms,
+                                                mxsum_bound_ms)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -164,46 +136,65 @@ def kernel_phase(seed: int) -> dict:
         raise AssertionError("K2 digest disagrees with the host digest")
 
     out = {}
-    k1_ms = _median_ms(lambda: rs.gf2_matmul(x, w_enc, M), flush)
-    k1_plain = _median_ms(lambda: rs.gf2_matmul_plain(x, w_enc, M), flush)
-    k1_bound = _bound_ms(B * K * S + K * 8 * M * 8 + B * M * S,
-                         2.0 * B * S * (K * 8) * (M * 8))
+    # Every main-path shape, timed; the first of each kernel is the one of
+    # the result line.
+    k1_shapes = [
+        ("encode [16,8,S]->4", (x, w_enc, M), gf2_bound_ms(B, K, M, S)),
+        ("reconstruct 4 missing", (xs, w_dec, 4), gf2_bound_ms(B, K, 4, S)),
+        ("per-block weights, 3 patterns", (xm, w_multi_d, 4),
+         gf2_bound_ms(B, K, 4, S, per_block_weights=True)),
+        ("ragged S=87382", (xr, w_enc, M), gf2_bound_ms(B, K, M, xr.shape[2])),
+    ]
+    k1 = []
+    for label, args, (bnd, by) in k1_shapes:
+        ms = median_ms(lambda: rs.gf2_matmul(*args), flush)
+        plain = median_ms(lambda: rs.gf2_matmul_plain(*args), flush)
+        print(f"  K1 {label}: {ms:.6f} ms, bound {bnd:.6f} ms ({by}), "
+              f"{100 * bnd / ms:.1f}% of the bound; plain {plain:.6f} ms")
+        k1.append((label, ms, (bnd, by)))
+        if len(k1) == 1:
+            k1_plain = plain
     out["gf2_matmul"] = {
         "name": "gf2_matmul", "route": "cuda",
         "source": "minio_tpu_torch/csrc/gf2_matmul.cu",
         "replaces": "minio_tpu/ops/rs_pallas.py:48", "launches": 0,
-        "max_abs_err": errs["gf2_matmul"], "ms": k1_ms, "plain_ms": k1_plain,
-        "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None}
-    for label, fn, t in (
-            ("reconstruct 4 missing", lambda: rs.gf2_matmul(xs, w_dec, 4), 4),
-            ("per-block weights", lambda: rs.gf2_matmul_multi(xm, w_multi_d, 4), 4)):
-        ms = _median_ms(fn, flush)
-        bnd = (B * K * S + B * t * S) / HBM_BYTES_PER_S * 1e3
-        print(f"  K1 {label}: {ms:.6f} ms (bound {bnd:.6f} ms, bytes)")
-    k2_ms = _median_ms(lambda: mxsum.digest(chunks, lens), flush)
-    k2_plain = _median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
-    # Library yardstick for K2: torch._int_mm (int8 x int8 -> int32,
-    # cuBLASLt) computes its main contraction [N, S] @ [S, 8] in one call,
-    # without the length term and the byte packing. Timed here only; the
-    # port never calls it. Whether its int32 sums wrap as K2's uint32 ones
-    # do is checked on this run's data, not assumed.
-    ci8, key = chunks.view(torch.int8), mxsum.device_key(S, dev)
-    lib_out = torch._int_mm(ci8, key)
+        "max_abs_err": errs["gf2_matmul"], "ms": k1[0][1], "plain_ms": k1_plain,
+        "bound_ms": k1[0][2][0], "bound_by": k1[0][2][1], "library_ms": None}
+
+    # K2 at the PUT (all k+m shards), GET verify (k data shards) and heal
+    # (4 rebuilt shards) row counts of a 16-block batch. Library yardstick:
+    # torch._int_mm (int8 x int8 -> int32, cuBLASLt) computes the main
+    # contraction [N, S] @ [S, 8] in one call, without the length term and
+    # the byte packing. Timed here only; the port never calls it. Whether
+    # its int32 sums wrap as K2's uint32 ones do is checked on this run's
+    # data, not assumed.
+    key = mxsum.device_key(S, dev).t().contiguous()                # [S, 8]
     lterm = (mxsum._len_bytes(lens).to(torch.float64)
              @ mxsum.device_len_key(dev).to(torch.float64)).to(torch.int64)
-    lib_agrees = torch.equal(mxsum._pack_words(lib_out.to(torch.int64) + lterm),
-                             digs)
-    k2_lib = _median_ms(lambda: torch._int_mm(ci8, key), flush)
-    print(f"  torch._int_mm [{n_rows}, {S}] @ [{S}, 8]: {k2_lib:.6f} ms; "
-          f"with the length term and packing it equals K2's digests: {lib_agrees}")
-    k2_bound = _bound_ms(n_rows * S + 8 * S + 4 * n_rows + 32 + 32 * n_rows,
-                         2.0 * n_rows * S * 8)
+    lib_out = torch._int_mm(chunks.view(torch.int8), key)
+    print("  torch._int_mm with the length term and packing equals K2's "
+          f"digests: {torch.equal(mxsum._pack_words(lib_out.to(torch.int64) + lterm), digs)}")
+    k2 = []
+    for label, rows in (("PUT", n_rows), ("GET verify", B * K), ("heal", B * 4)):
+        c, ln = chunks[:rows], lens[:rows]
+        if rows != n_rows:
+            check("mxsum_digest", f"K2 digest [{rows}, S]", mxsum.digest(c, ln),
+                  mxsum.digest_plain(c, ln))
+        ms = median_ms(lambda: mxsum.digest(c, ln), flush)
+        ci8 = c.view(torch.int8)
+        lib = median_ms(lambda: torch._int_mm(ci8, key), flush)
+        bnd, by = mxsum_bound_ms(rows, S)
+        print(f"  K2 {label} [{rows}, {S}]: {ms:.6f} ms, bound {bnd:.6f} ms "
+              f"({by}), {100 * bnd / ms:.1f}% of the bound; torch._int_mm "
+              f"{lib:.6f} ms")
+        k2.append((ms, lib, bnd, by))
+    k2_plain = median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
     out["mxsum_digest"] = {
         "name": "mxsum_digest", "route": "cuda",
         "source": "minio_tpu_torch/csrc/mxsum_digest.cu",
         "replaces": "minio_tpu/ops/mxsum.py:153", "launches": 0,
-        "max_abs_err": errs["mxsum_digest"], "ms": k2_ms, "plain_ms": k2_plain,
-        "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_lib}
+        "max_abs_err": errs["mxsum_digest"], "ms": k2[0][0], "plain_ms": k2_plain,
+        "bound_ms": k2[0][2], "bound_by": k2[0][3], "library_ms": k2[0][1]}
     for r in out.values():
         print(f"  {r['name']}: {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")

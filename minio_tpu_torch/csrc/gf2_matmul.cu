@@ -20,154 +20,396 @@
 // The weight is runtime data: one compiled kernel serves every failure
 // pattern, as heal sweeps need.
 //
-// Design: the TPU kernel unpacks bytes to bits and runs an int8 MXU
-// contraction. Here each block first expands W into tout*kin byte tables
-// in shared memory, T[t][j][v] = M[t, j] * v (the 8x8 bit block applied to
-// byte v), then every thread XORs T[t][j][x[b, j, s]] over j for 4
-// consecutive bytes of s at a time. The table build goes through 16-entry
-// nibble tables so its cost stays small next to the main loop.
+// Bound on an H100: memory. At EC 8+4 with 1 MiB blocks a launch moves
+// B*kin*S bytes in and B*tout*S out; the least time is those bytes over
+// the HBM rate (7.5 us at [16, 8, 131072] -> 4).
 //
-// Bound on an H100: memory. At EC 8+4 with 1 MiB blocks a block moves
-// 8 * 131072 bytes in and 4 * 131072 out and does 8 * 4 table lookups per
-// output byte column, far below the card's operation rate; the least time
-// is (B * (kin + tout) * S) bytes over the HBM bandwidth. The lookups hit
-// shared memory with bank conflicts, which is what keeps this simple
-// kernel above that bound. An int8 tensor-core (wgmma) form is later work.
+// What held the first version (a 256-entry byte table per (t, j)) back:
+// tout byte lookups per input byte, each a shared load that a warp's random
+// bytes hit with 2-way bank conflicts, plus shift-and-OR work per lookup;
+// 512 blocks that each rebuilt 8 KiB of tables for 4 KiB per shard of
+// work; and 4-byte loads with few bytes in flight.
+//
+// Design:
+// - Packed-output nibble tables. Multiplying by M[t, j] is linear over
+//   GF(2), so for input shard j and nibble half h a block keeps 16 entries
+//   P[j][h][u]; byte t of entry u is M[t, j] * (u << 4h), for all outputs
+//   at once: one uint32 when tout <= 4, a uint2 when <= 8, a uint4 when
+//   <= 16, and passes of 16 outputs above that. An input byte costs two
+//   shared loads whatever tout is, and one 3-input XOR folds them into an
+//   accumulator that holds every output byte of its position. The 16
+//   uint32 entries of a table lie in 16 distinct banks: no conflicts at
+//   tout <= 4.
+// - Addresses without arithmetic: input j's tables start on a 256-byte
+//   boundary, so an entry's shared address is that base with its low byte
+//   replaced by the nibble times the entry size. Two shift-and-masks per
+//   4 input bytes make all 8 low bytes, and one __byte_perm per lookup
+//   splices one into the base: about 4 integer instructions and 2 shared
+//   loads per input byte (accumulate()).
+// - Aligned path (S % 16 == 0, aligned pointers): a thread takes 16
+//   consecutive positions, one 16-byte load per shard row (a warp covers
+//   512 consecutive bytes, and asks L2 to fetch 256-byte pieces) and, after
+//   a 4x4 byte transpose per 4 positions (__byte_perm), one 16-byte store
+//   per output row. At 64 registers 4 blocks of 256 threads fit on an SM,
+//   so all of [16, 8, 131072] is in flight in one wave.
+// - The tables (kin * 256 bytes at tout <= 8) are built from W in shared
+//   memory, about one entry per thread. The grid is persistent: at most
+//   the blocks that fit on the card at once, each walking a contiguous
+//   range of (b, output group, S-tile) tiles, so a block rebuilds its
+//   tables only where b changes and the weight is per block.
+// - Shard rows are loaded kRowsPerLoad at a time, so any kin works (ops/
+//   rs.py admits kin <= 32).
+// - Byte path (a ragged S or an unaligned pointer): a thread's 16
+//   positions lie kThreads apart, so each byte load and store of a warp
+//   covers 32 consecutive bytes; the edge is masked.
+// What still bounds it (minio_tpu_torch/kernel_ab.py, PERF.md): the table
+// build ahead of the loads and the lookups each add about a microsecond to
+// the memory time, and loading before the build needs registers that the
+// one-wave grid does not have (MTPU_GF2_EARLY_ROWS).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// Tuning macros (minio_tpu_torch/kernel_ab.py builds variants with -D).
+#ifndef MTPU_GF2_EARLY_ROWS
+#define MTPU_GF2_EARLY_ROWS 0     // aligned path: shard rows loaded before the
+#endif                            // tables are built (0 to 8)
+#ifndef MTPU_GF2_L2_256B
+#define MTPU_GF2_L2_256B 1        // 16-byte loads ask L2 to fetch 256 bytes
+#endif
+#ifndef MTPU_GF2_DIAG_NO_LOOKUP
+#define MTPU_GF2_DIAG_NO_LOOKUP 0 // diagnostic only (wrong parity): the
+#endif                            // loads and stores without the lookups
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxIn = 32;          // kin limit: x words live in registers
-constexpr int kWordsPerThread = 4;  // amortises the table build
+constexpr int kRowsPerLoad = 8;           // shard rows loaded together
+constexpr int kEarly = MTPU_GF2_EARLY_ROWS;
 
+constexpr int kPos = 16;                  // positions (bytes of S) per thread
+constexpr long long kTile = (long long)kThreads * kPos;
+// Blocks per SM the registers must allow on the aligned path at tout <= 4:
+// 4 blocks of 256 threads at 64 registers hold all of [16, 8, 131072] in
+// one wave.
+template <int NW, bool VEC>
+constexpr int kMinBlocks = NW == 1 && VEC ? 4 : 1;
+
+// Table words per entry: 1, 2 or 4 bytes-of-4 outputs; groups of 16 outputs.
+__host__ __device__ inline int words_per_entry(int tout) {
+  return tout <= 4 ? 1 : tout <= 8 ? 2 : 4;
+}
+__host__ __device__ inline int output_groups(int tout) {
+  return tout <= 16 ? 1 : (tout + 15) / 16;
+}
+// Bytes of input j's tables: 32 entries of nwt words, at least 256 so that
+// an entry's shared address is base_j with its low byte replaced.
+__host__ __device__ inline int table_stride(int tout) {
+  const int bytes = 32 * words_per_entry(tout) * output_groups(tout) * 4;
+  return bytes < 256 ? 256 : bytes;
+}
+// Dynamic shared memory: 256 bytes of alignment slack, the tables, then one
+// byte per (input bit, output) column.
+__host__ __device__ inline size_t smem_bytes(int kin, int tout) {
+  return 256 + (size_t)kin * table_stride(tout) + (size_t)kin * 8 * tout;
+}
+
+__device__ __forceinline__ uint4 load16(const uint8_t* p) {
+#if MTPU_GF2_L2_256B
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+#else
+  return __ldg(reinterpret_cast<const uint4*>(p));
+#endif
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+// Columns 0-3 of 4 words (word p's bytes in a_p) -> out[r] holding byte r
+// of words 0..3 in its bytes 0..3: a 4x4 byte transpose.
+__device__ __forceinline__ void transpose4(uint32_t a0, uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint32_t* out) {
+  const uint32_t x0 = __byte_perm(a0, a1, 0x5140), x1 = __byte_perm(a0, a1, 0x7362);
+  const uint32_t y0 = __byte_perm(a2, a3, 0x5140), y1 = __byte_perm(a2, a3, 0x7362);
+  out[0] = __byte_perm(x0, y0, 0x5410);
+  out[1] = __byte_perm(x0, y0, 0x7632);
+  out[2] = __byte_perm(x1, y1, 0x5410);
+  out[3] = __byte_perm(x1, y1, 0x7632);
+}
+
+// Input j's tables start at byte j * table_stride of `tab`: entry (h, u)
+// at (h*16 + u) * nwt words, and its word q holds in byte r the output
+// t = 4q + r of M[t, j] * (u << 4h). colb[(j*8 + bi) * tout + t] is output
+// byte t for input bit bi of shard j alone.
 __device__ void build_tables(const int8_t* __restrict__ w, int kin, int tout,
-                             uint8_t* tab, uint8_t* nib, uint8_t* colb) {
-  const int tj_count = tout * kin;
+                             uint32_t* tab, uint8_t* colb) {
   const int cols = tout * 8;
-  // colb[tj*8 + bi]: the output byte for input bit bi alone.
-  for (int e = threadIdx.x; e < tj_count * 8; e += blockDim.x) {
-    const int bi = e & 7;
-    const int tj = e >> 3;
-    const int t = tj / kin, j = tj % kin;
-    const int8_t* row = w + (size_t)(j * 8 + bi) * cols + t * 8;
-    uint32_t col = 0;
-    for (int bo = 0; bo < 8; ++bo) col |= (uint32_t)(row[bo] & 1) << bo;
-    colb[e] = (uint8_t)col;
+  const int nwt = words_per_entry(tout) * output_groups(tout);
+  const int jwords = table_stride(tout) / 4;
+  for (int e = threadIdx.x; e < kin * 8 * tout; e += blockDim.x) {
+    const int t = e % tout, row = e / tout;
+    const int8_t* wr = w + (size_t)row * cols + t * 8;
+    uint32_t c = 0;
+    for (int bo = 0; bo < 8; ++bo) c |= (uint32_t)(wr[bo] & 1) << bo;
+    colb[e] = (uint8_t)c;
   }
   __syncthreads();
-  // nib[tj*32 + h*16 + u]: the output byte for nibble u at half h.
-  for (int e = threadIdx.x; e < tj_count * 32; e += blockDim.x) {
-    const int u = e & 15;
-    const int h = (e >> 4) & 1;
-    const int tj = e >> 5;
-    const uint8_t* cb = colb + tj * 8 + h * 4;
-    uint32_t acc = 0;
-    for (int i = 0; i < 4; ++i)
-      if (u >> i & 1) acc ^= cb[i];
-    nib[e] = (uint8_t)acc;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < tj_count * 256; e += blockDim.x) {
-    const int v = e & 255;
-    const int tj = e >> 8;
-    tab[e] = nib[tj * 32 + (v & 15)] ^ nib[tj * 32 + 16 + (v >> 4)];
+  for (int e = threadIdx.x; e < kin * 32 * nwt; e += blockDim.x) {
+    const int q = e % nwt, ent = e / nwt;
+    const int u = ent & 15, h = (ent >> 4) & 1, j = ent >> 5;
+    uint32_t v = 0;
+    for (int r = 0; r < 4 && q * 4 + r < tout; ++r) {
+      uint32_t by = 0;
+      for (int i = 0; i < 4; ++i)
+        if (u >> i & 1) by ^= colb[(j * 8 + h * 4 + i) * tout + q * 4 + r];
+      v |= by << (8 * r);
+    }
+    tab[j * jwords + (ent & 31) * nwt + q] = v;
   }
   __syncthreads();
 }
 
-// VEC: S % 4 == 0 and x/out 4-byte aligned, so each thread moves uint32
-// words; otherwise bytes.
+// acc[p] ^= P[j][0][low nibble of byte p] ^ P[j][1][high nibble], for the 16
+// bytes of words[4] (byte p in byte p % 4 of word p / 4). tj is the
+// shared address of input j's tables (256-aligned), g the output group.
+//
+// For 1 and 2 words per entry the entry's address is tj with its low byte
+// replaced by the nibble times the entry size (plus 16 entries for the high
+// half): two shifts and masks per word make all 8 offsets, and one
+// __byte_perm per lookup splices one into tj. With 4 words, an add.
+template <int NW>
+__device__ __forceinline__ void accumulate(uint32_t (&acc)[kPos][NW], uint32_t tj,
+                                           int nwt, int g, const uint32_t* words) {
+#if MTPU_GF2_DIAG_NO_LOOKUP
+#pragma unroll
+  for (int p = 0; p < kPos; ++p) acc[p][0] ^= words[p >> 2];
+  return;
+#endif
+#pragma unroll
+  for (int wi = 0; wi < kPos / 4; ++wi) {
+    const uint32_t wv = words[wi];
+    if (NW == 1) {
+      const uint32_t lo = (wv << 2) & 0x3C3C3C3Cu;
+      const uint32_t hi = ((wv >> 2) & 0x3C3C3C3Cu) | 0x40404040u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[wi * 4 + i][0] ^= lds32(__byte_perm(lo, tj, 0x7650 + i)) ^
+                              lds32(__byte_perm(hi, tj, 0x7650 + i));
+    } else if (NW == 2) {
+      const uint32_t lo = (wv << 3) & 0x78787878u;
+      const uint32_t hi = ((wv >> 1) & 0x78787878u) | 0x80808080u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint2 a = lds64(__byte_perm(lo, tj, 0x7650 + i));
+        const uint2 b = lds64(__byte_perm(hi, tj, 0x7650 + i));
+        acc[wi * 4 + i][0] ^= a.x ^ b.x;
+        acc[wi * 4 + i][1] ^= a.y ^ b.y;
+      }
+    } else {
+      const uint32_t base = tj + g * 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t by = (wv >> (8 * i)) & 0xFF;
+        const uint32_t la = base + (by & 15) * nwt * 4;
+        const uint32_t ha = base + (16 + (by >> 4)) * nwt * 4;
+        uint4 a, b;
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(a.x), "=r"(a.y), "=r"(a.z), "=r"(a.w) : "r"(la));
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(b.x), "=r"(b.y), "=r"(b.z), "=r"(b.w) : "r"(ha));
+        uint32_t* ac = acc[wi * 4 + i];
+        ac[0] ^= a.x ^ b.x;
+        ac[1] ^= a.y ^ b.y;
+        ac[2] ^= a.z ^ b.z;
+        ac[3] ^= a.w ^ b.w;
+      }
+    }
+  }
+}
+
+// Shard rows j0 + jj, jj in [first, last) and j0 + jj < kin, of block xb at
+// a thread's positions from s0 (see gf2_kernel), byte p in byte p % 4 of
+// words[jj][p / 4].
 template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_rows(uint32_t (&words)[kRowsPerLoad][kPos / 4],
+                                          const uint8_t* __restrict__ xb, int j0,
+                                          int first, int last, int kin, long long S,
+                                          long long s0) {
+#pragma unroll
+  for (int jj = 0; jj < kRowsPerLoad; ++jj) {
+    if (jj < first || jj >= last) continue;
+    const uint8_t* row = xb + (j0 + jj) * S;
+    if (VEC) {
+      if (j0 + jj < kin) {
+        const uint4 v = load16(row + s0);
+        words[jj][0] = v.x; words[jj][1] = v.y; words[jj][2] = v.z; words[jj][3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < kPos; ++p) {
+        const long long s = s0 + (long long)p * kThreads;
+        const uint32_t by = (j0 + jj < kin && s < S) ? __ldg(row + s) : 0u;
+        if ((p & 3) == 0) words[jj][p >> 2] = by;
+        else words[jj][p >> 2] |= by << (8 * (p & 3));
+      }
+    }
+  }
+}
+
+// VEC: S % 16 == 0 and x, out 16-byte aligned: a thread's 16 positions are
+// consecutive, one 16-byte load per shard row and one 16-byte store per
+// output row, so a warp's load or store covers 512 consecutive bytes; the
+// first kEarly shard rows are in flight while the tables are built.
+// Otherwise (the byte path) they lie kThreads apart (s0 + p * kThreads),
+// so each byte load and store of a warp covers 32 consecutive bytes, and
+// the edge is masked.
+template <int NW, bool VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<NW, VEC>)
 gf2_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
            uint8_t* __restrict__ out, int kin, int tout, long long S,
-           long long w_batch_stride) {
-  extern __shared__ uint8_t smem[];
-  const int tj_count = tout * kin;
-  uint8_t* tab = smem;
-  uint8_t* nib = smem + tj_count * 256;
-  uint8_t* colb = nib + tj_count * 32;
-  const long long b = blockIdx.y;
-  build_tables(w + b * w_batch_stride, kin, tout, tab, nib, colb);
+           long long w_batch_stride, int groups, long long chunks, long long tiles) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t tbase = (sbase + 255) & ~255u;
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + (tbase - sbase));
+  uint8_t* colb = smem + (tbase - sbase) + (size_t)kin * table_stride(tout);
+  const int nwt = NW * groups;
+  const uint32_t jstride = table_stride(tout);
 
-  const uint8_t* xb = x + b * kin * S;
-  uint8_t* ob = out + b * tout * S;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  if (VEC) {
-    const long long words = S >> 2;
-    for (long long wi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         wi < words; wi += stride) {
-      uint32_t xs[kMaxIn];
+  const long long per = tiles / gridDim.x, extra = tiles % gridDim.x;
+  const long long first = blockIdx.x * per + min((long long)blockIdx.x, extra);
+  const long long last = first + per + (blockIdx.x < extra ? 1 : 0);
+  long long built = -1;
+
+  for (long long tile = first; tile < last; ++tile) {
+    const long long b = tile / (groups * chunks);
+    const int g = (int)((tile - b * groups * chunks) / chunks);
+    const long long c = tile - b * groups * chunks - (long long)g * chunks;
+    const long long s0 = c * kTile + (VEC ? (long long)threadIdx.x * kPos : threadIdx.x);
+    const uint8_t* xb = x + b * kin * S;
+    uint32_t words[kRowsPerLoad][kPos / 4];
+    const int early = VEC && s0 < S ? kEarly : 0;
+    load_rows<VEC>(words, xb, 0, 0, early, kin, S, s0);
+    const long long wb = w_batch_stride ? b : 0;
+    if (wb != built) {
+      if (built >= 0) __syncthreads();  // the last tile's lookups are done
+      build_tables(w + wb * w_batch_stride, kin, tout, tab, colb);
+      built = wb;
+    }
+    if (s0 >= S) continue;
+
+    uint32_t acc[kPos][NW];
 #pragma unroll
-      for (int j = 0; j < kMaxIn; ++j)
-        if (j < kin)
-          xs[j] = __ldg(reinterpret_cast<const uint32_t*>(xb + j * S) + wi);
-      for (int t = 0; t < tout; ++t) {
-        const uint8_t* tt = tab + t * kin * 256;
-        uint32_t acc = 0;
+    for (int p = 0; p < kPos; ++p)
 #pragma unroll
-        for (int j = 0; j < kMaxIn; ++j) {
-          if (j < kin) {
-            const uint32_t v = xs[j];
-            const uint8_t* tb = tt + j * 256;
-            acc ^= (uint32_t)tb[v & 255] | ((uint32_t)tb[(v >> 8) & 255] << 8) |
-                   ((uint32_t)tb[(v >> 16) & 255] << 16) |
-                   ((uint32_t)tb[v >> 24] << 24);
+      for (int q = 0; q < NW; ++q) acc[p][q] = 0;
+    for (int j0 = 0; j0 < kin; j0 += kRowsPerLoad) {
+      load_rows<VEC>(words, xb, j0, j0 ? 0 : early, kRowsPerLoad, kin, S, s0);
+#pragma unroll
+      for (int jj = 0; jj < kRowsPerLoad; ++jj)
+        if (j0 + jj < kin)
+          accumulate<NW>(acc, tbase + (j0 + jj) * jstride, nwt, g, words[jj]);
+    }
+
+    uint8_t* ob = out + b * tout * S;
+#pragma unroll
+    for (int q = 0; q < NW; ++q) {
+      if (VEC) {
+        uint32_t rows[4][4];  // [output byte r][4 positions each]
+#pragma unroll
+        for (int p4 = 0; p4 < 4; ++p4) {
+          uint32_t o[4];
+          transpose4(acc[4 * p4][q], acc[4 * p4 + 1][q], acc[4 * p4 + 2][q],
+                     acc[4 * p4 + 3][q], o);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) rows[r][p4] = o[r];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int t = g * 16 + q * 4 + r;
+          if (t < tout)
+            *reinterpret_cast<uint4*>(ob + t * S + s0) =
+                make_uint4(rows[r][0], rows[r][1], rows[r][2], rows[r][3]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int t = g * 16 + q * 4 + r;
+          if (t >= tout) continue;
+#pragma unroll
+          for (int p = 0; p < kPos; ++p) {
+            const long long s = s0 + (long long)p * kThreads;
+            if (s < S) ob[t * S + s] = (uint8_t)(acc[p][q] >> (8 * r));
           }
         }
-        reinterpret_cast<uint32_t*>(ob + t * S)[wi] = acc;
       }
     }
-  } else {
-    for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
-         s += stride) {
-      for (int t = 0; t < tout; ++t) {
-        const uint8_t* tt = tab + t * kin * 256;
-        uint32_t acc = 0;
-        for (int j = 0; j < kin; ++j) acc ^= tt[j * 256 + xb[j * S + s]];
-        ob[t * S + s] = (uint8_t)acc;
-      }
-    }
+  }
+}
+
+template <int NW, bool VEC>
+cudaError_t launch(const uint8_t* x, const int8_t* w, uint8_t* out, int B, int kin,
+                   int tout, long long S, long long w_batch_stride,
+                   cudaStream_t st) {
+  const size_t smem = smem_bytes(kin, tout);
+  const int groups = output_groups(tout);
+  const long long chunks = (S + kTile - 1) / kTile;
+  const long long tiles = (long long)B * groups * chunks;
+  auto* fn = gf2_kernel<NW, VEC>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > tiles) grid = tiles;
+  fn<<<(unsigned)grid, kThreads, smem, st>>>(x, w, out, kin, tout, S, w_batch_stride,
+                                              groups, chunks, tiles);
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_width(const uint8_t* x, const int8_t* w, uint8_t* out, int B,
+                         int kin, int tout, long long S, long long w_batch_stride,
+                         cudaStream_t st) {
+  switch (words_per_entry(tout)) {
+    case 1: return launch<1, VEC>(x, w, out, B, kin, tout, S, w_batch_stride, st);
+    case 2: return launch<2, VEC>(x, w, out, B, kin, tout, S, w_batch_stride, st);
+    default: return launch<4, VEC>(x, w, out, B, kin, tout, S, w_batch_stride, st);
   }
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). Shapes are checked
-// by the Python wrapper (ops/rs.py): 1 <= kin <= 32, tout >= 1, B <= 65535,
-// tout * kin * 296 bytes of tables fit in shared memory.
+// by the Python wrapper (ops/rs.py, kernel_geometry): 1 <= kin <= 32,
+// tout >= 1, smem_bytes() within the card's shared memory.
 extern "C" int mtpu_gf2_matmul(const uint8_t* x, const int8_t* w, uint8_t* out,
                                int B, int kin, int tout, long long S,
                                long long w_batch_stride, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  const size_t smem = (size_t)tout * kin * (256 + 32 + 8);
-  const bool vec = (S % 4 == 0) && ((uintptr_t)x % 4 == 0) &&
-                   ((uintptr_t)out % 4 == 0);
-  const long long units = vec ? (S >> 2) : S;
-  long long blocks = (units + (long long)kThreads * kWordsPerThread - 1) /
-                     ((long long)kThreads * kWordsPerThread);
-  if (blocks < 1) blocks = 1;
-  if (blocks > 65535) blocks = 65535;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
+  const bool vec = (S % 16 == 0) && ((uintptr_t)x % 16 == 0) &&
+                   ((uintptr_t)out % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (vec) {
-    err = cudaFuncSetAttribute(gf2_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gf2_kernel<true><<<grid, kThreads, smem, st>>>(x, w, out, kin, tout, S,
-                                                   w_batch_stride);
-  } else {
-    err = cudaFuncSetAttribute(gf2_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gf2_kernel<false><<<grid, kThreads, smem, st>>>(x, w, out, kin, tout, S,
-                                                    w_batch_stride);
-  }
-  return (int)cudaGetLastError();
+  return (int)(vec ? launch_width<true>(x, w, out, B, kin, tout, S, w_batch_stride, st)
+                   : launch_width<false>(x, w, out, B, kin, tout, S, w_batch_stride, st));
 }

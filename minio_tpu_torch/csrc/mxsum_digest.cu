@@ -14,154 +14,239 @@
 //
 // Layout (ops/mxsum.py builds both keys host-side with the port's own
 // _key_rows and caches them on the device):
-//   key   [S, 8] int8: K, row-major (row i is the 8 column keys of byte i);
+//   keyt  [8, ldk] int8: K transposed (row c holds column c of K), ldk a
+//         multiple of 64 and >= S; the cache grows it by doubling and the
+//         kernel reads its first S columns (the stream is prefix-stable);
 //   lkey  [4, 8] int8 = L[:4] (only the low 4 length bytes are nonzero);
-//   lens  [N] int32; out is written as [N, 8] uint32 (zeroed here first).
+//   lens  [N] int32; out is written as [N, 8] uint32;
+//   work  a per-stream workspace of mtpu_mxsum_workspace_words(N) uint32,
+//         zero when no launch runs and left zero by every launch (below).
 //
-// Design: a block takes kRows rows and a 16 KiB segment of each; a thread
-// loads one 4-byte data word per row and the matching 4 key rows (32
-// bytes) once, transposes them with __byte_perm so one int32 holds column
-// c for the 4 rows, and does 8 __dp4a (signed int8 x int8 dot of 4) per
-// row, so each key byte read serves kRows rows. Sums accumulate in
-// uint32: wrap-around is defined for unsigned types (signed overflow is
-// undefined in C++), and
-// each __dp4a result is bounded by 4 * 128 * 128, so it never overflows
-// before the unsigned add. Block partials meet through atomicAdd on
-// uint32; addition mod 2^32 is associative and commutative, so the digest
-// is deterministic however a row is split across blocks. The block of
-// segment 0 adds the length term.
+// Bound on an H100: memory. N * S data bytes plus 8 * S key bytes in,
+// 32 * N out, over the HBM rate (7.8 us at [192, 131072]); the 16 int8
+// operations per data byte are far below the card's int8 rate.
 //
-// Bound on an H100: memory. N * S data bytes plus S * 8 key bytes in,
-// N * 32 out, over the HBM bandwidth; the 16 int8 operations per data byte
-// are far below the card's int8 rate.
+// What held the first version back: a block took 4 rows, so the 1 MiB key
+// was read 48 times at [192, S] (48 MiB of L2 traffic for 24 MiB of data);
+// data moved as 4-byte loads; and a memset of the output ran as a second
+// launch ahead of the atomics.
+//
+// Design:
+// - The contraction runs on the tensor cores:
+//   mma.sync.m16n8k32.row.col.s32.s8.s8.s32, with n = 8 the digest's 8
+//   words and m = 16 rows. The k order inside an mma is free as long as A
+//   and B agree, so thread (g, tig) of a warp loads 16 bytes of rows g and
+//   g+8 at offset tig*16 of a 64-byte warp step and 16 bytes of key row g
+//   at the same offset; the first 8 bytes feed one mma and the last 8 the
+//   next. Data and key move as aligned 16-byte loads that ask L2 to fetch
+//   256-byte pieces; a warp load covers 8 rows x 64 bytes.
+// - A block takes kRows rows (16 by default) and one S segment, its 8
+//   warps walking the segment in 64-byte steps, two steps' loads in
+//   flight. The grid is one wave: about as many blocks as fit on the card,
+//   spread over the row groups. A step's key (512 bytes a warp) serves all
+//   kRows rows, so the 1 MiB key is read ceil(N / kRows) times, from L2
+//   after the first; the first version read it N / 4 times.
+// - Sums stay exact mod 2^32: the s32 accumulators restart at 0 every step
+//   (at most 64 products of |p| <= 2^14 each, far below 2^31) and fold into
+//   uint32 totals, where wrap-around is defined.
+// - Warps meet in shared memory (atomicAdd on uint32), blocks in the
+//   workspace (atomicAdd on uint32; addition mod 2^32 is associative and
+//   commutative, so the digest is deterministic). The last block of a row
+//   group (an atomicInc counter that wraps back to 0 after gridDim.x
+//   arrivals) takes each sum with atomicExch(.., 0), adds the length term
+//   and stores the words. The workspace is thus zero again when the
+//   launch ends, and no memset of the output is needed.
+// - A ragged S or an unaligned chunks pointer takes the byte path (VEC =
+//   false), which gathers the same 16 bytes a byte at a time, zero past S;
+//   the key is read as 16-byte loads either way (ldk >= S rounded to 16).
+// What still bounds it (minio_tpu_torch/kernel_ab.py, PERF.md): the loads
+// themselves, 8 rows x 64 bytes per warp instruction as the mma fragments
+// lay them out, and the cross-block reduction at the end (fence, counter,
+// exchange), about 1.7 us at [192, 131072] on an H100 (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// Tuning macros (minio_tpu_torch/kernel_ab.py builds variants with -D).
+#ifndef MTPU_MXSUM_ROW_TILES
+#define MTPU_MXSUM_ROW_TILES 1      // 16-row mma tiles per block
+#endif
+#ifndef MTPU_MXSUM_L2_256B
+#define MTPU_MXSUM_L2_256B 1        // 16-byte loads ask L2 to fetch 256 bytes
+#endif
+#ifndef MTPU_MXSUM_DIAG_NO_REDUCE
+#define MTPU_MXSUM_DIAG_NO_REDUCE 0 // diagnostic only (wrong digests): no
+#endif                              // reduction across warps and blocks
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;
-constexpr long long kSegWords = 4096;  // 16 KiB of each row per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowTiles = MTPU_MXSUM_ROW_TILES;
+constexpr int kRows = 16 * kRowTiles;   // rows per block
+constexpr int kSpan = 64;               // bytes of S per warp step
+constexpr long long kSegQuantum = (long long)kWarps * kSpan;
 
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Columns 0-3 of 4 key rows (row r's bytes in a_r) -> out[c] holding
-// column c of rows 0..3 in bytes 0..3: a 4x4 byte transpose.
-__device__ __forceinline__ void transpose4(int a0, int a1, int a2, int a3, int* out) {
-  const int x0 = __byte_perm(a0, a1, 0x5140), x1 = __byte_perm(a0, a1, 0x7362);
-  const int y0 = __byte_perm(a2, a3, 0x5140), y1 = __byte_perm(a2, a3, 0x7362);
-  out[0] = __byte_perm(x0, y0, 0x5410);
-  out[1] = __byte_perm(x0, y0, 0x7632);
-  out[2] = __byte_perm(x1, y1, 0x5410);
-  out[3] = __byte_perm(x1, y1, 0x7632);
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+#if MTPU_MXSUM_L2_256B
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+#else
+  return __ldg(reinterpret_cast<const uint4*>(p));
+#endif
+}
+
+// 16 bytes of row r at offset s, zero past S or for a row past N.
+template <bool VEC>
+__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ chunks, int r,
+                                        int N, long long S, long long s) {
+  if (r >= N || s >= S) return make_uint4(0, 0, 0, 0);
+  const uint8_t* p = chunks + (long long)r * S + s;
+  if (VEC) return ldg16(p);
+  uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (s + i < S) v[i >> 2] |= (uint32_t)__ldg(p + i) << (8 * (i & 3));
+  return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 mxsum_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ lens,
-             const int8_t* __restrict__ key, const int8_t* __restrict__ lkey,
-             uint32_t* __restrict__ out, int N, long long S) {
-  __shared__ uint32_t red[kThreads / 32][kRows * 8];
+             const int8_t* __restrict__ keyt, long long ldk,
+             const int8_t* __restrict__ lkey, uint32_t* __restrict__ out,
+             uint32_t* __restrict__ work, int N, long long S, long long seg_len) {
+  __shared__ uint32_t part[kRows * 8];
+  __shared__ bool last;
+  for (int i = threadIdx.x; i < kRows * 8; i += kThreads) part[i] = 0;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
   const int row0 = blockIdx.y * kRows;
-  const long long seg0 = (long long)blockIdx.x * kSegWords * 4;  // bytes
-  long long seg1 = seg0 + kSegWords * 4;
-  if (seg1 > S) seg1 = S;
+  const long long seg0 = (long long)blockIdx.x * seg_len;
+  const long long seg1 = seg0 + seg_len < S ? seg0 + seg_len : S;
 
-  uint32_t acc[kRows][8];
+  uint32_t tot[kRowTiles][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int rt = 0; rt < kRowTiles; ++rt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0;
+    for (int i = 0; i < 4; ++i) tot[rt][i] = 0;
 
-  if (VEC) {
-    for (long long wi = (seg0 >> 2) + threadIdx.x; wi < (seg1 >> 2);
-         wi += blockDim.x) {
-      // Rows 4wi..4wi+3 of K: ka = (r0 c0-3, r0 c4-7, r1 c0-3, r1 c4-7), kb
-      // the same for rows 2 and 3.
-      const int4* kp = reinterpret_cast<const int4*>(key + wi * 32);
-      const int4 ka = __ldg(kp);
-      const int4 kb = __ldg(kp + 1);
-      int kc[8];
-      transpose4(ka.x, ka.z, kb.x, kb.z, kc);
-      transpose4(ka.y, ka.w, kb.y, kb.w, kc + 4);
+#pragma unroll 2
+  for (long long sp = seg0 + warp * kSpan; sp < seg1; sp += kSegQuantum) {
+    const long long s = sp + tig * 16;
+    // ldk >= S rounded up to 16 and s % 16 == 0: in bounds whenever s < S.
+    const uint4 kv = s < S ? ldg16(keyt + g * ldk + s) : make_uint4(0, 0, 0, 0);
+    uint4 lo[kRowTiles], hi[kRowTiles];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (row0 + r < N) {
-          const int d = __ldg(reinterpret_cast<const int*>(
-                                  chunks + (long long)(row0 + r) * S) + wi);
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] += (uint32_t)__dp4a(d, kc[c], 0);
-        }
-      }
+    for (int rt = 0; rt < kRowTiles; ++rt) {
+      lo[rt] = load16<VEC>(chunks, row0 + rt * 16 + g, N, S, s);
+      hi[rt] = load16<VEC>(chunks, row0 + rt * 16 + g + 8, N, S, s);
     }
-  } else {
-    for (long long i = seg0 + threadIdx.x; i < seg1; i += blockDim.x) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (row0 + r < N) {
-          const int d = (int8_t)chunks[(long long)(row0 + r) * S + i];
+    for (int rt = 0; rt < kRowTiles; ++rt) {
+      int c[4] = {0, 0, 0, 0};
+      mma_s8(c, lo[rt].x, hi[rt].x, lo[rt].y, hi[rt].y, kv.x, kv.y);
+      mma_s8(c, lo[rt].z, hi[rt].z, lo[rt].w, hi[rt].w, kv.z, kv.w);
 #pragma unroll
-          for (int c = 0; c < 8; ++c)
-            acc[r][c] += (uint32_t)(d * (int)key[i * 8 + c]);
-        }
-      }
+      for (int i = 0; i < 4; ++i) tot[rt][i] += (uint32_t)c[i];
     }
   }
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+#if MTPU_MXSUM_DIAG_NO_REDUCE
+  uint32_t any = 0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int rt = 0; rt < kRowTiles; ++rt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const uint32_t v = warp_sum(acc[r][c]);
-      if (lane == 0) red[warp][r * 8 + c] = v;
-    }
+    for (int i = 0; i < 4; ++i) any ^= tot[rt][i];
+  if (any == 0x9E3779B9u) out[0] = any;
+  return;
+#endif
+  __syncthreads();  // part is zero
+  // Accumulator i of row tile rt: row rt*16 + g + 8*(i >> 1), word 2*tig + (i & 1).
+#pragma unroll
+  for (int rt = 0; rt < kRowTiles; ++rt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      atomicAdd(&part[(rt * 16 + g + 8 * (i >> 1)) * 8 + 2 * tig + (i & 1)],
+                tot[rt][i]);
   __syncthreads();
-  if (threadIdx.x < kRows * 8) {
-    const int r = threadIdx.x >> 3;
-    const int c = threadIdx.x & 7;
-    if (row0 + r < N) {
-      uint32_t sum = 0;
-      for (int wv = 0; wv < kThreads / 32; ++wv) sum += red[wv][threadIdx.x];
-      if (blockIdx.x == 0) {
-        const uint32_t len = (uint32_t)lens[row0 + r];
-        for (int j = 0; j < 4; ++j) {
-          const int lb = (int8_t)((len >> (8 * j)) & 0xFF);
-          sum += (uint32_t)(lb * (int)lkey[j * 8 + c]);
-        }
-      }
-      atomicAdd(out + (long long)(row0 + r) * 8 + c, sum);
-    }
+
+  // work: [gridDim.y][kRows * 8] sums, then gridDim.y counters.
+  uint32_t* wk = work + (long long)blockIdx.y * kRows * 8;
+  unsigned int* counter = work + (long long)gridDim.y * kRows * 8 + blockIdx.y;
+  for (int i = threadIdx.x; i < kRows * 8; i += kThreads)
+    if (row0 + i / 8 < N) atomicAdd(&wk[i], part[i]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(counter, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < kRows * 8; i += kThreads) {
+    const int r = row0 + i / 8, c = i % 8;
+    if (r >= N) continue;
+    uint32_t sum = atomicExch(&wk[i], 0u);
+    const uint32_t len = (uint32_t)lens[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sum += (uint32_t)((int)(int8_t)(len >> (8 * j)) * (int)lkey[j * 8 + c]);
+    out[(long long)r * 8 + c] = sum;
   }
 }
 
 }  // namespace
 
+// uint32 words of the workspace for N rows: ops/mxsum.py allocates it.
+extern "C" long long mtpu_mxsum_workspace_words(int N) {
+  const long long groups = (N + kRows - 1) / kRows;
+  return groups * (kRows * 8 + 1);
+}
+
 // Returns the CUDA error of the launch (0 on success). The wrapper
-// (ops/mxsum.py) checks shapes: N <= 65535 * kRows, key holds S rows,
-// out holds N * 32 bytes.
+// (ops/mxsum.py) checks shapes: ceil(N / 16) <= 65535, ldk >= S rounded up
+// to 16 and a multiple of 16, keyt 16-byte aligned, work zero and holding
+// mtpu_mxsum_workspace_words(N) uint32, out N * 32 bytes.
 extern "C" int mtpu_mxsum_digest(const uint8_t* chunks, const int32_t* lens,
-                                 const int8_t* key, const int8_t* lkey,
-                                 uint8_t* out, int N, long long S, void* stream) {
+                                 const int8_t* keyt, long long ldk,
+                                 const int8_t* lkey, uint8_t* out, uint32_t* work,
+                                 int N, long long S, void* stream) {
   if (N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)N * 32, st);
+  const bool vec = (S % 16 == 0) && ((uintptr_t)chunks % 16 == 0);
+  auto* fn = vec ? mxsum_kernel<true> : mxsum_kernel<false>;
+  const int groups = (N + kRows - 1) / kRows;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  long long segs = (S + kSegWords * 4 - 1) / (kSegWords * 4);
-  if (segs < 1) segs = 1;  // S == 0: one block still adds the length term
-  const dim3 grid((unsigned)segs, (unsigned)((N + kRows - 1) / kRows));
-  const bool vec = (S % 4 == 0) && ((uintptr_t)chunks % 4 == 0) &&
-                   ((uintptr_t)key % 16 == 0);
-  uint32_t* o = reinterpret_cast<uint32_t*>(out);
-  if (vec)
-    mxsum_kernel<true><<<grid, kThreads, 0, st>>>(chunks, lens, key, lkey, o, N, S);
-  else
-    mxsum_kernel<false><<<grid, kThreads, 0, st>>>(chunks, lens, key, lkey, o, N, S);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) per_sm = 1;
+  // One wave: about sms * per_sm blocks over the row groups, each segment
+  // a whole number of 512-byte warp steps.
+  long long segs = ((long long)sms * per_sm + groups - 1) / groups;
+  long long seg_len = (S + segs - 1) / segs;
+  seg_len = (seg_len + kSegQuantum - 1) / kSegQuantum * kSegQuantum;
+  if (seg_len < kSegQuantum) seg_len = kSegQuantum;
+  segs = (S + seg_len - 1) / seg_len;
+  if (segs < 1) segs = 1;  // S == 0: one block per group adds the length term
+  const dim3 grid((unsigned)segs, (unsigned)groups);
+  fn<<<grid, kThreads, 0, st>>>(chunks, lens, keyt, ldk, lkey,
+                                reinterpret_cast<uint32_t*>(out), work, N, S, seg_len);
   return (int)cudaGetLastError();
 }

@@ -130,27 +130,67 @@ def digest_plain(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return _pack_words(acc.to(torch.int64))
 
 
+KEY_ALIGN = 64  # columns: the kernel reads the key in 16-byte loads
+
+
+def key_capacity(s: int, have: int) -> int:
+    """Columns of the transposed device key that serve width s, given a
+    key of `have` columns: `have` itself when it is wide enough, else the
+    larger of twice it and s, rounded up to KEY_ALIGN (never 0)."""
+    if have >= s and have:
+        return have
+    need = max(s, 2 * have, 1)
+    return -(-need // KEY_ALIGN) * KEY_ALIGN
+
+
+def transposed_key(cols: int) -> np.ndarray:
+    """K[:cols] transposed: [8, cols] int8, row c the column c of the key
+    stream. Prefix-stable as the stream is: transposed_key(a) is
+    transposed_key(b)[:, :a] for a <= b."""
+    return np.ascontiguousarray(_key_rows(cols).T)
+
+
 _dev_mu = threading.Lock()
 _dev_key: dict[torch.device, torch.Tensor] = {}
 
 
 def device_key(s: int, device: torch.device) -> torch.Tensor:
-    """K[:s] as [s, 8] int8 on `device`, for the kernel. One tensor per
-    device, grown by doubling; a shorter width reads a prefix (the stream
-    is prefix-stable). A replaced tensor is freed once the launches that
-    `digest` recorded on it have run."""
+    """K[:s] transposed, [8, s] int8 on `device`: a view of the first s
+    columns of one [8, cap] tensor per device (row stride cap, a multiple
+    of KEY_ALIGN), grown as key_capacity says. A replaced tensor is freed
+    once the launches that `digest` recorded on it have run."""
     with _dev_mu:
         have = _dev_key.get(device)
-        if have is None or have.shape[0] < s:
-            rows = max(s, 2 * (have.shape[0] if have is not None else 0), 1)
-            have = upload(_key_rows(rows), device)
+        cap = key_capacity(s, have.shape[1] if have is not None else 0)
+        if have is None or have.shape[1] != cap:
+            have = upload(transposed_key(cap), device)
             _dev_key[device] = have
-        return have[:s]
+        return have[:, :s]
 
 
 @functools.lru_cache(maxsize=8)
 def device_len_key(device: torch.device) -> torch.Tensor:
     return upload(_len_key()[:4], device)
+
+
+_work_mu = threading.Lock()
+_work: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _workspace(n: int, stream: torch.cuda.Stream, lib) -> torch.Tensor:
+    """The zeroed workspace of `stream`. Every launch leaves it zero when
+    it ends, and launches on one stream run in order, so one per stream
+    serves them all; it is allocated on that stream (the caller's current
+    one) and so freed in its order when a larger one replaces it."""
+    words = lib.mtpu_mxsum_workspace_words(n)
+    key = (stream.device, stream.cuda_stream)
+    with _work_mu:
+        have = _work.get(key)
+        if have is None or have.numel() < words:
+            size = max(words, 2 * (have.numel() if have is not None else 0))
+            have = torch.zeros(size, dtype=torch.int32, device=stream.device)
+            _work[key] = have
+        return have
 
 
 def digest(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -166,7 +206,7 @@ def digest(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     if lens.dtype != torch.int32 or tuple(lens.shape) != (n,) \
             or lens.device != chunks.device:
         raise ValueError("lens must be int32 [N] on the chunks' device")
-    if n > 65535 * 4:
+    if n > 65535 * 16:
         raise ValueError(f"{n} rows > the kernel's grid limit")
     if not (chunks.is_contiguous() and lens.is_contiguous()):
         raise ValueError("chunks and lens must be contiguous")
@@ -176,14 +216,16 @@ def digest(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     key = device_key(s, chunks.device)
     lkey = device_len_key(chunks.device)
     stream = torch.cuda.current_stream(chunks.device)
+    work = _workspace(n, stream, lib)
     # The cached keys were allocated on whatever stream first asked for
     # them, and device_key frees a key when a wider one replaces it: until
     # this launch has run, their memory must not go to another tensor.
     key.record_stream(stream)
     lkey.record_stream(stream)
     kernels.check(lib.mtpu_mxsum_digest(chunks.data_ptr(), lens.data_ptr(),
-                                        key.data_ptr(), lkey.data_ptr(),
-                                        out.data_ptr(), n, s, stream.cuda_stream),
+                                        key.data_ptr(), key.stride(0),
+                                        lkey.data_ptr(), out.data_ptr(),
+                                        work.data_ptr(), n, s, stream.cuda_stream),
                   "mxsum_digest")
     kernels.note_launch("mxsum_digest")
     return out

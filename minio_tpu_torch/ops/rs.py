@@ -28,9 +28,28 @@ import torch
 from minio_tpu_torch.ops import gf, kernels
 from minio_tpu_torch.utils.device import upload
 
-MAX_IN = 32            # kin limit of the kernel (registers per thread)
-_SMEM_PER_TJ = 256 + 32 + 8
-_SMEM_LIMIT = 232448   # bytes of shared memory a block may use on Hopper
+MAX_IN = 32            # kin limit admitted for the kernel (tested up to it)
+SMEM_LIMIT = 232448    # bytes of shared memory a block may use on Hopper
+
+
+def kernel_geometry(kin: int, tout: int) -> tuple[int, int, int]:
+    """(table words per entry, output groups, shared bytes) of K1 for kin
+    input and tout output shards, as csrc/gf2_matmul.cu lays its shared
+    memory out: 256 bytes of alignment slack; per input, packed nibble
+    tables (32 entries of 1, 2 or 4 words, each word 4 output bytes, in
+    passes of 16 outputs above 16), at least 256 bytes apart; then a byte
+    per (input bit, output). Raises ValueError outside the kernel's
+    limits."""
+    if not 1 <= kin <= MAX_IN or tout < 1:
+        raise ValueError(f"geometry kin={kin} tout={tout} outside the kernel's "
+                         f"limits (1 <= kin <= {MAX_IN}, tout >= 1)")
+    nw = 1 if tout <= 4 else 2 if tout <= 8 else 4
+    groups = 1 if tout <= 16 else -(-tout // 16)
+    smem = 256 + kin * max(256, 32 * nw * groups * 4) + kin * 8 * tout
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"geometry kin={kin} tout={tout} needs {smem} bytes of shared "
+                         f"memory, above {SMEM_LIMIT}")
+    return nw, groups, smem
 
 
 def gf2_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -77,11 +96,7 @@ def gf2_matmul(x: torch.Tensor, w: torch.Tensor, out_shards: int) -> torch.Tenso
     else:
         raise ValueError(f"w shape {tuple(w.shape)} does not match x "
                          f"{tuple(x.shape)} and out_shards={t}")
-    if not 1 <= kin <= MAX_IN or t < 1 or t * kin * _SMEM_PER_TJ > _SMEM_LIMIT:
-        raise ValueError(f"geometry kin={kin} tout={t} outside the kernel's "
-                         "limits")
-    if b > 65535:
-        raise ValueError(f"batch {b} > 65535 blocks")
+    kernel_geometry(kin, t)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
     out = torch.empty((b, t, s), dtype=torch.uint8, device=x.device)

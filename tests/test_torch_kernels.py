@@ -42,6 +42,81 @@ def test_mxsum_kernel_equals_plain(dev, n, s):
     assert got[0].cpu().numpy().tobytes() == mxsum.digest_np(chunks[0].cpu().numpy())
 
 
+def _gf2_case(dev, b, k, t, s, seed, offset=0):
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, b * k * s + offset, dtype=np.uint8)
+    x = torch.from_numpy(raw).to(dev)[offset:].view(b, k, s)
+    w = torch.from_numpy(rng.integers(0, 2, (k * 8, t * 8), dtype=np.int8)).to(dev)
+    wb = torch.from_numpy(rng.integers(0, 2, (b, k * 8, t * 8), dtype=np.int8)).to(dev)
+    return x, w, wb
+
+
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
+@pytest.mark.parametrize("t", [1, 4, 5, 8, 16, 20])
+def test_gf2_matmul_table_widths(dev, k, t):
+    """Every table-entry width (uint32, uint2, uint4, passes of 16 outputs)
+    at kin from 1 to the admitted 32, shared and per-block weights, over
+    one full tile and a partial one."""
+    x, w, wb = _gf2_case(dev, 2, k, t, 4096 + 1024, 100 * k + t)
+    assert torch.equal(rs.gf2_matmul(x, w, t), rs.gf2_matmul_plain(x, w, t))
+    assert torch.equal(rs.gf2_matmul_multi(x, wb, t), rs.gf2_matmul_plain(x, wb, t))
+
+
+@pytest.mark.parametrize("b,k,t,s,offset", [
+    (1, 8, 4, 16, 0),         # B = 1, S below one tile
+    (1, 8, 4, 4080, 0),       # S a multiple of 16, not of the tile
+    (3, 8, 4, 131, 0),        # odd S: the byte path
+    (2, 8, 4, 4096, 1),       # x one byte off alignment: the byte path
+    (5, 16, 8, 4097, 3),      # both, with uint2 entries
+    (37, 8, 4, 8192, 0),      # more tiles than one pass of the grid
+])
+def test_gf2_matmul_edge_geometry(dev, b, k, t, s, offset):
+    x, w, wb = _gf2_case(dev, b, k, t, s, b * s + offset, offset)
+    assert (x.data_ptr() % 16 != 0) == (offset % 16 != 0)
+    assert torch.equal(rs.gf2_matmul(x, w, t), rs.gf2_matmul_plain(x, w, t))
+    assert torch.equal(rs.gf2_matmul_multi(x, wb, t), rs.gf2_matmul_plain(x, wb, t))
+
+
+@pytest.mark.parametrize("n,s", [(1, 16), (63, 4096), (65, 1000), (100, 513),
+                                 (200, 2048 + 16), (3, 200001), (2, 1 << 18)])
+def test_mxsum_kernel_edge_geometry(dev, n, s):
+    """Rows not a multiple of the 64-row block, S not a multiple of 16,
+    S above 128 KiB (sums that wrap mod 2^32 across segments), and
+    lengths 0, 1, 513 and S among the rows."""
+    rng = np.random.default_rng(n * 7 + s)
+    chunks = torch.from_numpy(rng.integers(0, 256, (n, s), dtype=np.uint8)).to(dev)
+    lens = torch.full((n,), s, dtype=torch.int32, device=dev)
+    for row, ln in enumerate((0, 1, 513, s)[:n]):
+        ln = min(ln, s)
+        chunks[row, ln:] = 0
+        lens[row] = ln
+    got = mxsum.digest(chunks, lens)
+    assert torch.equal(got, mxsum.digest_plain(chunks, lens))
+    r = n - 1
+    assert got[r].cpu().numpy().tobytes() == mxsum.digest_np(
+        chunks[r, :int(lens[r])].cpu().numpy())
+
+
+def test_mxsum_workspace_is_left_zero(dev):
+    """Every launch leaves its stream's workspace zero, so the next launch
+    on the stream starts clean: digests repeat bit-exactly, across row
+    groups of different counts and on a second stream."""
+    rng = np.random.default_rng(3)
+    chunks = torch.from_numpy(rng.integers(0, 256, (150, 3000), dtype=np.uint8)).to(dev)
+    lens = torch.full((150,), 3000, dtype=torch.int32, device=dev)
+    want = mxsum.digest_plain(chunks, lens)
+    for n in (150, 7, 150):
+        assert torch.equal(mxsum.digest(chunks[:n], lens[:n]), want[:n])
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = mxsum.digest(chunks, lens)
+    side.synchronize()
+    assert torch.equal(got, want)
+    stream = torch.cuda.current_stream(dev)
+    assert not mxsum._work[(stream.device, stream.cuda_stream)].any()
+
+
 def test_cuda_tensor_without_library_raises(dev, monkeypatch):
     """No fallback: with the kernel library unavailable, a CUDA tensor
     raises instead of taking the plain version."""
@@ -105,23 +180,25 @@ def test_key_replaced_during_side_stream_digest(dev):
     while a digest queued on a side stream has yet to read it. The wider
     key is uploaded ahead and swapped in as device_key swaps it, since
     the upload waits for the device."""
-    n, s = 4, 1 << 21                         # a 16 MiB key
+    n, s = 4, 1 << 21                         # a 16 MiB key [8, s]
     rng = np.random.default_rng(7)
     chunks = torch.from_numpy(rng.integers(0, 256, (n, s), dtype=np.uint8)).to(dev)
     lens = torch.full((n,), s, dtype=torch.int32, device=dev)
     want = mxsum.digest_plain(chunks, lens)
     mxsum._dev_key.pop(dev, None)
     torch.cuda.empty_cache()
-    mxsum.digest(chunks, lens)                # the [s, 8] key, on the default stream
+    mxsum.digest(chunks, lens)                # the [8, s] key, on the default stream
     old = mxsum._dev_key[dev].data_ptr()
-    wider = torch.from_numpy(mxsum._key_rows(2 * s)).to(dev)
-    side = _side_stream(dev, ((n, mxsum.DIGEST_LEN), torch.uint8))
+    wider = torch.from_numpy(mxsum.transposed_key(2 * s)).to(dev)
+    words = kernels.library().mtpu_mxsum_workspace_words(n)
+    side = _side_stream(dev, ((n, mxsum.DIGEST_LEN), torch.uint8),
+                        ((words,), torch.int32))
     _spin(side)
     with torch.cuda.stream(side):
         got = mxsum.digest(chunks, lens)
     done = _launched(side)
-    mxsum._dev_key[dev] = wider               # drops the [s, 8] key
-    junk = torch.zeros((s, 8), dtype=torch.int8, device=dev)
+    mxsum._dev_key[dev] = wider               # drops the [8, s] key
+    junk = torch.zeros((8, s), dtype=torch.int8, device=dev)
     assert done.query() or junk.data_ptr() != old
     side.synchronize()
     del junk

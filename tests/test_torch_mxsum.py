@@ -24,8 +24,29 @@ def test_key_stream_byte_identical_across_chunk_boundary():
 def test_device_key_is_a_prefix_of_the_stream():
     short = mxsum.device_key(10, CPU).numpy()
     long = mxsum.device_key(70000, CPU).numpy()
-    assert np.array_equal(short, mxsum._key_rows(10))
-    assert np.array_equal(long, jmx._key_rows(70000))
+    assert np.array_equal(short, mxsum._key_rows(10).T)
+    assert np.array_equal(long, jmx._key_rows(70000).T)
+    again = mxsum.device_key(10, CPU)
+    assert again.stride() == (mxsum._dev_key[CPU].shape[1], 1)
+    assert again.stride(0) % mxsum.KEY_ALIGN == 0
+    assert np.array_equal(again.numpy(), jmx._key_rows(10).T)
+
+
+@pytest.mark.parametrize("s,have,want", [
+    (0, 0, 64), (1, 0, 64), (64, 0, 64), (65, 0, 128), (131072, 0, 131072),
+    (10, 64, 64), (64, 64, 64), (65, 64, 128), (1000, 64, 1024),
+    (87382, 131072, 131072), (131073, 131072, 262144), (600000, 131072, 600000),
+])
+def test_key_capacity_grows_by_doubling_in_aligned_steps(s, have, want):
+    assert mxsum.key_capacity(s, have) == want
+
+
+@pytest.mark.parametrize("a,b", [(1, 64), (513, 70000), (65536, 65537 + 64)])
+def test_transposed_key_is_prefix_stable_and_matches_jax(a, b):
+    short, long = mxsum.transposed_key(a), mxsum.transposed_key(b)
+    assert short.shape == (8, a) and short.flags.c_contiguous
+    assert np.array_equal(long[:, :a], short)
+    assert np.array_equal(long, jmx._key_rows(b).T)
 
 
 @pytest.mark.parametrize("s", [0, 1, 511, 513, 65537])

@@ -92,3 +92,25 @@ def test_reject_probes():
         rs.reconstruct(shards, 8, 12, (0, 1, 2, 3, 4, 5, 6), (7,))
     with pytest.raises(ValueError):   # duplicate survivors: singular
         rs.reconstruct(shards, 8, 12, (0, 0, 1, 2, 3, 4, 5, 6), (7,))
+
+
+@pytest.mark.parametrize("k,m", [(1, 1), (2, 2), (4, 2), (8, 4), (12, 4),
+                                 (16, 16), (20, 12), (32, 32)])
+def test_kernel_geometry_admits_reference_geometries(k, m):
+    """Every encode and every reconstruct of up to m lost shards of a
+    reference geometry fits the kernel's packed tables: one word per entry
+    up to 4 outputs, two up to 8, four up to 16, passes of 16 above."""
+    assert jgf.encode_bitmatrix(k, m).shape == (k * 8, m * 8)
+    for t in range(1, m + 1):
+        nw, groups, smem = rs.kernel_geometry(k, t)
+        assert nw == (1 if t <= 4 else 2 if t <= 8 else 4)
+        assert groups == (1 if t <= 16 else -(-t // 16))
+        assert smem == 256 + k * max(256, 32 * nw * groups * 4) + k * 8 * t
+        assert smem <= rs.SMEM_LIMIT
+    assert rs.kernel_geometry(8, 4)[2] == 256 + 8 * 256 + 8 * 8 * 4
+
+
+@pytest.mark.parametrize("k,t", [(0, 4), (33, 4), (8, 0), (32, 400)])
+def test_kernel_geometry_rejects_outside_limits(k, t):
+    with pytest.raises(ValueError):
+        rs.kernel_geometry(k, t)
