@@ -44,6 +44,7 @@ import http.client
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -52,6 +53,8 @@ import urllib.parse
 
 ACCESS, SECRET = "smokeadmin", "smokesecret123"
 K, M, B, S = 8, 4, 16, 131072   # EC 8+4, 1 MiB blocks: S = 1 MiB / 8
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
 
 
 def _card() -> str:
@@ -61,6 +64,54 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _median_ms(fn, flush, runs: int = 20, warm: int = 3) -> float:
+    """Median device time of fn() over `runs` runs, in ms. Before each run
+    the L2 cache is flushed (the caller's data is not in L2): `flush` is a
+    tensor larger than L2, zeroed (which leaves L2 full of dirty lines).
+    Then the card spins for ~1 ms, so the host has queued both events and
+    fn's launches before the card reaches them: the time between the
+    events is the card's work, not the Python launch overhead."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time for moving `nbytes` through HBM and doing `ops` int8
+    operations, and which of the two sets it ("bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _gf2_bound_ms(b: int, kin: int, tout: int, s: int,
+                  per_block_weights: bool = False) -> tuple[float, str]:
+    """K1's bound: x in, out written, the weight read once (per block when
+    per-block), against the bit contraction the TPU kernel runs."""
+    w = kin * 8 * tout * 8 * (b if per_block_weights else 1)
+    return _bound_ms(b * kin * s + b * tout * s + w,
+                     2.0 * b * s * (kin * 8) * (tout * 8))
+
+
+def _mxsum_bound_ms(n: int, s: int) -> tuple[float, str]:
+    """K2's bound: data and key in, lengths and length key in, digests
+    out, against 16 int8 operations per data byte."""
+    return _bound_ms(n * s + 8 * s + 4 * n + 32 + 32 * n, 2.0 * n * s * 8)
+
+
 def kernel_phase(seed: int) -> dict:
     """K1 and K2 on the card against their plain versions; returns the
     kernel records of the result line (launches filled in later)."""
@@ -68,8 +119,6 @@ def kernel_phase(seed: int) -> dict:
     import torch
 
     from minio_tpu_torch.ops import gf, mxsum, rs
-    from minio_tpu_torch.utils.cudatime import (gf2_bound_ms, median_ms,
-                                                mxsum_bound_ms)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -139,16 +188,16 @@ def kernel_phase(seed: int) -> dict:
     # Every main-path shape, timed; the first of each kernel is the one of
     # the result line.
     k1_shapes = [
-        ("encode [16,8,S]->4", (x, w_enc, M), gf2_bound_ms(B, K, M, S)),
-        ("reconstruct 4 missing", (xs, w_dec, 4), gf2_bound_ms(B, K, 4, S)),
+        ("encode [16,8,S]->4", (x, w_enc, M), _gf2_bound_ms(B, K, M, S)),
+        ("reconstruct 4 missing", (xs, w_dec, 4), _gf2_bound_ms(B, K, 4, S)),
         ("per-block weights, 3 patterns", (xm, w_multi_d, 4),
-         gf2_bound_ms(B, K, 4, S, per_block_weights=True)),
-        ("ragged S=87382", (xr, w_enc, M), gf2_bound_ms(B, K, M, xr.shape[2])),
+         _gf2_bound_ms(B, K, 4, S, per_block_weights=True)),
+        ("ragged S=87382", (xr, w_enc, M), _gf2_bound_ms(B, K, M, xr.shape[2])),
     ]
     k1 = []
     for label, args, (bnd, by) in k1_shapes:
-        ms = median_ms(lambda: rs.gf2_matmul(*args), flush)
-        plain = median_ms(lambda: rs.gf2_matmul_plain(*args), flush)
+        ms = _median_ms(lambda: rs.gf2_matmul(*args), flush)
+        plain = _median_ms(lambda: rs.gf2_matmul_plain(*args), flush)
         print(f"  K1 {label}: {ms:.6f} ms, bound {bnd:.6f} ms ({by}), "
               f"{100 * bnd / ms:.1f}% of the bound; plain {plain:.6f} ms")
         k1.append((label, ms, (bnd, by)))
@@ -180,15 +229,15 @@ def kernel_phase(seed: int) -> dict:
         if rows != n_rows:
             check("mxsum_digest", f"K2 digest [{rows}, S]", mxsum.digest(c, ln),
                   mxsum.digest_plain(c, ln))
-        ms = median_ms(lambda: mxsum.digest(c, ln), flush)
+        ms = _median_ms(lambda: mxsum.digest(c, ln), flush)
         ci8 = c.view(torch.int8)
-        lib = median_ms(lambda: torch._int_mm(ci8, key), flush)
-        bnd, by = mxsum_bound_ms(rows, S)
+        lib = _median_ms(lambda: torch._int_mm(ci8, key), flush)
+        bnd, by = _mxsum_bound_ms(rows, S)
         print(f"  K2 {label} [{rows}, {S}]: {ms:.6f} ms, bound {bnd:.6f} ms "
               f"({by}), {100 * bnd / ms:.1f}% of the bound; torch._int_mm "
               f"{lib:.6f} ms")
         k2.append((ms, lib, bnd, by))
-    k2_plain = median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
+    k2_plain = _median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
     out["mxsum_digest"] = {
         "name": "mxsum_digest", "route": "cuda",
         "source": "minio_tpu_torch/csrc/mxsum_digest.cu",

@@ -62,30 +62,21 @@
 // - Byte path (a ragged S or an unaligned pointer): a thread's 16
 //   positions lie kThreads apart, so each byte load and store of a warp
 //   covers 32 consecutive bytes; the edge is masked.
-// What still bounds it (minio_tpu_torch/kernel_ab.py, PERF.md): the table
-// build ahead of the loads and the lookups each add about a microsecond to
-// the memory time, and loading before the build needs registers that the
-// one-wave grid does not have (MTPU_GF2_EARLY_ROWS).
+// What still bounds it (timed variants, PERF.md 6.3): the table build
+// ahead of the loads and the lookups each add about a microsecond to the
+// memory time, and loading the shard rows before the build needs more
+// registers than the one-wave grid has.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <cuda_runtime.h>
-
-// Tuning macros (minio_tpu_torch/kernel_ab.py builds variants with -D).
-#ifndef MTPU_GF2_EARLY_ROWS
-#define MTPU_GF2_EARLY_ROWS 0     // aligned path: shard rows loaded before the
-#endif                            // tables are built (0 to 8)
-#ifndef MTPU_GF2_L2_256B
-#define MTPU_GF2_L2_256B 1        // 16-byte loads ask L2 to fetch 256 bytes
-#endif
-#ifndef MTPU_GF2_DIAG_NO_LOOKUP
-#define MTPU_GF2_DIAG_NO_LOOKUP 0 // diagnostic only (wrong parity): the
-#endif                            // loads and stores without the lookups
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerLoad = 8;           // shard rows loaded together
-constexpr int kEarly = MTPU_GF2_EARLY_ROWS;
 
 constexpr int kPos = 16;                  // positions (bytes of S) per thread
 constexpr long long kTile = (long long)kThreads * kPos;
@@ -114,16 +105,13 @@ __host__ __device__ inline size_t smem_bytes(int kin, int tout) {
   return 256 + (size_t)kin * table_stride(tout) + (size_t)kin * 8 * tout;
 }
 
+// A 16-byte read-only load that asks L2 to fetch the 256-byte piece.
 __device__ __forceinline__ uint4 load16(const uint8_t* p) {
-#if MTPU_GF2_L2_256B
   uint4 v;
   asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
-#else
-  return __ldg(reinterpret_cast<const uint4*>(p));
-#endif
 }
 
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
@@ -192,11 +180,6 @@ __device__ void build_tables(const int8_t* __restrict__ w, int kin, int tout,
 template <int NW>
 __device__ __forceinline__ void accumulate(uint32_t (&acc)[kPos][NW], uint32_t tj,
                                            int nwt, int g, const uint32_t* words) {
-#if MTPU_GF2_DIAG_NO_LOOKUP
-#pragma unroll
-  for (int p = 0; p < kPos; ++p) acc[p][0] ^= words[p >> 2];
-  return;
-#endif
 #pragma unroll
   for (int wi = 0; wi < kPos / 4; ++wi) {
     const uint32_t wv = words[wi];
@@ -239,17 +222,14 @@ __device__ __forceinline__ void accumulate(uint32_t (&acc)[kPos][NW], uint32_t t
   }
 }
 
-// Shard rows j0 + jj, jj in [first, last) and j0 + jj < kin, of block xb at
-// a thread's positions from s0 (see gf2_kernel), byte p in byte p % 4 of
-// words[jj][p / 4].
+// Shard rows j0 + jj, j0 + jj < kin, of block xb at a thread's positions
+// from s0 (see gf2_kernel), byte p in byte p % 4 of words[jj][p / 4].
 template <bool VEC>
 __device__ __forceinline__ void load_rows(uint32_t (&words)[kRowsPerLoad][kPos / 4],
                                           const uint8_t* __restrict__ xb, int j0,
-                                          int first, int last, int kin, long long S,
-                                          long long s0) {
+                                          int kin, long long S, long long s0) {
 #pragma unroll
   for (int jj = 0; jj < kRowsPerLoad; ++jj) {
-    if (jj < first || jj >= last) continue;
     const uint8_t* row = xb + (j0 + jj) * S;
     if (VEC) {
       if (j0 + jj < kin) {
@@ -270,8 +250,7 @@ __device__ __forceinline__ void load_rows(uint32_t (&words)[kRowsPerLoad][kPos /
 
 // VEC: S % 16 == 0 and x, out 16-byte aligned: a thread's 16 positions are
 // consecutive, one 16-byte load per shard row and one 16-byte store per
-// output row, so a warp's load or store covers 512 consecutive bytes; the
-// first kEarly shard rows are in flight while the tables are built.
+// output row, so a warp's load or store covers 512 consecutive bytes.
 // Otherwise (the byte path) they lie kThreads apart (s0 + p * kThreads),
 // so each byte load and store of a warp covers 32 consecutive bytes, and
 // the edge is masked.
@@ -299,9 +278,6 @@ gf2_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     const long long c = tile - b * groups * chunks - (long long)g * chunks;
     const long long s0 = c * kTile + (VEC ? (long long)threadIdx.x * kPos : threadIdx.x);
     const uint8_t* xb = x + b * kin * S;
-    uint32_t words[kRowsPerLoad][kPos / 4];
-    const int early = VEC && s0 < S ? kEarly : 0;
-    load_rows<VEC>(words, xb, 0, 0, early, kin, S, s0);
     const long long wb = w_batch_stride ? b : 0;
     if (wb != built) {
       if (built >= 0) __syncthreads();  // the last tile's lookups are done
@@ -315,8 +291,9 @@ gf2_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int p = 0; p < kPos; ++p)
 #pragma unroll
       for (int q = 0; q < NW; ++q) acc[p][q] = 0;
+    uint32_t words[kRowsPerLoad][kPos / 4];
     for (int j0 = 0; j0 < kin; j0 += kRowsPerLoad) {
-      load_rows<VEC>(words, xb, j0, j0 ? 0 : early, kRowsPerLoad, kin, S, s0);
+      load_rows<VEC>(words, xb, j0, kin, S, s0);
 #pragma unroll
       for (int jj = 0; jj < kRowsPerLoad; ++jj)
         if (j0 + jj < kin)
@@ -359,6 +336,33 @@ gf2_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// The blocks of gf2_kernel<NW, VEC> that fit on the current device at once
+// (its SMs times the blocks per SM at `smem` bytes of dynamic shared
+// memory). The runtime is asked on the first launch of each (device, smem)
+// and the answer kept, so later launches make no queries.
+template <int NW, bool VEC>
+cudaError_t resident_blocks(size_t smem, long long* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, size_t>, long long> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(mu);
+  auto it = known.find({dev, smem});
+  if (it == known.end()) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf2_kernel<NW, VEC>,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(std::make_tuple(dev, smem),
+                       (long long)sms * (per_sm > 0 ? per_sm : 1)).first;
+  }
+  *blocks = it->second;
+  return cudaSuccess;
+}
+
 template <int NW, bool VEC>
 cudaError_t launch(const uint8_t* x, const int8_t* w, uint8_t* out, int B, int kin,
                    int tout, long long S, long long w_batch_stride,
@@ -374,13 +378,8 @@ cudaError_t launch(const uint8_t* x, const int8_t* w, uint8_t* out, int B, int k
                                (int)smem);
     if (err != cudaSuccess) return err;
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  long long grid = 0;
+  if ((err = resident_blocks<NW, VEC>(smem, &grid)) != cudaSuccess) return err;
   if (grid > tiles) grid = tiles;
   fn<<<(unsigned)grid, kThreads, smem, st>>>(x, w, out, kin, tout, S, w_batch_stride,
                                               groups, chunks, tiles);

@@ -40,7 +40,7 @@
 //   at the same offset; the first 8 bytes feed one mma and the last 8 the
 //   next. Data and key move as aligned 16-byte loads that ask L2 to fetch
 //   256-byte pieces; a warp load covers 8 rows x 64 bytes.
-// - A block takes kRows rows (16 by default) and one S segment, its 8
+// - A block takes kRows = 16 rows and one S segment, its 8
 //   warps walking the segment in 64-byte steps, two steps' loads in
 //   flight. The grid is one wave: about as many blocks as fit on the card,
 //   spread over the row groups. A step's key (512 bytes a warp) serves all
@@ -59,31 +59,21 @@
 // - A ragged S or an unaligned chunks pointer takes the byte path (VEC =
 //   false), which gathers the same 16 bytes a byte at a time, zero past S;
 //   the key is read as 16-byte loads either way (ldk >= S rounded to 16).
-// What still bounds it (minio_tpu_torch/kernel_ab.py, PERF.md): the loads
+// What still bounds it (timed variants, PERF.md 6.3): the loads
 // themselves, 8 rows x 64 bytes per warp instruction as the mma fragments
 // lay them out, and the cross-block reduction at the end (fence, counter,
-// exchange), about 1.7 us at [192, 131072] on an H100 (PERF.md).
+// exchange), about 1.7 us at [192, 131072] on an H100.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
 #include <cuda_runtime.h>
-
-// Tuning macros (minio_tpu_torch/kernel_ab.py builds variants with -D).
-#ifndef MTPU_MXSUM_ROW_TILES
-#define MTPU_MXSUM_ROW_TILES 1      // 16-row mma tiles per block
-#endif
-#ifndef MTPU_MXSUM_L2_256B
-#define MTPU_MXSUM_L2_256B 1        // 16-byte loads ask L2 to fetch 256 bytes
-#endif
-#ifndef MTPU_MXSUM_DIAG_NO_REDUCE
-#define MTPU_MXSUM_DIAG_NO_REDUCE 0 // diagnostic only (wrong digests): no
-#endif                              // reduction across warps and blocks
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTiles = MTPU_MXSUM_ROW_TILES;
-constexpr int kRows = 16 * kRowTiles;   // rows per block
+constexpr int kRows = 16;               // rows per block: one mma tile
 constexpr int kSpan = 64;               // bytes of S per warp step
 constexpr long long kSegQuantum = (long long)kWarps * kSpan;
 
@@ -97,16 +87,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// A 16-byte read-only load that asks L2 to fetch the 256-byte piece.
 __device__ __forceinline__ uint4 ldg16(const void* p) {
-#if MTPU_MXSUM_L2_256B
   uint4 v;
   asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
-#else
-  return __ldg(reinterpret_cast<const uint4*>(p));
-#endif
 }
 
 // 16 bytes of row r at offset s, zero past S or for a row past N.
@@ -139,50 +126,27 @@ mxsum_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ len
   const long long seg0 = (long long)blockIdx.x * seg_len;
   const long long seg1 = seg0 + seg_len < S ? seg0 + seg_len : S;
 
-  uint32_t tot[kRowTiles][4];
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) tot[rt][i] = 0;
+  uint32_t tot[4] = {0, 0, 0, 0};
 
 #pragma unroll 2
   for (long long sp = seg0 + warp * kSpan; sp < seg1; sp += kSegQuantum) {
     const long long s = sp + tig * 16;
     // ldk >= S rounded up to 16 and s % 16 == 0: in bounds whenever s < S.
     const uint4 kv = s < S ? ldg16(keyt + g * ldk + s) : make_uint4(0, 0, 0, 0);
-    uint4 lo[kRowTiles], hi[kRowTiles];
+    const uint4 lo = load16<VEC>(chunks, row0 + g, N, S, s);
+    const uint4 hi = load16<VEC>(chunks, row0 + g + 8, N, S, s);
+    int c[4] = {0, 0, 0, 0};
+    mma_s8(c, lo.x, hi.x, lo.y, hi.y, kv.x, kv.y);
+    mma_s8(c, lo.z, hi.z, lo.w, hi.w, kv.z, kv.w);
 #pragma unroll
-    for (int rt = 0; rt < kRowTiles; ++rt) {
-      lo[rt] = load16<VEC>(chunks, row0 + rt * 16 + g, N, S, s);
-      hi[rt] = load16<VEC>(chunks, row0 + rt * 16 + g + 8, N, S, s);
-    }
-#pragma unroll
-    for (int rt = 0; rt < kRowTiles; ++rt) {
-      int c[4] = {0, 0, 0, 0};
-      mma_s8(c, lo[rt].x, hi[rt].x, lo[rt].y, hi[rt].y, kv.x, kv.y);
-      mma_s8(c, lo[rt].z, hi[rt].z, lo[rt].w, hi[rt].w, kv.z, kv.w);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) tot[rt][i] += (uint32_t)c[i];
-    }
+    for (int i = 0; i < 4; ++i) tot[i] += (uint32_t)c[i];
   }
 
-#if MTPU_MXSUM_DIAG_NO_REDUCE
-  uint32_t any = 0;
-#pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) any ^= tot[rt][i];
-  if (any == 0x9E3779B9u) out[0] = any;
-  return;
-#endif
   __syncthreads();  // part is zero
-  // Accumulator i of row tile rt: row rt*16 + g + 8*(i >> 1), word 2*tig + (i & 1).
+  // Accumulator i: row g + 8*(i >> 1) of the block, word 2*tig + (i & 1).
 #pragma unroll
-  for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      atomicAdd(&part[(rt * 16 + g + 8 * (i >> 1)) * 8 + 2 * tig + (i & 1)],
-                tot[rt][i]);
+  for (int i = 0; i < 4; ++i)
+    atomicAdd(&part[(g + 8 * (i >> 1)) * 8 + 2 * tig + (i & 1)], tot[i]);
   __syncthreads();
 
   // work: [gridDim.y][kRows * 8] sums, then gridDim.y counters.
@@ -208,6 +172,32 @@ mxsum_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ len
   }
 }
 
+// The blocks of mxsum_kernel<VEC> that fit on the current device at once
+// (its SMs times the blocks per SM). The runtime is asked on the first
+// launch on each device and the answer kept, so later launches make no
+// queries.
+template <bool VEC>
+cudaError_t resident_blocks(long long* blocks) {
+  static std::mutex mu;
+  static std::map<int, long long> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(mu);
+  auto it = known.find(dev);
+  if (it == known.end()) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mxsum_kernel<VEC>,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(dev, (long long)sms * (per_sm > 0 ? per_sm : 1)).first;
+  }
+  *blocks = it->second;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // uint32 words of the workspace for N rows: ops/mxsum.py allocates it.
@@ -229,17 +219,13 @@ extern "C" int mtpu_mxsum_digest(const uint8_t* chunks, const int32_t* lens,
   const bool vec = (S % 16 == 0) && ((uintptr_t)chunks % 16 == 0);
   auto* fn = vec ? mxsum_kernel<true> : mxsum_kernel<false>;
   const int groups = (N + kRows - 1) / kRows;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long blocks = 0;
+  const cudaError_t err = vec ? resident_blocks<true>(&blocks)
+                              : resident_blocks<false>(&blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) per_sm = 1;
-  // One wave: about sms * per_sm blocks over the row groups, each segment
-  // a whole number of 512-byte warp steps.
-  long long segs = ((long long)sms * per_sm + groups - 1) / groups;
+  // One wave: about `blocks` blocks over the row groups, each segment a
+  // whole number of 512-byte warp steps.
+  long long segs = (blocks + groups - 1) / groups;
   long long seg_len = (S + segs - 1) / segs;
   seg_len = (seg_len + kSegQuantum - 1) / kSegQuantum * kSegQuantum;
   if (seg_len < kSegQuantum) seg_len = kSegQuantum;

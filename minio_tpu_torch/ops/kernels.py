@@ -84,11 +84,11 @@ def _nvcc() -> str:
     return found
 
 
-def _digest(csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FLAGS) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
-        h.update((csrc / name).read_bytes())
+        h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -108,12 +108,12 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(logs)
 
 
-def _build(target: Path, csrc: Path, flags: tuple[str, ...]) -> str:
+def _build(target: Path) -> str:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}-{threading.get_ident()}"
-    objs = [BUILD_DIR / f"{Path(s).stem}-{target.stem}-{tag}.o" for s in SOURCES]
-    log = _run_all([[nvcc, *flags, "-c", str(csrc / s), "-o", str(o)]
+    objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
                     for s, o in zip(SOURCES, objs)])
     tmp = target.with_name(f"{target.name}.{tag}.tmp")
     log += _run_all([[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -122,32 +122,6 @@ def _build(target: Path, csrc: Path, flags: tuple[str, ...]) -> str:
     for o in objs:
         o.unlink(missing_ok=True)
     return log
-
-
-def _load(target: Path, csrc: Path, flags: tuple[str, ...]) -> tuple[ctypes.CDLL, str]:
-    log = "" if target.exists() else _build(target, csrc, flags)
-    return ctypes.CDLL(str(target)), log
-
-
-def build_library(csrc: Path, flags: tuple[str, ...], name: str) -> tuple[ctypes.CDLL, str]:
-    """Build (unless a build of the same sources and flags exists) and load
-    a kernel library from the sources in `csrc`, with nvcc's output (""
-    when the build was there); `bind` sets the argument types of one of
-    this tree's ABI. For measuring scripts: other flags (-D of a source's
-    tuning macros) or another tree, under another name."""
-    return _load(BUILD_DIR / f"{name}-{_digest(csrc, flags)}.so", csrc, flags)
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C functions' argument types on a library of this ABI."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mtpu_gf2_matmul.argtypes = [p, p, p, i, i, i, ll, ll, p]
-    lib.mtpu_gf2_matmul.restype = i
-    lib.mtpu_mxsum_digest.argtypes = [p, p, p, ll, p, p, p, i, ll, p]
-    lib.mtpu_mxsum_digest.restype = i
-    lib.mtpu_mxsum_workspace_words.argtypes = [i]
-    lib.mtpu_mxsum_workspace_words.restype = ll
-    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -159,9 +133,18 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         target = BUILD_DIR / f"libmtpu_torch_kernels-{_digest()}.so"
-        lib, build_log = _load(target, CSRC, NVCC_FLAGS)
-        _lib = bind(lib)
-        return _lib
+        if not target.exists():
+            build_log = _build(target)
+        lib = ctypes.CDLL(str(target))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mtpu_gf2_matmul.argtypes = [p, p, p, i, i, i, ll, ll, p]
+        lib.mtpu_gf2_matmul.restype = i
+        lib.mtpu_mxsum_digest.argtypes = [p, p, p, ll, p, p, p, i, ll, p]
+        lib.mtpu_mxsum_digest.restype = i
+        lib.mtpu_mxsum_workspace_words.argtypes = [i]
+        lib.mtpu_mxsum_workspace_words.restype = ll
+        _lib = lib
+        return lib
 
 
 def check(err: int, name: str) -> None:

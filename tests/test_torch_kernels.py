@@ -80,7 +80,7 @@ def test_gf2_matmul_edge_geometry(dev, b, k, t, s, offset):
 @pytest.mark.parametrize("n,s", [(1, 16), (63, 4096), (65, 1000), (100, 513),
                                  (200, 2048 + 16), (3, 200001), (2, 1 << 18)])
 def test_mxsum_kernel_edge_geometry(dev, n, s):
-    """Rows not a multiple of the 64-row block, S not a multiple of 16,
+    """Rows not a multiple of the 16-row block, S not a multiple of 16,
     S above 128 KiB (sums that wrap mod 2^32 across segments), and
     lengths 0, 1, 513 and S among the rows."""
     rng = np.random.default_rng(n * 7 + s)
