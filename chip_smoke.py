@@ -9,29 +9,47 @@ package beside it. Phases, each raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    and the build of the hand-written kernels from minio_tpu_torch/csrc/;
-2. kernels at EC 8+4 with 1 MiB blocks (B=16, k=8, S=131072): K1
-   gf2_matmul for encode, a 4-missing reconstruct, per-block weights with
-   3 failure patterns and a ragged S=87382; K2 mxsum_digest over the
-   [B*12, S] shards with lengths 0, 1, 513 and S among the rows (PUT),
-   and over their first B*8 (GET verify) and B*4 rows (heal). Each is
-   held byte-equal to its plain PyTorch version on the same inputs
-   (tolerance: exact, all integer work) and timed at every one of those
-   shapes with CUDA events (median of 20 runs after warm-up, L2 flushed
-   and the launches queued behind a short device spin before each run,
-   so host launch overhead stays out of the device time), beside its
-   bound and the share of it reached; K1 also beside its plain version,
-   K2 beside torch._int_mm, the library call that computes its main
-   contraction;
+2. kernels, each held byte-equal to its plain PyTorch version on the same
+   inputs (tolerance: exact, all integer work) and timed with CUDA events
+   (median of 20 runs after warm-up, L2 flushed and the launches queued
+   behind a short device spin before each run, so host launch overhead
+   stays out of the device time) beside its bound, its plain version and,
+   for K2, torch._int_mm (the library call that computes its main
+   contraction). Shapes: at EC 8+4 with 1 MiB blocks (B=16, k=8,
+   S=131072), K1 gf2_matmul for encode, a 4-missing reconstruct,
+   per-block weights with 3 failure patterns and a ragged S=87382, and K2
+   mxsum_digest over [B*12, S] with lengths 0, 1, 513 and S among the rows
+   (PUT), [B*8, S] (GET verify) and [B*4, S] (heal); the batched data
+   plane's lanes, K1 encode [32, 8, 65536]->4, K1 reconstruct
+   [32, 8, 16384]->4 with a decode matrix per row over 4 survivor
+   patterns, K2 [128, 65536] and [128, 512] with ragged lengths; the hot
+   tier's serve, K2 over the [256, 131072] window of a resident 32 MiB
+   object. Then what the plane's width gates cost: one lane call against
+   the 32 per-object calls it replaces, at 16 and 64 KiB chunks;
 3. S3: the port's server on 12 tmp drives (device="cuda"), driven over
    http.client with the port's SigV4 signer: PUT 256 MiB, 9 MiB + 12,345 B
    and 1 KiB objects; GET back byte-equal with ETag == md5; a ranged GET;
    4 drives' shard files copied then deleted and a degraded GET; a deep
    heal that must rebuild files byte-equal to the copies; one byte of a
    fifth drive's shard flipped, a GET that reads around it and a deep heal
-   that rewrites it; then a GET with 4 OTHER drives removed. The launch
-   count of each kernel is reset just before this phase and read after it.
+   that rewrites it; then a GET with 4 OTHER drives removed;
+4. the batched data plane at its defaults, through a fresh server: 64
+   client threads PUT 1024 objects of 1 KiB-512 KiB (log-uniform), GET
+   them back byte-equal, lose 2 drives' shard files, GET 256 objects of
+   16-128 KiB concurrently and heal one; launches < requests on PUT, a
+   reconstruct lane launched for the degraded GETs and for the heal. The
+   same traffic again with the plane off (MTPU_BATCHED_DATAPLANE=0), in
+   turns on, off, off, on, and each stage's objects/s side by side;
+5. the hot tier (MTPU_HOTTIER=1, 2 GiB budget): PUT ~2.5 GiB of 4-32 MiB
+   objects, heat them until admission and eviction have run, then hot
+   GETs byte-equal and ETag-identical to the drive path with one K2
+   launch each, ranged hits, an overwrite served new, and a flipped
+   resident byte falling back to the drive path.
 
-It prints a JSON line with every kernel's numbers, then, as the last line,
+The launch count of each kernel is reset just before each of phases 3-5
+(each run of phase 4) and read after it; the JSON line carries phase 4's
+counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
+every shape, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -55,6 +73,9 @@ ACCESS, SECRET = "smokeadmin", "smokesecret123"
 K, M, B, S = 8, 4, 16, 131072   # EC 8+4, 1 MiB blocks: S = 1 MiB / 8
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
+PLANE_OBJECTS = 1024            # plane phase: small objects PUT by 64 clients, per run
+PLANE_RUNS = (True, False, False, True)   # the plane on / off, in turns
+HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
 
 
 def _card() -> str:
@@ -112,9 +133,56 @@ def _mxsum_bound_ms(n: int, s: int) -> tuple[float, str]:
     return _bound_ms(n * s + 8 * s + 4 * n + 32 + 32 * n, 2.0 * n * s * 8)
 
 
-def kernel_phase(seed: int) -> dict:
-    """K1 and K2 on the card against their plain versions; returns the
-    kernel records of the result line (launches filled in later)."""
+def _record(kernel: str, label: str, path: str, ms: float, plain: float,
+            bound: tuple[float, str], library: float | None) -> dict:
+    """One entry of the result line: a kernel at one shape. `path` names
+    the phase whose launch count the entry carries (s3, plane or hot)."""
+    src = {"gf2_matmul": ("minio_tpu_torch/csrc/gf2_matmul.cu",
+                          "minio_tpu/ops/rs_pallas.py:48"),
+           "mxsum_digest": ("minio_tpu_torch/csrc/mxsum_digest.cu",
+                            "minio_tpu/ops/mxsum.py:153")}[kernel]
+    return {"name": f"{kernel} {label}", "route": "cuda", "source": src[0],
+            "replaces": src[1], "launches": 0, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library, "kernel": kernel, "path": path}
+
+
+def _time_k1(records, label, path, args, bound, flush):
+    from minio_tpu_torch.ops import rs
+
+    ms = _median_ms(lambda: rs.gf2_matmul(*args), flush)
+    plain = _median_ms(lambda: rs.gf2_matmul_plain(*args), flush)
+    print(f"  K1 {label}: {ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}), "
+          f"{100 * bound[0] / ms:.1f}% of the bound; plain {plain:.6f} ms")
+    records.append(_record("gf2_matmul", label, path, ms, plain, bound, None))
+
+
+def _time_k2(records, label, path, chunks, lens, flush):
+    """K2 at [N, S] beside its plain version and torch._int_mm, the library
+    call that computes its main contraction [N, S] @ [S, 8]."""
+    import torch
+
+    from minio_tpu_torch.ops import mxsum
+
+    n, s = chunks.shape
+    key = mxsum.device_key(s, chunks.device).t().contiguous()     # [S, 8]
+    ci8 = chunks.view(torch.int8)
+    ms = _median_ms(lambda: mxsum.digest(chunks, lens), flush)
+    plain = _median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
+    lib = _median_ms(lambda: torch._int_mm(ci8, key), flush)
+    bound = _mxsum_bound_ms(n, s)
+    print(f"  K2 {label} [{n}, {s}]: {ms:.6f} ms, bound {bound[0]:.6f} ms "
+          f"({bound[1]}), {100 * bound[0] / ms:.1f}% of the bound; plain "
+          f"{plain:.6f} ms; torch._int_mm {lib:.6f} ms")
+    records.append(_record("mxsum_digest", f"{label} [{n},{s}]", path, ms, plain,
+                           bound, lib))
+
+
+def kernel_phase(seed: int) -> list[dict]:
+    """K1 and K2 on the card against their plain versions, at the S3
+    path's shapes and at the lane shapes of the batched data plane and the
+    hot tier; returns the entries of the result line (launches filled in
+    by the phases that drive those paths)."""
     import numpy as np
     import torch
 
@@ -123,7 +191,6 @@ def kernel_phase(seed: int) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-
     errs = {"gf2_matmul": 0, "mxsum_digest": 0}
 
     def check(kernel, name, got, want):
@@ -183,71 +250,154 @@ def kernel_phase(seed: int) -> dict:
     if digs[2].cpu().numpy().tobytes() != mxsum.digest_np(
             chunks[2, :513].cpu().numpy().tobytes()):
         raise AssertionError("K2 digest disagrees with the host digest")
-
-    out = {}
-    # Every main-path shape, timed; the first of each kernel is the one of
-    # the result line.
-    k1_shapes = [
-        ("encode [16,8,S]->4", (x, w_enc, M), _gf2_bound_ms(B, K, M, S)),
-        ("reconstruct 4 missing", (xs, w_dec, 4), _gf2_bound_ms(B, K, 4, S)),
-        ("per-block weights, 3 patterns", (xm, w_multi_d, 4),
-         _gf2_bound_ms(B, K, 4, S, per_block_weights=True)),
-        ("ragged S=87382", (xr, w_enc, M), _gf2_bound_ms(B, K, M, xr.shape[2])),
-    ]
-    k1 = []
-    for label, args, (bnd, by) in k1_shapes:
-        ms = _median_ms(lambda: rs.gf2_matmul(*args), flush)
-        plain = _median_ms(lambda: rs.gf2_matmul_plain(*args), flush)
-        print(f"  K1 {label}: {ms:.6f} ms, bound {bnd:.6f} ms ({by}), "
-              f"{100 * bnd / ms:.1f}% of the bound; plain {plain:.6f} ms")
-        k1.append((label, ms, (bnd, by)))
-        if len(k1) == 1:
-            k1_plain = plain
-    out["gf2_matmul"] = {
-        "name": "gf2_matmul", "route": "cuda",
-        "source": "minio_tpu_torch/csrc/gf2_matmul.cu",
-        "replaces": "minio_tpu/ops/rs_pallas.py:48", "launches": 0,
-        "max_abs_err": errs["gf2_matmul"], "ms": k1[0][1], "plain_ms": k1_plain,
-        "bound_ms": k1[0][2][0], "bound_by": k1[0][2][1], "library_ms": None}
-
-    # K2 at the PUT (all k+m shards), GET verify (k data shards) and heal
-    # (4 rebuilt shards) row counts of a 16-block batch. Library yardstick:
-    # torch._int_mm (int8 x int8 -> int32, cuBLASLt) computes the main
-    # contraction [N, S] @ [S, 8] in one call, without the length term and
-    # the byte packing. Timed here only; the port never calls it. Whether
-    # its int32 sums wrap as K2's uint32 ones do is checked on this run's
-    # data, not assumed.
-    key = mxsum.device_key(S, dev).t().contiguous()                # [S, 8]
+    for rows in (B * K, B * 4):
+        check("mxsum_digest", f"K2 digest [{rows}, S]",
+              mxsum.digest(chunks[:rows], lens[:rows]),
+              mxsum.digest_plain(chunks[:rows], lens[:rows]))
+    # Whether torch._int_mm's int32 sums wrap as K2's uint32 ones do is
+    # checked on this run's data, not assumed.
+    key = mxsum.device_key(S, dev).t().contiguous()
     lterm = (mxsum._len_bytes(lens).to(torch.float64)
              @ mxsum.device_len_key(dev).to(torch.float64)).to(torch.int64)
     lib_out = torch._int_mm(chunks.view(torch.int8), key)
     print("  torch._int_mm with the length term and packing equals K2's "
           f"digests: {torch.equal(mxsum._pack_words(lib_out.to(torch.int64) + lterm), digs)}")
-    k2 = []
+
+    records: list[dict] = []
+    print("  timed at the S3 path's shapes (EC 8+4, 1 MiB blocks):")
+    _time_k1(records, "encode [16,8,131072]->4", "s3", (x, w_enc, M),
+             _gf2_bound_ms(B, K, M, S), flush)
+    _time_k1(records, "reconstruct 4 missing [16,8,131072]->4", "s3",
+             (xs, w_dec, 4), _gf2_bound_ms(B, K, 4, S), flush)
+    _time_k1(records, "per-block weights, 3 patterns [16,8,131072]->4", "s3",
+             (xm, w_multi_d, 4), _gf2_bound_ms(B, K, 4, S, per_block_weights=True),
+             flush)
+    _time_k1(records, "ragged [16,8,87382]->4", "s3", (xr, w_enc, M),
+             _gf2_bound_ms(B, K, M, xr.shape[2]), flush)
     for label, rows in (("PUT", n_rows), ("GET verify", B * K), ("heal", B * 4)):
-        c, ln = chunks[:rows], lens[:rows]
-        if rows != n_rows:
-            check("mxsum_digest", f"K2 digest [{rows}, S]", mxsum.digest(c, ln),
-                  mxsum.digest_plain(c, ln))
-        ms = _median_ms(lambda: mxsum.digest(c, ln), flush)
-        ci8 = c.view(torch.int8)
-        lib = _median_ms(lambda: torch._int_mm(ci8, key), flush)
-        bnd, by = _mxsum_bound_ms(rows, S)
-        print(f"  K2 {label} [{rows}, {S}]: {ms:.6f} ms, bound {bnd:.6f} ms "
-              f"({by}), {100 * bnd / ms:.1f}% of the bound; torch._int_mm "
-              f"{lib:.6f} ms")
-        k2.append((ms, lib, bnd, by))
-    k2_plain = _median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
-    out["mxsum_digest"] = {
-        "name": "mxsum_digest", "route": "cuda",
-        "source": "minio_tpu_torch/csrc/mxsum_digest.cu",
-        "replaces": "minio_tpu/ops/mxsum.py:153", "launches": 0,
-        "max_abs_err": errs["mxsum_digest"], "ms": k2[0][0], "plain_ms": k2_plain,
-        "bound_ms": k2[0][2], "bound_by": k2[0][3], "library_ms": k2[0][1]}
-    for r in out.values():
-        print(f"  {r['name']}: {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
-    return out
+        _time_k2(records, label, "s3", chunks[:rows], lens[:rows], flush)
+
+    lane_shapes(rng, dev, flush, check, records)
+    for r in records:
+        r["max_abs_err"] = errs[r["kernel"]]
+    return records
+
+
+def lane_shapes(rng, dev, flush, check, records) -> None:
+    """K1 and K2 at the lane shapes of the batched data plane (the widest
+    full encode lane, the widest reconstruct lane with a decode matrix per
+    row, the widest and narrowest verify lanes) and at the hot tier's
+    serve window; then what the plane's width gates cost: one lane launch
+    against the per-object launches it replaces, at 16 and 64 KiB."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import fused, mxsum, rs
+
+    print("  lane shapes (dataplane defaults: 32 encode/reconstruct rows, "
+          "128 verify rows):")
+    xe = torch.from_numpy(rng.integers(0, 256, (32, K, 65536), dtype=np.uint8)).to(dev)
+    w_enc = rs.device_encode_weights(K, M, dev)
+    check("gf2_matmul", "K1 encode lane", rs.gf2_matmul(xe, w_enc, M),
+          rs.gf2_matmul_plain(xe, w_enc, M))
+
+    # Reconstruct lane: 32 rows over 4 survivor patterns, each row its own
+    # [64, 32] decode matrix with the padded target columns zero.
+    data = torch.from_numpy(rng.integers(0, 256, (32, K, 16384), dtype=np.uint8)).to(dev)
+    full = torch.cat([data, rs.gf2_matmul(data, w_enc, M)], dim=1)
+    pats = [(0, 2, 4, 5, 8, 9, 10, 11), (2, 3, 4, 5, 6, 7, 8, 9),
+            (0, 1, 2, 3, 8, 9, 10, 11), (1, 3, 5, 7, 8, 9, 10, 11)]
+    w_rows = np.zeros((32, K * 8, 32), dtype=np.int8)
+    xr = torch.empty_like(data)
+    lost = []
+    for r in range(32):
+        sv = pats[r % 4]
+        tg = tuple(i for i in range(K) if i not in sv)
+        w_rows[r, :, :len(tg) * 8] = rs.decode_weights_np(K, K + M, sv, tg)
+        xr[r] = full[r, list(sv)]
+        lost.append(tg)
+    w_rows_d = torch.from_numpy(w_rows).to(dev)
+    rebuilt = rs.gf2_matmul_multi(xr, w_rows_d, 4)
+    check("gf2_matmul", "K1 reconstruct lane (4 patterns)", rebuilt,
+          rs.gf2_matmul_plain(xr, w_rows_d, 4))
+    for r in range(32):
+        if not torch.equal(rebuilt[r, :len(lost[r])], full[r, list(lost[r])]):
+            raise AssertionError("K1 reconstruct lane did not rebuild row "
+                                 f"{r}'s lost shards")
+
+    def ragged(n, s):
+        ln = rng.integers(0, s + 1, n).astype(np.int32)
+        c = rng.integers(0, 256, (n, s), dtype=np.uint8)
+        c[np.arange(s)[None, :] >= ln[:, None]] = 0
+        return torch.from_numpy(c).to(dev), torch.from_numpy(ln).to(dev)
+
+    cv, lv = ragged(128, 65536)
+    check("mxsum_digest", "K2 verify lane (ragged)", mxsum.digest(cv, lv),
+          mxsum.digest_plain(cv, lv))
+    cn, ln = ragged(128, 512)
+    check("mxsum_digest", "K2 narrowest lane (ragged)", mxsum.digest(cn, ln),
+          mxsum.digest_plain(cn, ln))
+    # Hot tier: a 32 MiB object resident as [32, 8, 131072], served whole:
+    # K2 over the window's view [256, 131072], the last block ragged.
+    resident = torch.from_numpy(rng.integers(0, 256, (32, K, S), dtype=np.uint8)).to(dev)
+    rlens = torch.full((32,), S, dtype=torch.int32, device=dev)
+    rlens[31] = 70001
+    resident[31, :, 70001:] = 0
+    win = resident[0:32].reshape(32 * K, S)
+    wl = rlens.repeat_interleave(K)
+    check("mxsum_digest", "K2 hot-tier window", mxsum.digest(win, wl),
+          mxsum.digest_plain(win, wl))
+
+    _time_k1(records, "encode lane [32,8,65536]->4", "plane", (xe, w_enc, M),
+             _gf2_bound_ms(32, K, M, 65536), flush)
+    _time_k1(records, "reconstruct lane, 4 patterns [32,8,16384]->4", "plane",
+             (xr, w_rows_d, 4), _gf2_bound_ms(32, K, 4, 16384, per_block_weights=True),
+             flush)
+    _time_k2(records, "verify lane, ragged", "plane", cv, lv, flush)
+    _time_k2(records, "narrowest lane, ragged", "plane", cn, ln, flush)
+    _time_k2(records, "hot-tier window", "hot", win, wl, flush)
+
+    print("  width gates (MTPU_DP_MAX_WIDTH=65536, MTPU_DP_MAX_RECON_WIDTH=16384): "
+          "one lane call against the 32 per-object calls it replaces")
+    for w in (16384, 65536):
+        xw = xe[:, :, :w].contiguous()
+        lw = torch.full((32,), w, dtype=torch.int32, device=dev)
+        xrw = torch.from_numpy(rng.integers(0, 256, (32, K, w), dtype=np.uint8)).to(dev)
+        singles = [(xw[i:i + 1], lw[i:i + 1]) for i in range(32)]
+        rsingles = [(xrw[i:i + 1], rs.device_decode_weights(
+            K, K + M, pats[i % 4], lost[i], dev), len(lost[i])) for i in range(32)]
+        cases = {
+            "encode+digests": (
+                lambda: fused.encode_with_digests(xw, K, M, lw),
+                lambda: [fused.encode_with_digests(a, K, M, b) for a, b in singles]),
+            "reconstruct": (
+                lambda: rs.gf2_matmul_multi(xrw, w_rows_d, 4),
+                lambda: [rs.gf2_matmul(a, wt, t) for a, wt, t in rsingles]),
+        }
+        for name, (lane, per_object) in cases.items():
+            lane_ms = _median_ms(lane, flush)
+            obj_ms = _median_ms(per_object, flush)
+            lane_host = _host_ms(lane)
+            obj_host = _host_ms(per_object)
+            print(f"    {name} at {w} B chunks: lane {lane_ms:.6f} ms device "
+                  f"({lane_host:.6f} ms host, launch to sync); 32 per-object "
+                  f"{obj_ms:.6f} ms device ({obj_host:.6f} ms host)")
+
+
+def _host_ms(fn, runs: int = 20) -> float:
+    """Median host time of fn() from its first launch to the card's
+    synchronize, in ms (the launch overhead a caller pays)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 class _Client:
@@ -281,7 +431,18 @@ class _Client:
 S3_SIZES = {"big": 256 << 20, "mid": (9 << 20) + 12345, "tiny": 1 << 10}
 
 
-def s3_phase(seed: int, card: str, records: dict, device: str = "cuda") -> None:
+def _fill_launches(records: list[dict], path: str, counts: dict) -> None:
+    """Set the launch count of every entry of `path` from the counts of
+    that path's run; a kernel of the path that never launched fails."""
+    for r in records:
+        if r["path"] == path:
+            r["launches"] = counts[r["kernel"]]
+            if r["launches"] <= 0:
+                raise AssertionError(f"{r['kernel']} never launched on the "
+                                     f"{path} path")
+
+
+def s3_phase(seed: int, card: str, records: list[dict], device: str = "cuda") -> None:
     import numpy as np
 
     from minio_tpu_torch.ops import kernels
@@ -382,16 +543,322 @@ def s3_phase(seed: int, card: str, records: dict, device: str = "cuda") -> None:
         prev = order[order.index(stage) - 1]
         if delta(prev, stage, "gf2_matmul") <= 0:
             raise AssertionError(f"K1 did not launch for {need}")
-    for name in kernels.KERNELS:
-        records[name]["launches"] = delta("start", "end", name)
-        if records[name]["launches"] <= 0:
-            raise AssertionError(f"{name} never launched on the S3 path")
+    _fill_launches(records, "s3", {n: delta("start", "end", n)
+                                   for n in kernels.KERNELS})
     gib = len(objects["big"]) / (1 << 30)
     print(f"  S3 {len(objects['big']) >> 20} MiB on {card}: "
           f"PUT {gib / put_s:.6f} GiB/s ({put_s:.6f} s), "
           f"GET {gib / get_s:.6f} GiB/s ({get_s:.6f} s), degraded GET "
           f"{gib / deg_s:.6f} GiB/s ({deg_s:.6f} s), deep heal of 4 shards "
           f"{heal_s:.6f} s")
+
+
+class _Pool:
+    """`n` client threads, each with its own S3 connection."""
+
+    def __init__(self, url: str, n: int):
+        from concurrent.futures import ThreadPoolExecutor
+        import threading
+
+        self._url = url
+        self._local = threading.local()
+        self._clients: list[_Client] = []
+        self._mu = threading.Lock()
+        self._ex = ThreadPoolExecutor(max_workers=n, thread_name_prefix="smoke-client")
+
+    def client(self) -> _Client:
+        cl = getattr(self._local, "cl", None)
+        if cl is None:
+            cl = self._local.cl = _Client(self._url)
+            with self._mu:
+                self._clients.append(cl)
+        return cl
+
+    def run(self, fn, items) -> list:
+        """fn(client, item) for every item; re-raises the first failure."""
+        futs = [self._ex.submit(lambda it=it: fn(self.client(), it)) for it in items]
+        return [f.result() for f in futs]
+
+    def close(self) -> None:
+        self._ex.shutdown(wait=True)
+        for cl in self._clients:
+            cl.close()
+
+
+def _md5_etag(data: bytes) -> str:
+    return f'"{hashlib.md5(data).hexdigest()}"'
+
+
+def plane_phase(seed: int, card: str, records: list[dict] | None,
+                n_objects: int, plane_on: bool = True, n_clients: int = 64,
+                n_degraded: int = 256, device: str = "cuda") -> dict:
+    """Small-object traffic through the S3 server on 12 tmp drives at EC
+    8+4, with the batched data plane at its default (on) or opted out
+    (MTPU_BATCHED_DATAPLANE=0, the per-object codec path): `n_clients`
+    client threads PUT `n_objects` objects of sizes drawn log-uniformly
+    from 1 KiB to 512 KiB (the small-object mix of MinIO's warp tool,
+    --obj.size/--concurrent), GET them all back byte-equal, then with the
+    shard files of 2 drives lost GET `n_degraded` objects of 16-128 KiB
+    concurrently (reconstruct lanes when on) and heal one of them (the
+    digest-fused reconstruct lane when on). Launch counts go into
+    `records` unless it is None. Returns each stage's objects/s."""
+    import numpy as np
+
+    from minio_tpu_torch import dataplane
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    if plane_on:
+        os.environ.pop("MTPU_BATCHED_DATAPLANE", None)   # the default: on
+    else:
+        os.environ["MTPU_BATCHED_DATAPLANE"] = "0"
+    rng = np.random.default_rng(seed + 2)
+    sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10),
+                               n_objects)).astype(np.int64)
+    objects = {f"o{i:05d}": rng.bytes(int(n)) for i, n in enumerate(sizes)}
+    total = int(sizes.sum())
+    work = tempfile.mkdtemp(prefix="mtpu-torch-plane-")
+    paths = [os.path.join(work, f"d{i}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    pool = _Pool(srv.url, n_clients)
+    plane = dataplane.get_plane(srv.obj.device) if plane_on else None
+    stages, marks = {}, {}
+
+    def mark(stage):
+        stages[stage] = (kernels.launches(), plane.stats() if plane else None)
+        marks[stage] = time.perf_counter()
+
+    try:
+        print(f"  plane {'on' if plane_on else 'off'}: {n_objects} objects, "
+              f"{total} B ({total / (1 << 20):.1f} MiB), "
+              f"{int((sizes <= 16 << 10).sum())} inline (<= 16 KiB), "
+              f"{n_clients} client threads")
+        _Client(srv.url).request("PUT", "/plane")
+        kernels.reset_launches()
+        mark("start")
+        pool.run(lambda cl, kv: cl.request("PUT", f"/plane/{kv[0]}", kv[1]),
+                 objects.items())
+        mark("put")
+
+        def get_ok(cl, key):
+            r, data = cl.request("GET", f"/plane/{key}")
+            if data != objects[key] or r.getheader("ETag") != _md5_etag(data):
+                raise AssertionError(f"plane GET {key}: bytes or ETag differ")
+
+        pool.run(get_ok, objects)
+        mark("get")
+
+        def part(i, key):
+            hits = glob.glob(os.path.join(paths[i], "plane", key, "*", "part.1"))
+            return hits[0] if hits else None
+
+        lost = (2, 7)
+        degraded = [k for k, v in objects.items() if 16 << 10 < len(v) <= 128 << 10]
+        degraded = degraded[:n_degraded]
+        heal_key = degraded[0]
+        originals = {i: open(part(i, heal_key), "rb").read() for i in lost}
+        for i in lost:
+            for f in glob.glob(os.path.join(paths[i], "plane", "*", "*", "part.1")):
+                shutil.rmtree(os.path.dirname(f))
+        mark("lose")
+        pool.run(get_ok, degraded)
+        mark("degraded_get")
+        res = srv.obj.heal_object("plane", heal_key)
+        if res.healed_count != 2 or any(open(part(i, heal_key), "rb").read()
+                                        != originals[i] for i in lost):
+            raise AssertionError(f"plane heal: {res.healed_count} healed or files differ")
+        mark("heal")
+    finally:
+        pool.close()
+        srv.close()
+        os.environ.pop("MTPU_BATCHED_DATAPLANE", None)
+        shutil.rmtree(work, ignore_errors=True)
+
+    for a, b in (("start", "put"), ("put", "get"), ("lose", "degraded_get"),
+                 ("degraded_get", "heal")):
+        ka, pa = stages[a]
+        kb, pb = stages[b]
+        k1 = kb["gf2_matmul"] - ka["gf2_matmul"]
+        line = "kernel launches " + ", ".join(
+            f"{n} {kb[n] - ka[n]}" for n in kernels.KERNELS)
+        if b in ("degraded_get", "heal") and k1 <= 0:
+            raise AssertionError(f"plane {'on' if plane_on else 'off'} {b}: "
+                                 "K1 never launched")
+        if plane_on:
+            d = {f: pb[f] - pa[f] for f in ("launches", "requests", "rows",
+                                            "capacity", "rejected")}
+            recon = (pb["op_launches"]["reconstruct"]
+                     - pa["op_launches"]["reconstruct"])
+            line = (f"plane launches {d['launches']} ({recon} reconstruct), "
+                    f"requests {d['requests']}, rows {d['rows']}, capacity "
+                    f"{d['capacity']}, rejected {d['rejected']}; " + line)
+            if b == "put" and not d["launches"] < d["requests"]:
+                raise AssertionError("plane PUT: no coalescing (launches >= requests)")
+            if b in ("degraded_get", "heal") and recon <= 0:
+                raise AssertionError(f"plane {b}: no reconstruct lane launched")
+        print(f"  {b}: {line}")
+    if records is not None:
+        _fill_launches(records, "plane", {
+            n: stages["heal"][0][n] - stages["start"][0][n] for n in kernels.KERNELS})
+    put_s = marks["put"] - marks["start"]
+    get_s = marks["get"] - marks["put"]
+    deg_s = marks["degraded_get"] - marks["lose"]
+    deg_bytes = sum(len(objects[k]) for k in degraded)
+    gib = total / (1 << 30)
+    print(f"  plane {'on' if plane_on else 'off'} on {card}: PUT "
+          f"{n_objects / put_s:.3f} objects/s, {gib / put_s:.6f} GiB/s "
+          f"({put_s:.6f} s); GET {n_objects / get_s:.3f} objects/s, "
+          f"{gib / get_s:.6f} GiB/s ({get_s:.6f} s); degraded GET of "
+          f"{len(degraded)}: {len(degraded) / deg_s:.3f} objects/s, "
+          f"{deg_bytes / (1 << 30) / deg_s:.6f} GiB/s ({deg_s:.6f} s)")
+    return {"put": n_objects / put_s, "get": n_objects / get_s,
+            "degraded_get": len(degraded) / deg_s}
+
+
+def hot_tier_phase(seed: int, card: str, records: list[dict], working_set: int,
+                   budget: int = 2 << 30, device: str = "cuda") -> None:
+    """The HBM hot tier (MTPU_HOTTIER=1, admit cooldown 0, a `budget`-byte
+    budget cut from an 80 GB card to fit the run's time) through the S3
+    server on 12 tmp drives: PUT about `working_set` bytes of 4-32 MiB
+    objects, heat them until admission lands and eviction has run, then
+    hold every hot GET byte-equal and ETag-identical to the drive-path GET
+    with K2 launched once per hit, ranged hits byte-equal, an overwrite
+    served new, and a flipped resident byte falling back to the drive
+    path."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch import hottier
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    env = {"MTPU_HOTTIER": "1", "MTPU_HOTTIER_ADMIT_COOLDOWN_S": "0",
+           "MTPU_HOTTIER_BYTES": str(budget),
+           "MTPU_HOTTIER_MAX_OBJECT": str(32 << 20)}
+    os.environ.update(env)
+    hottier.reset_global()
+    rng = np.random.default_rng(seed + 3)
+    objects: dict[str, bytes] = {}
+    total = 0
+    while total < working_set:
+        n = int(rng.integers(4 << 20, (32 << 20) + 1))
+        objects[f"h{len(objects):04d}"] = rng.bytes(n)
+        total += n
+    work = tempfile.mkdtemp(prefix="mtpu-torch-hot-")
+    paths = [os.path.join(work, f"d{i}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    pool = _Pool(srv.url, 8)
+    cl = _Client(srv.url)
+    try:
+        tier = hottier.get_tier(srv.obj.device)
+        print(f"  {len(objects)} objects, {total} B ({total / (1 << 30):.3f} GiB); "
+              f"budget {budget} B; " + ", ".join(f"{k}={v}" for k, v in env.items()))
+        cl.request("PUT", "/hot")
+        kernels.reset_launches()
+        start = kernels.launches()
+        pool.run(lambda c, kv: c.request("PUT", f"/hot/{kv[0]}", kv[1]),
+                 objects.items())
+
+        def get_ok(c, key):
+            r, data = c.request("GET", f"/hot/{key}")
+            if data != objects[key] or r.getheader("ETag") != _md5_etag(data):
+                raise AssertionError(f"hot phase GET {key}: bytes or ETag differ")
+
+        t0 = time.perf_counter()
+        for _ in range(2):                    # the second GET admits
+            pool.run(get_ok, objects)
+        if not tier.drain(600):
+            raise AssertionError(f"hot tier admission never settled: {tier.stats()}")
+        heat_s = time.perf_counter() - t0
+        st = tier.stats()
+        cold = [k for k in objects if not tier.resident("hot", k)]
+        print(f"  after 2 GETs each ({heat_s:.3f} s): {st}")
+        if st["resident_objects"] == 0 or not cold:
+            raise AssertionError("hot tier: want some objects resident and some not")
+        for _ in range(4):                    # 3 cold keys get hotter
+            pool.run(get_ok, cold[:3])
+        if not tier.drain(600):
+            raise AssertionError(f"hot tier admission never settled: {tier.stats()}")
+        st = tier.stats()
+        print(f"  after 4 more GETs of 3 non-resident objects: {st}")
+        if st["evictions"] < 1 or not any(tier.resident("hot", k) for k in cold[:3]):
+            raise AssertionError("hot tier: the hotter keys did not evict colder ones")
+        if st["resident_bytes"] > budget:
+            raise AssertionError("hot tier: over its budget")
+
+        resident = [k for k in objects if tier.resident("hot", k)]
+        drive_s = hot_s = 0.0
+        hits0 = tier.stats()["hits"]
+        k2 = 0
+        for key in resident:
+            os.environ["MTPU_HOTTIER"] = "0"
+            t0 = time.perf_counter()
+            r, drive = cl.request("GET", f"/hot/{key}")
+            drive_s += time.perf_counter() - t0
+            drive_etag = r.getheader("ETag")
+            os.environ["MTPU_HOTTIER"] = "1"
+            before = kernels.launches()["mxsum_digest"]
+            t0 = time.perf_counter()
+            r, hot = cl.request("GET", f"/hot/{key}")
+            hot_s += time.perf_counter() - t0
+            k2 += kernels.launches()["mxsum_digest"] - before
+            if not (hot == drive == objects[key]) or r.getheader("ETag") != drive_etag:
+                raise AssertionError(f"hot GET {key}: not equal to the drive-path GET")
+        hits = tier.stats()["hits"] - hits0
+        if hits != len(resident) or k2 != hits:
+            raise AssertionError(f"hot GETs: {hits} hits and {k2} K2 launches for "
+                                 f"{len(resident)} resident objects")
+        nbytes = sum(len(objects[k]) for k in resident)
+        print(f"  hot GETs of {len(resident)} resident objects ({nbytes} B) on "
+              f"{card}: {hits} hits, {k2} K2 launches; hot {hot_s:.6f} s "
+              f"({nbytes / (1 << 30) / hot_s:.6f} GiB/s), drive path "
+              f"{drive_s:.6f} s ({nbytes / (1 << 30) / drive_s:.6f} GiB/s)")
+
+        hits0 = tier.stats()["hits"]
+        for _ in range(16):
+            key = resident[int(rng.integers(len(resident)))]
+            size = len(objects[key])
+            off = int(rng.integers(size))
+            end = int(rng.integers(off, size))
+            r, data = cl.request("GET", f"/hot/{key}",
+                                 headers={"Range": f"bytes={off}-{end}"})
+            if r.status != 206 or data != objects[key][off:end + 1]:
+                raise AssertionError(f"hot ranged GET {key} {off}-{end}")
+        if tier.stats()["hits"] - hits0 != 16:
+            raise AssertionError("hot ranged GETs did not all hit")
+
+        key = resident[0]
+        new = rng.bytes(len(objects[key]))
+        cl.request("PUT", f"/hot/{key}", new)
+        objects[key] = new
+        get_ok(cl, key)
+        print(f"  overwrite of resident {key}: the next GET served the new bytes")
+
+        key = resident[1]
+        with tier._mu:
+            entry = tier._entries[("hot", key)]
+        entry.data[0, 0, 0] ^= 0xFF
+        if entry.data.is_cuda:
+            torch.cuda.synchronize()
+        st0 = tier.stats()
+        get_ok(cl, key)
+        st1 = tier.stats()
+        if st1["hits"] != st0["hits"] or st1["evictions"] <= st0["evictions"]:
+            raise AssertionError("flipped resident byte: the GET did not fall back")
+        print(f"  flipped byte in resident {key}: the GET fell back to the "
+              f"drive path, byte-equal; {st1}")
+        end = kernels.launches()
+        _fill_launches(records, "hot", {n: end[n] - start[n] for n in kernels.KERNELS})
+        print("  launches hot-tier phase: " + ", ".join(
+            f"{n} {end[n] - start[n]}" for n in kernels.KERNELS))
+    finally:
+        pool.close()
+        cl.close()
+        srv.close()
+        hottier.reset_global()
+        for k in env:
+            os.environ.pop(k, None)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -423,7 +890,22 @@ def main() -> int:
     records = kernel_phase(args.seed)
     print("S3 phase:")
     s3_phase(args.seed, card, records)
-    print(json.dumps({"kernels": list(records.values())}))
+    print("plane phase (EC 8+4, 1 MiB blocks; the plane on, off, off, on):")
+    rates = {True: [], False: []}
+    for i, on in enumerate(PLANE_RUNS):
+        rates[on].append(plane_phase(args.seed, card, records if i == 0 else None,
+                                     PLANE_OBJECTS, plane_on=on))
+    for stage in ("put", "get", "degraded_get"):
+        on, off = ([r[stage] for r in rates[v]] for v in (True, False))
+        print(f"  {stage} objects/s on {card}: plane on "
+              f"{', '.join(f'{x:.3f}' for x in on)}; plane off "
+              f"{', '.join(f'{x:.3f}' for x in off)}; on/off "
+              f"{sum(on) / sum(off):.3f}")
+    print("hot-tier phase (MTPU_HOTTIER=1):")
+    hot_tier_phase(args.seed, card, records, HOT_WORKING_SET)
+    for r in records:
+        del r["kernel"], r["path"]
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -333,7 +333,3 @@ class ErasureCodec:
             out.append(fixed[: self.k])
         return out
 
-    def digest_chunks(self, chunks: list, cap: int) -> list[bytes]:
-        """mxsum256 digests of a ragged list of chunks in one launch."""
-        return fused.digest_chunks_host(chunks, cap, self.device)
-

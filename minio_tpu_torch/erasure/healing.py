@@ -9,6 +9,9 @@ and the rebuilt chunks are digested in the same codec call
 (begin_reconstruct(..., with_digests=True): kernel K1 then K2 on the
 device), framed into fresh [digest][chunk] shard files in the tmp area and
 committed with rename_data. Inline objects heal by rewriting the journal.
+As in the JAX package, the rebuilds and the survivor verifies ride the
+batched data plane when it is on (concurrent heals and degraded GETs share
+its reconstruct lanes), and a heal invalidates the hot tier's residence.
 
 Left for later slices (ROADMAP.md): bucket heal, dangling-object purge,
 the MRF queue and the background auto-heal scanner.
@@ -21,6 +24,7 @@ import threading
 import uuid
 from dataclasses import dataclass, field
 
+from minio_tpu_torch import dataplane
 from minio_tpu_torch.erasure.codec import BATCH_BLOCKS, ErasureCodec
 from minio_tpu_torch.erasure.metadata import parallel_map, shuffle_by_distribution
 from minio_tpu_torch.ops import bitrot
@@ -247,6 +251,24 @@ class HealingMixin:
         errs: dict[int, Exception | None] = {pos: None for pos in targets}
         chosen = avail[:k]
         t_tuple = tuple(targets)
+        # Batched data plane: heal rebuilds coalesce onto the reconstruct
+        # lanes (per-row decode matrices), sharing launches with concurrent
+        # heals and degraded GETs; the per-object codec serves blocks above
+        # the gate and submits the plane sheds.
+        plane = dataplane.maybe_plane(self.device) if m else None
+
+        def begin_rebuild(rows, block_lens):
+            if (plane is not None and block_lens
+                    and plane.accepts_recon_chunk(-(-max(block_lens) // k))):
+                try:
+                    return plane.begin_reconstruct(
+                        k, m, rows, block_lens, t_tuple,
+                        with_digests=use_fused)
+                except se.OperationTimedOut:
+                    pass  # plane saturated: per-object dispatch serves
+            return codec.begin_reconstruct(rows, block_lens, t_tuple,
+                                           with_digests=use_fused)
+
         try:
             for part in latest.parts:
                 rel = f"{obj}/{latest.data_dir}/part.{part.number}"
@@ -276,9 +298,8 @@ class HealingMixin:
                         ids = range(b0, min(b0 + BATCH_BLOCKS, n_blocks))
                         lens = [min(bs, part.size - b * bs) for b in ids]
                         rows = self._read_survivors(readers, chosen, ids, n,
-                                                    codec, use_fused)
-                        pending.append(codec.begin_reconstruct(
-                            rows, lens, t_tuple, with_digests=use_fused))
+                                                    shard_size, use_fused)
+                        pending.append(begin_rebuild(rows, lens))
                         if len(pending) >= 2:
                             drain_one()
                     while pending:
@@ -292,6 +313,7 @@ class HealingMixin:
                 SYS_VOL, tmp_dirs[p], recursive=True) for p in targets])
             raise
 
+        self._meta_invalidate(bucket, obj)
         healed = []
         for pos in targets:
             if errs[pos] is not None:
@@ -309,11 +331,11 @@ class HealingMixin:
                     pass
         return healed
 
-    @staticmethod
-    def _read_survivors(readers, chosen, ids, n, codec, batched) -> list[list]:
+    def _read_survivors(self, readers, chosen, ids, n, shard_size,
+                        batched) -> list[list]:
         """Survivor chunks of one batch; mxsum256 chunks verified in one
-        digest launch (a corrupt survivor fails the heal: heal never
-        rebuilds from bad data)."""
+        digest launch, or on the plane (a corrupt survivor fails the heal:
+        heal never rebuilds from bad data)."""
         rows = [[None] * n for _ in ids]
         records = []
         for pos in chosen:
@@ -326,7 +348,8 @@ class HealingMixin:
                     chunk = r.read_verified(b)
                 rows[j][pos] = chunk
         if records:
-            got = codec.digest_chunks([c for _p, _w, c in records], codec.shard_size())
+            got = dataplane.digest_chunks([c for _p, _w, c in records],
+                                          shard_size, self.device)
             for (pos, want, _c), g in zip(records, got):
                 if g != want:
                     raise se.FileCorrupt(f"shard {pos}: bitrot digest mismatch")

@@ -13,8 +13,15 @@ The on-disk result is the JAX package's: same shard placement (hash_order),
 same part files, same journals, so a drive set written by either package
 is served by the other.
 
+Two planes ride the same points as in the JAX package: the batched data
+plane (dataplane/, on unless MTPU_BATCHED_DATAPLANE=0) coalesces the
+encode, verify and degraded-decode launches of concurrent requests, and
+the HBM hot tier (hottier/, opt-in MTPU_HOTTIER=1) serves GETs of hot
+objects from device-resident shards. Mutations invalidate the tier
+through `_meta_invalidate`, the JAX package's hook.
+
 Left for later slices (ROADMAP.md): multipart, listing, versioning, the
-batch planes, per-drive deadlines and hedged reads, the read-ahead
+metadata plane, per-drive deadlines and hedged reads, the read-ahead
 producer, reclaim capsules for undoing a displaced version, MRF.
 """
 
@@ -28,6 +35,7 @@ import uuid
 from contextlib import contextmanager
 from typing import BinaryIO, Iterator
 
+from minio_tpu_torch import dataplane, hottier
 from minio_tpu_torch.erasure.codec import (BATCH_BLOCKS, DEFAULT_BLOCK_SIZE,
                                            ErasureCodec)
 from minio_tpu_torch.erasure.healing import HealingMixin
@@ -124,6 +132,15 @@ class ErasureObjects(HealingMixin):
         self.bitrot_algorithm = bitrot.device_default_algorithm()
         self.nslock = _KeyLocks()
 
+    def _meta_invalidate(self, bucket: str, obj: str) -> None:
+        """After a mutating fan-out (PUT, DELETE, heal): drop the key's
+        residence in the hot tier (a still-hot key re-admits). Advisory:
+        a hit also needs the freshly elected FileInfo to match the
+        resident entry."""
+        tier = hottier.maybe_tier(self.device)
+        if tier is not None:
+            tier.invalidate(bucket, obj)
+
     def _write_quorum_meta(self) -> int:
         return self.n // 2 + 1
 
@@ -205,6 +222,9 @@ class ErasureObjects(HealingMixin):
                 except se.ObjectError:
                     self._undo_commit(shuffled, outcomes, bucket, obj, fi)
                     raise
+                # An inline overwrite displaces any shard-backed resident
+                # generation.
+                self._meta_invalidate(bucket, obj)
             return _fi_to_object_info(bucket, obj, fi)
 
         tmp_rel = f"tmp/{uuid.uuid4().hex}"
@@ -242,6 +262,7 @@ class ErasureObjects(HealingMixin):
                 self._undo_commit(shuffled, outcomes, bucket, obj, fi)
                 cleanup_tmp()
                 raise
+            self._meta_invalidate(bucket, obj)
         return _fi_to_object_info(bucket, obj, fi)
 
     def _undo_commit(self, shuffled, outcomes, bucket, obj, fi) -> None:
@@ -281,6 +302,18 @@ class ErasureObjects(HealingMixin):
         for t in threads:
             t.start()
 
+        # Batched data plane: concurrent PUTs coalesce their encode
+        # launches; blocks above its width gate take the per-object codec.
+        # A full plane sheds the PUT as 503 SlowDown, as in the JAX package.
+        plane = dataplane.maybe_plane(self.device) if codec.m else None
+
+        def begin_encode(blocks: list[bytes]):
+            if plane is not None and plane.accepts_chunk(
+                    -(-max(len(b) for b in blocks) // codec.k)):
+                return plane.begin_encode(codec.k, codec.m, codec.block_size,
+                                          blocks, with_digests=True)
+            return codec.begin_encode(blocks)
+
         md5 = hashlib.md5()
         total = 0
         pending: list = []
@@ -303,14 +336,14 @@ class ErasureObjects(HealingMixin):
                 total += len(block)
                 batch.append(block)
                 if len(batch) >= BATCH_BLOCKS:
-                    pending.append(codec.begin_encode(batch))
+                    pending.append(begin_encode(batch))
                     batch = []
                     if len(pending) >= 3:
                         drain_one()
                 remaining = bs if size < 0 else min(bs, size - total)
                 block = _read_full(data, remaining)
             if batch:
-                pending.append(codec.begin_encode(batch))
+                pending.append(begin_encode(batch))
             while pending:
                 drain_one()
         finally:
@@ -359,16 +392,30 @@ class ErasureObjects(HealingMixin):
             raise se.ObjectNotFound(bucket, obj)
 
         def open_range(offset: int = 0, length: int = -1) -> Iterator[bytes]:
-            if length < 0:
-                length = fi.size - offset
-            if offset < 0 or length < 0 or offset + length > fi.size:
-                raise se.InvalidRange(bucket, obj,
-                                      f"[{offset}, {offset + length}) of {fi.size}")
-            if fi.inline_data:
-                return iter([fi.inline_data[offset:offset + length]])
-            return self._stream_erasure(bucket, obj, fi, offset, length)
+            return self._open_fi_range(bucket, obj, fi, offset, length)
 
         return _fi_to_object_info(bucket, obj, fi), open_range
+
+    def _open_fi_range(self, bucket: str, obj: str, fi: FileInfo,
+                       offset: int, length: int) -> Iterator[bytes]:
+        if length < 0:
+            length = fi.size - offset
+        if offset < 0 or length < 0 or offset + length > fi.size:
+            raise se.InvalidRange(bucket, obj,
+                                  f"[{offset}, {offset + length}) of {fi.size}")
+        if fi.inline_data:
+            return iter([fi.inline_data[offset:offset + length]])
+        hot = hottier.maybe_tier(self.device)
+        if hot is not None:
+            served = hot.serve(bucket, obj, fi, offset, length)
+            if served is not None:
+                # Device-resident hit: one digest launch and one download,
+                # no drive opened.
+                return served
+            hot.note_miss(bucket, obj, fi.size,
+                          reader=lambda b=bucket, o=obj: self.get_object(b, o),
+                          grid=(fi.erasure.data_blocks, fi.erasure.block_size))
+        return self._stream_erasure(bucket, obj, fi, offset, length)
 
     def get_object(self, bucket: str, obj: str, offset: int = 0, length: int = -1,
                    opts: ObjectOptions | None = None
@@ -430,7 +477,7 @@ class ErasureObjects(HealingMixin):
                         break
                     except se.StorageError:
                         continue   # a shard died: re-choose and retry the batch
-                decoded = codec.decode_blocks(rows, lens)
+                decoded = self._decode_rows(codec, rows, lens)
                 for j, b in enumerate(ids):
                     blk_start = b * bs
                     lo = max(offset, blk_start) - blk_start
@@ -482,12 +529,27 @@ class ErasureObjects(HealingMixin):
                 if batched:
                     records.append((i, want, chunk))
         if records:
-            got = codec.digest_chunks([c for _i, _w, c in records], codec.shard_size())
+            got = dataplane.digest_chunks([c for _i, _w, c in records],
+                                          codec.shard_size(), self.device)
             for (i, want, _c), g in zip(records, got):
                 if g != want:
                     _retire(readers, dead, i)
                     raise se.FileCorrupt(f"shard {i}: bitrot digest mismatch")
         return rows
+
+    def _decode_rows(self, codec: ErasureCodec, rows, lens):
+        """GET-path reconstruction: through the batched plane when it is on
+        (concurrent GETs with different failure patterns share one launch:
+        per-row decode matrices ride as data), else, or when the plane
+        sheds the submit, the per-object codec."""
+        plane = dataplane.maybe_plane(self.device) if codec.m else None
+        if plane is not None and lens and plane.accepts_recon_chunk(
+                -(-max(lens) // codec.k)):
+            try:
+                return plane.decode_blocks(codec.k, codec.m, rows, lens)
+            except se.OperationTimedOut:
+                pass  # plane saturated: per-object dispatch still serves
+        return codec.decode_blocks(rows, lens)
 
     # ------------------------------------------------------------------
     # delete (cmd/erasure-object.go:894-1031)
@@ -503,6 +565,7 @@ class ErasureObjects(HealingMixin):
                               data_dir=fi.data_dir)
             results = parallel_map([lambda d=d: d.delete_version(bucket, obj, target)
                                     for d in self.drives])
+            self._meta_invalidate(bucket, obj)
             # A drive that never had the version is as good as deleted on it.
             results = [None if isinstance(r, (se.FileNotFound, se.FileVersionNotFound))
                        else r for r in results]

@@ -120,21 +120,22 @@ class BitrotReader:
 def verify_shard_file(src: BinaryIO, data_size: int, shard_size: int,
                       algorithm: str, device) -> None:
     """Whole-file deep verify (reference VerifyFile, cmd/xl-storage.go:2179).
-    mxsum256 files verify in batched kernel launches, 32 chunks each."""
+    mxsum256 files verify in batched kernel launches, 32 chunks each; with
+    the batched data plane on, concurrent scans share its verify lanes."""
     reader = BitrotReader(src, data_size, shard_size, algorithm)
     n_chunks = -(-data_size // shard_size) if data_size else 0
     if algorithm != "mxsum256":
         for ci in range(n_chunks):
             reader.read_verified(ci)
         return
-    from minio_tpu_torch.ops import fused
+    from minio_tpu_torch import dataplane
 
     group = 32
     for start in range(0, n_chunks, group):
         records = [reader.read_record(ci)
                    for ci in range(start, min(start + group, n_chunks))]
-        got = fused.digest_chunks_host([c for _w, c in records], shard_size,
-                                       device)
+        got = dataplane.digest_chunks([c for _w, c in records], shard_size,
+                                      device)
         for ci, ((want, _c), g) in enumerate(zip(records, got), start=start):
             if g != want:
                 raise se.FileCorrupt(f"bitrot digest mismatch at chunk {ci}")

@@ -6,6 +6,7 @@ The serving paths call these:
   PutObject  -> encode_with_digests          (erasure/codec.py begin_encode)
   GetObject  -> verify_digests               (batched chunk verify on read)
   Heal       -> reconstruct_weights_digests  (rebuilt shards + digests)
+  heal lane  -> reconstruct_multi_digests    (dataplane: per-row weights)
 
 Where the JAX package fuses the GF(2) contraction and the digest into one
 XLA launch, the port composes two kernel launches (K1 gf2_matmul, K2
@@ -74,6 +75,19 @@ def reconstruct_weights_digests(surv: torch.Tensor, w_t: torch.Tensor,
     lens = chunk_lens.repeat_interleave(out_shards)
     digs = mxsum.digest(rebuilt.reshape(b * out_shards, s), lens)
     return rebuilt, digs.reshape(b, out_shards, mxsum.DIGEST_LEN)
+
+
+def reconstruct_multi_digests(data: torch.Tensor, weights: torch.Tensor,
+                              lens: torch.Tensor, out_shards: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dataplane's heal lane (minio_tpu/dataplane/ring.py:196-205):
+    data [R, k, W] u8 survivor-compacted, weights [R, k*8, t*8] int8 (each
+    row its own decode matrix), lens [R] int32 -> (rebuilt [R, t, W],
+    digests [R, t, 32] of each rebuilt chunk's lens[r] bytes)."""
+    rebuilt = rs.gf2_matmul_multi(data, weights, out_shards)
+    r, t, w = rebuilt.shape
+    digs = mxsum.digest(rebuilt.reshape(r * t, w), lens.repeat_interleave(t))
+    return rebuilt, digs.reshape(r, t, mxsum.DIGEST_LEN)
 
 
 def verify_digests(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:

@@ -60,6 +60,7 @@ _EXC_MAP: list[tuple[type, str]] = [
     (se.InvalidRange, "InvalidRange"),
     (se.InsufficientReadQuorum, "SlowDown"),
     (se.InsufficientWriteQuorum, "SlowDown"),
+    (se.OperationTimedOut, "SlowDown"),
     (se.FileNotFound, "NoSuchKey"),
     (se.StorageError, "InternalError"),
 ]

@@ -1,0 +1,33 @@
+"""Admission control of the batch planes (counterpart of
+minio_tpu/utils/admission.py).
+
+A plane whose bounded queue is full, or that is closed, rejects the
+submit with AdmissionShed, an OperationTimedOut that the S3 error map
+answers as 503 SlowDown. Each shed is counted by (plane, cause), with the
+JAX package's slugs ("dataplane"; "lane_full", "closed"). The port has no
+metrics registry yet, so the counts live in a plain dict that `stats()`
+returns; the Prometheus family minio_tpu_admission_shed_total waits for
+`obs/`.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from minio_tpu_torch.utils import errors as se
+
+_mu = threading.Lock()
+_sheds: dict[tuple[str, str], int] = {}
+
+
+def shed(plane: str, cause: str, msg: str) -> se.AdmissionShed:
+    """Count one shed and build the typed rejection; the caller raises it."""
+    with _mu:
+        _sheds[(plane, cause)] = _sheds.get((plane, cause), 0) + 1
+    return se.AdmissionShed(msg=msg)
+
+
+def stats() -> dict[tuple[str, str], int]:
+    """Sheds so far, by (plane, cause)."""
+    with _mu:
+        return dict(_sheds)

@@ -111,3 +111,13 @@ class InsufficientWriteQuorum(ObjectError):
 class InvalidRange(ObjectError):
     pass
 
+
+class OperationTimedOut(ObjectError):
+    pass
+
+
+class AdmissionShed(OperationTimedOut):
+    """A batch-plane admission rejection (utils/admission.shed): the
+    request was shed by policy (a full queue or a closed plane), not lost
+    to a sick drive. As an OperationTimedOut it answers 503 SlowDown."""
+

@@ -42,8 +42,10 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from minio_tpu_torch.dataplane.batcher import BatchPlane
     from minio_tpu_torch.erasure.codec import ErasureCodec
     from minio_tpu_torch.erasure.objects import ErasureObjects
+    from minio_tpu_torch.hottier.tier import HotObjectTier
     from minio_tpu_torch.ops import fused
     from minio_tpu_torch.s3 import server
     from minio_tpu_torch.storage.local import LocalDrive
@@ -54,13 +56,18 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                  lambda: ErasureObjects([LocalDrive(p) for p in paths]),
                  lambda: server.build_server(paths, "ak", "secret123"),
                  lambda: server.main([*paths, "--address", "127.0.0.1:0"]),
-                 lambda: fused.digest_chunks_host([b"abc"], 16)):
+                 lambda: fused.digest_chunks_host([b"abc"], 16),
+                 lambda: BatchPlane(),
+                 lambda: HotObjectTier()):
         with pytest.raises(DeviceUnavailable):
             call()
     cpu = torch.device("cpu")
     assert ErasureCodec(2, 2, device="cpu").device == cpu
     assert ErasureObjects([LocalDrive(p) for p in paths], device="cpu").device == cpu
     assert len(fused.digest_chunks_host([b"abc"], 16, device="cpu")[0]) == 32
+    for entry in (BatchPlane(device="cpu"), HotObjectTier(device="cpu")):
+        assert entry.device == cpu
+        entry.close()
 
 
 def test_non_cpu_tensor_never_falls_back(monkeypatch):

@@ -117,6 +117,98 @@ def test_mxsum_workspace_is_left_zero(dev):
     assert not mxsum._work[(stream.device, stream.cuda_stream)].any()
 
 
+# The lane shapes of the batched data plane and the hot tier's serve
+# (minio_tpu_torch/dataplane/, hottier/): the widest full encode lane, the
+# widest reconstruct lane with per-row decode matrices over 4 survivor
+# patterns, the verify lanes at their widest (ragged lengths) and their
+# narrowest, and K2 over a window of a resident tensor.
+
+
+@pytest.mark.parametrize("b,s", [(32, 65536), (32, 512)])
+def test_gf2_matmul_encode_lane(dev, b, s):
+    rng = np.random.default_rng(b + s)
+    x = torch.from_numpy(rng.integers(0, 256, (b, 8, s), dtype=np.uint8)).to(dev)
+    w = rs.device_encode_weights(8, 4, dev)
+    assert torch.equal(rs.gf2_matmul(x, w, 4), rs.gf2_matmul_plain(x, w, 4))
+
+
+def test_gf2_matmul_reconstruct_lane_per_row_patterns(dev):
+    """[32, 8, 16384] -> t_pad 4 with 32 per-row decode matrices over 4
+    survivor patterns, padded target columns zero (the lane's staging),
+    rebuilding the lost shards."""
+    k, n, s = 8, 12, 16384
+    rng = np.random.default_rng(11)
+    data = rng.integers(0, 256, (32, k, s), dtype=np.uint8)
+    full = np.concatenate([data, rs.gf2_matmul_plain(
+        torch.from_numpy(data), torch.from_numpy(rs.encode_weights_np(k, 4)),
+        4).numpy()], axis=1)
+    pats = [(0, 2, 4, 5, 8, 9, 10, 11), (2, 3, 4, 5, 6, 7, 8, 9),
+            (0, 1, 2, 3, 8, 9, 10, 11), (1, 3, 5, 7, 8, 9, 10, 11)]
+    x = np.zeros((32, k, s), dtype=np.uint8)
+    w = np.zeros((32, k * 8, 32), dtype=np.int8)
+    wants = []
+    for r in range(32):
+        sv = pats[r % 4]
+        tg = tuple(i for i in range(k) if i not in sv)
+        x[r] = full[r, list(sv)]
+        w[r, :, :len(tg) * 8] = rs.decode_weights_np(k, n, sv, tg)
+        wants.append(full[r, list(tg)])
+    xd, wd = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    got = rs.gf2_matmul_multi(xd, wd, 4)
+    assert torch.equal(got, rs.gf2_matmul_plain(xd, wd, 4))
+    got = got.cpu().numpy()
+    for r, want in enumerate(wants):
+        assert np.array_equal(got[r, :len(want)], want)
+
+
+@pytest.mark.parametrize("n,s", [(128, 65536), (128, 512)])
+def test_mxsum_verify_lane_ragged(dev, n, s):
+    rng = np.random.default_rng(n + s + 1)
+    lens_np = rng.integers(0, s + 1, n).astype(np.int32)
+    chunks_np = rng.integers(0, 256, (n, s), dtype=np.uint8)
+    chunks_np[np.arange(s)[None, :] >= lens_np[:, None]] = 0
+    chunks = torch.from_numpy(chunks_np).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    got = mxsum.digest(chunks, lens)
+    assert torch.equal(got, mxsum.digest_plain(chunks, lens))
+    for r in (0, n - 1):
+        assert got[r].cpu().numpy().tobytes() == mxsum.digest_np(
+            chunks_np[r, :lens_np[r]])
+
+
+def test_mxsum_over_resident_window(dev):
+    """K2 over rows [start, start+window) of a resident [rows, k, width]
+    tensor, as the hot tier serves them: a contiguous view, no copy."""
+    from minio_tpu_torch.hottier import arena
+
+    rng = np.random.default_rng(12)
+    data = torch.from_numpy(rng.integers(0, 256, (16, 8, 4096), dtype=np.uint8))
+    lens = torch.from_numpy(rng.integers(1, 4097, 16).astype(np.int32))
+    for r in range(16):
+        data[r, :, int(lens[r]):] = 0
+    stream = torch.cuda.Stream(dev)
+    win, digs = arena.serve_window(data.to(dev), lens.to(dev), 4, 8, True, stream)
+    want_win, want_digs = arena.serve_window(data, lens, 4, 8, True, None)
+    assert np.array_equal(win, want_win) and np.array_equal(digs, want_digs)
+    # The admit-time re-hash: the digests of the first blocks, alone.
+    got = arena.resident_digests(data.to(dev), lens.to(dev), 12, stream)
+    want = arena.resident_digests(data, lens, 12, None)
+    assert np.array_equal(got, want)
+    assert np.array_equal(want[4:12], want_digs)
+
+
+def test_plane_ring_depth_overrun_on_card(dev):
+    import torch_lane_cases
+
+    torch_lane_cases.ring_overrun(dev)
+
+
+def test_plane_reused_slot_tails_are_zeroed_on_card(dev):
+    import torch_lane_cases
+
+    torch_lane_cases.dirty_slot_tails(dev)
+
+
 def test_cuda_tensor_without_library_raises(dev, monkeypatch):
     """No fallback: with the kernel library unavailable, a CUDA tensor
     raises instead of taking the plain version."""
