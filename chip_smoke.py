@@ -24,8 +24,13 @@ package beside it. Phases, each raising on failure:
    [32, 8, 16384]->4 with a decode matrix per row over 4 survivor
    patterns, K2 [128, 65536] and [128, 512] with ragged lengths; the hot
    tier's serve, K2 over the [256, 131072] window of a resident 32 MiB
-   object. Then what the plane's width gates cost: one lane call against
-   the 32 per-object calls it replaces, at 16 and 64 KiB chunks;
+   object; at EC 12+4 with 1 MiB blocks (the 16-drive sets of phase 6:
+   87,382-byte chunks, K1's ragged byte path), K1 encode [16,12,87382]->4
+   and a 4-missing reconstruct, K2 [256, 87382] (PUT digests) and
+   [256, 87382] with 192 rows of data and 64 of length 0 (GET verify, as
+   the GET path stages it). Then what the plane's width gates cost: one
+   lane call against the 32 per-object calls it replaces, at 16 and 64 KiB
+   chunks;
 3. S3: the port's server on 12 tmp drives (device="cuda"), driven over
    http.client with the port's SigV4 signer: PUT 256 MiB, 9 MiB + 12,345 B
    and 1 KiB objects; GET back byte-equal with ETag == md5; a ranged GET;
@@ -34,7 +39,7 @@ package beside it. Phases, each raising on failure:
    fifth drive's shard flipped, a GET that reads around it and a deep heal
    that rewrites it; then a GET with 4 OTHER drives removed;
 4. the batched data plane at its defaults, through a fresh server: 64
-   client threads PUT 1024 objects of 1 KiB-512 KiB (log-uniform), GET
+   client threads PUT 768 objects of 1 KiB-512 KiB (log-uniform), GET
    them back byte-equal, lose 2 drives' shard files, GET 256 objects of
    16-128 KiB concurrently and heal one; launches < requests on PUT, a
    reconstruct lane launched for the degraded GETs and for the heal. The
@@ -44,9 +49,20 @@ package beside it. Phases, each raising on failure:
    objects, heat them until admission and eviction have run, then hot
    GETs byte-equal and ETag-identical to the drive path with one K2
    launch each, ranged hits, an overwrite served new, and a flipped
-   resident byte falling back to the drive path.
+   resident byte falling back to the drive path;
+6. multipart over erasure sets and pools (BASELINE.json configs 5 and 4):
+   64 tmp drives as 4 pools of 16, each pool ErasureSets(set_drive_count=
+   16) at EC 12+4, 1 MiB blocks, behind the port's S3 server over HTTP with
+   SigV4. One object of MP_PARTS parts of 16 MiB (5 GiB; minio-go's part
+   size for it) with 4 part uploads in flight (minio-go's default), its
+   bytes made from --seed part by part and never held whole; a streamed GET
+   compared by SHA-256, a Range GET across a part boundary, HEAD with the
+   "-N" ETag, ListParts and Abort of a second upload; then 4 of the 16
+   drives of the object's set wiped, a degraded GET, a deep heal whose
+   rebuilt shard files must equal the originals, and a GET again. The
+   object halves (down to 1 GiB) when the tmp filesystem cannot hold it.
 
-The launch count of each kernel is reset just before each of phases 3-5
+The launch count of each kernel is reset just before each of phases 3-6
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -76,6 +92,9 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
 PLANE_OBJECTS = 1024            # plane phase: small objects PUT by 64 clients, per run
 PLANE_RUNS = (True, False, False, True)   # the plane on / off, in turns
 HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
+MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
+MP_INFLIGHT = 4                 # part uploads in flight
+K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
 
 
 def _card() -> str:
@@ -157,9 +176,11 @@ def _time_k1(records, label, path, args, bound, flush):
     records.append(_record("gf2_matmul", label, path, ms, plain, bound, None))
 
 
-def _time_k2(records, label, path, chunks, lens, flush):
+def _time_k2(records, label, path, chunks, lens, flush, bound_rows=None):
     """K2 at [N, S] beside its plain version and torch._int_mm, the library
-    call that computes its main contraction [N, S] @ [S, 8]."""
+    call that computes its main contraction [N, S] @ [S, 8]. The bound
+    counts `bound_rows` rows of data (default N): rows of length 0 carry
+    none."""
     import torch
 
     from minio_tpu_torch.ops import mxsum
@@ -167,10 +188,16 @@ def _time_k2(records, label, path, chunks, lens, flush):
     n, s = chunks.shape
     key = mxsum.device_key(s, chunks.device).t().contiguous()     # [S, 8]
     ci8 = chunks.view(torch.int8)
+    if s % 8:
+        # torch._int_mm takes an inner size that is a multiple of 8: zero
+        # columns of the data against zero rows of the key add nothing.
+        pad = 8 - s % 8
+        ci8 = torch.nn.functional.pad(ci8, (0, pad))
+        key = torch.nn.functional.pad(key, (0, 0, 0, pad))
     ms = _median_ms(lambda: mxsum.digest(chunks, lens), flush)
     plain = _median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
     lib = _median_ms(lambda: torch._int_mm(ci8, key), flush)
-    bound = _mxsum_bound_ms(n, s)
+    bound = _mxsum_bound_ms(bound_rows or n, s)
     print(f"  K2 {label} [{n}, {s}]: {ms:.6f} ms, bound {bound[0]:.6f} ms "
           f"({bound[1]}), {100 * bound[0] / ms:.1f}% of the bound; plain "
           f"{plain:.6f} ms; torch._int_mm {lib:.6f} ms")
@@ -278,6 +305,7 @@ def kernel_phase(seed: int) -> list[dict]:
         _time_k2(records, label, "s3", chunks[:rows], lens[:rows], flush)
 
     lane_shapes(rng, dev, flush, check, records)
+    ec12_shapes(rng, dev, flush, check, records)
     for r in records:
         r["max_abs_err"] = errs[r["kernel"]]
     return records
@@ -384,6 +412,57 @@ def lane_shapes(rng, dev, flush, check, records) -> None:
                   f"{obj_ms:.6f} ms device ({obj_host:.6f} ms host)")
 
 
+def ec12_shapes(rng, dev, flush, check, records) -> None:
+    """K1 and K2 at the multipart phase's shapes: EC 12+4 with 1 MiB blocks,
+    one 16-block batch of a 16 MiB part. The 87,382-byte chunks are not a
+    multiple of 16 bytes, so K1 takes its byte path on every block."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import gf, mxsum, rs
+
+    print(f"  EC {K12}+{M12} shapes (16-drive sets, 1 MiB blocks, S={S12}):")
+    x_np = rng.integers(0, 256, (B, K12, S12), dtype=np.uint8)
+    x = torch.from_numpy(x_np).to(dev)
+    w_enc = rs.device_encode_weights(K12, M12, dev)
+    parity = rs.gf2_matmul(x, w_enc, M12)
+    check("gf2_matmul", "K1 encode 12+4", parity, rs.gf2_matmul_plain(x, w_enc, M12))
+    if not np.array_equal(parity[0].cpu().numpy(), gf.encode_ref(x_np[0], M12)):
+        raise AssertionError("K1 encode 12+4 disagrees with gf.encode_ref")
+    shards = torch.cat([x, parity], dim=1)                     # [B, 16, S]
+    surv = (0, 1, 3, 4, 5, 7, 8, 10, 12, 13, 14, 15)
+    targets = (2, 6, 9, 11)
+    xs = shards[:, list(surv)].contiguous()
+    w_dec = rs.device_decode_weights(K12, K12 + M12, surv, targets, dev)
+    rebuilt = rs.gf2_matmul(xs, w_dec, len(targets))
+    check("gf2_matmul", "K1 reconstruct 12+4 (4 missing)", rebuilt,
+          rs.gf2_matmul_plain(xs, w_dec, len(targets)))
+    if not torch.equal(rebuilt, shards[:, list(targets)]):
+        raise AssertionError("K1 reconstruct 12+4 did not rebuild the lost shards")
+    put_rows = shards.reshape(B * (K12 + M12), S12).clone()   # [256, S]
+    put_lens = torch.full((B * (K12 + M12),), S12, dtype=torch.int32, device=dev)
+    for row, ln in ((0, 0), (1, 1), (2, 513)):
+        put_rows[row, ln:] = 0
+        put_lens[row] = ln
+    check("mxsum_digest", "K2 PUT digests 12+4", mxsum.digest(put_rows, put_lens),
+          mxsum.digest_plain(put_rows, put_lens))
+    # The GET path stages its 16 x 12 = 192 chunks as fused.digest_chunks_host
+    # does: rows padded to the next power of two, the last 64 of length 0.
+    get_rows = torch.zeros((256, S12), dtype=torch.uint8, device=dev)
+    get_rows[:B * K12] = xs.reshape(B * K12, S12)
+    get_lens = torch.zeros((256,), dtype=torch.int32, device=dev)
+    get_lens[:B * K12] = S12
+    check("mxsum_digest", "K2 GET verify 12+4", mxsum.digest(get_rows, get_lens),
+          mxsum.digest_plain(get_rows, get_lens))
+    _time_k1(records, f"encode 12+4 [16,12,{S12}]->4", "multipart",
+             (x, w_enc, M12), _gf2_bound_ms(B, K12, M12, S12), flush)
+    _time_k1(records, f"reconstruct 4 missing 12+4 [16,12,{S12}]->4", "multipart",
+             (xs, w_dec, len(targets)), _gf2_bound_ms(B, K12, 4, S12), flush)
+    _time_k2(records, "PUT 12+4", "multipart", put_rows, put_lens, flush)
+    _time_k2(records, "GET verify 12+4, 64 rows empty", "multipart", get_rows,
+             get_lens, flush, bound_rows=B * K12)
+
+
 def _host_ms(fn, runs: int = 20) -> float:
     """Median host time of fn() from its first launch to the card's
     synchronize, in ms (the launch overhead a caller pays)."""
@@ -410,19 +489,27 @@ class _Client:
         self.creds = Credentials(ACCESS, SECRET)
         self.conn = http.client.HTTPConnection(self.host, timeout=600)
 
-    def request(self, method: str, path: str, body: bytes = b"",
-                headers: dict | None = None):
+    def send(self, method: str, path: str, body: bytes = b"",
+             headers: dict | None = None, query: dict | None = None):
+        """Send one request; -> the response, its body not yet read."""
         from minio_tpu_torch.s3.sigv4 import UNSIGNED_PAYLOAD, sign_request
 
-        signed = sign_request(method, path, {}, headers or {}, self.host,
+        query = query or {}
+        signed = sign_request(method, path, query, headers or {}, self.host,
                               self.creds, UNSIGNED_PAYLOAD)
-        self.conn.request(method, urllib.parse.quote(path), body=body,
-                          headers=signed)
+        url = urllib.parse.quote(path)
+        if query:
+            url += "?" + urllib.parse.urlencode(query)
+        self.conn.request(method, url, body=body, headers=signed)
         r = self.conn.getresponse()
-        data = r.read()
         if r.status >= 300:
-            raise AssertionError(f"{method} {path}: {r.status} {data[:300]!r}")
-        return r, data
+            raise AssertionError(f"{method} {path}: {r.status} {r.read()[:300]!r}")
+        return r
+
+    def request(self, method: str, path: str, body: bytes = b"",
+                headers: dict | None = None, query: dict | None = None):
+        r = self.send(method, path, body, headers, query)
+        return r, r.read()
 
     def close(self):
         self.conn.close()
@@ -456,7 +543,7 @@ def s3_phase(seed: int, card: str, records: list[dict], device: str = "cuda") ->
     cl = _Client(srv.url)
     stages = {}
     try:
-        obj = srv.obj
+        obj = srv.obj.pools[0].sets[0]
         print(f"  server {srv.url}: EC {obj.n - obj.parity}+{obj.parity}, "
               f"block {obj.block_size} B, bitrot {obj.bitrot_algorithm}")
 
@@ -861,6 +948,209 @@ def hot_tier_phase(seed: int, card: str, records: list[dict], working_set: int,
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _mp_part(seed: int, i: int) -> bytes:
+    """Part i of the multipart phase's object, made from the seed."""
+    import numpy as np
+
+    return np.random.default_rng([seed, 6, i]).bytes(MP_PART_SIZE)
+
+
+def _mp_parts_for(free_bytes: int) -> int:
+    """MP_PARTS, halved (down to 64 parts, 1 GiB) until the drives' copy of
+    the object (16/12 of it, plus room for a second upload and heal's tmp
+    files) fits in `free_bytes`."""
+    parts = MP_PARTS
+    while parts > 64 and parts * MP_PART_SIZE * 16 / 12 * 1.25 > free_bytes:
+        parts //= 2
+    return parts
+
+
+def _upload_id(doc: bytes) -> str:
+    import xml.etree.ElementTree as ET
+
+    return ET.fromstring(doc).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+
+
+def _complete_doc(etags: list[str]) -> bytes:
+    return ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n}</PartNumber><ETag>\"{e}\"</ETag></Part>"
+        for n, e in enumerate(etags, 1)) + "</CompleteMultipartUpload>").encode()
+
+
+def multipart_phase(seed: int, card: str, records: list[dict] | None,
+                    n_parts: int | None = None, device: str = "cuda") -> None:
+    """BASELINE.json config 5 (erasure-server-pool PutObject, 4x16-drive
+    pools, multipart) and config 4 (HealObject of a 16-drive set with 4
+    drives offline) through the port's S3 server; see phase 6 above."""
+    from minio_tpu_torch.erasure.pools import ErasureServerPools
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3 import sigv4
+    from minio_tpu_torch.s3.server import S3Server
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    work = tempfile.mkdtemp(prefix="mtpu-torch-mp-")
+    free = shutil.disk_usage(work).free
+    parts = n_parts or _mp_parts_for(free)
+    size = parts * MP_PART_SIZE
+    gib = size / (1 << 30)
+    print(f"  tmp filesystem: {free} B free; object {parts} parts x "
+          f"{MP_PART_SIZE} B = {size} B ({gib:.3f} GiB), {MP_INFLIGHT} part "
+          f"uploads in flight" + ("" if parts == MP_PARTS else
+                                  f" (cut from {MP_PARTS} parts to fit)"))
+    pool_paths = [[os.path.join(work, f"pool{p}", f"d{i:02d}") for i in range(16)]
+                  for p in range(4)]
+    layer = ErasureServerPools([
+        ErasureSets([LocalDrive(d) for d in paths], set_drive_count=16,
+                    device=device) for paths in pool_paths])
+    srv = S3Server(layer, sigv4.Credentials(ACCESS, SECRET)).start()
+    pool = _Pool(srv.url, MP_INFLIGHT)
+    cl = _Client(srv.url)
+    stages, marks = {}, {}
+
+    def mark(stage):
+        stages[stage] = kernels.launches()
+        marks[stage] = time.perf_counter()
+
+    def get_sha(path, headers=None) -> tuple[str, int]:
+        r = cl.send("GET", path, headers=headers)
+        sha, n = hashlib.sha256(), 0
+        while chunk := r.read(4 << 20):
+            sha.update(chunk)
+            n += len(chunk)
+        return sha.hexdigest(), n
+
+    try:
+        es0 = layer.pools[0].sets[0]
+        print(f"  4 pools x {layer.pools[0].set_count} set of 16 drives, EC "
+              f"{es0.n - es0.parity}+{es0.parity}, block {es0.block_size} B, "
+              f"bitrot {es0.bitrot_algorithm}")
+        want_sha, md5s = hashlib.sha256(), []
+        for i in range(parts):
+            part = _mp_part(seed, i)
+            want_sha.update(part)
+            md5s.append(hashlib.md5(part).hexdigest())
+        want_sha = want_sha.hexdigest()
+        want_etag = hashlib.md5(b"".join(bytes.fromhex(e) for e in md5s)).hexdigest()
+        key = "/mpu/object-5g"
+        cl.request("PUT", "/mpu")
+        frees = [layer._pool_free(p) for p in layer.pools]
+        kernels.reset_launches()
+        mark("start")
+        _r, doc = cl.request("POST", key, query={"uploads": ""})
+        uid = _upload_id(doc)
+
+        def put_part(c, i):
+            r, _ = c.request("PUT", key, _mp_part(seed, i),
+                             query={"partNumber": str(i + 1), "uploadId": uid})
+            if r.getheader("ETag") != f'"{md5s[i]}"':
+                raise AssertionError(f"part {i + 1}: ETag {r.getheader('ETag')}")
+
+        pool.run(put_part, range(parts))
+        _r, doc = cl.request("POST", key, _complete_doc(md5s), query={"uploadId": uid})
+        if f"{want_etag}-{parts}".encode() not in doc:
+            raise AssertionError(f"complete: {doc[:300]!r}")
+        mark("put")
+        owner = layer.pool_of("mpu", "object-5g")
+        es = layer.pools[owner].get_hashed_set("object-5g")
+        print(f"  the object went to pool {owner} (free bytes per pool before "
+              f"the upload: {frees})")
+
+        got_sha, n = get_sha(key)
+        if (got_sha, n) != (want_sha, size):
+            raise AssertionError(f"GET: {n} B, sha256 {got_sha} != {want_sha}")
+        mark("get")
+        lo = MP_PART_SIZE - 1000
+        _r, data = cl.request("GET", key, headers={"Range": f"bytes={lo}-{lo + 1999}"})
+        if data != _mp_part(seed, 0)[-1000:] + _mp_part(seed, 1)[:1000]:
+            raise AssertionError("Range GET across the part 1/2 boundary")
+        r, _ = cl.request("HEAD", key)
+        if r.getheader("ETag") != f'"{want_etag}-{parts}"' or \
+                int(r.getheader("Content-Length")) != size:
+            raise AssertionError(f"HEAD: {r.getheader('ETag')}")
+
+        key2 = "/mpu/second"
+        _r, doc = cl.request("POST", key2, query={"uploads": ""})
+        uid2 = _upload_id(doc)
+        small = [_mp_part(seed + 1, 0)[:5 << 20], b"tail" * 1000]
+        for i, body in enumerate(small):
+            cl.request("PUT", key2, body, query={"partNumber": str(i + 1),
+                                                 "uploadId": uid2})
+        _r, doc = cl.request("GET", key2, query={"uploadId": uid2})
+        for i, body in enumerate(small):
+            if hashlib.md5(body).hexdigest().encode() not in doc:
+                raise AssertionError(f"ListParts: part {i + 1} missing: {doc[:300]!r}")
+        r, _ = cl.request("DELETE", key2, query={"uploadId": uid2})
+        left = [d for paths in pool_paths for d in paths
+                if glob.glob(os.path.join(d, ".mtpu.sys", "multipart", "*", uid2))]
+        if r.status != 204 or left:
+            raise AssertionError(f"Abort: {r.status}, session left on {left}")
+        print(f"  GET, Range GET, HEAD (ETag {want_etag}-{parts}), ListParts and "
+              "Abort of a second upload: ok")
+
+        # BASELINE.json config 4: 4 of the set's 16 drives lose the object,
+        # the 4 that hold data shards 1-4, so a read must rebuild.
+        dist = es.latest_fileinfo("mpu", "object-5g").erasure.distribution
+        lost = [d.root for d, shard in zip(es.drives, dist) if shard <= 4]
+        originals = {}
+        for d in lost:
+            for f in glob.glob(os.path.join(d, "mpu", "object-5g", "*", "part.*")):
+                with open(f, "rb") as fh:
+                    originals[f] = hashlib.sha256(fh.read()).hexdigest()
+        if len(originals) != 4 * parts:
+            raise AssertionError(f"{len(originals)} shard files on the lost drives")
+        for d in lost:
+            shutil.rmtree(os.path.join(d, "mpu", "object-5g"))
+        mark("lose")
+        got_sha, n = get_sha(key)
+        if (got_sha, n) != (want_sha, size):
+            raise AssertionError("degraded GET: bytes differ")
+        mark("degraded_get")
+        res = layer.heal_object("mpu", "object-5g", scan_deep=True)
+        mark("heal")
+        rebuilt = {}
+        for f in originals:
+            with open(f, "rb") as fh:
+                rebuilt[f] = hashlib.sha256(fh.read()).hexdigest()
+        if res.healed_count != 4 or rebuilt != originals:
+            raise AssertionError(f"heal: {res.healed_count} healed, "
+                                 f"{sum(rebuilt[f] != originals[f] for f in originals)}"
+                                 " files differ")
+        got_sha, n = get_sha(key)
+        if (got_sha, n) != (want_sha, size):
+            raise AssertionError("GET after heal: bytes differ")
+        mark("end")
+    finally:
+        pool.close()
+        cl.close()
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    order = ["start", "put", "get", "lose", "degraded_get", "heal", "end"]
+    for a, b in zip(order, order[1:]):
+        if b != "lose":
+            print(f"  launches {b}: " + ", ".join(
+                f"{n} {stages[b][n] - stages[a][n]}" for n in kernels.KERNELS))
+    for a, b, names in (("start", "put", kernels.KERNELS),
+                        ("lose", "degraded_get", ("gf2_matmul", "mxsum_digest")),
+                        ("degraded_get", "heal", ("gf2_matmul", "mxsum_digest"))):
+        for name in names:
+            if stages[b][name] - stages[a][name] <= 0:
+                raise AssertionError(f"{name} did not launch for {b}")
+    if records is not None:
+        _fill_launches(records, "multipart", {
+            n: stages["end"][n] - stages["start"][n] for n in kernels.KERNELS})
+    put_s = marks["put"] - marks["start"]
+    get_s = marks["get"] - marks["put"]
+    deg_s = marks["degraded_get"] - marks["lose"]
+    heal_s = marks["heal"] - marks["degraded_get"]
+    print(f"  multipart {gib:.3f} GiB on {card}: PUT {gib / put_s:.6f} GiB/s "
+          f"({put_s:.6f} s, Create to Complete), GET {gib / get_s:.6f} GiB/s "
+          f"({get_s:.6f} s), degraded GET (4 of 16 lost) {gib / deg_s:.6f} GiB/s "
+          f"({deg_s:.6f} s), deep heal of 4 drives {heal_s:.6f} s; pool {owner}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -903,6 +1193,8 @@ def main() -> int:
               f"{sum(on) / sum(off):.3f}")
     print("hot-tier phase (MTPU_HOTTIER=1):")
     hot_tier_phase(args.seed, card, records, HOT_WORKING_SET)
+    print("multipart phase (4 pools x 16 drives, EC 12+4, 1 MiB blocks):")
+    multipart_phase(args.seed, card, records)
     for r in records:
         del r["kernel"], r["path"]
     print(json.dumps({"kernels": records}))

@@ -29,9 +29,9 @@ from minio_tpu_torch.erasure.codec import BATCH_BLOCKS, ErasureCodec
 from minio_tpu_torch.erasure.metadata import parallel_map, shuffle_by_distribution
 from minio_tpu_torch.ops import bitrot
 from minio_tpu_torch.storage.fileinfo import FileInfo
+from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.utils import errors as se
 
-SYS_VOL = ".mtpu.sys"
 
 DRIVE_STATE_OK = "ok"
 DRIVE_STATE_OFFLINE = "offline"

@@ -20,8 +20,11 @@ the HBM hot tier (hottier/, opt-in MTPU_HOTTIER=1) serves GETs of hot
 objects from device-resident shards. Mutations invalidate the tier
 through `_meta_invalidate`, the JAX package's hook.
 
-Left for later slices (ROADMAP.md): multipart, listing, versioning, the
-metadata plane, per-drive deadlines and hedged reads, the read-ahead
+Multipart uploads come from MultipartMixin (erasure/multipart.py): each
+part is one more _fan_out_encode stream, and GET walks fi.parts.
+
+Left for later slices (ROADMAP.md): listing, versioning, the metadata
+plane, per-drive deadlines and hedged reads, the read-ahead
 producer, reclaim capsules for undoing a displaced version, MRF.
 """
 
@@ -43,15 +46,16 @@ from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
                                               hash_order, parallel_map,
                                               reduce_write_quorum,
                                               shuffle_by_distribution)
+from minio_tpu_torch.erasure.multipart import MultipartMixin
 from minio_tpu_torch.erasure.types import BucketInfo, ObjectInfo, ObjectOptions
 from minio_tpu_torch.ops import bitrot
 from minio_tpu_torch.storage.api import StorageAPI
 from minio_tpu_torch.storage.fileinfo import (ChecksumInfo, ErasureInfo,
                                               FileInfo, PartInfo)
+from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.utils import device as device_mod
 from minio_tpu_torch.utils import errors as se
 
-SYS_VOL = ".mtpu.sys"
 
 # Objects at or below this size are inlined into the journal instead of
 # getting shard files (reference inlines small objects in xl.meta v2).
@@ -114,7 +118,7 @@ class _KeyLocks:
                     del self._locks[key]
 
 
-class ErasureObjects(HealingMixin):
+class ErasureObjects(HealingMixin, MultipartMixin):
     def __init__(self, drives: list[StorageAPI], parity: int | None = None,
                  block_size: int = DEFAULT_BLOCK_SIZE, device="cuda"):
         if not drives:
@@ -140,6 +144,14 @@ class ErasureObjects(HealingMixin):
         tier = hottier.maybe_tier(self.device)
         if tier is not None:
             tier.invalidate(bucket, obj)
+
+    def parity_for_class(self, sc: str) -> int:
+        """Parity for a storage class (reference GetParityForSC,
+        cmd/config/storageclass/storage-class.go:234): STANDARD uses the
+        set's parity, REDUCED_REDUNDANCY two below it (at least 1)."""
+        if sc == "REDUCED_REDUNDANCY":
+            return max(1, self.parity - 2) if self.n >= 4 else self.parity
+        return self.parity
 
     def _write_quorum_meta(self) -> int:
         return self.n // 2 + 1
@@ -181,7 +193,7 @@ class ErasureObjects(HealingMixin):
         opts = opts or ObjectOptions()
         _validate_object_name(obj)
         self.get_bucket_info(bucket)
-        m = self.parity
+        m = self.parity_for_class(opts.user_defined.get("x-amz-storage-class", ""))
         k = self.n - m
         write_quorum = self._write_quorum_data(m)
 
@@ -371,6 +383,15 @@ class ErasureObjects(HealingMixin):
               if isinstance(r, FileInfo) and not r.deleted and r.erasure.data_blocks]
         read_quorum = max(set(ks), key=ks.count) if ks else self.n // 2
         return find_fileinfo_in_quorum(results, max(1, read_quorum), bucket, obj)
+
+    def latest_fileinfo(self, bucket: str, obj: str,
+                        version_id: str = "") -> FileInfo:
+        """The quorum-elected FileInfo, delete markers included: the
+        existence probe of pool routing."""
+        return self._read_quorum_fileinfo(bucket, obj, version_id)
+
+    def _fi_to_object_info(self, bucket: str, obj: str, fi: FileInfo) -> ObjectInfo:
+        return _fi_to_object_info(bucket, obj, fi)
 
     def get_object_info(self, bucket: str, obj: str,
                         opts: ObjectOptions | None = None) -> ObjectInfo:
@@ -592,7 +613,8 @@ def _fi_to_object_info(bucket: str, obj: str, fi: FileInfo) -> ObjectInfo:
         user_defined={k: v for k, v in fi.metadata.items()
                       if k not in ("etag", "content-type")},
         parity_blocks=fi.erasure.parity_blocks,
-        data_blocks=fi.erasure.data_blocks, num_versions=fi.num_versions)
+        data_blocks=fi.erasure.data_blocks, num_versions=fi.num_versions,
+        parts=[(p.number, p.size) for p in fi.parts])
 
 
 def _yield_block_range(chunks, lo: int, hi: int):

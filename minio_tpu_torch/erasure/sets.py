@@ -1,0 +1,139 @@
+"""ErasureSets — several erasure sets behind one object namespace
+(counterpart of minio_tpu/erasure/sets.py, reference erasureSets,
+cmd/erasure-sets.go:55).
+
+Each object is routed to one set by sipHashMod(key, set count, deployment
+id) (:697-736), the same function as the JAX package's, so both packages
+find every object on the same set's drives. Bucket calls fan out to every
+set. Each set is a whole ErasureObjects engine: quorums, multipart and
+heal stay per set.
+
+Left for later slices (ROADMAP.md): listing, tags, transition, the
+sys-config store, health, and the drive wrappers of the JAX package
+(disk-id check, health checker, chaos).
+"""
+
+from __future__ import annotations
+
+from typing import BinaryIO
+
+from minio_tpu_torch.erasure.format import init_format_erasure
+from minio_tpu_torch.erasure.healing import HealResultItem
+from minio_tpu_torch.erasure.metadata import parallel_map
+from minio_tpu_torch.erasure.objects import ErasureObjects
+from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
+                                           MultipartInfo, ObjectInfo,
+                                           ObjectOptions, PartInfoResult)
+from minio_tpu_torch.storage.api import StorageAPI
+from minio_tpu_torch.storage.fileinfo import FileInfo
+from minio_tpu_torch.utils.siphash import sip_hash_mod
+
+
+def _raise_first(outcomes: list) -> None:
+    for o in outcomes:
+        if isinstance(o, Exception):
+            raise o
+
+
+class ErasureSets:
+    def __init__(self, drives: list[StorageAPI], set_drive_count: int | None = None,
+                 parity: int | None = None, **set_kwargs):
+        """`drives` are formatted (or their format read) into sets of
+        `set_drive_count` (default: one set); `set_kwargs` (block_size,
+        device) go to every set's engine."""
+        drives = list(drives)
+        set_drive_count = set_drive_count or len(drives)
+        self.deployment_id = init_format_erasure(drives, set_drive_count).deployment_id
+        self.set_drive_count = set_drive_count
+        self.set_count = len(drives) // set_drive_count
+        self.drives = drives
+        self.sets: list[ErasureObjects] = [
+            ErasureObjects(drives[i * set_drive_count:(i + 1) * set_drive_count],
+                           parity=parity, **set_kwargs)
+            for i in range(self.set_count)]
+
+    @property
+    def device(self):
+        return self.sets[0].device
+
+    def get_hashed_set(self, obj: str) -> ErasureObjects:
+        return self.sets[sip_hash_mod(obj, self.set_count, self.deployment_id)]
+
+    # -- buckets: every set --
+
+    def make_bucket(self, bucket: str) -> None:
+        _raise_first(parallel_map([lambda s=s: s.make_bucket(bucket)
+                                   for s in self.sets]))
+
+    def get_bucket_info(self, bucket: str) -> BucketInfo:
+        return self.sets[0].get_bucket_info(bucket)
+
+    # -- objects: the hashed set --
+
+    def put_object(self, bucket: str, obj: str, data: BinaryIO, size: int = -1,
+                   opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).put_object(bucket, obj, data, size, opts)
+
+    def get_object(self, bucket: str, obj: str, offset: int = 0, length: int = -1,
+                   opts: ObjectOptions | None = None):
+        return self.get_hashed_set(obj).get_object(bucket, obj, offset, length, opts)
+
+    def get_object_reader(self, bucket: str, obj: str,
+                          opts: ObjectOptions | None = None):
+        return self.get_hashed_set(obj).get_object_reader(bucket, obj, opts)
+
+    def get_object_info(self, bucket: str, obj: str,
+                        opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).get_object_info(bucket, obj, opts)
+
+    def delete_object(self, bucket: str, obj: str,
+                      opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).delete_object(bucket, obj, opts)
+
+    def latest_fileinfo(self, bucket: str, obj: str, version_id: str = "") -> FileInfo:
+        return self.get_hashed_set(obj).latest_fileinfo(bucket, obj, version_id)
+
+    # -- multipart: the hashed set, uploads listed across sets --
+
+    def new_multipart_upload(self, bucket: str, obj: str,
+                             opts: ObjectOptions | None = None) -> str:
+        return self.get_hashed_set(obj).new_multipart_upload(bucket, obj, opts)
+
+    def put_object_part(self, bucket: str, obj: str, upload_id: str,
+                        part_number: int, data: BinaryIO, size: int = -1,
+                        opts: ObjectOptions | None = None) -> PartInfoResult:
+        return self.get_hashed_set(obj).put_object_part(
+            bucket, obj, upload_id, part_number, data, size, opts)
+
+    def get_multipart_info(self, bucket: str, obj: str, upload_id: str):
+        return self.get_hashed_set(obj).get_multipart_info(bucket, obj, upload_id)
+
+    def list_parts(self, bucket: str, obj: str, upload_id: str,
+                   part_marker: int = 0, max_parts: int = 1000):
+        return self.get_hashed_set(obj).list_parts(bucket, obj, upload_id,
+                                                   part_marker, max_parts)
+
+    def list_multipart_uploads(self, bucket: str, prefix: str = "",
+                               max_uploads: int = 1000) -> list[MultipartInfo]:
+        results = parallel_map([
+            lambda s=s: s.list_multipart_uploads(bucket, prefix, max_uploads)
+            for s in self.sets])
+        if all(isinstance(r, Exception) for r in results):
+            raise results[0]
+        out = [u for r in results if not isinstance(r, Exception) for u in r]
+        return sorted(out, key=lambda u: (u.object, u.initiated))[:max_uploads]
+
+    def abort_multipart_upload(self, bucket: str, obj: str, upload_id: str) -> None:
+        self.get_hashed_set(obj).abort_multipart_upload(bucket, obj, upload_id)
+
+    def complete_multipart_upload(self, bucket: str, obj: str, upload_id: str,
+                                  parts: list[CompletePart],
+                                  opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).complete_multipart_upload(
+            bucket, obj, upload_id, parts, opts)
+
+    # -- heal --
+
+    def heal_object(self, bucket: str, obj: str, version_id: str = "",
+                    **kw) -> HealResultItem:
+        return self.get_hashed_set(obj).heal_object(bucket, obj, version_id, **kw)

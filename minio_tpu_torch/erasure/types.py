@@ -27,6 +27,7 @@ class ObjectInfo:
     parity_blocks: int = 0
     data_blocks: int = 0
     num_versions: int = 0
+    parts: list[tuple[int, int]] = field(default_factory=list)  # (number, size)
 
 
 @dataclass
@@ -35,3 +36,28 @@ class ObjectOptions:
 
     version_id: str = ""
     user_defined: dict[str, str] = field(default_factory=dict)
+    mod_time: float = 0.0
+
+
+@dataclass
+class MultipartInfo:
+    bucket: str
+    object: str
+    upload_id: str
+    initiated: float = 0.0
+    user_defined: dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class CompletePart:
+    part_number: int
+    etag: str
+
+
+@dataclass
+class PartInfoResult:
+    part_number: int
+    etag: str
+    size: int
+    actual_size: int
+    last_modified: float = 0.0

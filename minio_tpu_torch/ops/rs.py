@@ -57,18 +57,18 @@ def gf2_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     """Plain PyTorch contraction: x [B, kin, S] u8, w [kin*8, t*8] or
     [B, kin*8, t*8] int8 -> [B, t, S] u8.
 
-    On the CPU the bits contract in int32 (torch keeps int8 @ int8 in int8,
-    which would overflow). On CUDA, where torch has no integer matmul, in
-    float32 with TF32 off: exact, since sums are at most kin*8 <= 2048."""
+    The bits contract in float32 (TF32 off on CUDA): exact, since every
+    sum is an integer of at most kin*8 <= 2048, and float32 takes the BLAS
+    path that integer matmuls lack (torch keeps int8 @ int8 in int8, which
+    would overflow, and has no integer matmul on CUDA)."""
     b, kin, s = x.shape
-    dt = torch.int32 if x.device.type == "cpu" else torch.float32
     shifts = torch.arange(8, device=x.device, dtype=torch.uint8)
     bits = (x.unsqueeze(-1) >> shifts) & 1                         # [B,kin,S,8]
-    bits = bits.permute(0, 2, 1, 3).reshape(b, s, kin * 8).to(dt)  # [B,S,kin*8]
+    bits = bits.permute(0, 2, 1, 3).reshape(b, s, kin * 8).float()  # [B,S,kin*8]
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        y = torch.matmul(bits, w.to(dt))                           # [B,S,t*8]
+        y = torch.matmul(bits, w.float())                           # [B,S,t*8]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     y = y.to(torch.int32) & 1

@@ -22,16 +22,20 @@ ERRORS = {e.code: e for e in [
     APIError("AuthorizationHeaderMalformed", "The authorization header is malformed.", 400),
     APIError("BucketAlreadyOwnedByYou", "Your previous request to create the named bucket succeeded and you already own it.", 409),
     APIError("EntityTooLarge", "Your proposed upload exceeds the maximum allowed object size.", 400),
+    APIError("EntityTooSmall", "Your proposed upload is smaller than the minimum allowed object size.", 400),
     APIError("IncompleteBody", "You did not provide the number of bytes specified by the Content-Length HTTP header.", 400),
     APIError("InternalError", "We encountered an internal error, please try again.", 500),
     APIError("InvalidAccessKeyId", "The Access Key Id you provided does not exist in our records.", 403),
     APIError("InvalidArgument", "Invalid Argument", 400),
     APIError("InvalidBucketName", "The specified bucket is not valid.", 400),
+    APIError("InvalidPart", "One or more of the specified parts could not be found.", 400),
     APIError("InvalidRange", "The requested range is not satisfiable", 416),
+    APIError("MalformedXML", "The XML you provided was not well-formed or did not validate against our published schema.", 400),
     APIError("MethodNotAllowed", "The specified method is not allowed against this resource.", 405),
     APIError("MissingContentLength", "You must provide the Content-Length HTTP header.", 411),
     APIError("NoSuchBucket", "The specified bucket does not exist", 404),
     APIError("NoSuchKey", "The specified key does not exist.", 404),
+    APIError("NoSuchUpload", "The specified multipart upload does not exist. The upload ID may be invalid, or the upload may have been aborted or completed.", 404),
     APIError("NoSuchVersion", "The specified version does not exist.", 404),
     APIError("NotImplemented", "A header you provided implies functionality that is not implemented", 501),
     APIError("RequestTimeTooSkewed", "The difference between the request time and the server's time is too large.", 403),
@@ -56,6 +60,9 @@ _EXC_MAP: list[tuple[type, str]] = [
     (se.VersionNotFound, "NoSuchVersion"),
     (se.ObjectNotFound, "NoSuchKey"),
     (se.ObjectNameInvalid, "NoSuchKey"),
+    (se.InvalidUploadID, "NoSuchUpload"),
+    (se.InvalidPart, "InvalidPart"),
+    (se.PartTooSmall, "EntityTooSmall"),
     (se.IncompleteBody, "IncompleteBody"),
     (se.InvalidRange, "InvalidRange"),
     (se.InsufficientReadQuorum, "SlowDown"),

@@ -9,14 +9,26 @@ headers and error documents:
     PUT /bucket          CreateBucket        HEAD /bucket        HeadBucket
     PUT /bucket/key      PutObject           GET /bucket/key     GetObject (Range)
     HEAD /bucket/key     HeadObject          DELETE /bucket/key  DeleteObject
+    POST /bucket/key?uploads                 CreateMultipartUpload
+    PUT /bucket/key?partNumber=N&uploadId=U  UploadPart
+    GET /bucket/key?uploadId=U               ListParts
+    DELETE /bucket/key?uploadId=U            AbortMultipartUpload
+    POST /bucket/key?uploadId=U              CompleteMultipartUpload
+    GET /bucket?uploads                      ListMultipartUploads
 
 Every request must carry SigV4 header auth (signed payload or
-UNSIGNED-PAYLOAD); anything else answers NotImplemented or AccessDenied.
-Multipart, listing, presigned URLs, aws-chunked bodies, IAM and the admin
-plane come in later slices (ROADMAP.md).
+UNSIGNED-PAYLOAD); anything else answers NotImplemented or AccessDenied,
+as does any other query string. Listing, UploadPartCopy, presigned URLs,
+aws-chunked bodies, IAM and the admin plane come in later slices
+(ROADMAP.md).
 
-Run: python -m minio_tpu_torch.s3.server --address 127.0.0.1:9000 <drive dirs>
-(credentials from MTPU_ROOT_USER / MTPU_ROOT_PASSWORD, default minioadmin).
+The object layer is any of the port's: build_server assembles drives ->
+ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
+the JAX package's build_server does.
+
+Run: python -m minio_tpu_torch.s3.server --address 127.0.0.1:9000
+[--set-drive-count N] <drive dirs> (credentials from MTPU_ROOT_USER /
+MTPU_ROOT_PASSWORD, default minioadmin).
 """
 
 from __future__ import annotations
@@ -32,9 +44,9 @@ import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from minio_tpu_torch.erasure.format import init_format_erasure
-from minio_tpu_torch.erasure.objects import ErasureObjects
-from minio_tpu_torch.erasure.types import ObjectOptions
+from minio_tpu_torch.erasure.pools import ErasureServerPools
+from minio_tpu_torch.erasure.sets import ErasureSets
+from minio_tpu_torch.erasure.types import CompletePart, ObjectOptions
 from minio_tpu_torch.s3 import sigv4, xmlutil
 from minio_tpu_torch.s3.errors import S3Error, from_exception
 from minio_tpu_torch.storage.local import LocalDrive
@@ -74,10 +86,24 @@ class _Response:
         self.length = len(body) if length is None else length
 
 
-class S3Server:
-    """The S3 handlers over one object layer, bound to an address."""
+def _int_q(q: dict, name: str, default: int, lo: int = 0, hi: int = 100_000) -> int:
+    raw = q.get(name)
+    if raw in (None, ""):
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        raise S3Error("InvalidArgument", f"invalid {name}") from None
+    if not lo <= v <= hi:
+        raise S3Error("InvalidArgument", f"{name} out of range")
+    return v
 
-    def __init__(self, obj: ErasureObjects, creds: sigv4.Credentials,
+
+class S3Server:
+    """The S3 handlers over an object layer (ErasureServerPools,
+    ErasureSets or one ErasureObjects), bound to an address."""
+
+    def __init__(self, obj, creds: sigv4.Credentials,
                  address: str = "127.0.0.1:0"):
         self.obj = obj
         self.creds = creds
@@ -122,9 +148,16 @@ class S3Server:
         if payload_hash == sigv4.STREAMING_PAYLOAD:
             raise S3Error("NotImplemented", "aws-chunked bodies are not served yet")
         bucket, _, key = path.lstrip("/").partition("/")
-        if not bucket or query_items:
+        q = dict(query_items)
+        if not bucket:
             raise S3Error("NotImplemented")
         if not key:
+            if method == "GET" and "uploads" in q:
+                uploads = self.obj.list_multipart_uploads(
+                    bucket, q.get("prefix", ""), _int_q(q, "max-uploads", 1000))
+                return _xml(hdr, xmlutil.list_uploads_xml(bucket, uploads))
+            if q:
+                raise S3Error("NotImplemented")
             if method == "PUT":
                 self.obj.make_bucket(bucket)
                 return _Response(200, {**hdr, "Location": f"/{bucket}"})
@@ -132,6 +165,9 @@ class S3Server:
                 self.obj.get_bucket_info(bucket)
                 return _Response(200, hdr)
             raise S3Error("NotImplemented")
+        if q:
+            return self._multipart(method, bucket, key, q, headers, body,
+                                   payload_hash, hdr)
         if method == "PUT":
             if headers.get("x-amz-copy-source"):
                 raise S3Error("NotImplemented", "CopyObject is not served yet")
@@ -146,30 +182,53 @@ class S3Server:
             return _Response(204, hdr)
         raise S3Error("MethodNotAllowed", resource=path)
 
+    def _multipart(self, method, bucket, key, q, headers, body: _Body,
+                   payload_hash, hdr) -> _Response:
+        """The five object-level multipart calls (the JAX server's routes,
+        minio_tpu/s3/server.py:1530-1600)."""
+        if method == "POST" and "uploads" in q:
+            opts = ObjectOptions(user_defined=_metadata_headers(headers))
+            upload_id = self.obj.new_multipart_upload(bucket, key, opts)
+            return _xml(hdr, xmlutil.initiate_multipart_xml(bucket, key, upload_id))
+        if "uploadId" not in q:
+            raise S3Error("NotImplemented")
+        upload_id = q["uploadId"]
+        if method == "PUT":
+            if headers.get("x-amz-copy-source"):
+                raise S3Error("NotImplemented", "UploadPartCopy is not served yet")
+            part_number = _int_q(q, "partNumber", 0, lo=1, hi=10000)
+            res = _with_body(headers, body, payload_hash, lambda data, size:
+                             self.obj.put_object_part(bucket, key, upload_id,
+                                                      part_number, data, size))
+            return _Response(200, {**hdr, "ETag": f'"{res.etag}"'})
+        if method == "GET":
+            parts = self.obj.list_parts(bucket, key, upload_id,
+                                        _int_q(q, "part-number-marker", 0),
+                                        _int_q(q, "max-parts", 1000))
+            return _xml(hdr, xmlutil.list_parts_xml(bucket, key, upload_id, parts))
+        if method == "DELETE":
+            self.obj.abort_multipart_upload(bucket, key, upload_id)
+            return _Response(204, hdr)
+        if method == "POST":
+            raw = _with_body(headers, body, payload_hash,
+                             lambda data, size: data.read())
+            pairs = xmlutil.parse_complete_multipart_xml(raw)
+            if not pairs:
+                raise S3Error("MalformedXML")
+            info = self.obj.complete_multipart_upload(
+                bucket, key, upload_id, [CompletePart(n, e) for n, e in pairs])
+            return _xml(hdr, xmlutil.complete_multipart_xml(
+                f"/{bucket}/{key}", bucket, key, info.etag))
+        raise S3Error("NotImplemented")
+
     def _put_object(self, bucket, key, headers, body: _Body, payload_hash, hdr):
-        if headers.get("Content-Length") is None:
-            raise S3Error("MissingContentLength")
-        size = body.remaining
-        if size > MAX_OBJECT_SIZE:
-            raise S3Error("EntityTooLarge")
         user_defined = _metadata_headers(headers)
         if "content-type" not in user_defined:
             guessed, _ = mimetypes.guess_type(key)
             user_defined["content-type"] = guessed or "application/octet-stream"
         opts = ObjectOptions(user_defined=user_defined)
-        if payload_hash == sigv4.UNSIGNED_PAYLOAD:
-            info = self.obj.put_object(bucket, key, body, size, opts)
-        else:
-            # A signed payload is verified in full before anything commits.
-            with tempfile.SpooledTemporaryFile(max_size=SPOOL_LIMIT) as spool:
-                sha = hashlib.sha256()
-                while chunk := body.read(_COPY):
-                    sha.update(chunk)
-                    spool.write(chunk)
-                if sha.hexdigest() != payload_hash:
-                    raise S3Error("XAmzContentSHA256Mismatch")
-                spool.seek(0)
-                info = self.obj.put_object(bucket, key, spool, size, opts)
+        info = _with_body(headers, body, payload_hash, lambda data, size:
+                          self.obj.put_object(bucket, key, data, size, opts))
         return _Response(200, {**hdr, "ETag": f'"{info.etag}"'})
 
     def _get_object(self, bucket, key, headers, hdr):
@@ -188,6 +247,32 @@ class S3Server:
         first = next(stream, None)
         chunks = iter(()) if first is None else _prepend(first, stream)
         return _Response(status, out, chunks, length)
+
+
+def _xml(hdr: dict, doc: bytes) -> _Response:
+    return _Response(200, {**hdr, "Content-Type": XML_TYPE}, doc)
+
+
+def _with_body(headers, body: _Body, payload_hash: str, consume):
+    """consume(reader, size) over the request body. An unsigned payload
+    streams straight through; a signed one is spooled and its sha256
+    checked before consume sees a byte, so nothing commits unverified."""
+    if headers.get("Content-Length") is None:
+        raise S3Error("MissingContentLength")
+    size = body.remaining
+    if size > MAX_OBJECT_SIZE:
+        raise S3Error("EntityTooLarge")
+    if payload_hash == sigv4.UNSIGNED_PAYLOAD:
+        return consume(body, size)
+    with tempfile.SpooledTemporaryFile(max_size=SPOOL_LIMIT) as spool:
+        sha = hashlib.sha256()
+        while chunk := body.read(_COPY):
+            sha.update(chunk)
+            spool.write(chunk)
+        if sha.hexdigest() != payload_hash:
+            raise S3Error("XAmzContentSHA256Mismatch")
+        spool.seek(0)
+        return consume(spool, size)
 
 
 def _prepend(first, rest):
@@ -273,6 +358,9 @@ def _metadata_headers(headers) -> dict:
     ct = headers.get("Content-Type")
     if ct:
         user_defined["content-type"] = ct
+    sc = headers.get("x-amz-storage-class")
+    if sc:
+        user_defined["x-amz-storage-class"] = sc
     for hk, hv in headers.items():
         lk = hk.lower()
         if lk.startswith("x-amz-meta-") and "mtpu" not in lk:
@@ -319,29 +407,37 @@ def _parse_range(value: str, size: int) -> tuple[int, int]:
 
 def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                  device="cuda", address: str = "127.0.0.1:0",
-                 parity: int | None = None) -> S3Server:
-    """Format (or read the format of) one drive set and bind its S3 server.
-    Call .start() to serve in the background, .close() to stop."""
-    drives = [LocalDrive(p) for p in drive_paths]
-    init_format_erasure(drives)
-    layer = ErasureObjects(drives, parity=parity, device=device)
-    return S3Server(layer, sigv4.Credentials(access_key, secret_key), address)
+                 parity: int | None = None,
+                 set_drive_count: int | None = None) -> S3Server:
+    """Format (or read the format of) the drives as sets of
+    `set_drive_count` (default: one set of all), put them in one pool and
+    bind its S3 server. Call .start() to serve in the background, .close()
+    to stop."""
+    sets = ErasureSets([LocalDrive(p) for p in drive_paths],
+                       set_drive_count=set_drive_count, parity=parity,
+                       device=device)
+    return S3Server(ErasureServerPools([sets]),
+                    sigv4.Credentials(access_key, secret_key), address)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="minio_tpu_torch S3 server")
-    ap.add_argument("drives", nargs="+", help="drive directories (one set)")
+    ap.add_argument("drives", nargs="+", help="drive directories")
     ap.add_argument("--address", default="0.0.0.0:9000")
     ap.add_argument("--parity", type=int, default=None)
+    ap.add_argument("--set-drive-count", type=int, default=None,
+                    help="drives per erasure set (default: all in one set)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     args = ap.parse_args(argv)
     srv = build_server(args.drives, os.environ.get("MTPU_ROOT_USER", "minioadmin"),
                        os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"),
                        device=args.device, address=args.address,
-                       parity=args.parity)
-    print(f"serving S3 on {srv.url} ({len(args.drives)} drives, "
-          f"EC {srv.obj.n - srv.obj.parity}+{srv.obj.parity}, {srv.obj.device})",
+                       parity=args.parity, set_drive_count=args.set_drive_count)
+    sets = srv.obj.pools[0]
+    es = sets.sets[0]
+    print(f"serving S3 on {srv.url} ({len(args.drives)} drives, {sets.set_count} "
+          f"set(s) of {es.n}, EC {es.n - es.parity}+{es.parity}, {es.device})",
           flush=True)
     try:
         srv.httpd.serve_forever()

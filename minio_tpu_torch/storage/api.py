@@ -1,6 +1,6 @@
 """StorageAPI — the drive interface the erasure layer calls.
 
-The subset of minio_tpu/storage/api.py this slice uses. LocalDrive
+The subset of minio_tpu/storage/api.py the port uses. LocalDrive
 (storage/local.py) implements it; the interface lets tests put a wrapping
 drive in front of a real one.
 """
@@ -21,12 +21,23 @@ class VolInfo:
     created: float
 
 
+@dataclass
+class DiskInfo:
+    """Free space of one drive (reference DiskInfo,
+    cmd/storage-interface.go:36-41): what pool placement weighs."""
+
+    free: int = 0
+
+
 class StorageAPI(abc.ABC):
     def is_online(self) -> bool:
         return True
 
     @abc.abstractmethod
     def endpoint(self) -> str: ...
+
+    @abc.abstractmethod
+    def disk_info(self) -> DiskInfo: ...
 
     # --- identity ---
 
@@ -50,6 +61,21 @@ class StorageAPI(abc.ABC):
     def delete(self, volume: str, path: str, recursive: bool = False) -> None: ...
 
     @abc.abstractmethod
+    def write_all(self, volume: str, path: str, data: bytes) -> None:
+        """Write a small file whole (fsynced, then renamed into place)."""
+
+    @abc.abstractmethod
+    def read_all(self, volume: str, path: str) -> bytes: ...
+
+    @abc.abstractmethod
+    def list_dir(self, volume: str, dir_path: str) -> list[str]:
+        """Sorted entry names; directories carry a trailing '/'."""
+
+    @abc.abstractmethod
+    def rename_file(self, src_volume: str, src_path: str,
+                    dst_volume: str, dst_path: str) -> None: ...
+
+    @abc.abstractmethod
     def create_file(self, volume: str, path: str, chunks: Iterable[bytes]) -> int:
         """Stream chunks into a new file (fsynced before return)."""
 
@@ -70,9 +96,21 @@ class StorageAPI(abc.ABC):
 
     @abc.abstractmethod
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
-                    dst_volume: str, dst_path: str) -> None:
+                    dst_volume: str, dst_path: str,
+                    defer_reclaim: bool = False) -> str | None:
         """Commit staged part files + the journal entry (the per-drive
-        atomic commit point)."""
+        atomic commit point). With defer_reclaim, what the commit displaces
+        is kept aside and a token returned for commit_rename / undo_rename."""
+
+    @abc.abstractmethod
+    def commit_rename(self, token: str) -> None:
+        """Quorum reached: drop what rename_data displaced."""
+
+    @abc.abstractmethod
+    def undo_rename(self, volume: str, path: str, fi: FileInfo,
+                    token: str | None) -> None:
+        """Quorum failed: remove the committed version and restore what
+        rename_data displaced."""
 
     def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
         """Shallow part-presence check: every part file exists with exactly

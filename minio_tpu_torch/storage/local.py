@@ -5,6 +5,8 @@ written by either package is served by the other:
 
     <root>/.mtpu.sys/format.json      drive identity (format v1)
     <root>/.mtpu.sys/tmp/<uuid>/      staging area for in-flight writes
+    <root>/.mtpu.sys/tmp/reclaim-<uuid>/  what a deferred commit displaced
+    <root>/.mtpu.sys/multipart/<key-hash>/<upload-id>/  upload sessions
     <root>/<volume>/<object-key>/meta.mp          version journal
     <root>/<volume>/<object-key>/<data-dir>/part.N  bitrot-framed shards
 
@@ -12,11 +14,17 @@ Shards stream into the tmp area; rename_data moves the data dir into the
 object dir and rewrites the journal (the per-drive atomic commit point).
 fsync points match the JAX package: every shard file before close, every
 journal before its rename, the object directory after the commit rename,
-the format file and its directory.
+the format file and its directory, every write_all file, the target
+directory of rename_file.
 
-Left for later slices (ROADMAP.md): the group-commit WAL, the journal
-read cache, reclaim capsules (undo of a displaced version), O_DIRECT
-writes, listing walks.
+rename_data(defer_reclaim=True) parks what a commit displaces (the
+replaced version's journal entry and data dir) in a reclaim capsule and
+returns its token: commit_rename drops the capsule once the commit made
+quorum, undo_rename puts it back when it did not.
+
+Left for later slices (ROADMAP.md): the group-commit WAL and its
+write_all_async blob lane, the journal read cache, O_DIRECT writes,
+listing walks.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import shutil
 import uuid
 from typing import BinaryIO, Iterable
 
-from minio_tpu_torch.storage.api import StorageAPI, VolInfo
+from minio_tpu_torch.storage.api import DiskInfo, StorageAPI, VolInfo
 from minio_tpu_torch.storage.fileinfo import FileInfo
 from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils import errors as se
@@ -62,6 +70,10 @@ class LocalDrive(StorageAPI):
 
     def endpoint(self) -> str:
         return self.root
+
+    def disk_info(self) -> DiskInfo:
+        st = os.statvfs(self.root)
+        return DiskInfo(free=st.f_bavail * st.f_frsize)
 
     # ---------- identity ----------
 
@@ -153,6 +165,56 @@ class LocalDrive(StorageAPI):
             except OSError:
                 return
             d = os.path.dirname(d)
+
+    def write_all(self, volume: str, path: str, data: bytes) -> None:
+        self.stat_vol(volume)
+        fp = self._file_path(volume, path)
+        os.makedirs(os.path.dirname(fp), exist_ok=True)
+        tmp = fp + f".tmp.{uuid.uuid4().hex}"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, fp)
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+
+    def read_all(self, volume: str, path: str) -> bytes:
+        fp = self._file_path(volume, path)
+        try:
+            with open(fp, "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            raise se.FileNotFound(f"{volume}/{path}") from None
+        except IsADirectoryError:
+            raise se.IsNotRegular(f"{volume}/{path}") from None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+
+    def list_dir(self, volume: str, dir_path: str) -> list[str]:
+        try:
+            with os.scandir(self._file_path(volume, dir_path)) as it:
+                return sorted(e.name + "/" if e.is_dir() else e.name for e in it)
+        except FileNotFoundError:
+            raise se.FileNotFound(f"{volume}/{dir_path}") from None
+        except NotADirectoryError:
+            raise se.IsNotRegular(f"{volume}/{dir_path}") from None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+
+    def rename_file(self, src_volume: str, src_path: str,
+                    dst_volume: str, dst_path: str) -> None:
+        src = self._file_path(src_volume, src_path)
+        dst = self._file_path(dst_volume, dst_path)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        try:
+            os.replace(src, dst)
+        except FileNotFoundError:
+            raise se.FileNotFound(f"{src_volume}/{src_path}") from None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+        _fsync_dir(os.path.dirname(dst))
 
     def create_file(self, volume: str, path: str, chunks: Iterable[bytes]) -> int:
         fp = self._file_path(volume, path)
@@ -270,10 +332,12 @@ class LocalDrive(StorageAPI):
             self._remove_meta(volume, path)
 
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
-                    dst_volume: str, dst_path: str) -> None:
+                    dst_volume: str, dst_path: str,
+                    defer_reclaim: bool = False) -> str | None:
         src_dir = self._file_path(src_volume, src_path)
         obj_dir = self._file_path(dst_volume, dst_path)
         os.makedirs(obj_dir, exist_ok=True)
+        token: str | None = None
         if fi.data_dir:
             dst_data = os.path.join(obj_dir, fi.data_dir)
             # Heal overwrites an existing data dir of the same name: move the
@@ -302,11 +366,87 @@ class LocalDrive(StorageAPI):
             meta = XLMeta()
         try:
             old = meta.exact_version(dst_volume, dst_path, fi.version_id)
-            if old.data_dir and old.data_dir != fi.data_dir and not old.deleted:
+        except se.StorageError:
+            old = None
+        if old is not None:
+            displaces_data = bool(old.data_dir and old.data_dir != fi.data_dir
+                                  and not old.deleted)
+            if defer_reclaim:
+                token = self._stash_displaced(dst_volume, dst_path, old,
+                                              move_data=displaces_data)
+            elif displaces_data:
                 shutil.rmtree(os.path.join(obj_dir, old.data_dir),
                               ignore_errors=True)
-        except se.StorageError:
-            pass
         meta.add_version(fi)
         self._store_meta(dst_volume, dst_path, meta)
         _fsync_dir(obj_dir)
+        return token
+
+    def _capsule(self, token: str | None) -> str | None:
+        if not token or "/" in token or ".." in token:
+            return None
+        return os.path.join(self.root, SYS_VOL, "tmp", token)
+
+    def _stash_displaced(self, volume: str, path: str, old: FileInfo,
+                         move_data: bool) -> str:
+        """Park a displaced version in a reclaim capsule (its journal entry
+        in old.mp, its data dir in olddata when move_data) and return the
+        token. A failed stash rolls the data move back and raises
+        FaultyDisk, which the caller's quorum counts as a drive error."""
+        token = f"reclaim-{uuid.uuid4().hex}"
+        cap = self._capsule(token)
+        old_data = (os.path.join(self._file_path(volume, path), old.data_dir)
+                    if old.data_dir else "")
+        moved = False
+        try:
+            os.makedirs(cap, exist_ok=True)
+            oldj = XLMeta()
+            oldj.add_version(old)
+            with open(os.path.join(cap, "old.mp"), "wb") as f:
+                f.write(oldj.serialize())
+            if move_data and os.path.isdir(old_data):
+                os.replace(old_data, os.path.join(cap, "olddata"))
+                moved = True
+        except OSError as e:
+            if moved:
+                try:
+                    os.replace(os.path.join(cap, "olddata"), old_data)
+                except OSError:
+                    pass
+            shutil.rmtree(cap, ignore_errors=True)
+            raise se.FaultyDisk(f"reclaim stash: {e}") from e
+        return token
+
+    def commit_rename(self, token: str) -> None:
+        cap = self._capsule(token)
+        if cap is not None:
+            shutil.rmtree(cap, ignore_errors=True)
+
+    def undo_rename(self, volume: str, path: str, fi: FileInfo,
+                    token: str | None) -> None:
+        try:
+            self.delete_version(volume, path, fi)
+        except se.StorageError:
+            pass
+        cap = self._capsule(token)
+        if cap is None or not os.path.isdir(cap):
+            return
+        oldmp = os.path.join(cap, "old.mp")
+        if os.path.exists(oldmp):
+            try:
+                with open(oldmp, "rb") as f:
+                    old = XLMeta.parse(f.read()).to_fileinfo(volume, path)
+                olddata = os.path.join(cap, "olddata")
+                if os.path.isdir(olddata) and old.data_dir:
+                    obj_dir = self._file_path(volume, path)
+                    os.makedirs(obj_dir, exist_ok=True)
+                    os.replace(olddata, os.path.join(obj_dir, old.data_dir))
+                try:
+                    meta = self._load_meta(volume, path)
+                except se.StorageError:
+                    meta = XLMeta()
+                meta.add_version(old)
+                self._store_meta(volume, path, meta)
+            except (se.StorageError, OSError):
+                pass    # best effort: heal converges the rest
+        shutil.rmtree(cap, ignore_errors=True)

@@ -100,6 +100,18 @@ class IncompleteBody(ObjectError):
     pass
 
 
+class InvalidUploadID(ObjectError):
+    pass
+
+
+class InvalidPart(ObjectError):
+    pass
+
+
+class PartTooSmall(ObjectError):
+    pass
+
+
 class InsufficientReadQuorum(ObjectError):
     """Fewer than dataBlocks drives agreed on a readable object."""
 

@@ -102,3 +102,25 @@ def test_kernel_build_is_keyed_by_sources_and_flags():
         assert (kernels.CSRC / name).is_file()
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert len(kernels._digest()) == 16
+
+
+def test_sets_and_pools_raise_without_cuda(no_cuda, tmp_path):
+    """The object layers above one set (ErasureSets, ErasureServerPools, the
+    server over several sets) build their set engines on the card unless
+    given device="cpu"."""
+    from minio_tpu_torch.erasure.pools import ErasureServerPools
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.s3 import server
+    from minio_tpu_torch.storage.local import LocalDrive
+    from minio_tpu_torch.utils.device import DeviceUnavailable
+
+    paths = [str(tmp_path / f"d{i}") for i in range(8)]
+    for call in (lambda: ErasureSets([LocalDrive(p) for p in paths], 4),
+                 lambda: server.build_server(paths, "ak", "secret123",
+                                             set_drive_count=4)):
+        with pytest.raises(DeviceUnavailable):
+            call()
+    sets = ErasureSets([LocalDrive(p) for p in paths], 4, device="cpu")
+    pools = ErasureServerPools([sets])
+    assert sets.set_count == 2 and pools.device == torch.device("cpu")
+    assert all(s.device == torch.device("cpu") for s in sets.sets)

@@ -319,3 +319,49 @@ def test_weights_dropped_during_side_stream_matmul(dev):
     side.synchronize()
     del junk
     assert torch.equal(got, want)
+
+
+def test_gf2_matmul_at_ec_12_4(dev):
+    """The 16-drive set's main shapes (EC 12+4, 1 MiB blocks: 87,382-byte
+    chunks, K1's ragged byte path): encode [16,12,87382]->4, and rebuilding
+    4 lost shards from the 12 survivors gives the shards back."""
+    rng = np.random.default_rng(1216)
+    x = torch.from_numpy(rng.integers(0, 256, (16, 12, 87382), dtype=np.uint8)).to(dev)
+    w = rs.device_encode_weights(12, 4, dev)
+    parity = rs.gf2_matmul(x, w, 4)
+    assert torch.equal(parity, rs.gf2_matmul_plain(x, w, 4))
+    shards = torch.cat([x, parity], dim=1)
+    surv, lost = (0, 1, 3, 4, 5, 7, 8, 10, 12, 13, 14, 15), (2, 6, 9, 11)
+    xs = shards[:, list(surv)].contiguous()
+    wd = rs.device_decode_weights(12, 16, surv, lost, dev)
+    rebuilt = rs.gf2_matmul(xs, wd, 4)
+    assert torch.equal(rebuilt, rs.gf2_matmul_plain(xs, wd, 4))
+    assert torch.equal(rebuilt, shards[:, list(lost)])
+
+
+@pytest.mark.parametrize("n", [256, 192])
+def test_mxsum_at_ec_12_4(dev, n):
+    """K2 at the PUT digest rows [256, 87382] and the GET verify rows
+    [192, 87382], the last block of an object short."""
+    rng = np.random.default_rng(n)
+    chunks = rng.integers(0, 256, (n, 87382), dtype=np.uint8)
+    lens = np.full(n, 87382, dtype=np.int32)
+    lens[-16:] = 12345
+    chunks[-16:, 12345:] = 0
+    c, ln = torch.from_numpy(chunks).to(dev), torch.from_numpy(lens).to(dev)
+    assert torch.equal(mxsum.digest(c, ln), mxsum.digest_plain(c, ln))
+
+
+def test_mxsum_at_ec_12_4_get_staging(dev):
+    """K2 at the GET verify launch as the path stages it: 16 blocks x 12
+    chunks = 192 rows of 87,382 bytes, padded to 256 rows, the last 64 of
+    length 0."""
+    rng = np.random.default_rng(1922)
+    chunks = np.zeros((256, 87382), dtype=np.uint8)
+    chunks[:192] = rng.integers(0, 256, (192, 87382), dtype=np.uint8)
+    lens = np.zeros(256, dtype=np.int32)
+    lens[:192] = 87382
+    c, ln = torch.from_numpy(chunks).to(dev), torch.from_numpy(lens).to(dev)
+    got = mxsum.digest(c, ln)
+    assert torch.equal(got, mxsum.digest_plain(c, ln))
+    assert torch.equal(got[:192], mxsum.digest(c[:192].contiguous(), ln[:192]))

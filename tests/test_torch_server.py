@@ -152,3 +152,135 @@ def test_payload_hash_mismatch_matches_jax(server, torch_server):
     assert views[1][1][0] == 400
     assert views[1][1][1]["Code"] == "XAmzContentSHA256Mismatch"
     assert views[1][2][0] == 404
+
+
+_MASKED = {"UploadId", "LastModified", "Initiated"}
+
+
+def _xml_fields(body):
+    """An XML document as nested (tag, text, children), with the namespace
+    kept and the upload id and the times masked (they differ per server)."""
+    def walk(e):
+        tag = e.tag.rsplit("}", 1)[-1]
+        text = "<masked>" if tag in _MASKED else (e.text or "").strip()
+        return (e.tag, text, [walk(c) for c in e])
+    return walk(ET.fromstring(body))
+
+
+def _mp_view(r):
+    status, h, body = _view(r)
+    if status < 300 and body and h.get("Content-Type") == "application/xml":
+        body = _xml_fields(body)
+    return status, h, body
+
+
+def _upload_id(r):
+    return ET.fromstring(r.content).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+
+
+def _complete_doc(parts):
+    return ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n}</PartNumber><ETag>\"{e}\"</ETag></Part>"
+        for n, e in parts) + "</CompleteMultipartUpload>").encode()
+
+
+def _multipart_script(cl, bucket):
+    """The multipart calls in one order, each answer viewed as in _view
+    (XML bodies parsed, upload ids and times masked)."""
+    import hashlib
+
+    big, small, tail = _payload(5 << 20, 11), _payload(1 << 20, 12), _payload(4321, 13)
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in
+           (("big", big), ("small", small), ("tail", tail))}
+    out = []
+
+    def step(name, method, path, query=None, body=b"", headers=None):
+        r = cl.request(method, path, query=query, headers=headers, data=body)
+        out.append((name, _mp_view(r)))
+        return r
+
+    key = f"/{bucket}/dir/obj.bin"
+    step("create", "PUT", f"/{bucket}")
+    uid = _upload_id(step("initiate", "POST", key, {"uploads": ""},
+                          headers={"Content-Type": "application/x-test"}))
+    step("part-1", "PUT", key, {"partNumber": "1", "uploadId": uid}, big)
+    step("part-2", "PUT", key, {"partNumber": "2", "uploadId": uid}, tail)
+    step("list-parts", "GET", key, {"uploadId": uid})
+    step("list-parts-marker", "GET", key, {"uploadId": uid, "part-number-marker": "1"})
+    step("list-uploads", "GET", f"/{bucket}", {"uploads": ""})
+    step("list-uploads-prefix", "GET", f"/{bucket}", {"uploads": "", "prefix": "zz"})
+    step("complete-wrong-etag", "POST", key, {"uploadId": uid},
+         _complete_doc([(1, md5["tail"]), (2, md5["tail"])]))
+    step("complete-unsorted", "POST", key, {"uploadId": uid},
+         _complete_doc([(2, md5["tail"]), (1, md5["big"])]))
+    step("complete-malformed", "POST", key, {"uploadId": uid}, b"<Complete")
+    step("complete-empty", "POST", key, {"uploadId": uid},
+         b"<CompleteMultipartUpload></CompleteMultipartUpload>")
+    step("complete", "POST", key, {"uploadId": uid},
+         _complete_doc([(1, md5["big"]), (2, md5["tail"])]))
+    step("get", "GET", key)
+    step("head", "HEAD", key)
+    step("range-across-parts", "GET", key,
+         headers={"Range": f"bytes={(5 << 20) - 10}-{(5 << 20) + 9}"})
+    step("list-completed", "GET", key, {"uploadId": uid})
+    small_key = f"/{bucket}/small"
+    uid2 = _upload_id(step("initiate-small", "POST", small_key, {"uploads": ""}))
+    step("small-1", "PUT", small_key, {"partNumber": "1", "uploadId": uid2}, small)
+    step("small-2", "PUT", small_key, {"partNumber": "2", "uploadId": uid2}, tail)
+    step("complete-too-small", "POST", small_key, {"uploadId": uid2},
+         _complete_doc([(1, md5["small"]), (2, md5["tail"])]))
+    step("abort", "DELETE", small_key, {"uploadId": uid2})
+    step("list-aborted", "GET", small_key, {"uploadId": uid2})
+    step("part-unknown-upload", "PUT", small_key,
+         {"partNumber": "1", "uploadId": "nope"}, tail)
+    step("abort-unknown", "DELETE", small_key, {"uploadId": "nope"})
+    step("initiate-no-bucket", "POST", f"/{bucket}-none/k", {"uploads": ""})
+    return out
+
+
+def test_multipart_responses_match_jax(server, torch_server):
+    bucket = f"mpu-{uuid.uuid4().hex[:12]}"
+    want = _multipart_script(SigV4Client(server, S3_ACCESS, S3_SECRET), bucket)
+    got = _multipart_script(SigV4Client(torch_server, S3_ACCESS, S3_SECRET), bucket)
+    for (name, w), (_, g) in zip(want, got):
+        assert g == w, name
+    codes = {name: v[0] for name, v in got}
+    assert codes["complete"] == 200 and codes["abort"] == 204
+    assert got[[n for n, _ in got].index("complete-too-small")][1][2]["Code"] == \
+        "EntityTooSmall"
+    for name in ("complete-wrong-etag", "complete-unsorted"):
+        assert dict(got)[name][2]["Code"] == "InvalidPart"
+    for name in ("list-aborted", "part-unknown-upload", "abort-unknown"):
+        assert dict(got)[name][2]["Code"] == "NoSuchUpload"
+
+
+def test_set_drive_count_spreads_keys_over_sets(tmp_path):
+    """build_server(set_drive_count=4) over 8 drives serves two sets behind
+    one pool; multipart uploads and plain PUTs land on the hashed set."""
+    from minio_tpu_torch.s3.server import build_server
+
+    srv = build_server([str(tmp_path / f"d{i}") for i in range(8)], S3_ACCESS,
+                       S3_SECRET, device="cpu", set_drive_count=4).start()
+    try:
+        sets = srv.obj.pools[0]
+        assert sets.set_count == 2 and [s.n for s in sets.sets] == [4, 4]
+        cl = SigV4Client(srv.url, S3_ACCESS, S3_SECRET)
+        assert cl.request("PUT", "/spread").status_code == 200
+        used = set()
+        for i in range(8):
+            key = f"k{i}"
+            data = _payload(70000 + i, 20 + i)
+            uid = _upload_id(cl.request("POST", f"/spread/{key}", {"uploads": ""}))
+            r = cl.request("PUT", f"/spread/{key}", {"partNumber": "1", "uploadId": uid},
+                           data=data)
+            r = cl.request("POST", f"/spread/{key}", {"uploadId": uid},
+                           data=_complete_doc([(1, r.headers["ETag"].strip('"'))]))
+            assert r.status_code == 200, r.content
+            assert cl.request("GET", f"/spread/{key}").content == data
+            si = sets.sets.index(sets.get_hashed_set(key))
+            assert sets.sets[si].get_object_info("spread", key).size == len(data)
+            used.add(si)
+        assert used == {0, 1}
+    finally:
+        srv.close()
