@@ -61,8 +61,18 @@ package beside it. Phases, each raising on failure:
    drives of the object's set wiped, a degraded GET, a deep heal whose
    rebuilt shard files must equal the originals, and a GET again. The
    object halves (down to 1 GiB) when the tmp filesystem cannot hold it.
+   Its pools keep serving the object until phase 7 has listed it;
+7. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
+   at EC 8+4 behind the S3 server, a bucket of LIST_OBJECTS synthetic
+   objects (halved until the phase fits the 900 s budget) plus 1,000 real
+   ones PUT through the server; ListObjectsV2 over the whole bucket in
+   pages of 1,000 (every name once, in order; the real objects' ETag and
+   Size), a delimiter listing, a v1 marker resume, ListBuckets, GETs of
+   every 50th real object, one DeleteObjects of the 1,000, DeleteBucket
+   refused on the full bucket and done on an emptied one, then one
+   ListObjectsV2 on phase 6's 4 pools naming the 5 GiB object once.
 
-The launch count of each kernel is reset just before each of phases 3-6
+The launch count of each kernel is reset just before each of phases 3-7
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -95,6 +105,20 @@ HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
 MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
 MP_INFLIGHT = 4                 # part uploads in flight
 K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
+LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
+LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
+LIST_PAGE = 1000                # ListObjectsV2 max-keys
+# The listing phase's cost on the card's machine (NVIDIA H100 80GB HBM3,
+# 12 drives on /dev/shm), from this script's run there at 100,000 objects:
+# seconds per synthetic object for the build, the full walk and the
+# removal (35.6 + 135.2 + 73.8 s), the rest of the phase, and tmpfs bytes
+# per synthetic object (12 journal files and their directories, with room
+# to spare).
+LIST_S_PER_OBJECT = 0.0025
+LIST_FIXED_S = 60.0
+LIST_BYTES_PER_OBJECT = 12 * 8192
+SMOKE_BUDGET_S = 900.0          # what the whole script should stay under
+S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 
 
 def _card() -> str:
@@ -490,8 +514,10 @@ class _Client:
         self.conn = http.client.HTTPConnection(self.host, timeout=600)
 
     def send(self, method: str, path: str, body: bytes = b"",
-             headers: dict | None = None, query: dict | None = None):
-        """Send one request; -> the response, its body not yet read."""
+             headers: dict | None = None, query: dict | None = None,
+             check: bool = True):
+        """Send one request; -> the response, its body not yet read. With
+        `check`, an answer of 300 or above raises."""
         from minio_tpu_torch.s3.sigv4 import UNSIGNED_PAYLOAD, sign_request
 
         query = query or {}
@@ -502,13 +528,14 @@ class _Client:
             url += "?" + urllib.parse.urlencode(query)
         self.conn.request(method, url, body=body, headers=signed)
         r = self.conn.getresponse()
-        if r.status >= 300:
+        if check and r.status >= 300:
             raise AssertionError(f"{method} {path}: {r.status} {r.read()[:300]!r}")
         return r
 
     def request(self, method: str, path: str, body: bytes = b"",
-                headers: dict | None = None, query: dict | None = None):
-        r = self.send(method, path, body, headers, query)
+                headers: dict | None = None, query: dict | None = None,
+                check: bool = True):
+        r = self.send(method, path, body, headers, query, check)
         return r, r.read()
 
     def close(self):
@@ -978,11 +1005,23 @@ def _complete_doc(etags: list[str]) -> bytes:
         for n, e in enumerate(etags, 1)) + "</CompleteMultipartUpload>").encode()
 
 
+class _Kept:
+    """A phase's deployment kept serving for a later phase: its S3 URL,
+    what it holds, and close() to stop it and remove its drives."""
+
+    def __init__(self, url: str, bucket: str, key: str, size: int, close):
+        self.url, self.bucket, self.key, self.size = url, bucket, key, size
+        self.close = close
+
+
 def multipart_phase(seed: int, card: str, records: list[dict] | None,
-                    n_parts: int | None = None, device: str = "cuda") -> None:
+                    n_parts: int | None = None, device: str = "cuda",
+                    keep: bool = False) -> _Kept | None:
     """BASELINE.json config 5 (erasure-server-pool PutObject, 4x16-drive
     pools, multipart) and config 4 (HealObject of a 16-drive set with 4
-    drives offline) through the port's S3 server; see phase 6 above."""
+    drives offline) through the port's S3 server; see phase 6 above. With
+    `keep`, the pools keep serving the object after the phase, for the
+    listing phase, until the caller closes the returned _Kept."""
     from minio_tpu_torch.erasure.pools import ErasureServerPools
     from minio_tpu_torch.erasure.sets import ErasureSets
     from minio_tpu_torch.ops import kernels
@@ -1121,11 +1160,19 @@ def multipart_phase(seed: int, card: str, records: list[dict] | None,
         if (got_sha, n) != (want_sha, size):
             raise AssertionError("GET after heal: bytes differ")
         mark("end")
+    except BaseException:
+        keep = False
+        raise
     finally:
         pool.close()
         cl.close()
-        srv.close()
-        shutil.rmtree(work, ignore_errors=True)
+
+        def close():
+            srv.close()
+            shutil.rmtree(work, ignore_errors=True)
+
+        if not keep:
+            close()
 
     order = ["start", "put", "get", "lose", "degraded_get", "heal", "end"]
     for a, b in zip(order, order[1:]):
@@ -1149,6 +1196,259 @@ def multipart_phase(seed: int, card: str, records: list[dict] | None,
           f"({put_s:.6f} s, Create to Complete), GET {gib / get_s:.6f} GiB/s "
           f"({get_s:.6f} s), degraded GET (4 of 16 lost) {gib / deg_s:.6f} GiB/s "
           f"({deg_s:.6f} s), deep heal of 4 drives {heal_s:.6f} s; pool {owner}")
+    return _Kept(srv.url, "mpu", "object-5g", size, close) if keep else None
+
+
+def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
+    """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
+    `free_bytes` and the phase's estimated time fits what is left of
+    SMOKE_BUDGET_S after `elapsed_s`; -> (count, the reason for a cut)."""
+    n, why = LIST_OBJECTS, ""
+    while n > LIST_OBJECTS // 16:
+        if n * LIST_BYTES_PER_OBJECT > free_bytes:
+            why = f"{free_bytes} B free on the drives' filesystem"
+        elif elapsed_s + LIST_FIXED_S + n * LIST_S_PER_OBJECT > SMOKE_BUDGET_S:
+            why = (f"{elapsed_s:.0f} s spent, {LIST_S_PER_OBJECT * 1e3:.1f} ms per "
+                   f"object, the script kept under {SMOKE_BUDGET_S:.0f} s")
+        else:
+            break
+        n //= 2
+    return n, why
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now (/proc/self/statm), in bytes."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _list_page(doc: bytes):
+    """A ListObjects answer -> ([(key, etag, size)], [prefixes],
+    truncated, next marker or continuation token)."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(doc)
+    keys = [(c.find(S3_NS + "Key").text, c.find(S3_NS + "ETag").text.strip('"'),
+             int(c.find(S3_NS + "Size").text)) for c in root.iter(S3_NS + "Contents")]
+    prefixes = [c.find(S3_NS + "Prefix").text for c in root.iter(S3_NS + "CommonPrefixes")]
+    nxt = root.find(S3_NS + "NextContinuationToken")
+    if nxt is None:
+        nxt = root.find(S3_NS + "NextMarker")
+    return (keys, prefixes, root.find(S3_NS + "IsTruncated").text == "true",
+            "" if nxt is None else nxt.text)
+
+
+def _delete_doc(keys) -> bytes:
+    return ("<Delete>" + "".join(f"<Object><Key>{k}</Key></Object>" for k in keys)
+            + "</Delete>").encode()
+
+
+def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
+                  n_objects: int | None = None, device: str = "cuda",
+                  clients: int = 64) -> None:
+    """Listing and the bucket calls (phase 7) on config 1's deployment: one
+    12-drive set at EC 8+4, 1 MiB blocks, mxsum256, behind the port's S3
+    server over HTTP with SigV4, its drives on /dev/shm. A bucket of
+    LIST_OBJECTS synthetic objects (the JAX package's listing-scale
+    layout, 200 prefixes of 1000; halved by _list_objects_for to fit) and
+    LIST_REAL real ones PUT through the server; the whole bucket walked
+    with ListObjectsV2 pages of LIST_PAGE: every name once, in order, the
+    real objects' ETag and Size as PUT; a delimiter listing in pages, a v1
+    listing resumed from a marker in the middle, ListBuckets; every 50th
+    real object read back; the real objects deleted in one DeleteObjects,
+    their prefix then empty; DeleteBucket on the big bucket answers
+    BucketNotEmpty; a small bucket emptied and deleted, then absent from
+    ListBuckets; and on phase 6's pools (`mp`), one ListObjectsV2 naming
+    the 5 GiB object once across the 4 pools."""
+    import numpy as np
+
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+    from minio_tpu_torch.utils.synthbucket import (make_synthetic_bucket,
+                                                   synthetic_key)
+
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-list-", dir=shm)
+    free = shutil.disk_usage(work).free
+    if n_objects is None:
+        n_syn, why = _list_objects_for(free, elapsed_s)
+    else:
+        n_syn, why = n_objects, "asked for"
+    print(f"  drives on {shm or tempfile.gettempdir()} ({free} B free); {n_syn} "
+          f"synthetic objects + {LIST_REAL} real" +
+          (f" (cut from {LIST_OBJECTS}: {why})" if n_syn != LIST_OBJECTS else ""))
+    paths = [os.path.join(work, f"d{i}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    layer = srv.obj
+    pool = _Pool(srv.url, clients)
+    cl = _Client(srv.url)
+    rng = np.random.default_rng(seed + 7)
+    sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10),
+                               LIST_REAL)).astype(np.int64)
+    real = {f"real/{i:04d}": rng.bytes(int(n)) for i, n in enumerate(sizes)}
+    stats = {}
+    try:
+        es = layer.pools[0].sets[0]
+        print(f"  server {srv.url}: EC {es.n - es.parity}+{es.parity}, block "
+              f"{es.block_size} B, bitrot {es.bitrot_algorithm}")
+        kernels.reset_launches()
+        cl.request("PUT", "/big")
+        t0 = time.perf_counter()
+        make_synthetic_bucket(es.drives, "big", n_syn)
+        stats["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool.run(lambda c, kv: c.request("PUT", f"/big/{kv[0]}", kv[1]), real.items())
+        stats["put_s"] = time.perf_counter() - t0
+        after_put = kernels.launches()
+
+        # The whole bucket through ListObjectsV2, checked page by page
+        # against the expected names (the client holds one page).
+        expected = iter([synthetic_key(i) for i in range(n_syn)] + sorted(real))
+        mc = layer.metacache
+        hits0, misses0 = mc.hits, mc.misses
+        rss0 = rss_peak = _rss_bytes()
+        page_ms, token, listed, seen_real = [], "", 0, {}
+        t_walk = time.perf_counter()
+        while True:
+            q = {"list-type": "2", "max-keys": str(LIST_PAGE)}
+            if token:
+                q["continuation-token"] = token
+            t0 = time.perf_counter()
+            _r, doc = cl.request("GET", "/big", query=q)
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            rss_peak = max(rss_peak, _rss_bytes())
+            keys, _p, truncated, token = _list_page(doc)
+            for key, etag, size in keys:
+                want = next(expected, None)
+                if key != want:
+                    raise AssertionError(f"listing: {key!r} where {want!r} belongs")
+                if key in real:
+                    seen_real[key] = (etag, size)
+            listed += len(keys)
+            if not truncated:
+                break
+            if len(keys) != LIST_PAGE:
+                raise AssertionError(f"a truncated page of {len(keys)} keys")
+        stats["walk_s"] = time.perf_counter() - t_walk
+        stats["rss_mb"] = (rss_peak - rss0) / (1 << 20)
+        stats["hits"], stats["misses"] = mc.hits - hits0, mc.misses - misses0
+        if next(expected, None) is not None or listed != n_syn + LIST_REAL:
+            raise AssertionError(f"listing: {listed} names, {n_syn + LIST_REAL} expected")
+        bad = [k for k, v in real.items()
+               if seen_real[k] != (hashlib.md5(v).hexdigest(), len(v))]
+        if bad:
+            raise AssertionError(f"listing: ETag or Size of {bad[:3]} differ from the PUT")
+        print(f"  ListObjectsV2: {listed} names in {len(page_ms)} pages, once each, "
+              "in order; the real objects' ETag and Size as PUT")
+
+        # CommonPrefixes in pages of 50, then v1 from a marker mid-bucket.
+        prefixes, marker = [], ""
+        while True:
+            q = {"list-type": "2", "delimiter": "/", "max-keys": "50"}
+            if marker:
+                q["continuation-token"] = marker
+            keys, pfx, truncated, marker = _list_page(cl.request("GET", "/big", query=q)[1])
+            if keys:
+                raise AssertionError(f"delimiter listing: keys {keys[:3]} at the top level")
+            prefixes += pfx
+            if not truncated:
+                break
+        want = [f"p{p:03d}/" for p in range(-(-n_syn // 1000))] + ["real/"]
+        if prefixes != want:
+            raise AssertionError(f"delimiter listing: {len(prefixes)} prefixes, "
+                                 f"{len(want)} expected")
+        mid = n_syn // 2
+        keys, _p, truncated, nxt = _list_page(cl.request(
+            "GET", "/big", query={"marker": synthetic_key(mid), "max-keys": "1000"})[1])
+        want = [synthetic_key(i) for i in range(mid + 1, mid + 1001)]
+        if [k for k, _e, _s in keys] != want or not truncated or nxt != want[-1]:
+            raise AssertionError("v1 listing from a marker")
+        doc = cl.request("GET", "/")[1]
+        if b"<Name>big</Name>" not in doc:
+            raise AssertionError("ListBuckets: big missing")
+        print(f"  delimiter listing: {len(prefixes)} CommonPrefixes in pages of 50; "
+              f"v1 from marker {synthetic_key(mid)}: the next 1000; ListBuckets: ok")
+
+        # Read back every 50th real object named in the listing.
+        def get_ok(c, key):
+            r, data = c.request("GET", f"/big/{key}")
+            if data != real[key] or r.getheader("ETag") != _md5_etag(data):
+                raise AssertionError(f"GET {key}: bytes or ETag differ")
+
+        before_get = kernels.launches()
+        pool.run(get_ok, sorted(seen_real)[::50])
+        after_get = kernels.launches()
+
+        # The real objects in one DeleteObjects (S3's 1000-key cap).
+        t0 = time.perf_counter()
+        doc = cl.request("POST", "/big", _delete_doc(sorted(real)),
+                         query={"delete": ""})[1]
+        stats["delete_s"] = time.perf_counter() - t0
+        if doc.count(b"<Deleted>") != LIST_REAL or b"<Error>" in doc:
+            raise AssertionError(f"DeleteObjects: {doc[:300]!r}")
+        keys, pfx, truncated, _n = _list_page(cl.request(
+            "GET", "/big", query={"list-type": "2", "prefix": "real/"})[1])
+        if keys or pfx or truncated:
+            raise AssertionError(f"real/ not empty after DeleteObjects: {keys[:3]}")
+        r, doc = cl.request("DELETE", "/big", check=False)
+        if r.status != 409 or b"<Code>BucketNotEmpty</Code>" not in doc:
+            raise AssertionError(f"DeleteBucket on a full bucket: {r.status} {doc[:200]!r}")
+        cl.request("PUT", "/small")
+        for i in range(3):
+            cl.request("PUT", f"/small/k{i}", real[f"real/{i:04d}"])
+        cl.request("POST", "/small", _delete_doc([f"k{i}" for i in range(3)]),
+                   query={"delete": ""})
+        r, _doc = cl.request("DELETE", "/small")
+        doc = cl.request("GET", "/")[1]
+        if r.status != 204 or b"<Name>small</Name>" in doc or b"<Name>big</Name>" not in doc:
+            raise AssertionError("the emptied bucket is not deleted, or ListBuckets lists it")
+        print(f"  DeleteObjects of {LIST_REAL} keys in one POST; real/ then empty; "
+              "DeleteBucket: BucketNotEmpty on big, 204 on the emptied one, which "
+              "ListBuckets then omits")
+        end = kernels.launches()
+    finally:
+        pool.close()
+        cl.close()
+        srv.close()
+        t0 = time.perf_counter()
+        rms = [subprocess.Popen(["rm", "-rf", p]) for p in paths]
+        for p in rms:
+            p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        stats["cleanup_s"] = time.perf_counter() - t0
+
+    for stage, at in (("PUT", after_put), ("GET", after_get)):
+        for name in kernels.KERNELS:
+            if at[name] <= 0:
+                raise AssertionError(f"{name} did not launch by the listing phase's {stage}s")
+    if after_get["mxsum_digest"] <= before_get["mxsum_digest"]:
+        raise AssertionError("K2 did not launch for the GETs' verify")
+
+    if mp is not None:
+        c = _Client(mp.url)
+        try:
+            keys, pfx, truncated, _n = _list_page(c.request(
+                "GET", f"/{mp.bucket}", query={"list-type": "2"})[1])
+        finally:
+            c.close()
+        if keys != [(mp.key, keys[0][1] if keys else "", mp.size)] or pfx or truncated:
+            raise AssertionError(f"4-pool listing: {keys}")
+        print(f"  4 pools x 16 drives: ListObjectsV2 names {mp.key} once "
+              f"({mp.size} B, ETag {keys[0][1]})")
+
+    cont = sorted(page_ms[1:]) or [0.0]
+    p99 = cont[min(len(cont) - 1, int(round(0.99 * (len(cont) - 1))))]
+    print(f"  launches listing phase: " + ", ".join(
+        f"{n} {end[n]}" for n in kernels.KERNELS))
+    print(f"  listing {n_syn} + {LIST_REAL} objects on {card}: build "
+          f"{stats['build_s']:.6f} s, {LIST_REAL} PUTs {stats['put_s']:.6f} s; page 1 "
+          f"(walk + synchronous render) {page_ms[0]:.3f} ms, continuation pages "
+          f"median {statistics.median(cont):.3f} ms, p99 {p99:.3f} ms; "
+          f"{listed / stats['walk_s']:.1f} objects/s listed over the full walk "
+          f"({stats['walk_s']:.6f} s, {len(page_ms)} pages); metacache hits "
+          f"{stats['hits']}, misses {stats['misses']}; RSS peak over the walk "
+          f"+{stats['rss_mb']:.1f} MiB (sampled after each page); DeleteObjects {LIST_REAL / stats['delete_s']:.1f} keys/s "
+          f"({stats['delete_s']:.6f} s); removal of the drives {stats['cleanup_s']:.3f} s")
 
 
 def main() -> int:
@@ -1166,6 +1466,7 @@ def main() -> int:
         print(f"chip_smoke: minio_tpu_torch not found beside the script: {e}",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = _card()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1194,9 +1495,15 @@ def main() -> int:
     print("hot-tier phase (MTPU_HOTTIER=1):")
     hot_tier_phase(args.seed, card, records, HOT_WORKING_SET)
     print("multipart phase (4 pools x 16 drives, EC 12+4, 1 MiB blocks):")
-    multipart_phase(args.seed, card, records)
+    mp = multipart_phase(args.seed, card, records, keep=True)
+    print("listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm):")
+    try:
+        listing_phase(args.seed, card, mp, time.perf_counter() - t_start)
+    finally:
+        mp.close()
     for r in records:
         del r["kernel"], r["path"]
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,12 @@ through `_meta_invalidate`, the JAX package's hook.
 Multipart uploads come from MultipartMixin (erasure/multipart.py): each
 part is one more _fan_out_encode stream, and GET walks fi.parts.
 
-Left for later slices (ROADMAP.md): listing, versioning, the metadata
-plane, per-drive deadlines and hedged reads, the read-ahead
-producer, reclaim capsules for undoing a displaced version, MRF.
+Both PUT commits defer reclaim: what an overwrite displaces waits in a
+reclaim capsule on each drive until the commit reaches write quorum, and
+comes back when it does not.
+
+Left for later slices (ROADMAP.md): versioning, the metadata plane,
+per-drive deadlines and hedged reads, the read-ahead producer, MRF.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from contextlib import contextmanager
 from typing import BinaryIO, Iterator
 
 from minio_tpu_torch import dataplane, hottier
+from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.codec import (BATCH_BLOCKS, DEFAULT_BLOCK_SIZE,
                                            ErasureCodec)
 from minio_tpu_torch.erasure.healing import HealingMixin
@@ -47,12 +51,16 @@ from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
                                               reduce_write_quorum,
                                               shuffle_by_distribution)
 from minio_tpu_torch.erasure.multipart import MultipartMixin
-from minio_tpu_torch.erasure.types import BucketInfo, ObjectInfo, ObjectOptions
+from minio_tpu_torch.erasure.sysstore import SysConfigStore
+from minio_tpu_torch.erasure.types import (BucketInfo, DeletedObject,
+                                           ListObjectsInfo, ObjectInfo,
+                                           ObjectOptions, ObjectToDelete)
 from minio_tpu_torch.ops import bitrot
 from minio_tpu_torch.storage.api import StorageAPI
 from minio_tpu_torch.storage.fileinfo import (ChecksumInfo, ErasureInfo,
                                               FileInfo, PartInfo)
 from minio_tpu_torch.storage.local import SYS_VOL
+from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils import device as device_mod
 from minio_tpu_torch.utils import errors as se
 
@@ -60,6 +68,12 @@ from minio_tpu_torch.utils import errors as se
 # Objects at or below this size are inlined into the journal instead of
 # getting shard files (reference inlines small objects in xl.meta v2).
 INLINE_DATA_LIMIT = 16 << 10
+
+# Longest wait for a drive's next walk entry before the listing merge
+# drops that drive as if it were offline: the JAX package's seed for its
+# "walk" deadline class (minio_tpu/storage/healthcheck.py:58). Its
+# per-drive adaptive deadlines are later work (ROADMAP.md).
+WALK_DEADLINE = 30.0
 
 _WRITE_SENTINEL = None
 
@@ -118,7 +132,7 @@ class _KeyLocks:
                     del self._locks[key]
 
 
-class ErasureObjects(HealingMixin, MultipartMixin):
+class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
     def __init__(self, drives: list[StorageAPI], parity: int | None = None,
                  block_size: int = DEFAULT_BLOCK_SIZE, device="cuda"):
         if not drives:
@@ -184,6 +198,28 @@ class ErasureObjects(HealingMixin, MultipartMixin):
             raise se.BucketNotFound(bucket)
         raise se.BucketNotFound(bucket, "", "no drive answered")
 
+    def list_buckets(self) -> list[BucketInfo]:
+        results = parallel_map([lambda d=d: d.list_vols() for d in self.drives])
+        seen: dict[str, BucketInfo] = {}
+        for r in results:
+            if isinstance(r, Exception):
+                continue
+            for v in r:
+                if v.name not in seen:
+                    seen[v.name] = BucketInfo(v.name, v.created)
+        return sorted(seen.values(), key=lambda b: b.name)
+
+    def delete_bucket(self, bucket: str) -> None:
+        tier = hottier.maybe_tier(self.device)
+        if tier is not None:
+            tier.invalidate_bucket(bucket)
+        results = parallel_map([lambda d=d: d.delete_vol(bucket) for d in self.drives])
+        if any(isinstance(r, se.VolumeNotEmpty) for r in results):
+            raise se.BucketNotEmpty(bucket)
+        if all(isinstance(r, se.VolumeNotFound) for r in results):
+            raise se.BucketNotFound(bucket)
+        reduce_write_quorum(results, self._write_quorum_meta(), bucket)
+
     # ------------------------------------------------------------------
     # put (cmd/erasure-object.go:606-810)
     # ------------------------------------------------------------------
@@ -225,19 +261,19 @@ class ErasureObjects(HealingMixin, MultipartMixin):
             # every drive makes all journals byte-identical (as in the JAX
             # package's single-journal inline commit).
             fi.erasure.index = 0
+            journal = XLMeta()
+            journal.add_version(fi)
+            raw = journal.serialize()
             with self.nslock.lock(bucket, obj):
+                # Each drive parks what the commit displaces and returns
+                # its token, as rename_data does.
                 outcomes = parallel_map([
-                    lambda d=d: d.write_metadata(bucket, obj, fi)
+                    lambda d=d: d.write_metadata_single(bucket, obj, fi, raw,
+                                                        defer_reclaim=True)
                     for d in shuffled])
-                try:
-                    reduce_write_quorum(outcomes, write_quorum, bucket, obj)
-                except se.ObjectError:
-                    self._undo_commit(shuffled, outcomes, bucket, obj, fi)
-                    raise
-                # An inline overwrite displaces any shard-backed resident
-                # generation.
-                self._meta_invalidate(bucket, obj)
-            return _fi_to_object_info(bucket, obj, fi)
+                self._settle_commit(shuffled, outcomes, write_quorum,
+                                    bucket, obj, fi)
+            return listing.fi_to_object_info(bucket, obj, fi)
 
         tmp_rel = f"tmp/{uuid.uuid4().hex}"
 
@@ -259,32 +295,47 @@ class ErasureObjects(HealingMixin, MultipartMixin):
         fi.metadata.setdefault("etag", md5_hex)
         fi.parts = [PartInfo(1, total, total, fi.mod_time)]
 
-        def commit(i: int, drive: StorageAPI):
+        def commit(i: int, drive: StorageAPI) -> str | None:
             if errs[i] is not None:
                 raise errs[i]
-            drive.rename_data(SYS_VOL, tmp_rel, _clone_for_drive(fi, i + 1),
-                              bucket, obj)
+            return drive.rename_data(SYS_VOL, tmp_rel, _clone_for_drive(fi, i + 1),
+                                     bucket, obj, defer_reclaim=True)
 
         with self.nslock.lock(bucket, obj):
             outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
                                      for i, d in enumerate(shuffled)])
             try:
-                reduce_write_quorum(outcomes, write_quorum, bucket, obj)
-            except se.ObjectError:
-                self._undo_commit(shuffled, outcomes, bucket, obj, fi)
+                self._settle_commit(shuffled, outcomes, write_quorum,
+                                    bucket, obj, fi)
+            except Exception:
                 cleanup_tmp()
                 raise
-            self._meta_invalidate(bucket, obj)
-        return _fi_to_object_info(bucket, obj, fi)
+        return listing.fi_to_object_info(bucket, obj, fi)
 
-    def _undo_commit(self, shuffled, outcomes, bucket, obj, fi) -> None:
-        """Below write quorum: drop the version from the drives that did
-        commit, so no listing or read sees a below-quorum object."""
-        target = FileInfo(volume=bucket, name=obj, version_id=fi.version_id,
-                          data_dir=fi.data_dir)
-        parallel_map([lambda d=d: d.delete_version(bucket, obj, target)
-                      for d, o in zip(shuffled, outcomes)
-                      if not isinstance(o, Exception)])
+    def _settle_commit(self, shuffled, outcomes, write_quorum: int,
+                       bucket: str, obj: str, fi: FileInfo) -> None:
+        """After a deferred-reclaim commit fan-out (outcomes: a reclaim
+        token or None per drive that committed, an exception per drive
+        that did not), in the reference's order
+        (minio_tpu/erasure/objects.py:484-505, 580-620): below write
+        quorum, every drive that committed drops the new version and gets
+        back what it displaced (undo_rename), so an overwrite that fails
+        keeps the previous object; at quorum, the displaced state goes for
+        good (commit_rename). Either way the key's hot-tier residence is
+        dropped."""
+        self._meta_invalidate(bucket, obj)
+        try:
+            reduce_write_quorum(outcomes, write_quorum, bucket, obj)
+        except Exception:
+            undo_fi = FileInfo(volume=bucket, name=obj, version_id=fi.version_id,
+                               data_dir=fi.data_dir)
+            parallel_map([lambda d=d, t=t: d.undo_rename(bucket, obj, undo_fi, t)
+                          for d, t in zip(shuffled, outcomes)
+                          if not isinstance(t, Exception)])
+            raise
+        parallel_map([lambda d=d, t=t: d.commit_rename(t)
+                      for d, t in zip(shuffled, outcomes)
+                      if t and not isinstance(t, Exception)])
 
     def _fan_out_encode(self, shuffled: list[StorageAPI], rel: str,
                         data: BinaryIO, size: int, codec: ErasureCodec,
@@ -391,7 +442,7 @@ class ErasureObjects(HealingMixin, MultipartMixin):
         return self._read_quorum_fileinfo(bucket, obj, version_id)
 
     def _fi_to_object_info(self, bucket: str, obj: str, fi: FileInfo) -> ObjectInfo:
-        return _fi_to_object_info(bucket, obj, fi)
+        return listing.fi_to_object_info(bucket, obj, fi)
 
     def get_object_info(self, bucket: str, obj: str,
                         opts: ObjectOptions | None = None) -> ObjectInfo:
@@ -399,7 +450,7 @@ class ErasureObjects(HealingMixin, MultipartMixin):
         fi = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
         if fi.deleted:
             raise se.ObjectNotFound(bucket, obj)
-        return _fi_to_object_info(bucket, obj, fi)
+        return listing.fi_to_object_info(bucket, obj, fi)
 
     def get_object_reader(self, bucket: str, obj: str,
                           opts: ObjectOptions | None = None):
@@ -415,7 +466,7 @@ class ErasureObjects(HealingMixin, MultipartMixin):
         def open_range(offset: int = 0, length: int = -1) -> Iterator[bytes]:
             return self._open_fi_range(bucket, obj, fi, offset, length)
 
-        return _fi_to_object_info(bucket, obj, fi), open_range
+        return listing.fi_to_object_info(bucket, obj, fi), open_range
 
     def _open_fi_range(self, bucket: str, obj: str, fi: FileInfo,
                        offset: int, length: int) -> Iterator[bytes]:
@@ -595,26 +646,69 @@ class ErasureObjects(HealingMixin, MultipartMixin):
                           delete_marker=fi.deleted)
 
 
+    def delete_objects(self, bucket: str, objects: list[ObjectToDelete],
+                       opts: ObjectOptions | None = None
+                       ) -> list[DeletedObject | Exception]:
+        return listing.bulk_delete(self.delete_object, bucket, objects, opts)
+
+    # ------------------------------------------------------------------
+    # listing (streamed k-way merge; the metacache sits on top, in pools)
+    # ------------------------------------------------------------------
+
+    def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
+                     delimiter: str = "", max_keys: int = 1000) -> ListObjectsInfo:
+        self.get_bucket_info(bucket)
+        # Marker pushdown (subtree pruning, group-aware delimiter walks) is
+        # the one policy every layer shares; paginate re-filters either way.
+        return listing.paginate_objects(
+            listing.pushdown_stream(
+                lambda sa: self.stream_journals(bucket, prefix, sa),
+                prefix, marker, delimiter),
+            lambda name, fi: listing.fi_to_object_info(bucket, name, fi),
+            prefix, marker, delimiter, max_keys)
+
+    def stream_journals(self, bucket: str, prefix: str = "",
+                        start_after: str = "") -> Iterator[tuple[str, XLMeta]]:
+        """SORTED (name, elected journal) stream: the drives' sorted
+        walk_dir streams k-way merged, newest journal winning, in
+        O(drives) memory whatever the namespace (the reference's metacache
+        listPath walk, cmd/metacache-set.go:534, metacache-entries.go:198).
+        Names at or before start_after are skipped without reading their
+        journals; each drive's walk runs behind a prefetch thread (the
+        reference's per-drive WalkDir goroutines), the walk's threads
+        reading in turns (listing.WalkBaton). Journals are parsed in the
+        merge, once per distinct copy (listing.elect_journal_streams)."""
+        def drive_stream(d: StorageAPI):
+            try:
+                # start_after pushes down into the walk (subtree pruning);
+                # the re-check covers a drive that only best-efforts it.
+                for e in d.walk_dir(bucket, prefix, start_after):
+                    if not start_after or e.name > start_after:
+                        yield e.name, e.meta
+            except se.StorageError:
+                return   # offline or unformatted drive: quorum covers it
+
+        # A drive that stalls mid-walk past WALK_DEADLINE drops out of the
+        # merge, as an offline drive would, instead of wedging the listing;
+        # the other producers wait a quarter of that for its turn, once.
+        baton = listing.WalkBaton(WALK_DEADLINE / 4)
+        return listing.elect_journal_streams(
+            [listing.prefetch_stream(drive_stream(d), deadline=WALK_DEADLINE,
+                                     baton=baton)
+             for d in self.drives])
+
+    def merged_journals(self, bucket: str, prefix: str) -> dict[str, XLMeta]:
+        """Materialized journal map, O(namespace) memory: only for small
+        bounded uses (tests, sys buckets). Listings use stream_journals."""
+        return dict(self.stream_journals(bucket, prefix))
+
+
 def _retire(readers: list, dead: set, i: int) -> None:
     """Mark shard i dead for this stream and close its reader."""
     dead.add(i)
     if readers[i] is not None:
         readers[i].src.close()
         readers[i] = None
-
-
-def _fi_to_object_info(bucket: str, obj: str, fi: FileInfo) -> ObjectInfo:
-    """FileInfo -> ObjectInfo (reference fileInfo.ToObjectInfo)."""
-    return ObjectInfo(
-        bucket=bucket, name=obj, mod_time=fi.mod_time, size=fi.size,
-        etag=fi.metadata.get("etag", ""), version_id=fi.version_id,
-        is_latest=fi.is_latest, delete_marker=fi.deleted,
-        content_type=fi.metadata.get("content-type", ""),
-        user_defined={k: v for k, v in fi.metadata.items()
-                      if k not in ("etag", "content-type")},
-        parity_blocks=fi.erasure.parity_blocks,
-        data_blocks=fi.erasure.data_blocks, num_versions=fi.num_versions,
-        parts=[(p.number, p.size) for p in fi.parts])
 
 
 def _yield_block_range(chunks, lo: int, hi: int):

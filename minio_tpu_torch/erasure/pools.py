@@ -8,21 +8,31 @@ holds the object, found by asking every pool for its newest version; a
 multipart call goes to the pool that holds its upload session. With one
 pool every call passes straight through.
 
-Left for later slices (ROADMAP.md): listing and the metacache, bucket
-heal, and pools from more than one node (dist/).
+A listing k-way merges the pools' sorted journal streams. Its first page
+renders the walk into the metacache (erasure/metacache.py), whose blocks
+serve the continuation pages; PUT, DELETE and Complete mark the bucket
+dirty, which retires the streams rendered before them.
+
+Left for later slices (ROADMAP.md): bucket heal, and pools from more than
+one node (dist/).
 """
 
 from __future__ import annotations
 
 from typing import BinaryIO
 
+from minio_tpu_torch.erasure import listing
+from minio_tpu_torch.erasure import metacache as metacache_mod
 from minio_tpu_torch.erasure.healing import HealResultItem
 from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.erasure.sets import ErasureSets, _raise_first
 from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
+                                           DeletedObject, ListObjectsInfo,
                                            MultipartInfo, ObjectInfo,
-                                           ObjectOptions, PartInfoResult)
+                                           ObjectOptions, ObjectToDelete,
+                                           PartInfoResult)
 from minio_tpu_torch.storage.fileinfo import FileInfo
+from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils import errors as se
 
 
@@ -31,6 +41,11 @@ class ErasureServerPools:
         if not pools:
             raise ValueError("no pools")
         self.pools = pools
+        self.metacache = metacache_mod.Metacache(self)
+
+    def close(self) -> None:
+        """Stop the metacache's background renderer."""
+        self.metacache.close()
 
     @property
     def device(self):
@@ -91,11 +106,19 @@ class ErasureServerPools:
     def get_bucket_info(self, bucket: str) -> BucketInfo:
         return self.pools[0].get_bucket_info(bucket)
 
+    def list_buckets(self) -> list[BucketInfo]:
+        return self.pools[0].list_buckets()
+
+    def delete_bucket(self, bucket: str) -> None:
+        _raise_first(parallel_map([lambda p=p: p.delete_bucket(bucket)
+                                   for p in self.pools]))
+
     # -- objects --
 
     def put_object(self, bucket: str, obj: str, data: BinaryIO, size: int = -1,
                    opts: ObjectOptions | None = None) -> ObjectInfo:
         opts = opts or ObjectOptions()
+        self.metacache.mark_dirty(bucket)
         return self._get_pool_for_put(bucket, obj, opts.version_id).put_object(
             bucket, obj, data, size, opts)
 
@@ -122,8 +145,14 @@ class ErasureServerPools:
     def delete_object(self, bucket: str, obj: str,
                       opts: ObjectOptions | None = None) -> ObjectInfo:
         opts = opts or ObjectOptions()
+        self.metacache.mark_dirty(bucket)
         return self._owning_pool(bucket, obj, opts.version_id).delete_object(
             bucket, obj, opts)
+
+    def delete_objects(self, bucket: str, objects: list[ObjectToDelete],
+                       opts: ObjectOptions | None = None
+                       ) -> list[DeletedObject | Exception]:
+        return listing.bulk_delete(self.delete_object, bucket, objects, opts)
 
     # -- multipart --
 
@@ -169,8 +198,81 @@ class ErasureServerPools:
     def complete_multipart_upload(self, bucket: str, obj: str, upload_id: str,
                                   parts: list[CompletePart],
                                   opts: ObjectOptions | None = None) -> ObjectInfo:
+        self.metacache.mark_dirty(bucket)
         return self._upload_pool(bucket, obj, upload_id).complete_multipart_upload(
             bucket, obj, upload_id, parts, opts)
+
+    # -- listing --
+
+    def stream_journals(self, bucket: str, prefix: str = "",
+                        start_after: str = ""):
+        """Sorted (name, journal) stream across every pool
+        (cmd/metacache-server-pool.go:59): O(pools x sets x drives) memory
+        whatever the namespace."""
+        return listing.merge_journal_streams(
+            [p.stream_journals(bucket, prefix, start_after) for p in self.pools])
+
+    def merged_journals(self, bucket: str, prefix: str) -> dict[str, XLMeta]:
+        return dict(self.stream_journals(bucket, prefix))
+
+    # Page 1 persists this many entries before it returns (bounding its
+    # latency); a daemon renderer carries the SAME walk on up to
+    # METACACHE_MAX_STREAM in blocks, so sequential continuations ride
+    # the persisted stream while both sides stay O(block)
+    # (cmd/metacache-stream.go).
+    METACACHE_MAX_ENTRIES = 10_000
+    METACACHE_MAX_STREAM = 1_000_000
+
+    def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
+                     delimiter: str = "", max_keys: int = 1000) -> ListObjectsInfo:
+        self.get_bucket_info(bucket)
+        to_info = lambda name, fi: listing.fi_to_object_info(bucket, name, fi)  # noqa: E731
+        # A continuation page seeks into the persisted stream that page 1
+        # rendered (cmd/metacache-stream.go).
+        if marker:
+            cached = self.metacache.entries_from(bucket, prefix, marker)
+            if cached is not None:
+                it, complete = cached
+                try:
+                    r = listing.paginate_cached(it, prefix, marker, delimiter,
+                                                max_keys)
+                except metacache_mod.CacheGone:
+                    r = None
+                if r is not None and (r.is_truncated or complete):
+                    return r
+                # A capped stream drained mid-page (or a block vanished):
+                # names past the rendered range may exist, so walk.
+                self.metacache.misses += 1
+        res = listing.paginate_objects(
+            listing.pushdown_stream(
+                lambda sa: self.stream_journals(bucket, prefix, sa),
+                prefix, marker, delimiter),
+            to_info, prefix, marker, delimiter, max_keys)
+        if (res.is_truncated and not marker
+                and not self.metacache.recently_saved(bucket, prefix)):
+            # More pages will follow: render a fresh walk into the block
+            # stream (sync up to the page-1 bound, then in the background).
+            self.metacache.render(
+                bucket, prefix,
+                listing.iter_entries_from_journals(
+                    self.stream_journals(bucket, prefix), to_info),
+                kind="o", sync_cap=self.METACACHE_MAX_ENTRIES,
+                stream_cap=self.METACACHE_MAX_STREAM)
+        return res
+
+    # -- system documents: pool 0 --
+
+    def read_sys_config(self, path: str) -> bytes:
+        return self.pools[0].read_sys_config(path)
+
+    def write_sys_config(self, path: str, data: bytes) -> None:
+        self.pools[0].write_sys_config(path, data)
+
+    def delete_sys_config(self, path: str) -> None:
+        self.pools[0].delete_sys_config(path)
+
+    def list_sys_config(self, prefix: str = "") -> list[str]:
+        return self.pools[0].list_sys_config(prefix)
 
     # -- heal --
 

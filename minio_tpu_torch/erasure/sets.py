@@ -6,26 +6,30 @@ Each object is routed to one set by sipHashMod(key, set count, deployment
 id) (:697-736), the same function as the JAX package's, so both packages
 find every object on the same set's drives. Bucket calls fan out to every
 set. Each set is a whole ErasureObjects engine: quorums, multipart and
-heal stay per set.
+heal stay per set. A listing k-way merges the sets' sorted journal
+streams; system documents (the metacache's blocks) live on set 0.
 
-Left for later slices (ROADMAP.md): listing, tags, transition, the
-sys-config store, health, and the drive wrappers of the JAX package
-(disk-id check, health checker, chaos).
+Left for later slices (ROADMAP.md): tags, transition, health, and the
+drive wrappers of the JAX package (disk-id check, health checker, chaos).
 """
 
 from __future__ import annotations
 
 from typing import BinaryIO
 
+from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.format import init_format_erasure
 from minio_tpu_torch.erasure.healing import HealResultItem
 from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.erasure.objects import ErasureObjects
 from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
+                                           DeletedObject, ListObjectsInfo,
                                            MultipartInfo, ObjectInfo,
-                                           ObjectOptions, PartInfoResult)
+                                           ObjectOptions, ObjectToDelete,
+                                           PartInfoResult)
 from minio_tpu_torch.storage.api import StorageAPI
 from minio_tpu_torch.storage.fileinfo import FileInfo
+from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils.siphash import sip_hash_mod
 
 
@@ -68,6 +72,13 @@ class ErasureSets:
     def get_bucket_info(self, bucket: str) -> BucketInfo:
         return self.sets[0].get_bucket_info(bucket)
 
+    def list_buckets(self) -> list[BucketInfo]:
+        return self.sets[0].list_buckets()
+
+    def delete_bucket(self, bucket: str) -> None:
+        _raise_first(parallel_map([lambda s=s: s.delete_bucket(bucket)
+                                   for s in self.sets]))
+
     # -- objects: the hashed set --
 
     def put_object(self, bucket: str, obj: str, data: BinaryIO, size: int = -1,
@@ -90,8 +101,51 @@ class ErasureSets:
                       opts: ObjectOptions | None = None) -> ObjectInfo:
         return self.get_hashed_set(obj).delete_object(bucket, obj, opts)
 
+    def delete_objects(self, bucket: str, objects: list[ObjectToDelete],
+                       opts: ObjectOptions | None = None
+                       ) -> list[DeletedObject | Exception]:
+        return listing.bulk_delete(self.delete_object, bucket, objects, opts)
+
     def latest_fileinfo(self, bucket: str, obj: str, version_id: str = "") -> FileInfo:
         return self.get_hashed_set(obj).latest_fileinfo(bucket, obj, version_id)
+
+    # -- system documents: set 0 (small mirrored docs need no sharding) --
+
+    def read_sys_config(self, path: str) -> bytes:
+        return self.sets[0].read_sys_config(path)
+
+    def write_sys_config(self, path: str, data: bytes) -> None:
+        self.sets[0].write_sys_config(path, data)
+
+    def delete_sys_config(self, path: str) -> None:
+        self.sets[0].delete_sys_config(path)
+
+    def list_sys_config(self, prefix: str = "") -> list[str]:
+        return self.sets[0].list_sys_config(prefix)
+
+    # -- listing: merged view across sets --
+
+    def stream_journals(self, bucket: str, prefix: str = "",
+                        start_after: str = ""):
+        """Sorted (name, journal) stream across every set: each set's
+        drive-merged stream k-way merged again (an object routes to one
+        set, so duplicates arise only from topology changes; newest wins).
+        O(sets x drives) memory (cmd/metacache-server-pool.go:59)."""
+        return listing.merge_journal_streams(
+            [s.stream_journals(bucket, prefix, start_after) for s in self.sets])
+
+    def merged_journals(self, bucket: str, prefix: str) -> dict[str, XLMeta]:
+        return dict(self.stream_journals(bucket, prefix))
+
+    def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
+                     delimiter: str = "", max_keys: int = 1000) -> ListObjectsInfo:
+        self.get_bucket_info(bucket)
+        return listing.paginate_objects(
+            listing.pushdown_stream(
+                lambda sa: self.stream_journals(bucket, prefix, sa),
+                prefix, marker, delimiter),
+            lambda name, fi: listing.fi_to_object_info(bucket, name, fi),
+            prefix, marker, delimiter, max_keys)
 
     # -- multipart: the hashed set, uploads listed across sets --
 

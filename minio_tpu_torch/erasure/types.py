@@ -1,5 +1,10 @@
-"""Object-layer data types (the subset of minio_tpu/erasure/types.py this
-slice uses; reference cmd/object-api-datatypes.go)."""
+"""Object-layer data types (the subset of minio_tpu/erasure/types.py the
+port uses; reference cmd/object-api-datatypes.go).
+
+ObjectInfo has the JAX class's fields in its order: the metacache
+persists `dataclasses.asdict(ObjectInfo)` and decodes it with
+`ObjectInfo(**d)`, so a block either package renders decodes in the
+other."""
 
 from __future__ import annotations
 
@@ -27,7 +32,13 @@ class ObjectInfo:
     parity_blocks: int = 0
     data_blocks: int = 0
     num_versions: int = 0
-    parts: list[tuple[int, int]] = field(default_factory=list)  # (number, size)
+    is_dir: bool = False
+    actual_size: int | None = None
+    parts: list = field(default_factory=list)   # (number, size) pairs
+
+    @property
+    def storage_class(self) -> str:
+        return self.user_defined.get("x-amz-storage-class", "STANDARD")
 
 
 @dataclass
@@ -37,6 +48,37 @@ class ObjectOptions:
     version_id: str = ""
     user_defined: dict[str, str] = field(default_factory=dict)
     mod_time: float = 0.0
+
+
+@dataclass
+class ListObjectsInfo:
+    is_truncated: bool = False
+    next_marker: str = ""
+    objects: list[ObjectInfo] = field(default_factory=list)
+    prefixes: list[str] = field(default_factory=list)
+
+
+@dataclass
+class ListObjectVersionsInfo:
+    is_truncated: bool = False
+    next_marker: str = ""
+    next_version_id_marker: str = ""
+    objects: list[ObjectInfo] = field(default_factory=list)
+    prefixes: list[str] = field(default_factory=list)
+
+
+@dataclass
+class ObjectToDelete:
+    object_name: str
+    version_id: str = ""
+
+
+@dataclass
+class DeletedObject:
+    object_name: str = ""
+    version_id: str = ""
+    delete_marker: bool = False
+    delete_marker_version_id: str = ""
 
 
 @dataclass

@@ -20,6 +20,7 @@ class APIError:
 ERRORS = {e.code: e for e in [
     APIError("AccessDenied", "Access Denied.", 403),
     APIError("AuthorizationHeaderMalformed", "The authorization header is malformed.", 400),
+    APIError("BucketNotEmpty", "The bucket you tried to delete is not empty.", 409),
     APIError("BucketAlreadyOwnedByYou", "Your previous request to create the named bucket succeeded and you already own it.", 409),
     APIError("EntityTooLarge", "Your proposed upload exceeds the maximum allowed object size.", 400),
     APIError("EntityTooSmall", "Your proposed upload is smaller than the minimum allowed object size.", 400),
@@ -56,6 +57,7 @@ class S3Error(Exception):
 _EXC_MAP: list[tuple[type, str]] = [
     (se.BucketNameInvalid, "InvalidBucketName"),
     (se.BucketExists, "BucketAlreadyOwnedByYou"),
+    (se.BucketNotEmpty, "BucketNotEmpty"),
     (se.BucketNotFound, "NoSuchBucket"),
     (se.VersionNotFound, "NoSuchVersion"),
     (se.ObjectNotFound, "NoSuchKey"),

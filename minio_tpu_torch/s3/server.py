@@ -6,7 +6,12 @@ http.server.ThreadingHTTPServer (one daemon thread per connection). It
 answers the operations of this slice with the JAX server's statuses,
 headers and error documents:
 
+    GET /                ListBuckets
     PUT /bucket          CreateBucket        HEAD /bucket        HeadBucket
+    DELETE /bucket       DeleteBucket        POST /bucket?delete DeleteObjects
+    GET /bucket          ListObjects (marker)
+    GET /bucket?list-type=2                  ListObjectsV2 (continuation-token,
+                                             start-after)
     PUT /bucket/key      PutObject           GET /bucket/key     GetObject (Range)
     HEAD /bucket/key     HeadObject          DELETE /bucket/key  DeleteObject
     POST /bucket/key?uploads                 CreateMultipartUpload
@@ -18,9 +23,9 @@ headers and error documents:
 
 Every request must carry SigV4 header auth (signed payload or
 UNSIGNED-PAYLOAD); anything else answers NotImplemented or AccessDenied,
-as does any other query string. Listing, UploadPartCopy, presigned URLs,
-aws-chunked bodies, IAM and the admin plane come in later slices
-(ROADMAP.md).
+as does any other query string. Versioned listings, bucket subresources,
+CopyObject and UploadPartCopy, presigned URLs, aws-chunked bodies, IAM
+and the admin plane come in later slices (ROADMAP.md).
 
 The object layer is any of the port's: build_server assembles drives ->
 ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
@@ -46,7 +51,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
-from minio_tpu_torch.erasure.types import CompletePart, ObjectOptions
+from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
+                                           ObjectOptions, ObjectToDelete)
 from minio_tpu_torch.s3 import sigv4, xmlutil
 from minio_tpu_torch.s3.errors import S3Error, from_exception
 from minio_tpu_torch.storage.local import LocalDrive
@@ -55,6 +61,12 @@ XML_TYPE = "application/xml"
 MAX_OBJECT_SIZE = 5 * (1 << 40)
 SPOOL_LIMIT = 32 << 20
 _COPY = 1 << 20
+
+# The query parameters of ListObjects v1 and v2. encoding-type and
+# fetch-owner are accepted and ignored, as the JAX server does.
+_LIST_PARAMS = frozenset({"prefix", "marker", "delimiter", "max-keys", "list-type",
+                          "continuation-token", "start-after", "encoding-type",
+                          "fetch-owner"})
 
 _SECURITY_HEADERS = {
     "X-Content-Type-Options": "nosniff",
@@ -130,6 +142,9 @@ class S3Server:
             self.httpd.shutdown()
             self._thread.join()
         self.httpd.server_close()
+        close = getattr(self.obj, "close", None)
+        if close is not None:
+            close()   # the pools' metacache renderer
 
     def _lookup(self, access_key: str):
         return self.creds if access_key == self.creds.access_key else None
@@ -150,12 +165,20 @@ class S3Server:
         bucket, _, key = path.lstrip("/").partition("/")
         q = dict(query_items)
         if not bucket:
-            raise S3Error("NotImplemented")
+            if method == "GET":
+                return _xml(hdr, xmlutil.list_buckets_xml(self.obj.list_buckets()))
+            if method == "POST":
+                raise S3Error("NotImplemented", "STS is not served yet")
+            raise S3Error("MethodNotAllowed", resource=path)
         if not key:
             if method == "GET" and "uploads" in q:
                 uploads = self.obj.list_multipart_uploads(
                     bucket, q.get("prefix", ""), _int_q(q, "max-uploads", 1000))
                 return _xml(hdr, xmlutil.list_uploads_xml(bucket, uploads))
+            if method == "POST" and "delete" in q:
+                return self._delete_objects(bucket, headers, body, payload_hash, hdr)
+            if method == "GET" and q.keys() <= _LIST_PARAMS:
+                return self._list_objects(bucket, q, hdr)
             if q:
                 raise S3Error("NotImplemented")
             if method == "PUT":
@@ -164,6 +187,9 @@ class S3Server:
             if method == "HEAD":
                 self.obj.get_bucket_info(bucket)
                 return _Response(200, hdr)
+            if method == "DELETE":
+                self.obj.delete_bucket(bucket)
+                return _Response(204, hdr)
             raise S3Error("NotImplemented")
         if q:
             return self._multipart(method, bucket, key, q, headers, body,
@@ -220,6 +246,44 @@ class S3Server:
             return _xml(hdr, xmlutil.complete_multipart_xml(
                 f"/{bucket}/{key}", bucket, key, info.etag))
         raise S3Error("NotImplemented")
+
+    def _list_objects(self, bucket, q, hdr) -> _Response:
+        """ListObjects v1 (marker) and, with list-type=2, v2
+        (continuation-token, else start-after, is the marker), as the JAX
+        server routes them (minio_tpu/s3/server.py:1362-1384)."""
+        prefix, delimiter = q.get("prefix", ""), q.get("delimiter", "")
+        max_keys = _int_q(q, "max-keys", 1000)
+        if q.get("list-type") == "2":
+            token, start_after = q.get("continuation-token", ""), q.get("start-after", "")
+            res = self.obj.list_objects(bucket, prefix, token or start_after,
+                                        delimiter, max_keys)
+            return _xml(hdr, xmlutil.list_objects_v2_xml(
+                bucket, prefix, token, start_after, delimiter, max_keys, res))
+        marker = q.get("marker", "")
+        res = self.obj.list_objects(bucket, prefix, marker, delimiter, max_keys)
+        return _xml(hdr, xmlutil.list_objects_v1_xml(bucket, prefix, marker,
+                                                     delimiter, max_keys, res))
+
+    def _delete_objects(self, bucket, headers, body: _Body, payload_hash,
+                        hdr) -> _Response:
+        """DeleteObjects (the JAX server's _delete_objects,
+        minio_tpu/s3/server.py:2696, less its per-key policy check: the
+        port has one root credential). A missing key counts as deleted."""
+        raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+        objects, quiet = xmlutil.parse_delete_xml(raw)
+        results = self.obj.delete_objects(
+            bucket, [ObjectToDelete(k, v) for k, v in objects])
+        deleted, errors = [], []
+        for (k, v), r in zip(objects, results):
+            if isinstance(r, Exception):
+                err = from_exception(r, k)
+                if err.api.code != "NoSuchKey":
+                    errors.append((k, err.api.code, err.message))
+                elif not quiet:
+                    deleted.append(DeletedObject(object_name=k, version_id=v))
+            elif not quiet:
+                deleted.append(r)
+        return _xml(hdr, xmlutil.delete_result_xml(deleted, errors))
 
     def _put_object(self, bucket, key, headers, body: _Body, payload_hash, hdr):
         user_defined = _metadata_headers(headers)

@@ -1,6 +1,7 @@
 """S3 XML documents (the subset of minio_tpu/s3/xmlutil.py the port sends:
-the error document and the multipart documents, byte for byte the JAX
-package's; reference cmd/api-response.go)."""
+the error document, the listing and bucket documents and the multipart
+documents, byte for byte the JAX package's; reference
+cmd/api-response.go)."""
 
 from __future__ import annotations
 
@@ -41,6 +42,115 @@ def error_xml(code: str, message: str, resource: str, request_id: str) -> bytes:
     _el(root, "RequestId", request_id)
     _el(root, "HostId", "minio-tpu")
     return render(root)
+
+
+def list_buckets_xml(buckets, owner="minio-tpu") -> bytes:
+    root = _doc("ListAllMyBucketsResult")
+    o = _el(root, "Owner")
+    _el(o, "ID", owner)
+    _el(o, "DisplayName", owner)
+    bs = _el(root, "Buckets")
+    for b in buckets:
+        be = _el(bs, "Bucket")
+        _el(be, "Name", b.name)
+        _el(be, "CreationDate", _iso(b.created))
+    return render(root)
+
+
+def _object_entry(parent, o, tag="Contents"):
+    c = _el(parent, tag)
+    _el(c, "Key", o.name)
+    _el(c, "LastModified", _iso(o.mod_time))
+    _el(c, "ETag", f'"{o.etag}"')
+    _el(c, "Size", o.size)
+    _el(c, "StorageClass", o.storage_class)
+    return c
+
+
+def _entries(root, res) -> None:
+    for o in res.objects:
+        _object_entry(root, o)
+    for p in res.prefixes:
+        cp = _el(root, "CommonPrefixes")
+        _el(cp, "Prefix", p)
+
+
+def list_objects_v1_xml(bucket, prefix, marker, delimiter, max_keys, res) -> bytes:
+    root = _doc("ListBucketResult")
+    _el(root, "Name", bucket)
+    _el(root, "Prefix", prefix)
+    _el(root, "Marker", marker)
+    _el(root, "MaxKeys", max_keys)
+    if delimiter:
+        _el(root, "Delimiter", delimiter)
+    _el(root, "IsTruncated", "true" if res.is_truncated else "false")
+    if res.is_truncated and res.next_marker:
+        _el(root, "NextMarker", res.next_marker)
+    _entries(root, res)
+    return render(root)
+
+
+def list_objects_v2_xml(bucket, prefix, token, start_after, delimiter,
+                        max_keys, res) -> bytes:
+    root = _doc("ListBucketResult")
+    _el(root, "Name", bucket)
+    _el(root, "Prefix", prefix)
+    _el(root, "MaxKeys", max_keys)
+    if delimiter:
+        _el(root, "Delimiter", delimiter)
+    _el(root, "KeyCount", len(res.objects) + len(res.prefixes))
+    _el(root, "IsTruncated", "true" if res.is_truncated else "false")
+    if token:
+        _el(root, "ContinuationToken", token)
+    if start_after:
+        _el(root, "StartAfter", start_after)
+    if res.is_truncated and res.next_marker:
+        _el(root, "NextContinuationToken", res.next_marker)
+    _entries(root, res)
+    return render(root)
+
+
+def delete_result_xml(deleted, errors) -> bytes:
+    root = _doc("DeleteResult")
+    for d in deleted:
+        e = _el(root, "Deleted")
+        _el(e, "Key", d.object_name)
+        if d.version_id:
+            _el(e, "VersionId", d.version_id)
+        if d.delete_marker:
+            _el(e, "DeleteMarker", "true")
+            _el(e, "DeleteMarkerVersionId", d.delete_marker_version_id)
+    for key, code, msg in errors:
+        e = _el(root, "Error")
+        _el(e, "Key", key)
+        _el(e, "Code", code)
+        _el(e, "Message", msg)
+    return render(root)
+
+
+def parse_delete_xml(body: bytes) -> tuple[list[tuple[str, str]], bool]:
+    """DeleteObjects body -> ([(key, version_id)], quiet)."""
+    try:
+        root = ET.fromstring(body)
+    except ET.ParseError:
+        raise S3Error("MalformedXML") from None
+    out = []
+    quiet = False
+    for child in root:
+        local = child.tag.rsplit("}", 1)[-1]
+        if local == "Quiet":
+            quiet = (child.text or "").strip().lower() == "true"
+        elif local == "Object":
+            key = vid = ""
+            for c in child:
+                l2 = c.tag.rsplit("}", 1)[-1]
+                if l2 == "Key":
+                    key = c.text or ""
+                elif l2 == "VersionId":
+                    vid = c.text or ""
+            if key:
+                out.append((key, vid))
+    return out, quiet
 
 
 def initiate_multipart_xml(bucket: str, key: str, upload_id: str) -> bytes:

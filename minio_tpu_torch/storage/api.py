@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import BinaryIO, Iterable
+from typing import BinaryIO, Iterable, Iterator
 
 from minio_tpu_torch.storage.fileinfo import FileInfo
 from minio_tpu_torch.utils import errors as se
@@ -27,6 +27,32 @@ class DiskInfo:
     cmd/storage-interface.go:36-41): what pool placement weighs."""
 
     free: int = 0
+
+
+@dataclass
+class WalkEntry:
+    """One entry from walk_dir: an object's name and its raw journal."""
+
+    name: str
+    meta: bytes = b""
+
+
+# Lexicographic upper bound for any legal object-name suffix (names cap at
+# 1024 chars): appended to a prefix it names the largest key that prefix
+# range can contain. walk_dir's subtree prune compares against it, and
+# delimiter listings resume past a whole CommonPrefix group by passing
+# marker + MARKER_GROUP_PAD as start_after.
+MARKER_GROUP_PAD = "\U0010ffff" * 1025
+
+
+def group_start_after(marker: str, delimiter: str) -> str:
+    """start_after for a listing continuation: when the marker is a
+    CommonPrefix (a delimiter listing rolled a group up), resume past the
+    whole group so the walk prunes its subtree instead of parsing and
+    discarding every journal inside it."""
+    if delimiter and marker.endswith(delimiter):
+        return marker + MARKER_GROUP_PAD
+    return marker
 
 
 class StorageAPI(abc.ABC):
@@ -53,7 +79,14 @@ class StorageAPI(abc.ABC):
     def make_vol(self, volume: str) -> None: ...
 
     @abc.abstractmethod
+    def list_vols(self) -> list[VolInfo]: ...
+
+    @abc.abstractmethod
     def stat_vol(self, volume: str) -> VolInfo: ...
+
+    @abc.abstractmethod
+    def delete_vol(self, volume: str) -> None:
+        """Remove an empty volume (VolumeNotEmpty otherwise)."""
 
     # --- files ---
 
@@ -88,6 +121,13 @@ class StorageAPI(abc.ABC):
     def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None: ...
 
     @abc.abstractmethod
+    def write_metadata_single(self, volume: str, path: str, fi: FileInfo,
+                              raw: bytes, defer_reclaim: bool = False
+                              ) -> str | None:
+        """Commit an inline version from its caller-serialized one-version
+        journal `raw`; with defer_reclaim, as rename_data's."""
+
+    @abc.abstractmethod
     def read_version(self, volume: str, path: str,
                      version_id: str = "") -> FileInfo: ...
 
@@ -111,6 +151,15 @@ class StorageAPI(abc.ABC):
                     token: str | None) -> None:
         """Quorum failed: remove the committed version and restore what
         rename_data displaced."""
+
+    @abc.abstractmethod
+    def walk_dir(self, volume: str, prefix: str = "",
+                 start_after: str = "") -> Iterator[WalkEntry]:
+        """Stream the journals under prefix in lexicographic order of the
+        full object name, skipping names <= start_after WITHOUT reading
+        their journals (whole subtrees below the marker are pruned, so a
+        mid-bucket resume is O(page); reference WalkDir forward-to,
+        cmd/metacache-walk.go)."""
 
     def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
         """Shallow part-presence check: every part file exists with exactly

@@ -17,14 +17,18 @@ journal before its rename, the object directory after the commit rename,
 the format file and its directory, every write_all file, the target
 directory of rename_file.
 
-rename_data(defer_reclaim=True) parks what a commit displaces (the
-replaced version's journal entry and data dir) in a reclaim capsule and
-returns its token: commit_rename drops the capsule once the commit made
-quorum, undo_rename puts it back when it did not.
+rename_data(defer_reclaim=True) and the inline store
+write_metadata_single(defer_reclaim=True) park what a commit displaces
+(the replaced version's journal entry and data dir) in a reclaim capsule
+and return its token: commit_rename drops the capsule once the commit
+made quorum, undo_rename puts it back when it did not.
+
+walk_dir streams a volume's journals in lexicographic order of the full
+object name, the order the listing's k-way merge relies on.
 
 Left for later slices (ROADMAP.md): the group-commit WAL and its
-write_all_async blob lane, the journal read cache, O_DIRECT writes,
-listing walks.
+write_all_async blob lane (and so the WAL flush before a walk), the
+journal read cache, O_DIRECT writes.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ import json
 import os
 import shutil
 import uuid
-from typing import BinaryIO, Iterable
+from typing import BinaryIO, Iterable, Iterator
 
-from minio_tpu_torch.storage.api import DiskInfo, StorageAPI, VolInfo
+from minio_tpu_torch.storage.api import (MARKER_GROUP_PAD, DiskInfo,
+                                         StorageAPI, VolInfo, WalkEntry)
 from minio_tpu_torch.storage.fileinfo import FileInfo
 from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils import errors as se
@@ -56,6 +61,36 @@ def _fsync_dir(path: str) -> None:
         os.fsync(fd)
     except OSError:
         pass
+    finally:
+        os.close(fd)
+
+
+def _has_subdirs(entry: os.DirEntry) -> bool:
+    """False when the directory holds no subdirectory: its link count is
+    2 ('.' and its name in the parent; each subdirectory's '..' adds one
+    on POSIX filesystems). A filesystem that does not count them reports
+    1, and the walk scans the directory. One stat instead of a scan: the
+    walk asks this of every object directory."""
+    try:
+        return entry.stat(follow_symlinks=False).st_nlink != 2
+    except OSError:
+        return True
+
+
+def _read_small_file(path: str) -> bytes | None:
+    """A small file's bytes through raw descriptors (open, read to EOF,
+    close: the fewest system calls), or None when it cannot be read."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return None
+    try:
+        chunks = []
+        while chunk := os.read(fd, 1 << 16):
+            chunks.append(chunk)
+        return b"".join(chunks)
+    except OSError:
+        return None
     finally:
         os.close(fd)
 
@@ -131,12 +166,34 @@ class LocalDrive(StorageAPI):
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
 
+    def list_vols(self) -> list[VolInfo]:
+        out = []
+        try:
+            with os.scandir(self.root) as it:
+                for entry in it:
+                    if entry.is_dir() and entry.name != SYS_VOL:
+                        out.append(VolInfo(entry.name, entry.stat().st_ctime))
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+        return sorted(out, key=lambda v: v.name)
+
     def stat_vol(self, volume: str) -> VolInfo:
         try:
             st = os.stat(self._vol_dir(volume))
         except FileNotFoundError:
             raise se.VolumeNotFound(volume) from None
         return VolInfo(volume, st.st_ctime)
+
+    def delete_vol(self, volume: str) -> None:
+        d = self._vol_dir(volume)
+        try:
+            os.rmdir(d)
+        except FileNotFoundError:
+            raise se.VolumeNotFound(volume) from None
+        except OSError as e:
+            if e.errno == errno.ENOTEMPTY:
+                raise se.VolumeNotEmpty(volume) from None
+            raise se.FaultyDisk(str(e)) from e
 
     # ---------- files ----------
 
@@ -257,13 +314,16 @@ class LocalDrive(StorageAPI):
             raise se.FaultyDisk(str(e)) from e
 
     def _store_meta(self, volume: str, path: str, meta: XLMeta) -> None:
+        self._store_raw_meta(volume, path, meta.serialize())
+
+    def _store_raw_meta(self, volume: str, path: str, raw: bytes) -> None:
         mp = self._meta_path(volume, path)
         os.makedirs(os.path.dirname(mp), exist_ok=True)
         tmp = mp + f".tmp.{uuid.uuid4().hex}"
         try:
             fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
             try:
-                os.write(fd, meta.serialize())
+                os.write(fd, raw)
                 os.fsync(fd)
             finally:
                 os.close(fd)
@@ -303,6 +363,40 @@ class LocalDrive(StorageAPI):
             pass
         meta.add_version(fi)
         self._store_meta(volume, path, meta)
+
+    def write_metadata_single(self, volume: str, path: str, fi: FileInfo,
+                              raw: bytes, defer_reclaim: bool = False
+                              ) -> str | None:
+        """Store an inline version whose one-version journal the caller
+        serialized once for the whole set (`raw`). Where the drive's
+        journal holds other versions, fi is merged into it instead. With
+        defer_reclaim the replaced version (entry and data dir) goes to a
+        reclaim capsule and its token is returned, the contract of
+        rename_data, so a below-quorum inline overwrite can be undone."""
+        self.stat_vol(volume)
+        try:
+            meta = self._load_meta(volume, path)
+        except se.FileNotFound:
+            meta = None
+        token: str | None = None
+        if meta is not None:
+            try:
+                old = meta.exact_version(volume, path, fi.version_id)
+            except se.StorageError:
+                old = None
+            if old is not None and not old.deleted:
+                displaces = bool(old.data_dir and old.data_dir != fi.data_dir)
+                if defer_reclaim:
+                    token = self._stash_displaced(volume, path, old,
+                                                  move_data=displaces)
+                elif displaces:
+                    shutil.rmtree(os.path.join(self._file_path(volume, path),
+                                               old.data_dir), ignore_errors=True)
+            if old is None or len(meta.versions) != 1:
+                meta.add_version(fi)
+                raw = meta.serialize()
+        self._store_raw_meta(volume, path, raw)
+        return token
 
     def read_version(self, volume: str, path: str,
                      version_id: str = "") -> FileInfo:
@@ -450,3 +544,57 @@ class LocalDrive(StorageAPI):
             except (se.StorageError, OSError):
                 pass    # best effort: heal converges the rest
         shutil.rmtree(cap, ignore_errors=True)
+
+    # ---------- listing ----------
+
+    def walk_dir(self, volume: str, prefix: str = "",
+                 start_after: str = "") -> Iterator[WalkEntry]:
+        """Sorted journal walk. Entries come out in lexicographic order of
+        the full object name. A per-directory sort alone is not that order
+        ('a.txt' < 'a/b' because '.' < '/', yet a naive walk emits all of
+        a/ first), so each directory entry sorts under two keys: `name`
+        for the journal it may hold and `name + "/"` for its subtree (the
+        reference's dir-entries-carry-a-trailing-slash convention,
+        cmd/metacache-walk.go). Keys nested under an object key ('a' and
+        'a/b') both list."""
+        base = self._vol_dir(volume)
+        if not os.path.isdir(base):
+            raise se.VolumeNotFound(volume)
+
+        def walk(rel: str, d: str) -> Iterator[WalkEntry]:
+            try:
+                with os.scandir(d) as it:
+                    dirs = {e.name: e for e in it if e.is_dir()}
+            except OSError:
+                return
+            # Directory names hold no "/", so a key ending in "/" is a
+            # subtree and one without is the journal the directory may hold.
+            keys = list(dirs) + [dn + "/" for dn in dirs]
+            keys.sort()
+            for key in keys:
+                if key[-1] == "/":
+                    dn = key[:-1]
+                    name = rel + dn
+                    if prefix and not (name.startswith(prefix)
+                                       or prefix.startswith(name + "/")):
+                        continue
+                    # Marker prune: name + "/" + MARKER_GROUP_PAD bounds
+                    # every key the subtree can hold (names are capped at
+                    # 1024 chars); at or below start_after, none follows
+                    # the marker, so the subtree is skipped unread.
+                    if start_after and name + "/" + MARKER_GROUP_PAD <= start_after:
+                        continue
+                    if not _has_subdirs(dirs[dn]):
+                        continue   # nothing below it can hold a journal
+                    yield from walk(name + "/", os.path.join(d, dn))
+                    continue
+                name = rel + key
+                if prefix and not name.startswith(prefix):
+                    continue
+                if start_after and name <= start_after:
+                    continue
+                raw = _read_small_file(os.path.join(d, key, META_FILE))
+                if raw is not None:   # else a plain directory level
+                    yield WalkEntry(name=name, meta=raw)
+
+        yield from walk("", base)

@@ -179,6 +179,16 @@ class XLMeta:
             pos += bls[i]
         return cls(versions)
 
+    @property
+    def version_count(self) -> int:
+        return len(self.versions)
+
+    @property
+    def latest_mt(self) -> float:
+        """mod_time of the newest entry (0.0 for an empty journal): with
+        version_count, what the listing merge elects a drive's copy by."""
+        return self.versions[0].mt if self.versions else 0.0
+
     def add_version(self, fi: FileInfo) -> None:
         """Insert fi's version; an entry with the same version id (the null
         version included) is replaced. Stable newest-first order: equal
@@ -214,6 +224,17 @@ class XLMeta:
         if version_id in (None, ""):
             return self._fileinfo(0, volume, name)
         return self.exact_version(volume, name, version_id)
+
+    def list_versions(self, volume: str, name: str) -> list[FileInfo]:
+        """Every version, newest first; a noncurrent one carries the
+        mod_time of the entry that superseded it."""
+        out = []
+        for i in range(len(self.versions)):
+            fi = self._fileinfo(i, volume, name)
+            if i:
+                fi.successor_mod_time = self.versions[i - 1].mt
+            out.append(fi)
+        return out
 
     def exact_version(self, volume: str, name: str, version_id: str) -> FileInfo:
         """Exact-id lookup: '' (or "null") matches ONLY the null version."""

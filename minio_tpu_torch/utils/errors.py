@@ -84,6 +84,10 @@ class BucketNameInvalid(ObjectError):
     pass
 
 
+class BucketNotEmpty(ObjectError):
+    pass
+
+
 class ObjectNotFound(ObjectError):
     pass
 

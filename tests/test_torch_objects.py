@@ -17,8 +17,10 @@ import pytest
 
 from minio_tpu.erasure.objects import ErasureObjects as JaxObjects
 from minio_tpu.storage.local import LocalDrive as JaxDrive
+from minio_tpu.utils import errors as jax_se
 from minio_tpu_torch.erasure.objects import ErasureObjects as TorchObjects
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
+from minio_tpu_torch.utils import errors as torch_se
 
 BS = 64 << 10
 SIZES = {"small.bin": 1 << 10, "mid.bin": 300 << 10, "big.bin": (1 << 20) + 12345}
@@ -190,3 +192,40 @@ def test_port_reads_and_heals_blake2b_objects(tmp_path, planes_off):
     assert tl.heal_object(BUCKET, "b2", scan_deep=True).healed_count == 3
     assert _part_files(paths, "b2") == before
     assert _get(jl, "b2") == data
+
+
+@pytest.mark.parametrize("size", [2_000_000, 1000], ids=["streamed", "inline"])
+@pytest.mark.parametrize("name", ["jax", "torch"])
+def test_below_quorum_overwrite_keeps_the_old_object(tmp_path, planes_off, name,
+                                                     size):
+    """An overwrite PUT whose commit fails on 5 of 12 drives (EC 8+4, write
+    quorum 8) answers InsufficientWriteQuorum in both packages, and both
+    then GET the previous object: the drives that did commit put back what
+    the overwrite displaced. A retry once the drives are back commits."""
+    paths, jl, tl = _layers(tmp_path)
+    layer = jl if name == "jax" else tl
+    layer.make_bucket(BUCKET)
+    old, new = _payload(size, 90), _payload(size, 91)
+    layer.put_object(BUCKET, "obj", io.BytesIO(old), size)
+    faulty = (jax_se if name == "jax" else torch_se).FaultyDisk
+
+    def fail(*_a, **_kw):
+        raise faulty("injected")
+
+    broken = layer.drives[3:8]
+    commits = ("rename_data", "write_metadata", "write_metadata_single")
+    for d in broken:
+        for m in commits:
+            setattr(d, m, fail)
+    with pytest.raises(Exception) as ei:
+        layer.put_object(BUCKET, "obj", io.BytesIO(new), size)
+    assert type(ei.value).__name__ == "InsufficientWriteQuorum"
+    for reader in (jl, tl):
+        assert _get(reader, "obj") == old
+    assert not any(glob.glob(os.path.join(p, ".mtpu.sys", "tmp", "*")) for p in paths)
+    for d in broken:
+        for m in commits:
+            delattr(d, m)
+    layer.put_object(BUCKET, "obj", io.BytesIO(new), size)
+    for reader in (jl, tl):
+        assert _get(reader, "obj") == new

@@ -154,7 +154,7 @@ def test_payload_hash_mismatch_matches_jax(server, torch_server):
     assert views[1][2][0] == 404
 
 
-_MASKED = {"UploadId", "LastModified", "Initiated"}
+_MASKED = {"UploadId", "LastModified", "Initiated", "CreationDate"}
 
 
 def _xml_fields(body):
@@ -253,6 +253,100 @@ def test_multipart_responses_match_jax(server, torch_server):
         assert dict(got)[name][2]["Code"] == "InvalidPart"
     for name in ("list-aborted", "part-unknown-upload", "abort-unknown"):
         assert dict(got)[name][2]["Code"] == "NoSuchUpload"
+
+
+LIST_KEYS = ["a", "a.txt", "a/b", "a/c", "a-1", "b/x/y", "b.z", "docs/r1",
+             "docs/r2/x", "docs/r2.y", "e\u00e9/k", "z"]
+
+
+def _delete_doc(keys, quiet=False):
+    return ("<Delete>" + ("<Quiet>true</Quiet>" if quiet else "") + "".join(
+        f"<Object><Key>{k}</Key></Object>" for k in keys) + "</Delete>").encode()
+
+
+def _list_buckets_view(r, names):
+    """ListBuckets answer, kept to the buckets of one script (the servers
+    hold other tests' buckets too)."""
+    status, h, body = _view(r)
+    root = ET.fromstring(body)
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    for bs in root.iter(ns + "Buckets"):
+        for b in list(bs):
+            if b.find(ns + "Name").text not in names:
+                bs.remove(b)
+    h = {k: v for k, v in h.items() if k != "Content-Length"}
+    return status, h, _xml_fields(ET.tostring(root))
+
+
+def _listing_script(cl, bucket):
+    """ListObjects v1/v2, ListBuckets, DeleteObjects and DeleteBucket in
+    one order, each answer viewed as in _mp_view (times masked)."""
+    out = []
+    empty = f"{bucket}-empty"
+
+    def step(name, method, path, query=None, body=b""):
+        r = cl.request(method, path, query=query, data=body)
+        out.append((name, _mp_view(r)))
+        return r
+
+    def buckets(name):
+        out.append((name, _list_buckets_view(cl.request("GET", "/"),
+                                             {bucket, empty})))
+
+    step("create", "PUT", f"/{bucket}")
+    step("create-empty", "PUT", f"/{empty}")
+    step("v1-empty", "GET", f"/{empty}")
+    step("v2-empty", "GET", f"/{empty}", {"list-type": "2"})
+    for i, key in enumerate(LIST_KEYS):
+        size = 70 << 10 if key == "docs/r1" else 10 + i
+        step(f"put-{key}", "PUT", f"/{bucket}/{key}", body=_payload(size, 40 + i))
+    for q in ({}, {"max-keys": "3"}, {"marker": "a.txt"}, {"prefix": "docs/"},
+              {"delimiter": "/"}, {"delimiter": "/", "max-keys": "2"},
+              {"delimiter": "/", "marker": "a/"}, {"prefix": "docs/r2", "delimiter": "/"},
+              {"max-keys": "0"}, {"max-keys": "x"}, {"encoding-type": "url"}):
+        step(f"v1-{q}", "GET", f"/{bucket}", q)
+    for q in ({}, {"max-keys": "4"}, {"continuation-token": "a/c", "max-keys": "4"},
+              {"start-after": "b"}, {"start-after": "a", "continuation-token": "docs/"},
+              {"delimiter": "/", "max-keys": "3"},
+              {"delimiter": "/", "continuation-token": "b/"}, {"prefix": "a", "max-keys": "2"}):
+        step(f"v2-{q}", "GET", f"/{bucket}", {"list-type": "2", **q})
+    step("v2-missing-bucket", "GET", f"/{bucket}-none", {"list-type": "2"})
+    step("v1-missing-bucket", "GET", f"/{bucket}-none")
+    buckets("list-buckets")
+    step("delete-verbose", "POST", f"/{bucket}", {"delete": ""},
+         _delete_doc(["a", "a/b", "nope", "docs/r1"]))
+    step("delete-quiet", "POST", f"/{bucket}", {"delete": ""},
+         _delete_doc(["a.txt", "nope2"], quiet=True))
+    step("delete-malformed", "POST", f"/{bucket}", {"delete": ""}, b"<Delete")
+    step("delete-none", "POST", f"/{bucket}", {"delete": ""}, b"<Delete></Delete>")
+    step("v2-after-delete", "GET", f"/{bucket}", {"list-type": "2"})
+    step("delete-bucket-missing", "DELETE", f"/{bucket}-none")
+    step("delete-bucket-not-empty", "DELETE", f"/{bucket}")
+    step("delete-bucket-empty", "DELETE", f"/{empty}")
+    buckets("list-buckets-after")
+    step("delete-rest", "POST", f"/{bucket}", {"delete": ""}, _delete_doc(LIST_KEYS))
+    step("v1-emptied", "GET", f"/{bucket}")
+    step("delete-bucket", "DELETE", f"/{bucket}")
+    step("head-deleted-bucket", "HEAD", f"/{bucket}")
+    return out
+
+
+def test_listing_and_bucket_responses_match_jax(server, torch_server):
+    bucket = f"lst-{uuid.uuid4().hex[:12]}"
+    want = _listing_script(SigV4Client(server, S3_ACCESS, S3_SECRET), bucket)
+    got = _listing_script(SigV4Client(torch_server, S3_ACCESS, S3_SECRET), bucket)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, w), (_, g) in zip(want, got):
+        assert g == w, name
+    codes = {name: v[0] for name, v in got}
+    assert codes["delete-bucket-empty"] == codes["delete-bucket"] == 204
+    full = dict(got)["v1-{}"][2]
+    assert [c[2][0][1] for c in full[2] if c[0].endswith("Contents")] == sorted(LIST_KEYS)
+    for name, code in (("delete-bucket-missing", "NoSuchBucket"),
+                       ("delete-bucket-not-empty", "BucketNotEmpty"),
+                       ("delete-malformed", "MalformedXML"),
+                       ("v2-missing-bucket", "NoSuchBucket")):
+        assert dict(got)[name][2]["Code"] == code, name
 
 
 def test_set_drive_count_spreads_keys_over_sets(tmp_path):
