@@ -39,9 +39,10 @@ package beside it. Phases, each raising on failure:
    fifth drive's shard flipped, a GET that reads around it and a deep heal
    that rewrites it; then a GET with 4 OTHER drives removed;
 4. the batched data plane at its defaults, through a fresh server: 64
-   client threads PUT 768 objects of 1 KiB-512 KiB (log-uniform), GET
-   them back byte-equal, lose 2 drives' shard files, GET 256 objects of
-   16-128 KiB concurrently and heal one; launches < requests on PUT, a
+   client threads PUT PLANE_OBJECTS objects of 1 KiB-512 KiB (log-uniform),
+   GET them back byte-equal, lose 2 drives' shard files, GET those of
+   16-128 KiB (up to 256) concurrently and heal one; launches < requests
+   on PUT, a
    reconstruct lane launched for the degraded GETs and for the heal. The
    same traffic again with the plane off (MTPU_BATCHED_DATAPLANE=0), in
    turns on, off, off, on, and each stage's objects/s side by side;
@@ -61,10 +62,22 @@ package beside it. Phases, each raising on failure:
    drives of the object's set wiped, a degraded GET, a deep heal whose
    rebuilt shard files must equal the originals, and a GET again. The
    object halves (down to 1 GiB) when the tmp filesystem cannot hold it.
-   Its pools keep serving the object until phase 7 has listed it;
-7. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
+   Its pools keep serving the object until phase 8 has listed it;
+7. versioning, server-side copies, tags and conditional requests
+   (versioning_phase): on 12 drives in /dev/shm at EC 8+4, a 256 MiB object PUT
+   as the null version and, with the bucket's versioning enabled, 3
+   times more; every version read by its id; the noncurrent one read with
+   4 drives lost, deep-healed and read with 4 other drives lost; a delete
+   marker and its removal; CopyObject of the noncurrent version (COPY and
+   REPLACE); tags on a version; If-Match and If-None-Match; 64 clients
+   PUT 64 keys x 4 versions of 1-512 KiB, ListObjectVersions walks them
+   in pages of 1000 and one DeleteObjects removes 250 by VersionId; then
+   on phase 6's pools, UploadPartCopy of the object's first 64 parts,
+   part by part, into a versioned bucket;
+8. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
    at EC 8+4 behind the S3 server, a bucket of LIST_OBJECTS synthetic
-   objects (halved until the phase fits the 900 s budget) plus 1,000 real
+   objects (halved to 100,000 to fit the 900 s budget, and below only to
+   keep the script under 1,100 s) plus 1,000 real
    ones PUT through the server; ListObjectsV2 over the whole bucket in
    pages of 1,000 (every name once, in order; the real objects' ETag and
    Size), a delimiter listing, a v1 marker resume, ListBuckets, GETs of
@@ -72,7 +85,7 @@ package beside it. Phases, each raising on failure:
    refused on the full bucket and done on an emptied one, then one
    ListObjectsV2 on phase 6's 4 pools naming the 5 GiB object once.
 
-The launch count of each kernel is reset just before each of phases 3-7
+The launch count of each kernel is reset just before each of phases 3-8
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -105,19 +118,25 @@ HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
 MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
 MP_INFLIGHT = 4                 # part uploads in flight
 K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
+VER_SIZE, VER_VERSIONS = 256 << 20, 4   # versioning phase: 4 versions of 256 MiB
+VER_KEYS = 64                   # ... and 64 small keys of 4 versions, 1-512 KiB
+VER_DELETE = 250                # ... of which one DeleteObjects removes 250
+VER_COPY_PARTS = 64             # ... and UploadPartCopy of phase 6's first 64 parts
 LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
+LIST_MIN_OBJECTS = 100_000      # ... never cut below this to meet SMOKE_BUDGET_S
 LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
 LIST_PAGE = 1000                # ListObjectsV2 max-keys
 # The listing phase's cost on the card's machine (NVIDIA H100 80GB HBM3,
-# 12 drives on /dev/shm), from this script's run there at 100,000 objects:
-# seconds per synthetic object for the build, the full walk and the
-# removal (35.6 + 135.2 + 73.8 s), the rest of the phase, and tmpfs bytes
-# per synthetic object (12 journal files and their directories, with room
-# to spare).
-LIST_S_PER_OBJECT = 0.0025
-LIST_FIXED_S = 60.0
+# 12 drives on /dev/shm), bounded from above by this script's runs there
+# at 12,500, 25,000 and 50,000 objects (115, 156 and 282 s; PERF.md 5):
+# seconds per synthetic object (build, walk, removal), the rest of the
+# phase, and tmpfs bytes per synthetic object (12 journal files and their
+# directories, with room to spare).
+LIST_S_PER_OBJECT = 0.004
+LIST_FIXED_S = 90.0
 LIST_BYTES_PER_OBJECT = 12 * 8192
 SMOKE_BUDGET_S = 900.0          # what the whole script should stay under
+SMOKE_LIMIT_S = 1100.0          # what it must stay under: 1200 s less a margin
 S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 
 
@@ -1006,11 +1025,14 @@ def _complete_doc(etags: list[str]) -> bytes:
 
 
 class _Kept:
-    """A phase's deployment kept serving for a later phase: its S3 URL,
-    what it holds, and close() to stop it and remove its drives."""
+    """A phase's deployment kept serving for later phases: its S3 URL,
+    what it holds (the object's part md5s and SHA-256), and close() to
+    stop it and remove its drives."""
 
-    def __init__(self, url: str, bucket: str, key: str, size: int, close):
+    def __init__(self, url: str, bucket: str, key: str, size: int, md5s: list,
+                 sha256: str, close):
         self.url, self.bucket, self.key, self.size = url, bucket, key, size
+        self.md5s, self.sha256 = md5s, sha256
         self.close = close
 
 
@@ -1196,20 +1218,399 @@ def multipart_phase(seed: int, card: str, records: list[dict] | None,
           f"({put_s:.6f} s, Create to Complete), GET {gib / get_s:.6f} GiB/s "
           f"({get_s:.6f} s), degraded GET (4 of 16 lost) {gib / deg_s:.6f} GiB/s "
           f"({deg_s:.6f} s), deep heal of 4 drives {heal_s:.6f} s; pool {owner}")
-    return _Kept(srv.url, "mpu", "object-5g", size, close) if keep else None
+    return (_Kept(srv.url, "mpu", "object-5g", size, md5s, want_sha, close)
+            if keep else None)
+
+
+_VERSIONING_ON = (b"<VersioningConfiguration><Status>Enabled</Status>"
+                  b"</VersioningConfiguration>")
+
+
+def _versions_page(doc: bytes):
+    """A ListObjectVersions answer -> ([(key, version id, is latest, is a
+    delete marker, etag, size)], truncated, next key marker, next
+    version-id marker)."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(doc)
+    out = []
+    for e in root:
+        tag = e.tag[len(S3_NS):]
+        if tag in ("Version", "DeleteMarker"):
+            out.append((e.findtext(S3_NS + "Key"), e.findtext(S3_NS + "VersionId"),
+                        e.findtext(S3_NS + "IsLatest") == "true", tag == "DeleteMarker",
+                        (e.findtext(S3_NS + "ETag") or "").strip('"'),
+                        int(e.findtext(S3_NS + "Size") or 0)))
+    return (out, root.findtext(S3_NS + "IsTruncated") == "true",
+            root.findtext(S3_NS + "NextKeyMarker") or "",
+            root.findtext(S3_NS + "NextVersionIdMarker") or "")
+
+
+def _copy_etag(doc: bytes) -> str:
+    import xml.etree.ElementTree as ET
+
+    return ET.fromstring(doc).findtext(S3_NS + "ETag").strip('"')
+
+
+class _Stages:
+    """Kernel launch counts and the host clock at each named point of a
+    phase; report() prints each stage's seconds, rate and launches."""
+
+    def __init__(self):
+        from minio_tpu_torch.ops import kernels
+
+        self._kernels = kernels
+        self.at: list[tuple[str, dict, float]] = []
+
+    def mark(self, name: str) -> None:
+        self.at.append((name, self._kernels.launches(), time.perf_counter()))
+
+    def delta(self, name: str) -> tuple[float, dict]:
+        i = [n for n, _l, _t in self.at].index(name)
+        (_a, la, ta), (_b, lb, tb) = self.at[i - 1], self.at[i]
+        return tb - ta, {k: lb[k] - la[k] for k in lb}
+
+    def need(self, name: str, kernels=("gf2_matmul", "mxsum_digest")) -> None:
+        _s, d = self.delta(name)
+        for k in kernels:
+            if d[k] <= 0:
+                raise AssertionError(f"{k} did not launch for {name}")
+
+
+def versioning_phase(seed: int, card: str, mp: _Kept | None, device: str = "cuda",
+                     big_size: int = VER_SIZE, small_keys: int = VER_KEYS,
+                     clients: int = 64) -> None:
+    """S3 versioning, server-side copies, tags and conditional requests
+    (phase 7) through the port's S3 server over HTTP with SigV4. On config
+    1's deployment (12 drives on /dev/shm, EC 8+4, 1 MiB blocks): one object of
+    `big_size` bytes PUT as the null version, then, with the bucket's
+    versioning enabled, overwritten 3 times; each of the 4 versions read
+    back by its id ("null" included); the first versioned one, now
+    noncurrent, read with its shards lost on the 4 drives that hold data
+    shards 1-4, deep-healed (the rebuilt files equal to the originals) and
+    read with data shards 5-8 moved away; a DELETE without an id answers
+    with a delete marker, a GET then 404 with x-amz-delete-marker, and the
+    marker deleted by its id brings the newest version back; CopyObject of
+    the noncurrent version with the metadata directives COPY and REPLACE;
+    tags on a version; If-Match and If-None-Match on GET and HEAD. Then
+    small versioned objects: `clients` clients PUT `small_keys` keys, 4
+    versions each, of 1-512 KiB (log-uniform), the bucket walked with
+    ListObjectVersions in pages of 1000 (every version once, one latest
+    per key), and VER_DELETE versions removed by one DeleteObjects naming
+    their VersionIds. Last, on phase 6's pools (`mp`), UploadPartCopy of
+    the multipart object's first VER_COPY_PARTS parts into a versioned
+    bucket, in its own 16 MiB parts, 4 in flight: every part's ETag the
+    source part's md5, the Complete answered with a version id, each part
+    of the copy read back with the source part's md5."""
+    import numpy as np
+
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    rng = np.random.default_rng(seed + 8)
+    bodies = [rng.bytes(big_size) for _ in range(VER_VERSIONS)]  # null, then 3
+    md5 = [hashlib.md5(b).hexdigest() for b in bodies]
+    sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10),
+                               small_keys * VER_VERSIONS)).astype(np.int64)
+    small = [(f"s{i // VER_VERSIONS:04d}", rng.bytes(int(n))) for i, n in enumerate(sizes)]
+    # Drives on /dev/shm, as the listing phase's: the phase's rates then
+    # do not hang on the write-back of the gigabytes that the earlier
+    # phases left on the tmp filesystem.
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-ver-", dir=shm)
+    paths = [os.path.join(work, f"d{i}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    cl = _Client(srv.url)
+    pool = _Pool(srv.url, clients)
+    st = _Stages()
+    big = "/ver/big"
+    gib = big_size / (1 << 30)
+    try:
+        es = srv.obj.pools[0].sets[0]
+        print(f"  server {srv.url}: EC {es.n - es.parity}+{es.parity}, block "
+              f"{es.block_size} B, bitrot {es.bitrot_algorithm}; {VER_VERSIONS} versions "
+              f"of {big_size} B, {small_keys} x {VER_VERSIONS} small versions, "
+              f"{clients} client threads")
+        cl.request("PUT", "/ver")
+        kernels.reset_launches()
+        st.mark("start")
+        r, _ = cl.request("PUT", big, bodies[0], headers={"x-amz-meta-gen": "0"})
+        if r.getheader("x-amz-version-id"):
+            raise AssertionError("a PUT before versioning got a version id")
+        cl.request("PUT", "/ver", _VERSIONING_ON, query={"versioning": ""})
+        vids = ["null"]
+        for i in range(1, VER_VERSIONS):
+            r, _ = cl.request("PUT", big, bodies[i], headers={
+                "x-amz-meta-gen": str(i), "Content-Type": f"application/x-v{i}"})
+            if not r.getheader("x-amz-version-id") or r.getheader("ETag") != f'"{md5[i]}"':
+                raise AssertionError(f"versioned PUT {i}: {r.getheader('x-amz-version-id')}")
+            vids.append(r.getheader("x-amz-version-id"))
+        st.mark("put")
+
+        def get_version(i, what, headers=None):
+            r, data = cl.request("GET", big, query={"versionId": vids[i]}, headers=headers)
+            if data != bodies[i] or r.getheader("ETag") != f'"{md5[i]}"':
+                raise AssertionError(f"{what}: GET of version {i} differs")
+            if r.getheader("x-amz-version-id") != (vids[i] if i else None):
+                raise AssertionError(f"{what}: x-amz-version-id {r.getheader('x-amz-version-id')}")
+
+        for i in range(VER_VERSIONS):
+            get_version(i, "intact")
+        st.mark("get")
+
+        # The first versioned one is noncurrent: lose its shards on the 4
+        # drives of data shards 1-4, read it, deep-heal it.
+        fi = es.latest_fileinfo("ver", "big", vids[1])
+        by_shard = {shard: d for d, shard in zip(es.drives, fi.erasure.distribution)}
+
+        def v1_dir(shard):
+            return os.path.join(by_shard[shard].root, "ver", "big", fi.data_dir)
+
+        originals = {s_: open(os.path.join(v1_dir(s_), "part.1"), "rb").read()
+                     for s_ in (1, 2, 3, 4)}
+        for s_ in originals:
+            shutil.rmtree(v1_dir(s_))
+        st.mark("lose")
+        get_version(1, "degraded (4 of 12 drives lost)")
+        st.mark("degraded_get")
+        res = srv.obj.heal_object("ver", "big", vids[1], scan_deep=True)
+        if res.healed_count != 4 or res.version_id != vids[1] or any(
+                open(os.path.join(v1_dir(s_), "part.1"), "rb").read() != data
+                for s_, data in originals.items()):
+            raise AssertionError(f"heal of the noncurrent version: {res.healed_count} "
+                                 "healed or files differ")
+        st.mark("heal")
+        aside = [(v1_dir(s_), os.path.join(work, f"aside-{s_}")) for s_ in (5, 6, 7, 8)]
+        for src, dst in aside:
+            os.replace(src, dst)
+        get_version(1, "healed, 4 other drives lost")
+        for src, dst in aside:
+            os.replace(dst, src)
+        st.mark("get_after_heal")
+
+        r, _ = cl.request("DELETE", big)
+        dm = r.getheader("x-amz-version-id")
+        if r.status != 204 or r.getheader("x-amz-delete-marker") != "true" or not dm:
+            raise AssertionError(f"DELETE without an id: {r.status}, no delete marker")
+        r, doc = cl.request("GET", big, check=False)
+        if (r.status != 404 or b"<Code>NoSuchKey</Code>" not in doc
+                or r.getheader("x-amz-delete-marker") != "true"
+                or r.getheader("x-amz-version-id") != dm):
+            raise AssertionError(f"GET after the delete marker: {r.status}")
+        r, _ = cl.request("DELETE", big, query={"versionId": dm})
+        r, data = cl.request("GET", big, headers={"Range": "bytes=0-1048575"})
+        if data != bodies[-1][:1 << 20] or r.getheader("x-amz-version-id") != vids[-1]:
+            raise AssertionError("the newest version does not answer after its marker went")
+        st.mark("markers")
+
+        source = f"/ver/big?versionId={vids[1]}"
+        _r, doc = cl.request("PUT", "/ver/copy-v1", headers={"x-amz-copy-source": source})
+        _r, doc2 = cl.request("PUT", "/ver/copy-v1-replace", headers={
+            "x-amz-copy-source": source, "x-amz-metadata-directive": "REPLACE",
+            "x-amz-meta-new": "yes", "Content-Type": "text/plain"})
+        st.mark("copy")
+        if _copy_etag(doc) != md5[1] or _copy_etag(doc2) != md5[1]:
+            raise AssertionError("CopyObject: ETag is not the source's md5")
+        for key, want in (("copy-v1", {"x-amz-meta-gen": "1", "x-amz-meta-new": None,
+                                       "Content-Type": "application/x-v1"}),
+                          ("copy-v1-replace", {"x-amz-meta-gen": None, "x-amz-meta-new": "yes",
+                                               "Content-Type": "text/plain"})):
+            r, data = cl.request("GET", f"/ver/{key}")
+            got = {h: r.getheader(h) for h in want}
+            if data != bodies[1] or got != want or r.getheader("x-amz-version-id") is None:
+                raise AssertionError(f"CopyObject {key}: bytes or metadata differ: {got}")
+        st.mark("copy_get")
+
+        tags = (b"<Tagging><TagSet><Tag><Key>env</Key><Value>prod</Value></Tag>"
+                b"<Tag><Key>gen</Key><Value>2</Value></Tag></TagSet></Tagging>")
+        v2 = {"versionId": vids[2]}
+        cl.request("PUT", big, tags, query={"tagging": "", **v2})
+        _r, doc = cl.request("GET", big, query={"tagging": "", **v2})
+        r, _ = cl.request("HEAD", big, query=v2)
+        if b"<Key>env</Key><Value>prod</Value>" not in doc or \
+                r.getheader("x-amz-tagging-count") != "2":
+            raise AssertionError("tags on a version")
+        r, _ = cl.request("DELETE", big, query={"tagging": "", **v2})
+        _r, doc = cl.request("GET", big, query={"tagging": "", **v2})
+        if r.status != 204 or b"<Tag>" in doc:
+            raise AssertionError("DeleteObjectTagging")
+        etag, other = f'"{md5[-1]}"', '"00000000000000000000000000000000"'
+        for method, headers, want in (
+                ("GET", {"If-Match": etag, "Range": "bytes=0-1023"}, 206),
+                ("GET", {"If-Match": other}, 412),
+                ("GET", {"If-None-Match": etag}, 304),
+                ("GET", {"If-None-Match": other, "Range": "bytes=0-1023"}, 206),
+                ("HEAD", {"If-None-Match": etag}, 304),
+                ("HEAD", {"If-Match": other}, 412),
+                ("HEAD", {"If-Match": etag}, 200)):
+            r, data = cl.request(method, big, headers=headers, check=False)
+            if r.status != want or (want == 206 and data != bodies[-1][:1024]):
+                raise AssertionError(f"{method} {headers}: {r.status}, {want} expected")
+        st.mark("tags")
+        print(f"  {VER_VERSIONS} versions byte-equal by id (null included); the "
+              "noncurrent one degraded, healed and read again; delete marker 404 and "
+              "its removal; CopyObject COPY and REPLACE byte-equal with their metadata; "
+              "tags on a version; If-Match/If-None-Match 206/412/304/200: ok")
+
+        # Small versioned objects: the plane phase's mix, 4 versions a key.
+        cl.request("PUT", "/vsmall")
+        cl.request("PUT", "/vsmall", _VERSIONING_ON, query={"versioning": ""})
+        st.mark("small_start")
+
+        def put_small(c, item):
+            key, data = item
+            r, _ = c.request("PUT", f"/vsmall/{key}", data)
+            vid = r.getheader("x-amz-version-id")
+            if not vid or r.getheader("ETag") != _md5_etag(data):
+                raise AssertionError(f"small versioned PUT {key}")
+            return (key, vid), (hashlib.md5(data).hexdigest(), len(data))
+
+        expected = dict(pool.run(put_small, small))
+        st.mark("small_put")
+
+        def walk_versions():
+            seen, latest, km, vm, pages = {}, set(), "", "", 0
+            while True:
+                q = {"versions": "", "max-keys": "1000"}
+                if km:
+                    q.update({"key-marker": km, "version-id-marker": vm})
+                page, truncated, km, vm = _versions_page(cl.request("GET", "/vsmall",
+                                                                    query=q)[1])
+                pages += 1
+                for key, vid, is_latest, is_marker, etag, size in page:
+                    if (key, vid) in seen or is_marker:
+                        raise AssertionError(f"ListObjectVersions: {key} {vid} repeated")
+                    seen[(key, vid)] = (etag, size)
+                    if is_latest:
+                        if key in latest:
+                            raise AssertionError(f"two latest versions of {key}")
+                        latest.add(key)
+                if not truncated:
+                    return seen, latest, pages
+
+        seen, latest, pages = walk_versions()
+        st.mark("small_list")
+        if seen != expected or latest != {k for k, _v in expected}:
+            raise AssertionError(f"ListObjectVersions: {len(seen)} versions, "
+                                 f"{len(expected)} PUT")
+        doomed = sorted(expected)[:VER_DELETE]
+        doc = cl.request("POST", "/vsmall", ("<Delete>" + "".join(
+            f"<Object><Key>{k}</Key><VersionId>{v}</VersionId></Object>"
+            for k, v in doomed) + "</Delete>").encode(), query={"delete": ""})[1]
+        st.mark("small_delete")
+        if doc.count(b"<Deleted>") != len(doomed) or b"<Error>" in doc or any(
+                f"<VersionId>{v}</VersionId>".encode() not in doc for _k, v in doomed):
+            raise AssertionError(f"DeleteObjects of versions: {doc[:300]!r}")
+        left, _latest, _p = walk_versions()
+        if left != {kv: expected[kv] for kv in sorted(expected)[len(doomed):]}:
+            raise AssertionError(f"{len(left)} versions left after DeleteObjects")
+        print(f"  {len(small)} small versioned PUTs; ListObjectVersions: every version "
+              f"once in {pages} pages, one latest per key; DeleteObjects of "
+              f"{len(doomed)} VersionIds in one POST, {len(left)} versions left: ok")
+    finally:
+        pool.close()
+        cl.close()
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    if mp is not None:
+        # UploadPartCopy on phase 6's pools, into a versioned bucket.
+        c = _Client(mp.url)
+        ppool = _Pool(mp.url, MP_INFLIGHT)
+        try:
+            c.request("PUT", "/mpver")
+            c.request("PUT", "/mpver", _VERSIONING_ON, query={"versioning": ""})
+            st.mark("part_copy_start")
+            _r, doc = c.request("POST", "/mpver/copy", query={"uploads": ""})
+            uid = _upload_id(doc)
+
+            def copy_part(cc, i):
+                _r, doc = cc.request("PUT", "/mpver/copy", query={
+                    "partNumber": str(i + 1), "uploadId": uid}, headers={
+                    "x-amz-copy-source": f"/{mp.bucket}/{mp.key}",
+                    "x-amz-copy-source-range":
+                        f"bytes={i * MP_PART_SIZE}-{(i + 1) * MP_PART_SIZE - 1}"})
+                if _copy_etag(doc) != mp.md5s[i]:
+                    raise AssertionError(f"UploadPartCopy {i + 1}: ETag {_copy_etag(doc)}")
+
+            md5s = mp.md5s[:VER_COPY_PARTS]
+            ppool.run(copy_part, range(len(md5s)))
+            want_etag = hashlib.md5(b"".join(bytes.fromhex(e) for e in md5s)).hexdigest()
+            r, doc = c.request("POST", "/mpver/copy", _complete_doc(md5s),
+                               query={"uploadId": uid})
+            st.mark("part_copy")
+            if not r.getheader("x-amz-version-id") or \
+                    f"{want_etag}-{len(md5s)}".encode() not in doc:
+                raise AssertionError(f"Complete of the part copy: {doc[:300]!r}")
+            # The copy read back part by part against the md5 of each
+            # source part, taken when phase 6 PUT it.
+            r = c.send("GET", "/mpver/copy")
+            for i, want in enumerate(md5s):
+                got = r.read(MP_PART_SIZE)
+                if len(got) != MP_PART_SIZE or hashlib.md5(got).hexdigest() != want:
+                    raise AssertionError(f"the part copy's part {i + 1} differs "
+                                         "from the source's")
+            if r.read(1):
+                raise AssertionError("the part copy is longer than its parts")
+            st.mark("part_copy_get")
+            print(f"  UploadPartCopy of {mp.key}'s first {len(md5s)} parts of "
+                  f"{MP_PART_SIZE} B, {MP_INFLIGHT} in flight, into a versioned bucket: "
+                  f"every part ETag the source part's md5, version id "
+                  f"{r.getheader('x-amz-version-id')}, every part's md5 read back: ok")
+        finally:
+            ppool.close()
+            c.close()
+
+    # Each stage: (amount, unit, what the amount counts).
+    report = [("put", VER_VERSIONS * gib, "GiB", f"{VER_VERSIONS} PUTs"),
+              ("get", VER_VERSIONS * gib, "GiB", f"{VER_VERSIONS} GETs by id"),
+              ("degraded_get", gib, "GiB", "4 of 12 drives lost"),
+              ("heal", 4, "shards", "deep heal of the noncurrent version"),
+              ("get_after_heal", gib, "GiB", "4 other drives lost"),
+              ("markers", 4, "requests", "DELETE, GET 404, DELETE of the marker, GET"),
+              ("copy", 2 * gib, "GiB", "CopyObject COPY and REPLACE"),
+              ("copy_get", 2 * gib, "GiB", "GETs of the copies"),
+              ("tags", 12, "requests", "tags on a version and conditional requests"),
+              ("small_put", len(small), "objects", "small versioned PUTs"),
+              ("small_list", len(small), "versions", "ListObjectVersions walk"),
+              ("small_delete", min(VER_DELETE, len(small)), "versions",
+               "one DeleteObjects")]
+    if mp is not None:
+        n_copy = min(VER_COPY_PARTS, len(mp.md5s))
+        mp_gib = n_copy * MP_PART_SIZE / (1 << 30)
+        report += [("part_copy", mp_gib, "GiB",
+                    f"UploadPartCopy of {n_copy} parts, Create to Complete"),
+                   ("part_copy_get", mp_gib, "GiB", "GET of the copy")]
+    for name, amount, unit, what in report:
+        secs, d = st.delta(name)
+        print(f"  versioning {name} on {card}: {secs:.6f} s, {amount / secs:.6f} "
+              f"{unit}/s ({amount:g} {unit}, {what}); launches "
+              + ", ".join(f"{k} {d[k]}" for k in kernels.KERNELS))
+    for name in ("put", "degraded_get", "heal", "copy", "small_put") + (
+            ("part_copy",) if mp is not None else ()):
+        st.need(name)
+    st.need("get", ("mxsum_digest",))
+    st.need("get_after_heal")
+    total = {k: st.at[-1][1][k] - st.at[0][1][k] for k in kernels.KERNELS}
+    print("  launches versioning phase: " + ", ".join(f"{k} {total[k]}"
+                                                      for k in kernels.KERNELS))
 
 
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
-    SMOKE_BUDGET_S after `elapsed_s`; -> (count, the reason for a cut)."""
+    SMOKE_BUDGET_S after `elapsed_s`, but for time not below
+    LIST_MIN_OBJECTS unless the estimate passes SMOKE_LIMIT_S;
+    -> (count, the reason for a cut)."""
     n, why = LIST_OBJECTS, ""
     while n > LIST_OBJECTS // 16:
+        end_s = elapsed_s + LIST_FIXED_S + n * LIST_S_PER_OBJECT
         if n * LIST_BYTES_PER_OBJECT > free_bytes:
             why = f"{free_bytes} B free on the drives' filesystem"
-        elif elapsed_s + LIST_FIXED_S + n * LIST_S_PER_OBJECT > SMOKE_BUDGET_S:
+        elif end_s > SMOKE_LIMIT_S or (end_s > SMOKE_BUDGET_S and n > LIST_MIN_OBJECTS):
+            limit = SMOKE_BUDGET_S if n > LIST_MIN_OBJECTS else SMOKE_LIMIT_S
             why = (f"{elapsed_s:.0f} s spent, {LIST_S_PER_OBJECT * 1e3:.1f} ms per "
-                   f"object, the script kept under {SMOKE_BUDGET_S:.0f} s")
+                   f"object, the script kept under {limit:.0f} s")
         else:
             break
         n //= 2
@@ -1246,7 +1647,7 @@ def _delete_doc(keys) -> bytes:
 def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
                   n_objects: int | None = None, device: str = "cuda",
                   clients: int = 64) -> None:
-    """Listing and the bucket calls (phase 7) on config 1's deployment: one
+    """Listing and the bucket calls (phase 8) on config 1's deployment: one
     12-drive set at EC 8+4, 1 MiB blocks, mxsum256, behind the port's S3
     server over HTTP with SigV4, its drives on /dev/shm. A bucket of
     LIST_OBJECTS synthetic objects (the JAX package's listing-scale
@@ -1496,8 +1897,11 @@ def main() -> int:
     hot_tier_phase(args.seed, card, records, HOT_WORKING_SET)
     print("multipart phase (4 pools x 16 drives, EC 12+4, 1 MiB blocks):")
     mp = multipart_phase(args.seed, card, records, keep=True)
-    print("listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm):")
     try:
+        print("versioning phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; "
+              "UploadPartCopy on the 4 pools, EC 12+4):")
+        versioning_phase(args.seed, card, mp)
+        print("listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)
     finally:
         mp.close()

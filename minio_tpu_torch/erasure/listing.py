@@ -53,13 +53,16 @@ def fi_to_object_info(bucket: str, obj: str, fi: FileInfo) -> ObjectInfo:
 def bulk_delete(delete_object, bucket, objects, opts=None):
     """Per-key delete loop shared by every layer (reference DeleteObjects,
     cmd/erasure-server-pool.go): each key resolves on its own; errors come
-    back as values, not raised. `opts` is accepted for the JAX
-    signature; the port has no versioning yet, so it carries nothing."""
+    back as values, not raised. On a versioned bucket (opts.versioned) a
+    key named without a VersionId gets a delete marker, reported with
+    DeleteMarker and DeleteMarkerVersionId."""
+    versioned = opts.versioned if opts else False
     out = []
     for o in objects:
         try:
             info = delete_object(bucket, o.object_name,
-                                 ObjectOptions(version_id=o.version_id))
+                                 ObjectOptions(version_id=o.version_id,
+                                               versioned=versioned))
             out.append(DeletedObject(
                 object_name=o.object_name, version_id=o.version_id,
                 delete_marker=info.delete_marker,

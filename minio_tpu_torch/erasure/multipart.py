@@ -14,9 +14,11 @@ the commit on the drives that made it when quorum is missed.
 
 The session documents are the JAX package's bytes (same keys, same
 order, same json.dumps), so a session begun by either package can be
-continued and completed by the other.
+continued and completed by the other. On a versioned bucket Complete
+gives the object a fresh version id. UploadPartCopy is a part PUT fed by
+the S3 layer from a GET of the source range.
 
-Left for later slices (ROADMAP.md): UploadPartCopy, SSE parts, sessions
+Left for later slices (ROADMAP.md): SSE parts, sessions
 journaled through the JAX metaplane's WAL blob lane (its drives hold them
 in a WAL until it materializes them), MRF for partial commits, the dsync
 lease.
@@ -288,6 +290,9 @@ class MultipartMixin:
                 raise se.PartTooSmall(bucket, obj, f"part {p.part_number}")
 
         fi = FileInfo.new(bucket, obj)
+        if opts.versioned:
+            # A versioned Complete adds a version (multipart.py:328).
+            fi.version_id = opts.version_id or str(uuid.uuid4())
         fi.mod_time = opts.mod_time or time.time()
         fi.metadata = dict(meta.get("user_defined", {}))
         fi.metadata["etag"] = multipart_etag([p.etag.strip('"') for p in parts])

@@ -27,8 +27,15 @@ Both PUT commits defer reclaim: what an overwrite displaces waits in a
 reclaim capsule on each drive until the commit reaches write quorum, and
 comes back when it does not.
 
-Left for later slices (ROADMAP.md): versioning, the metadata plane,
-per-drive deadlines and hedged reads, the read-ahead producer, MRF.
+Versioning (opts.versioned, set by the S3 layer from the bucket's
+metadata document) gives every PUT and Complete a fresh version id, so an
+overwrite adds a version and displaces nothing, and a DELETE without a
+version id writes a delete marker. A read that names a version bypasses
+the hot tier, which holds latest versions only.
+
+Left for later slices (ROADMAP.md): the metadata plane, per-drive
+deadlines and hedged reads, the read-ahead producer, MRF, heal of delete
+markers.
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
 from minio_tpu_torch.erasure.multipart import MultipartMixin
 from minio_tpu_torch.erasure.sysstore import SysConfigStore
 from minio_tpu_torch.erasure.types import (BucketInfo, DeletedObject,
-                                           ListObjectsInfo, ObjectInfo,
+                                           ListObjectsInfo,
+                                           ListObjectVersionsInfo, ObjectInfo,
                                            ObjectOptions, ObjectToDelete)
 from minio_tpu_torch.ops import bitrot
 from minio_tpu_torch.storage.api import StorageAPI
@@ -234,7 +242,9 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         write_quorum = self._write_quorum_data(m)
 
         fi = FileInfo.new(bucket, obj)
-        fi.mod_time = time.time()
+        if opts.versioned:
+            fi.version_id = opts.version_id or str(uuid.uuid4())
+        fi.mod_time = opts.mod_time or time.time()
         fi.metadata = dict(opts.user_defined)
         dist = hash_order(f"{bucket}/{obj}", self.n)
         fi.erasure = ErasureInfo(
@@ -446,10 +456,12 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def get_object_info(self, bucket: str, obj: str,
                         opts: ObjectOptions | None = None) -> ObjectInfo:
+        """The version's info; a delete marker named by its id answers
+        with its own info (delete_marker set), as in the JAX package."""
         opts = opts or ObjectOptions()
         fi = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
-        if fi.deleted:
-            raise se.ObjectNotFound(bucket, obj)
+        if fi.deleted and not opts.version_id:
+            raise se.ObjectIsDeleteMarker(bucket, obj, fi.version_id)
         return listing.fi_to_object_info(bucket, obj, fi)
 
     def get_object_reader(self, bucket: str, obj: str,
@@ -461,15 +473,20 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         opts = opts or ObjectOptions()
         fi = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
         if fi.deleted:
-            raise se.ObjectNotFound(bucket, obj)
+            raise se.ObjectIsDeleteMarker(bucket, obj, fi.version_id,
+                                          named=bool(opts.version_id))
+        # The hot tier holds latest versions only: a read that names a
+        # version never consults it (minio_tpu/erasure/objects.py:735).
+        pinned = bool(opts.version_id)
 
         def open_range(offset: int = 0, length: int = -1) -> Iterator[bytes]:
-            return self._open_fi_range(bucket, obj, fi, offset, length)
+            return self._open_fi_range(bucket, obj, fi, offset, length, pinned)
 
         return listing.fi_to_object_info(bucket, obj, fi), open_range
 
     def _open_fi_range(self, bucket: str, obj: str, fi: FileInfo,
-                       offset: int, length: int) -> Iterator[bytes]:
+                       offset: int, length: int,
+                       pinned: bool = False) -> Iterator[bytes]:
         if length < 0:
             length = fi.size - offset
         if offset < 0 or length < 0 or offset + length > fi.size:
@@ -477,7 +494,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                                   f"[{offset}, {offset + length}) of {fi.size}")
         if fi.inline_data:
             return iter([fi.inline_data[offset:offset + length]])
-        hot = hottier.maybe_tier(self.device)
+        hot = None if pinned else hottier.maybe_tier(self.device)
         if hot is not None:
             served = hot.serve(bucket, obj, fi, offset, length)
             if served is not None:
@@ -629,8 +646,21 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def delete_object(self, bucket: str, obj: str,
                       opts: ObjectOptions | None = None) -> ObjectInfo:
+        """Remove one version (the null version without an id), or, on a
+        versioned bucket without an id, add a delete marker: the versions
+        stay, and a GET without an id answers 404 (:1507-1545)."""
         opts = opts or ObjectOptions()
         self.get_bucket_info(bucket)
+        if opts.versioned and not opts.version_id:
+            marker = FileInfo(volume=bucket, name=obj, version_id=str(uuid.uuid4()),
+                              deleted=True, mod_time=time.time())
+            with self.nslock.lock(bucket, obj):
+                results = parallel_map([lambda d=d: d.delete_version(bucket, obj, marker)
+                                        for d in self.drives])
+                self._meta_invalidate(bucket, obj)
+                reduce_write_quorum(results, self._write_quorum_meta(), bucket, obj)
+            return ObjectInfo(bucket=bucket, name=obj, version_id=marker.version_id,
+                              delete_marker=True, mod_time=marker.mod_time)
         with self.nslock.lock(bucket, obj):
             fi = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
             target = FileInfo(volume=bucket, name=obj, version_id=opts.version_id,
@@ -644,7 +674,6 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             reduce_write_quorum(results, self._write_quorum_meta(), bucket, obj)
         return ObjectInfo(bucket=bucket, name=obj, version_id=opts.version_id,
                           delete_marker=fi.deleted)
-
 
     def delete_objects(self, bucket: str, objects: list[ObjectToDelete],
                        opts: ObjectOptions | None = None
@@ -666,6 +695,19 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                 prefix, marker, delimiter),
             lambda name, fi: listing.fi_to_object_info(bucket, name, fi),
             prefix, marker, delimiter, max_keys)
+
+    def list_object_versions(self, bucket: str, prefix: str = "", marker: str = "",
+                             version_marker: str = "", delimiter: str = "",
+                             max_keys: int = 1000) -> ListObjectVersionsInfo:
+        """ListObjectVersions over the same streamed merge: every version
+        and delete marker of each name, newest first (:1570-1580)."""
+        self.get_bucket_info(bucket)
+        return listing.paginate_versions(
+            listing.pushdown_stream(
+                lambda sa: self.stream_journals(bucket, prefix, sa),
+                prefix, marker, delimiter, version_marker),
+            lambda name, fi: listing.fi_to_object_info(bucket, name, fi),
+            prefix, marker, version_marker, delimiter, max_keys)
 
     def stream_journals(self, bucket: str, prefix: str = "",
                         start_after: str = "") -> Iterator[tuple[str, XLMeta]]:
@@ -701,6 +743,51 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         """Materialized journal map, O(namespace) memory: only for small
         bounded uses (tests, sys buckets). Listings use stream_journals."""
         return dict(self.stream_journals(bucket, prefix))
+
+    # ------------------------------------------------------------------
+    # metadata-only updates and tags (cmd/erasure-object.go:1031,1158)
+    # ------------------------------------------------------------------
+
+    def put_object_metadata(self, bucket: str, obj: str,
+                            updates: dict[str, str | None],
+                            opts: ObjectOptions | None = None) -> ObjectInfo:
+        """Quorum metadata-only update of one version: its journal entry is
+        rewritten on every drive, its data untouched. A None value deletes
+        the key. Shard indexes are assigned as the JAX package assigns
+        them (:1626-1658), so the journals are byte-equal."""
+        opts = opts or ObjectOptions()
+        with self.nslock.lock(bucket, obj):
+            fi = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
+            if fi.deleted:
+                raise se.ObjectNotFound(bucket, obj)
+            for k, v in updates.items():
+                if v is None:
+                    fi.metadata.pop(k, None)
+                else:
+                    fi.metadata[k] = v
+            drives = (shuffle_by_distribution(self.drives, fi.erasure.distribution)
+                      if fi.erasure.distribution else self.drives)
+            results = parallel_map([
+                lambda d=d, f=_clone_for_drive(fi, i + 1): d.write_metadata(bucket, obj, f)
+                for i, d in enumerate(drives)])
+            self._meta_invalidate(bucket, obj)
+            reduce_write_quorum(results, self._write_quorum_meta(), bucket, obj)
+        return listing.fi_to_object_info(bucket, obj, fi)
+
+    def put_object_tags(self, bucket: str, obj: str, tags: str,
+                        opts: ObjectOptions | None = None) -> ObjectInfo:
+        """Tags as the url-encoded x-amz-tagging value; "" removes them."""
+        return self.put_object_metadata(bucket, obj, {"x-amz-tagging": tags or None},
+                                        opts)
+
+    def get_object_tags(self, bucket: str, obj: str,
+                        opts: ObjectOptions | None = None) -> str:
+        return self.get_object_info(bucket, obj, opts).user_defined.get(
+            "x-amz-tagging", "")
+
+    def delete_object_tags(self, bucket: str, obj: str,
+                           opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.put_object_tags(bucket, obj, "", opts)
 
 
 def _retire(readers: list, dead: set, i: int) -> None:

@@ -11,7 +11,12 @@ pool every call passes straight through.
 A listing k-way merges the pools' sorted journal streams. Its first page
 renders the walk into the metacache (erasure/metacache.py), whose blocks
 serve the continuation pages; PUT, DELETE and Complete mark the bucket
-dirty, which retires the streams rendered before them.
+dirty, which retires the streams rendered before them. ListObjectVersions
+renders its own stream of versions (kind "v").
+
+A key's versions stay in one pool: the owner probe reads the latest
+journal entry, delete markers included, so a delete marker lands in the
+pool that holds the key and a versioned re-PUT after it stays there.
 
 Left for later slices (ROADMAP.md): bucket heal, and pools from more than
 one node (dist/).
@@ -28,6 +33,7 @@ from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.erasure.sets import ErasureSets, _raise_first
 from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
                                            DeletedObject, ListObjectsInfo,
+                                           ListObjectVersionsInfo,
                                            MultipartInfo, ObjectInfo,
                                            ObjectOptions, ObjectToDelete,
                                            PartInfoResult)
@@ -146,6 +152,13 @@ class ErasureServerPools:
                       opts: ObjectOptions | None = None) -> ObjectInfo:
         opts = opts or ObjectOptions()
         self.metacache.mark_dirty(bucket)
+        if opts.versioned and not opts.version_id:
+            # A delete marker lands in the pool that owns (or would own)
+            # the key (minio_tpu/erasure/pools.py:171-175).
+            idx = (self._get_pool_idx_existing(bucket, obj)
+                   if len(self.pools) > 1 else 0)
+            pool = self.pools[idx] if idx is not None else self.pools[0]
+            return pool.delete_object(bucket, obj, opts)
         return self._owning_pool(bucket, obj, opts.version_id).delete_object(
             bucket, obj, opts)
 
@@ -153,6 +166,24 @@ class ErasureServerPools:
                        opts: ObjectOptions | None = None
                        ) -> list[DeletedObject | Exception]:
         return listing.bulk_delete(self.delete_object, bucket, objects, opts)
+
+    def put_object_tags(self, bucket: str, obj: str, tags: str,
+                        opts: ObjectOptions | None = None) -> ObjectInfo:
+        opts = opts or ObjectOptions()
+        return self._owning_pool(bucket, obj, opts.version_id).put_object_tags(
+            bucket, obj, tags, opts)
+
+    def get_object_tags(self, bucket: str, obj: str,
+                        opts: ObjectOptions | None = None) -> str:
+        opts = opts or ObjectOptions()
+        return self._owning_pool(bucket, obj, opts.version_id).get_object_tags(
+            bucket, obj, opts)
+
+    def delete_object_tags(self, bucket: str, obj: str,
+                           opts: ObjectOptions | None = None) -> ObjectInfo:
+        opts = opts or ObjectOptions()
+        return self._owning_pool(bucket, obj, opts.version_id).delete_object_tags(
+            bucket, obj, opts)
 
     # -- multipart --
 
@@ -260,6 +291,41 @@ class ErasureServerPools:
                 stream_cap=self.METACACHE_MAX_STREAM)
         return res
 
+    def list_object_versions(self, bucket: str, prefix: str = "", marker: str = "",
+                             version_marker: str = "", delimiter: str = "",
+                             max_keys: int = 1000) -> ListObjectVersionsInfo:
+        """As list_objects, over the stream of versions: page 1 renders a
+        kind "v" block stream that continuation pages seek into
+        (minio_tpu/erasure/pools.py:332)."""
+        self.get_bucket_info(bucket)
+        to_info = lambda name, fi: listing.fi_to_object_info(bucket, name, fi)  # noqa: E731
+        if marker:
+            cached = self.metacache.entries_from(bucket, prefix, marker, kind="v")
+            if cached is not None:
+                it, complete = cached
+                try:
+                    r = listing.paginate_versions_cached(
+                        it, prefix, marker, version_marker, delimiter, max_keys)
+                except metacache_mod.CacheGone:
+                    r = None
+                if r is not None and (r.is_truncated or complete):
+                    return r
+                self.metacache.misses += 1
+        res = listing.paginate_versions(
+            listing.pushdown_stream(
+                lambda sa: self.stream_journals(bucket, prefix, sa),
+                prefix, marker, delimiter, version_marker),
+            to_info, prefix, marker, version_marker, delimiter, max_keys)
+        if (res.is_truncated and not marker
+                and not self.metacache.recently_saved_versions(bucket, prefix)):
+            self.metacache.render(
+                bucket, prefix,
+                listing.iter_version_entries_from_journals(
+                    self.stream_journals(bucket, prefix), to_info),
+                kind="v", sync_cap=self.METACACHE_MAX_ENTRIES,
+                stream_cap=self.METACACHE_MAX_STREAM)
+        return res
+
     # -- system documents: pool 0 --
 
     def read_sys_config(self, path: str) -> bytes:
@@ -273,6 +339,9 @@ class ErasureServerPools:
 
     def list_sys_config(self, prefix: str = "") -> list[str]:
         return self.pools[0].list_sys_config(prefix)
+
+    def sys_config_signature(self, path: str) -> tuple:
+        return self.pools[0].sys_config_signature(path)
 
     # -- heal --
 

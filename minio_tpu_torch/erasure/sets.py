@@ -9,8 +9,8 @@ set. Each set is a whole ErasureObjects engine: quorums, multipart and
 heal stay per set. A listing k-way merges the sets' sorted journal
 streams; system documents (the metacache's blocks) live on set 0.
 
-Left for later slices (ROADMAP.md): tags, transition, health, and the
-drive wrappers of the JAX package (disk-id check, health checker, chaos).
+Left for later slices (ROADMAP.md): transition, health, and the drive
+wrappers of the JAX package (disk-id check, health checker, chaos).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.erasure.objects import ErasureObjects
 from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
                                            DeletedObject, ListObjectsInfo,
+                                           ListObjectVersionsInfo,
                                            MultipartInfo, ObjectInfo,
                                            ObjectOptions, ObjectToDelete,
                                            PartInfoResult)
@@ -106,6 +107,18 @@ class ErasureSets:
                        ) -> list[DeletedObject | Exception]:
         return listing.bulk_delete(self.delete_object, bucket, objects, opts)
 
+    def put_object_tags(self, bucket: str, obj: str, tags: str,
+                        opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).put_object_tags(bucket, obj, tags, opts)
+
+    def get_object_tags(self, bucket: str, obj: str,
+                        opts: ObjectOptions | None = None) -> str:
+        return self.get_hashed_set(obj).get_object_tags(bucket, obj, opts)
+
+    def delete_object_tags(self, bucket: str, obj: str,
+                           opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).delete_object_tags(bucket, obj, opts)
+
     def latest_fileinfo(self, bucket: str, obj: str, version_id: str = "") -> FileInfo:
         return self.get_hashed_set(obj).latest_fileinfo(bucket, obj, version_id)
 
@@ -122,6 +135,9 @@ class ErasureSets:
 
     def list_sys_config(self, prefix: str = "") -> list[str]:
         return self.sets[0].list_sys_config(prefix)
+
+    def sys_config_signature(self, path: str) -> tuple:
+        return self.sets[0].sys_config_signature(path)
 
     # -- listing: merged view across sets --
 
@@ -146,6 +162,17 @@ class ErasureSets:
                 prefix, marker, delimiter),
             lambda name, fi: listing.fi_to_object_info(bucket, name, fi),
             prefix, marker, delimiter, max_keys)
+
+    def list_object_versions(self, bucket: str, prefix: str = "", marker: str = "",
+                             version_marker: str = "", delimiter: str = "",
+                             max_keys: int = 1000) -> ListObjectVersionsInfo:
+        self.get_bucket_info(bucket)
+        return listing.paginate_versions(
+            listing.pushdown_stream(
+                lambda sa: self.stream_journals(bucket, prefix, sa),
+                prefix, marker, delimiter, version_marker),
+            lambda name, fi: listing.fi_to_object_info(bucket, name, fi),
+            prefix, marker, version_marker, delimiter, max_keys)
 
     # -- multipart: the hashed set, uploads listed across sets --
 

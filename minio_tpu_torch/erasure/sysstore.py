@@ -72,6 +72,19 @@ class SysConfigStore:
         results = [None if isinstance(r, se.FileNotFound) else r for r in results]
         reduce_write_quorum(results, self._write_quorum_meta(), SYS_VOL, path)
 
+    def sys_config_signature(self, path: str) -> tuple:
+        """Each drive's (inode, mtime, size) of the document, None where it
+        has none or cannot say: every write replaces the file by a rename,
+        so an equal signature means no copy was rewritten in between."""
+        rel = f"{CONFIG_PREFIX}/{path}"
+        sig = []
+        for d in self.drives:
+            try:
+                sig.append(d.stat_file(SYS_VOL, rel))
+            except se.StorageError:
+                sig.append(None)
+        return tuple(sig)
+
     def list_sys_config(self, prefix: str = "") -> list[str]:
         """Sorted keys under prefix, the union across drives (a key exists
         if any drive has it; stale deletes resolve on read)."""

@@ -46,6 +46,7 @@ class ObjectOptions:
     """Per-call options (reference cmd/object-api-interface.go:44-63)."""
 
     version_id: str = ""
+    versioned: bool = False     # the bucket keeps versions: ids and markers
     user_defined: dict[str, str] = field(default_factory=dict)
     mod_time: float = 0.0
 

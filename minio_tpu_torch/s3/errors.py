@@ -29,6 +29,7 @@ ERRORS = {e.code: e for e in [
     APIError("InvalidAccessKeyId", "The Access Key Id you provided does not exist in our records.", 403),
     APIError("InvalidArgument", "Invalid Argument", 400),
     APIError("InvalidBucketName", "The specified bucket is not valid.", 400),
+    APIError("InvalidBucketState", "The request is not valid with the current state of the bucket.", 409),
     APIError("InvalidPart", "One or more of the specified parts could not be found.", 400),
     APIError("InvalidRange", "The requested range is not satisfiable", 416),
     APIError("MalformedXML", "The XML you provided was not well-formed or did not validate against our published schema.", 400),
@@ -39,6 +40,7 @@ ERRORS = {e.code: e for e in [
     APIError("NoSuchUpload", "The specified multipart upload does not exist. The upload ID may be invalid, or the upload may have been aborted or completed.", 404),
     APIError("NoSuchVersion", "The specified version does not exist.", 404),
     APIError("NotImplemented", "A header you provided implies functionality that is not implemented", 501),
+    APIError("PreconditionFailed", "At least one of the pre-conditions you specified did not hold", 412),
     APIError("RequestTimeTooSkewed", "The difference between the request time and the server's time is too large.", 403),
     APIError("SignatureDoesNotMatch", "The request signature we calculated does not match the signature you provided. Check your key and signing method.", 403),
     APIError("SlowDown", "Resource requested is unreadable, please reduce your request rate", 503),
@@ -47,10 +49,14 @@ ERRORS = {e.code: e for e in [
 
 
 class S3Error(Exception):
-    def __init__(self, code: str, message: str | None = None, resource: str = ""):
+    """An S3 error answer; `headers` go out beside the error document."""
+
+    def __init__(self, code: str, message: str | None = None, resource: str = "",
+                 headers: dict | None = None):
         self.api = ERRORS[code]
         self.message = message or self.api.message
         self.resource = resource
+        self.headers = headers or {}
         super().__init__(f"{code}: {self.message}")
 
 
@@ -78,6 +84,13 @@ _EXC_MAP: list[tuple[type, str]] = [
 def from_exception(exc: Exception, resource: str = "") -> S3Error:
     if isinstance(exc, S3Error):
         return exc
+    if isinstance(exc, se.ObjectIsDeleteMarker):
+        # S3: 405 for a delete marker named by its id, else 404; both say
+        # which marker answered.
+        return S3Error("MethodNotAllowed" if exc.named else "NoSuchKey",
+                       resource=resource,
+                       headers={"x-amz-delete-marker": "true",
+                                "x-amz-version-id": exc.version_id})
     for etype, code in _EXC_MAP:
         if isinstance(exc, etype):
             return S3Error(code, resource=resource)

@@ -12,20 +12,32 @@ headers and error documents:
     GET /bucket          ListObjects (marker)
     GET /bucket?list-type=2                  ListObjectsV2 (continuation-token,
                                              start-after)
+    GET /bucket?versions                     ListObjectVersions (key-marker,
+                                             version-id-marker)
+    PUT|GET /bucket?versioning               PutBucketVersioning,
+                                             GetBucketVersioning
     PUT /bucket/key      PutObject           GET /bucket/key     GetObject (Range)
     HEAD /bucket/key     HeadObject          DELETE /bucket/key  DeleteObject
+    PUT /bucket/key + x-amz-copy-source      CopyObject (x-amz-metadata-directive)
+    PUT|GET|DELETE /bucket/key?tagging       Put/Get/DeleteObjectTagging
     POST /bucket/key?uploads                 CreateMultipartUpload
-    PUT /bucket/key?partNumber=N&uploadId=U  UploadPart
+    PUT /bucket/key?partNumber=N&uploadId=U  UploadPart; with x-amz-copy-source
+                                             (and -range), UploadPartCopy
     GET /bucket/key?uploadId=U               ListParts
     DELETE /bucket/key?uploadId=U            AbortMultipartUpload
     POST /bucket/key?uploadId=U              CompleteMultipartUpload
     GET /bucket?uploads                      ListMultipartUploads
 
+Object calls take ?versionId (the literal "null" names the null version);
+GET and HEAD take If-Match and If-None-Match (412, or 304). A bucket's
+versioning lives in its metadata document (bucket/meta.py), the JAX
+package's, so both servers on the same drives keep the same versions.
+
 Every request must carry SigV4 header auth (signed payload or
 UNSIGNED-PAYLOAD); anything else answers NotImplemented or AccessDenied,
-as does any other query string. Versioned listings, bucket subresources,
-CopyObject and UploadPartCopy, presigned URLs, aws-chunked bodies, IAM
-and the admin plane come in later slices (ROADMAP.md).
+as does any other query string. Object lock, SSE, the other bucket
+subresources, presigned URLs, aws-chunked bodies, IAM and the admin plane
+come in later slices (ROADMAP.md).
 
 The object layer is any of the port's: build_server assembles drives ->
 ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
@@ -45,10 +57,12 @@ import mimetypes
 import os
 import tempfile
 import threading
+import time
 import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from minio_tpu_torch.bucket.meta import BucketMetadataSys
 from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
 from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
@@ -67,12 +81,17 @@ _COPY = 1 << 20
 _LIST_PARAMS = frozenset({"prefix", "marker", "delimiter", "max-keys", "list-type",
                           "continuation-token", "start-after", "encoding-type",
                           "fetch-owner"})
+_VERSIONS_PARAMS = frozenset({"versions", "prefix", "key-marker", "version-id-marker",
+                              "delimiter", "max-keys", "encoding-type"})
 
 _SECURITY_HEADERS = {
     "X-Content-Type-Options": "nosniff",
     "X-XSS-Protection": "1; mode=block",
     "Content-Security-Policy": "block-all-mixed-content",
 }
+
+
+_DRAIN_LIMIT = 1 << 20   # unread request bytes read off before answering
 
 
 class _Body:
@@ -88,6 +107,29 @@ class _Body:
         data = self._rfile.read(n) if n else b""
         self.remaining -= len(data)
         return data
+
+
+class _IterReader:
+    """read(n) over an iterator of byte chunks: a GET stream as the body
+    of a PUT (CopyObject, UploadPartCopy). Each chunk is copied as it
+    arrives: a stream may yield views of buffers its next step reuses."""
+
+    def __init__(self, chunks):
+        self._it = iter(chunks)
+        self._buf = b""
+
+    def read(self, n: int = -1) -> bytes:
+        buf = bytearray(self._buf)
+        while n < 0 or len(buf) < n:
+            chunk = next(self._it, None)
+            if chunk is None:
+                break
+            buf += chunk
+        self._buf = b""
+        if 0 <= n < len(buf):
+            self._buf = bytes(buf[n:])
+            del buf[n:]
+        return bytes(buf)
 
 
 class _Response:
@@ -116,9 +158,13 @@ class S3Server:
     ErasureSets or one ErasureObjects), bound to an address."""
 
     def __init__(self, obj, creds: sigv4.Credentials,
-                 address: str = "127.0.0.1:0"):
+                 address: str = "127.0.0.1:0", versioned_buckets: bool = False):
         self.obj = obj
         self.creds = creds
+        # Every bucket versioned (a server-wide default), else each
+        # bucket's own metadata document decides.
+        self.versioned_buckets = versioned_buckets
+        self.bucket_meta = BucketMetadataSys(obj)
         host, _, port = address.rpartition(":")
         self.httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)), _Handler)
         self.httpd.daemon_threads = True
@@ -149,6 +195,10 @@ class S3Server:
     def _lookup(self, access_key: str):
         return self.creds if access_key == self.creds.access_key else None
 
+    def _bucket_versioned(self, bucket: str) -> bool:
+        return (self.versioned_buckets
+                or self.bucket_meta.get(bucket).versioning_enabled)
+
     # ------------------------------------------------------------------
 
     def dispatch(self, method: str, path: str, query_items, headers,
@@ -171,6 +221,16 @@ class S3Server:
                 raise S3Error("NotImplemented", "STS is not served yet")
             raise S3Error("MethodNotAllowed", resource=path)
         if not key:
+            if "versioning" in q:
+                return self._versioning(method, bucket, headers, body, payload_hash,
+                                        hdr)
+            if method == "GET" and "versions" in q and q.keys() <= _VERSIONS_PARAMS:
+                res = self.obj.list_object_versions(
+                    bucket, q.get("prefix", ""), q.get("key-marker", ""),
+                    q.get("version-id-marker", ""), q.get("delimiter", ""),
+                    _int_q(q, "max-keys", 1000))
+                return _xml(hdr, xmlutil.list_versions_xml(bucket, q.get("prefix", ""),
+                                                           res))
             if method == "GET" and "uploads" in q:
                 uploads = self.obj.list_multipart_uploads(
                     bucket, q.get("prefix", ""), _int_q(q, "max-uploads", 1000))
@@ -182,35 +242,104 @@ class S3Server:
             if q:
                 raise S3Error("NotImplemented")
             if method == "PUT":
+                if headers.get("x-amz-bucket-object-lock-enabled", "").lower() == "true":
+                    raise S3Error("NotImplemented", "object lock is not served yet")
                 self.obj.make_bucket(bucket)
+                self.bucket_meta.update(bucket, created=time.time())
                 return _Response(200, {**hdr, "Location": f"/{bucket}"})
             if method == "HEAD":
                 self.obj.get_bucket_info(bucket)
                 return _Response(200, hdr)
             if method == "DELETE":
                 self.obj.delete_bucket(bucket)
+                self.bucket_meta.drop_bucket(bucket)
                 return _Response(204, hdr)
             raise S3Error("NotImplemented")
-        if q:
+        # S3's literal versionId "null" names the null version; it goes
+        # down verbatim, so it never means "latest".
+        opts = ObjectOptions(version_id=q.get("versionId", ""),
+                             versioned=self._bucket_versioned(bucket))
+        if "tagging" in q:
+            return self._tagging(method, bucket, key, opts, headers, body,
+                                 payload_hash, hdr)
+        if "versionId" in q and method in ("PUT", "POST"):
+            # Versions are immutable: no write names the version it makes
+            # (the JAX server would give the new version the client's id,
+            # and so replace that version's data).
+            raise S3Error("InvalidArgument", "a write takes no versionId")
+        if "uploads" in q or "uploadId" in q:
             return self._multipart(method, bucket, key, q, headers, body,
-                                   payload_hash, hdr)
+                                   payload_hash, hdr, opts)
+        if q.keys() - {"versionId"}:
+            raise S3Error("NotImplemented")
         if method == "PUT":
-            if headers.get("x-amz-copy-source"):
-                raise S3Error("NotImplemented", "CopyObject is not served yet")
-            return self._put_object(bucket, key, headers, body, payload_hash, hdr)
+            src = headers.get("x-amz-copy-source")
+            if src:
+                return self._copy_object(bucket, key, src, opts, headers, hdr)
+            return self._put_object(bucket, key, opts, headers, body, payload_hash,
+                                    hdr)
         if method == "GET":
-            return self._get_object(bucket, key, headers, hdr)
+            return self._get_object(bucket, key, opts, headers, hdr)
         if method == "HEAD":
-            info = self.obj.get_object_info(bucket, key)
+            info = self.obj.get_object_info(bucket, key, opts)
+            _refuse_transformed(info)
+            if info.delete_marker:
+                raise S3Error("MethodNotAllowed", resource=path,
+                              headers={"x-amz-delete-marker": "true",
+                                       "x-amz-version-id": info.version_id})
+            if _check_conditional(method, headers, info):
+                return _Response(304, {**hdr, "ETag": f'"{info.etag}"'}, b"", 0)
             return _Response(200, {**hdr, **_object_headers(info)}, b"", info.size)
         if method == "DELETE":
-            self.obj.delete_object(bucket, key)
-            return _Response(204, hdr)
+            info = self.obj.delete_object(bucket, key, opts)
+            extra = {}
+            if info.delete_marker:
+                extra["x-amz-delete-marker"] = "true"
+            if info.version_id:
+                extra["x-amz-version-id"] = info.version_id
+            return _Response(204, {**hdr, **extra})
         raise S3Error("MethodNotAllowed", resource=path)
 
+    def _versioning(self, method, bucket, headers, body: _Body, payload_hash,
+                    hdr) -> _Response:
+        """PutBucketVersioning and GetBucketVersioning (the JAX server's
+        route, minio_tpu/s3/server.py:1817-1835)."""
+        self.obj.get_bucket_info(bucket)
+        if method == "PUT":
+            raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+            try:
+                status = xmlutil.parse_versioning_xml(raw)
+            except ValueError:
+                raise S3Error("MalformedXML") from None
+            if self.bucket_meta.get(bucket).object_lock_xml and status == "Suspended":
+                raise S3Error("InvalidBucketState", "object lock requires versioning")
+            self.bucket_meta.update(bucket, versioning_status=status)
+            return _Response(200, hdr)
+        if method == "GET":
+            status = self.bucket_meta.get(bucket).versioning_status
+            if self.versioned_buckets and not status:
+                status = "Enabled"
+            return _xml(hdr, xmlutil.versioning_xml(status))
+        raise S3Error("NotImplemented")
+
+    def _tagging(self, method, bucket, key, opts, headers, body: _Body,
+                 payload_hash, hdr) -> _Response:
+        """Get/Put/DeleteObjectTagging on a version (:1397-1408)."""
+        if method in ("GET", "HEAD"):
+            return _xml(hdr, xmlutil.tagging_xml(
+                self.obj.get_object_tags(bucket, key, opts)))
+        if method == "PUT":
+            raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+            self.obj.put_object_tags(bucket, key, xmlutil.parse_tagging_xml(raw), opts)
+            return _Response(200, hdr)
+        if method == "DELETE":
+            self.obj.delete_object_tags(bucket, key, opts)
+            return _Response(204, hdr)
+        raise S3Error("NotImplemented")
+
     def _multipart(self, method, bucket, key, q, headers, body: _Body,
-                   payload_hash, hdr) -> _Response:
-        """The five object-level multipart calls (the JAX server's routes,
+                   payload_hash, hdr, opts: ObjectOptions) -> _Response:
+        """The six object-level multipart calls (the JAX server's routes,
         minio_tpu/s3/server.py:1530-1600)."""
         if method == "POST" and "uploads" in q:
             opts = ObjectOptions(user_defined=_metadata_headers(headers))
@@ -220,9 +349,11 @@ class S3Server:
             raise S3Error("NotImplemented")
         upload_id = q["uploadId"]
         if method == "PUT":
-            if headers.get("x-amz-copy-source"):
-                raise S3Error("NotImplemented", "UploadPartCopy is not served yet")
             part_number = _int_q(q, "partNumber", 0, lo=1, hi=10000)
+            src = headers.get("x-amz-copy-source")
+            if src:
+                return self._upload_part_copy(bucket, key, upload_id, part_number,
+                                              src, headers, hdr)
             res = _with_body(headers, body, payload_hash, lambda data, size:
                              self.obj.put_object_part(bucket, key, upload_id,
                                                       part_number, data, size))
@@ -242,8 +373,9 @@ class S3Server:
             if not pairs:
                 raise S3Error("MalformedXML")
             info = self.obj.complete_multipart_upload(
-                bucket, key, upload_id, [CompletePart(n, e) for n, e in pairs])
-            return _xml(hdr, xmlutil.complete_multipart_xml(
+                bucket, key, upload_id, [CompletePart(n, e) for n, e in pairs], opts)
+            extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
+            return _xml({**hdr, **extra}, xmlutil.complete_multipart_xml(
                 f"/{bucket}/{key}", bucket, key, info.etag))
         raise S3Error("NotImplemented")
 
@@ -268,11 +400,15 @@ class S3Server:
                         hdr) -> _Response:
         """DeleteObjects (the JAX server's _delete_objects,
         minio_tpu/s3/server.py:2696, less its per-key policy check: the
-        port has one root credential). A missing key counts as deleted."""
+        port has one root credential). A missing key counts as deleted. A
+        key without a VersionId gets a delete marker when the bucket is
+        versioned, by the server-wide default or by its own document (the
+        JAX server consults the default only)."""
         raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
         objects, quiet = xmlutil.parse_delete_xml(raw)
         results = self.obj.delete_objects(
-            bucket, [ObjectToDelete(k, v) for k, v in objects])
+            bucket, [ObjectToDelete(k, v) for k, v in objects],
+            ObjectOptions(versioned=self._bucket_versioned(bucket)))
         deleted, errors = [], []
         for (k, v), r in zip(objects, results):
             if isinstance(r, Exception):
@@ -285,23 +421,73 @@ class S3Server:
                 deleted.append(r)
         return _xml(hdr, xmlutil.delete_result_xml(deleted, errors))
 
-    def _put_object(self, bucket, key, headers, body: _Body, payload_hash, hdr):
+    def _put_object(self, bucket, key, opts, headers, body: _Body, payload_hash,
+                    hdr):
         user_defined = _metadata_headers(headers)
         if "content-type" not in user_defined:
             guessed, _ = mimetypes.guess_type(key)
             user_defined["content-type"] = guessed or "application/octet-stream"
-        opts = ObjectOptions(user_defined=user_defined)
+        opts.user_defined = user_defined
         info = _with_body(headers, body, payload_hash, lambda data, size:
                           self.obj.put_object(bucket, key, data, size, opts))
-        return _Response(200, {**hdr, "ETag": f'"{info.etag}"'})
+        extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
+        return _Response(200, {**hdr, "ETag": f'"{info.etag}"', **extra})
 
-    def _get_object(self, bucket, key, headers, hdr):
+    def _copy_object(self, bucket, key, src, opts, headers, hdr) -> _Response:
+        """CopyObject (:2558-2595): the source version streamed from its
+        set through the GET path (K2 verify) into a PUT (K1 and K2). The
+        metadata directive COPY keeps the source's metadata, REPLACE takes
+        the request's x-amz-meta-* and Content-Type."""
+        src_bucket, src_key, src_opts = _parse_copy_source(src)
+        info, open_range = self.obj.get_object_reader(src_bucket, src_key, src_opts)
+        _refuse_transformed(info)
+        if headers.get("x-amz-metadata-directive", "COPY") == "REPLACE":
+            user_defined = {k: v for k, v in _metadata_headers(headers).items()
+                            if k.startswith("x-amz-meta-")}
+            if headers.get("Content-Type"):
+                user_defined["content-type"] = headers["Content-Type"]
+        else:
+            user_defined = dict(info.user_defined)
+            user_defined["content-type"] = info.content_type
+        opts.user_defined = user_defined
+        stream = open_range(0, info.size)
+        try:
+            new_info = self.obj.put_object(bucket, key, _IterReader(stream),
+                                           info.size, opts)
+        finally:
+            _close(stream)
+        return _xml(hdr, xmlutil.copy_object_xml(new_info.etag, new_info.mod_time))
+
+    def _upload_part_copy(self, bucket, key, upload_id, part_number, src, headers,
+                          hdr) -> _Response:
+        """UploadPartCopy (:2526-2556): the source range
+        (x-amz-copy-source-range, else the whole version) streamed into
+        one part."""
+        src_bucket, src_key, src_opts = _parse_copy_source(src)
+        info, open_range = self.obj.get_object_reader(src_bucket, src_key, src_opts)
+        _refuse_transformed(info)
+        offset, length = 0, info.size
+        rng = headers.get("x-amz-copy-source-range")
+        if rng:
+            offset, length = _parse_range(rng, info.size)
+        stream = open_range(offset, length)
+        try:
+            res = self.obj.put_object_part(bucket, key, upload_id, part_number,
+                                           _IterReader(stream), length)
+        finally:
+            _close(stream)
+        return _xml(hdr, xmlutil.copy_object_xml(res.etag, res.last_modified))
+
+    def _get_object(self, bucket, key, opts, headers, hdr):
         rng = headers.get("Range")
-        info, open_range = self.obj.get_object_reader(bucket, key)
+        info, open_range = self.obj.get_object_reader(bucket, key, opts)
+        _refuse_transformed(info)
         status, offset, length = 200, 0, info.size
         if rng:
             offset, length = _parse_range(rng, info.size)
             status = 206
+        if _check_conditional("GET", headers, info):
+            return _Response(304, {**hdr, "ETag": f'"{info.etag}"'}, b"", 0)
         stream = open_range(offset, length)
         out = {**hdr, **_object_headers(info), "Content-Length": str(length)}
         if status == 206:
@@ -387,7 +573,14 @@ class _Handler(BaseHTTPRequestHandler):
             doc = xmlutil.error_xml(err.api.code, err.message, path, request_id)
             resp = _Response(err.api.http_status,
                              {"x-amz-request-id": request_id,
-                              "Content-Type": XML_TYPE, **_SECURITY_HEADERS}, doc)
+                              "Content-Type": XML_TYPE, **_SECURITY_HEADERS,
+                              **err.headers}, doc)
+        if 0 < body.remaining <= _DRAIN_LIMIT:
+            # A short body the answer did not need (an error raised before
+            # reading it): read it off, or closing the connection with it
+            # unread could reset the connection before the client reads
+            # the answer.
+            body.read()
         if body.remaining or self.headers.get("Transfer-Encoding"):
             # Unread request body left on the connection: it cannot carry
             # another request.
@@ -396,10 +589,10 @@ class _Handler(BaseHTTPRequestHandler):
         for k, v in resp.headers.items():
             if k != "Content-Length":
                 self.send_header(k, v)
-        if resp.status != 204 and (method != "HEAD" or resp.length):
-            # No length on a 204, and a HEAD answer states one only where
-            # there is one (an object's size, an error document's), as the
-            # JAX server does.
+        if resp.status not in (204, 304) and (method != "HEAD" or resp.length):
+            # No length on a 204 or 304, and a HEAD answer states one only
+            # where there is one (an object's size, an error document's),
+            # as the JAX server does.
             self.send_header("Content-Length", str(resp.length))
         self.end_headers()
         if method == "HEAD":
@@ -425,6 +618,9 @@ def _metadata_headers(headers) -> dict:
     sc = headers.get("x-amz-storage-class")
     if sc:
         user_defined["x-amz-storage-class"] = sc
+    tags = headers.get("x-amz-tagging")
+    if tags:
+        user_defined["x-amz-tagging"] = tags
     for hk, hv in headers.items():
         lk = hk.lower()
         if lk.startswith("x-amz-meta-") and "mtpu" not in lk:
@@ -440,10 +636,66 @@ def _object_headers(info) -> dict:
         "Accept-Ranges": "bytes",
         "Content-Length": str(info.size),
     }
+    if info.version_id:
+        h["x-amz-version-id"] = info.version_id
     for k, v in info.user_defined.items():
         if k.startswith("x-amz-meta-"):
             h[k] = v
+    tags = info.user_defined.get("x-amz-tagging")
+    if tags:
+        h["x-amz-tagging-count"] = str(len(urllib.parse.parse_qsl(tags)))
     return h
+
+
+# The JAX server's at-rest transforms leave these keys in a version's
+# metadata (minio_tpu/crypto/sse.py:34-39, compress.py:27-28): its stored
+# bytes are then ciphertext or compressed, and the port can neither
+# decrypt nor decompress them.
+_TRANSFORM_KEYS = ("x-mtpu-internal-sse", "x-mtpu-internal-compression")
+
+
+def _refuse_transformed(info) -> None:
+    """NotImplemented for an encrypted or compressed version: serving or
+    copying its stored bytes would hand out, or store as plain data,
+    bytes that are not the object's."""
+    if any(k.startswith(_TRANSFORM_KEYS) for k in info.user_defined):
+        raise S3Error("NotImplemented",
+                      "encrypted and compressed objects are not served yet")
+
+
+def _parse_copy_source(src: str):
+    """x-amz-copy-source -> (bucket, key, ObjectOptions naming its
+    versionId) (:2906-2916)."""
+    src = urllib.parse.unquote(src)
+    src_vid = ""
+    if "?versionId=" in src:
+        src, src_vid = src.split("?versionId=", 1)
+    src = src.lstrip("/")
+    if "/" not in src:
+        raise S3Error("InvalidArgument", "bad x-amz-copy-source")
+    src_bucket, src_key = src.split("/", 1)
+    return src_bucket, src_key, ObjectOptions(version_id=src_vid)
+
+
+def _check_conditional(method: str, headers, info) -> bool:
+    """True for a 304 Not Modified answer; raises 412 PreconditionFailed
+    (:2972-2983)."""
+    im = headers.get("If-Match")
+    if im and im != "*" and im.strip('"') != info.etag:
+        raise S3Error("PreconditionFailed", "ETag does not match If-Match")
+    inm = headers.get("If-None-Match")
+    if inm and (inm == "*" or inm.strip('"') == info.etag):
+        if method in ("GET", "HEAD"):
+            return True
+        raise S3Error("PreconditionFailed", "ETag matches If-None-Match")
+    return False
+
+
+def _close(stream) -> None:
+    """Close a GET stream left unfinished (its shard readers)."""
+    close = getattr(stream, "close", None)
+    if close is not None:
+        close()
 
 
 def _parse_range(value: str, size: int) -> tuple[int, int]:
@@ -472,22 +724,26 @@ def _parse_range(value: str, size: int) -> tuple[int, int]:
 def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                  device="cuda", address: str = "127.0.0.1:0",
                  parity: int | None = None,
-                 set_drive_count: int | None = None) -> S3Server:
+                 set_drive_count: int | None = None,
+                 versioned: bool = False) -> S3Server:
     """Format (or read the format of) the drives as sets of
     `set_drive_count` (default: one set of all), put them in one pool and
-    bind its S3 server. Call .start() to serve in the background, .close()
-    to stop."""
+    bind its S3 server; `versioned` versions every bucket. Call .start()
+    to serve in the background, .close() to stop."""
     sets = ErasureSets([LocalDrive(p) for p in drive_paths],
                        set_drive_count=set_drive_count, parity=parity,
                        device=device)
     return S3Server(ErasureServerPools([sets]),
-                    sigv4.Credentials(access_key, secret_key), address)
+                    sigv4.Credentials(access_key, secret_key), address,
+                    versioned_buckets=versioned)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="minio_tpu_torch S3 server")
     ap.add_argument("drives", nargs="+", help="drive directories")
     ap.add_argument("--address", default="0.0.0.0:9000")
+    ap.add_argument("--versioned", action="store_true",
+                    help="version every bucket (else each bucket's ?versioning)")
     ap.add_argument("--parity", type=int, default=None)
     ap.add_argument("--set-drive-count", type=int, default=None,
                     help="drives per erasure set (default: all in one set)")
@@ -497,7 +753,8 @@ def main(argv=None) -> None:
     srv = build_server(args.drives, os.environ.get("MTPU_ROOT_USER", "minioadmin"),
                        os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"),
                        device=args.device, address=args.address,
-                       parity=args.parity, set_drive_count=args.set_drive_count)
+                       parity=args.parity, set_drive_count=args.set_drive_count,
+                       versioned=args.versioned)
     sets = srv.obj.pools[0]
     es = sets.sets[0]
     print(f"serving S3 on {srv.url} ({len(args.drives)} drives, {sets.set_count} "

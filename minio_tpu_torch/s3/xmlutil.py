@@ -1,11 +1,12 @@
 """S3 XML documents (the subset of minio_tpu/s3/xmlutil.py the port sends:
-the error document, the listing and bucket documents and the multipart
-documents, byte for byte the JAX package's; reference
-cmd/api-response.go)."""
+the error document, the listing, version-listing and bucket documents,
+the multipart, copy, tagging and versioning documents, byte for byte the
+JAX package's; reference cmd/api-response.go)."""
 
 from __future__ import annotations
 
 import datetime
+import urllib.parse
 import xml.etree.ElementTree as ET
 
 from minio_tpu_torch.s3.errors import S3Error
@@ -110,6 +111,30 @@ def list_objects_v2_xml(bucket, prefix, token, start_after, delimiter,
     return render(root)
 
 
+def list_versions_xml(bucket, prefix, res) -> bytes:
+    root = _doc("ListVersionsResult")
+    _el(root, "Name", bucket)
+    _el(root, "Prefix", prefix)
+    _el(root, "IsTruncated", "true" if res.is_truncated else "false")
+    if res.is_truncated:
+        _el(root, "NextKeyMarker", res.next_marker)
+        _el(root, "NextVersionIdMarker", res.next_version_id_marker)
+    for o in res.objects:
+        v = _el(root, "DeleteMarker" if o.delete_marker else "Version")
+        _el(v, "Key", o.name)
+        _el(v, "VersionId", o.version_id or "null")
+        _el(v, "IsLatest", "true" if o.is_latest else "false")
+        _el(v, "LastModified", _iso(o.mod_time))
+        if not o.delete_marker:
+            _el(v, "ETag", f'"{o.etag}"')
+            _el(v, "Size", o.size)
+            _el(v, "StorageClass", o.storage_class)
+    for p in res.prefixes:
+        cp = _el(root, "CommonPrefixes")
+        _el(cp, "Prefix", p)
+    return render(root)
+
+
 def delete_result_xml(deleted, errors) -> bytes:
     root = _doc("DeleteResult")
     for d in deleted:
@@ -151,6 +176,68 @@ def parse_delete_xml(body: bytes) -> tuple[list[tuple[str, str]], bool]:
             if key:
                 out.append((key, vid))
     return out, quiet
+
+
+def copy_object_xml(etag: str, mod_time: float) -> bytes:
+    """CopyObject's and UploadPartCopy's answer."""
+    root = _doc("CopyObjectResult")
+    _el(root, "ETag", f'"{etag}"')
+    _el(root, "LastModified", _iso(mod_time))
+    return render(root)
+
+
+def tagging_xml(tags: str) -> bytes:
+    """tags: the url-encoded k=v&k2=v2 form objects store them in."""
+    root = _doc("Tagging")
+    ts = _el(root, "TagSet")
+    for k, v in urllib.parse.parse_qsl(tags):
+        t = _el(ts, "Tag")
+        _el(t, "Key", k)
+        _el(t, "Value", v)
+    return render(root)
+
+
+def parse_tagging_xml(body: bytes) -> str:
+    """PutObjectTagging body -> the url-encoded form."""
+    try:
+        root = ET.fromstring(body)
+    except ET.ParseError:
+        raise S3Error("MalformedXML") from None
+    pairs = []
+    tagset = root.find(f"{{{S3_NS}}}TagSet")
+    if tagset is None:
+        tagset = root.find("TagSet")
+    for tag in (tagset if tagset is not None else []):
+        key = val = None
+        for child in tag:
+            local = child.tag.rsplit("}", 1)[-1]
+            if local == "Key":
+                key = child.text or ""
+            elif local == "Value":
+                val = child.text or ""
+        if key is not None:
+            pairs.append((key, val or ""))
+    return urllib.parse.urlencode(pairs)
+
+
+def versioning_xml(status: str) -> bytes:
+    root = _doc("VersioningConfiguration")
+    if status:
+        _el(root, "Status", status)
+    return render(root)
+
+
+def parse_versioning_xml(body: bytes) -> str:
+    """PutBucketVersioning body -> "Enabled" or "Suspended"; ValueError
+    for anything else."""
+    try:
+        root = ET.fromstring(body)
+    except ET.ParseError:
+        raise ValueError("malformed XML") from None
+    status = root.findtext("{*}Status") or root.findtext("Status") or ""
+    if status not in ("Enabled", "Suspended"):
+        raise ValueError(f"bad versioning status {status!r}")
+    return status
 
 
 def initiate_multipart_xml(bucket: str, key: str, upload_id: str) -> bytes:

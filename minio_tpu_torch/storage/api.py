@@ -101,6 +101,10 @@ class StorageAPI(abc.ABC):
     def read_all(self, volume: str, path: str) -> bytes: ...
 
     @abc.abstractmethod
+    def stat_file(self, volume: str, path: str) -> tuple[int, int, int]:
+        """(inode, mtime in ns, size) of a file."""
+
+    @abc.abstractmethod
     def list_dir(self, volume: str, dir_path: str) -> list[str]:
         """Sorted entry names; directories carry a trailing '/'."""
 

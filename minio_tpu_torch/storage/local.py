@@ -26,9 +26,14 @@ made quorum, undo_rename puts it back when it did not.
 walk_dir streams a volume's journals in lexicographic order of the full
 object name, the order the listing's k-way merge relies on.
 
+read_version keeps parsed journals in a read cache validated by each
+file's (inode, mtime, size), as the JAX package's does: a quorum read of
+a multipart object's journal (hundreds of parts, decoded by the port's
+pure-Python msgpack) otherwise costs milliseconds per drive and request.
+
 Left for later slices (ROADMAP.md): the group-commit WAL and its
-write_all_async blob lane (and so the WAL flush before a walk), the
-journal read cache, O_DIRECT writes.
+write_all_async blob lane (and so the WAL flush before a walk), O_DIRECT
+writes.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ import errno
 import json
 import os
 import shutil
+import threading
+import time
 import uuid
+from collections import OrderedDict
 from typing import BinaryIO, Iterable, Iterator
 
 from minio_tpu_torch.storage.api import (MARKER_GROUP_PAD, DiskInfo,
@@ -96,8 +104,20 @@ def _read_small_file(path: str) -> bytes | None:
 
 
 class LocalDrive(StorageAPI):
+    # The journal read cache (minio_tpu/storage/local.py
+    # _cached_meta_entry): a hit needs the file's (inode, mtime, size) to
+    # be the cached one, and every write replaces meta.mp by a rename, so
+    # a new journal has a new inode. A journal modified within
+    # _RACY_STAT_NS of its read is not cached: a coarse mtime tick could
+    # otherwise give two journals one signature (git's racy-stat guard).
+    _RACY_STAT_NS = 20_000_000
+    _META_CACHE_CAP = 4096
+
     def __init__(self, root: str):
         self.root = os.path.abspath(root)
+        # (volume, path) -> (signature, XLMeta, {version id: FileInfo})
+        self._meta_cache: OrderedDict = OrderedDict()
+        self._meta_mu = threading.Lock()
         try:
             os.makedirs(os.path.join(self.root, SYS_VOL, "tmp"), exist_ok=True)
         except OSError as e:
@@ -237,6 +257,16 @@ class LocalDrive(StorageAPI):
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
 
+    def stat_file(self, volume: str, path: str) -> tuple[int, int, int]:
+        """The file's (inode, mtime in ns, size)."""
+        try:
+            st = os.stat(self._file_path(volume, path))
+        except (FileNotFoundError, NotADirectoryError):
+            raise se.FileNotFound(f"{volume}/{path}") from None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+        return st.st_ino, st.st_mtime_ns, st.st_size
+
     def read_all(self, volume: str, path: str) -> bytes:
         fp = self._file_path(volume, path)
         try:
@@ -305,13 +335,19 @@ class LocalDrive(StorageAPI):
         return os.path.join(self._file_path(volume, path), META_FILE)
 
     def _load_meta(self, volume: str, path: str) -> XLMeta:
+        return self._read_meta(volume, path)[0]
+
+    def _read_meta(self, volume: str, path: str) -> tuple[XLMeta, tuple]:
+        """The journal and the (inode, mtime, size) of the file it came from."""
         try:
             with open(self._meta_path(volume, path), "rb") as f:
-                return XLMeta.parse(f.read())
+                st = os.fstat(f.fileno())
+                raw = f.read()
         except (FileNotFoundError, NotADirectoryError):
             raise se.FileNotFound(f"{volume}/{path}") from None
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
+        return XLMeta.parse(raw), (st.st_ino, st.st_mtime_ns, st.st_size)
 
     def _store_meta(self, volume: str, path: str, meta: XLMeta) -> None:
         self._store_raw_meta(volume, path, meta.serialize())
@@ -400,7 +436,33 @@ class LocalDrive(StorageAPI):
 
     def read_version(self, volume: str, path: str,
                      version_id: str = "") -> FileInfo:
-        return self._load_meta(volume, path).to_fileinfo(volume, path, version_id)
+        """The version's FileInfo (a copy: callers mutate it), from the
+        journal read cache while the file is unchanged."""
+        key = (volume, path)
+        try:
+            st = os.stat(self._meta_path(volume, path))
+        except (FileNotFoundError, NotADirectoryError):
+            raise se.FileNotFound(f"{volume}/{path}") from None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+        with self._meta_mu:
+            hit = self._meta_cache.get(key)
+            if hit is not None and hit[0] == (st.st_ino, st.st_mtime_ns, st.st_size):
+                self._meta_cache.move_to_end(key)
+            else:
+                hit = None
+        if hit is None:
+            meta, sig = self._read_meta(volume, path)
+            hit = (sig, meta, {})
+            if time.time_ns() - sig[1] > self._RACY_STAT_NS:
+                with self._meta_mu:
+                    self._meta_cache[key] = hit
+                    while len(self._meta_cache) > self._META_CACHE_CAP:
+                        self._meta_cache.popitem(last=False)
+        fi = hit[2].get(version_id)
+        if fi is None:
+            fi = hit[2][version_id] = hit[1].to_fileinfo(volume, path, version_id)
+        return fi.clone()
 
     def delete_version(self, volume: str, path: str, fi: FileInfo) -> None:
         try:

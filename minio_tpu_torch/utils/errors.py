@@ -92,6 +92,18 @@ class ObjectNotFound(ObjectError):
     pass
 
 
+class ObjectIsDeleteMarker(ObjectNotFound):
+    """The version a GET or HEAD resolved is a delete marker: S3 answers 404
+    (no version named) or 405 (the marker named by its id), either with
+    x-amz-delete-marker and the marker's x-amz-version-id."""
+
+    def __init__(self, bucket: str = "", object: str = "", version_id: str = "",
+                 named: bool = False):
+        super().__init__(bucket, object)
+        self.version_id = version_id
+        self.named = named
+
+
 class VersionNotFound(ObjectError):
     pass
 

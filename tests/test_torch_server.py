@@ -4,6 +4,7 @@ SigV4 client to both servers, must get equal statuses, bodies (error XML
 compared without RequestId/HostId), ETag, Content-Length, Content-Range and
 Content-Type."""
 
+import time
 import uuid
 import xml.etree.ElementTree as ET
 
@@ -113,6 +114,43 @@ def test_port_signer_is_accepted(torch_server):
             r = conn.getresponse()
             got = r.read()
             assert r.status == 200, got
+        assert got == data
+    finally:
+        conn.close()
+
+
+def test_refused_request_keeps_its_connection(torch_server):
+    """A request refused before its body is read (NotImplemented for an
+    unserved subresource, InvalidArgument for a versionId on a write) gets
+    its answer, and the same connection then serves the next request: the
+    server reads a short unread body off instead of closing on it."""
+    import http.client
+    import urllib.parse
+
+    from minio_tpu_torch.s3.sigv4 import UNSIGNED_PAYLOAD, Credentials, sign_request
+
+    host = urllib.parse.urlparse(torch_server).netloc
+    creds = Credentials(S3_ACCESS, S3_SECRET)
+    bucket = f"drain-{uuid.uuid4().hex[:8]}"
+    data = _payload(512 << 10, 5)
+    conn = http.client.HTTPConnection(host, timeout=30)
+    try:
+        for method, path, query, body, status in (
+                ("PUT", f"/{bucket}", {}, b"", 200),
+                ("PUT", f"/{bucket}/o", {"versionId": "v1"}, data, 400),
+                ("PUT", f"/{bucket}/o", {"acl": ""}, data, 501),
+                ("PUT", f"/{bucket}/o", {}, data, 200),
+                ("GET", f"/{bucket}/o", {}, b"", 200)):
+            url = urllib.parse.quote(path)
+            if query:
+                url += "?" + urllib.parse.urlencode(query)
+            conn.request(method, url, body=body,
+                         headers=sign_request(method, path, query, {}, host, creds,
+                                              UNSIGNED_PAYLOAD))
+            r = conn.getresponse()
+            got = r.read()
+            assert r.status == status, got
+            assert not r.will_close
         assert got == data
     finally:
         conn.close()
@@ -378,3 +416,114 @@ def test_set_drive_count_spreads_keys_over_sets(tmp_path):
         assert used == {0, 1}
     finally:
         srv.close()
+
+
+def test_port_honours_versioning_that_jax_enabled(tmp_path, monkeypatch):
+    """The probe that found the port losing data: on 12 drives at EC 8+4,
+    the JAX layer PUTs object A as the null version, the JAX package turns
+    the bucket's versioning on (its PutBucketVersioning: the bucket
+    metadata document) and PUTs a versioned B. Then the port's server
+    overwrites the key with C and deletes it without a version id: A and B
+    must stay, C must be a version of its own, and a delete marker must
+    answer a GET without a version id."""
+    import io
+
+    from minio_tpu.bucket.meta import BucketMetadataSys
+    from minio_tpu.erasure.pools import ErasureServerPools
+    from minio_tpu.erasure.sets import ErasureSets
+    from minio_tpu.erasure.types import ObjectOptions
+    from minio_tpu.storage.local import LocalDrive
+    from minio_tpu_torch.s3.server import build_server
+
+    monkeypatch.setenv("MTPU_METAPLANE", "0")
+    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
+    paths = [str(tmp_path / f"d{i:02d}") for i in range(12)]
+    jpools = ErasureServerPools([ErasureSets([LocalDrive(p) for p in paths],
+                                             set_drive_count=12, parity=4,
+                                             bitrot_algorithm="mxsum256")])
+    bucket = "probe"
+    jpools.make_bucket(bucket)
+    a, b, c = _payload(20 << 10, 1), _payload((1 << 20) + 5, 2), _payload(300 << 10, 3)
+    jpools.put_object(bucket, "key", io.BytesIO(a), len(a))
+    BucketMetadataSys(jpools).update(bucket, versioning_status="Enabled")
+    ib = jpools.put_object(bucket, "key", io.BytesIO(b), len(b),
+                           ObjectOptions(versioned=True))
+    srv = build_server(paths, S3_ACCESS, S3_SECRET, device="cpu").start()
+    try:
+        cl = SigV4Client(srv.url, S3_ACCESS, S3_SECRET)
+        assert cl.put(f"/{bucket}/key", data=c).status_code == 200
+        assert cl.delete(f"/{bucket}/key").status_code == 204
+    finally:
+        srv.close()
+
+    def jget(vid):
+        _i, it = jpools.get_object(bucket, "key", opts=ObjectOptions(version_id=vid))
+        return b"".join(bytes(x) for x in it)
+
+    assert jget("null") == a
+    assert jget(ib.version_id) == b
+    with pytest.raises(Exception) as ei:
+        jget("")
+    assert type(ei.value).__name__ == "ObjectNotFound"
+    res = jpools.list_object_versions(bucket)
+    assert [(o.delete_marker, o.size) for o in res.objects] == [
+        (True, 0), (False, len(c)), (False, len(b)), (False, len(a))]
+    assert jget(res.objects[1].version_id) == c
+    jpools.close()
+
+
+def test_port_sees_versioning_that_jax_enables_while_it_runs(tmp_path, monkeypatch):
+    """The probe above with the port's server already serving the bucket:
+    it PUTs the null version A before the JAX package turns versioning on
+    (the port then holds the bucket's unversioned document), and its next
+    PUT and DELETE must still keep A, add C as a version and write a
+    marker; after the JAX package suspends versioning, the port's PUT
+    replaces the null version only."""
+    import io
+
+    from minio_tpu.bucket.meta import BucketMetadataSys
+    from minio_tpu.erasure.pools import ErasureServerPools
+    from minio_tpu.erasure.sets import ErasureSets
+    from minio_tpu.erasure.types import ObjectOptions
+    from minio_tpu.storage.local import LocalDrive
+    from minio_tpu_torch.bucket import meta as meta_mod
+    from minio_tpu_torch.s3.server import build_server
+
+    monkeypatch.setenv("MTPU_METAPLANE", "0")
+    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
+    paths = [str(tmp_path / f"d{i:02d}") for i in range(12)]
+    jpools = ErasureServerPools([ErasureSets([LocalDrive(p) for p in paths],
+                                             set_drive_count=12, parity=4,
+                                             bitrot_algorithm="mxsum256")])
+    bucket = "live"
+    jpools.make_bucket(bucket)
+    a, c, d = _payload(20 << 10, 1), _payload(300 << 10, 3), _payload(5000, 4)
+    srv = build_server(paths, S3_ACCESS, S3_SECRET, device="cpu").start()
+    try:
+        cl = SigV4Client(srv.url, S3_ACCESS, S3_SECRET)
+        assert cl.put(f"/{bucket}/key", data=a).status_code == 200
+        assert cl.get(f"/{bucket}/key").content == a
+        # Past the racy-stat window, so the port caches what it read.
+        time.sleep(2 * meta_mod.BucketMetadataSys._RACY_STAT_NS / 1e9)
+        assert cl.get(f"/{bucket}/key").content == a
+        BucketMetadataSys(jpools).update(bucket, versioning_status="Enabled")
+        r = cl.put(f"/{bucket}/key", data=c)
+        assert r.status_code == 200 and r.headers.get("x-amz-version-id")
+        r = cl.delete(f"/{bucket}/key")
+        assert r.status_code == 204 and r.headers.get("x-amz-delete-marker") == "true"
+        BucketMetadataSys(jpools).update(bucket, versioning_status="Suspended")
+        r = cl.put(f"/{bucket}/key", data=d)
+        assert r.status_code == 200 and not r.headers.get("x-amz-version-id")
+    finally:
+        srv.close()
+
+    def jget(vid):
+        _i, it = jpools.get_object(bucket, "key", opts=ObjectOptions(version_id=vid))
+        return b"".join(bytes(x) for x in it)
+
+    res = jpools.list_object_versions(bucket)
+    assert [(o.delete_marker, o.size) for o in res.objects] == [
+        (False, len(d)), (True, 0), (False, len(c))]
+    assert jget(res.objects[2].version_id) == c
+    assert jget("null") == d
+    jpools.close()

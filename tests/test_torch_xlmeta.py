@@ -62,7 +62,10 @@ def test_msgpack_rejects_malformed():
 
 def test_crc32c_matches_native():
     rng = np.random.default_rng(2)
-    for n in (0, 1, 7, 64, 1000, 20000):
+    # Short inputs take the byte loop, longer ones the lanes (power-of-two
+    # lane counts, front padding): lengths on both sides of each edge.
+    for n in (0, 1, 7, 64, 1000, 1023, 1024, 1025, 16385, 20000, 65536, 70001,
+              300001):
         data = rng.bytes(n)
         assert crc32c(data) == jax_crc32c(data)
         assert crc32c(data, offset=n // 3) == jax_crc32c(data, offset=n // 3)
