@@ -28,7 +28,11 @@ package beside it. Phases, each raising on failure:
    87,382-byte chunks, K1's ragged byte path), K1 encode [16,12,87382]->4
    and a 4-missing reconstruct, K2 [256, 87382] (PUT digests) and
    [256, 87382] with 192 rows of data and 64 of length 0 (GET verify, as
-   the GET path stages it). Then what the plane's width gates cost: one
+   the GET path stages it); a one-drive heal's, K1 reconstruct
+   [16,8,131072]->1 and K2 over the rebuilt chunks [16, 131072]; and,
+   checked but not timed, fused.reconstruct_with_digests and
+   reconstruct_only (K1 then K2, 4 missing) against the same compositions
+   of the plain versions. Then what the plane's width gates cost: one
    lane call against the 32 per-object calls it replaces, at 16 and 64 KiB
    chunks;
 3. S3: the port's server on 12 tmp drives (device="cuda"), driven over
@@ -62,7 +66,7 @@ package beside it. Phases, each raising on failure:
    drives of the object's set wiped, a degraded GET, a deep heal whose
    rebuilt shard files must equal the originals, and a GET again. The
    object halves (down to 1 GiB) when the tmp filesystem cannot hold it.
-   Its pools keep serving the object until phase 8 has listed it;
+   Its pools keep serving the object until phase 9 has listed it;
 7. versioning, server-side copies, tags and conditional requests
    (versioning_phase): on 12 drives in /dev/shm at EC 8+4, a 256 MiB object PUT
    as the null version and, with the bucket's versioning enabled, 3
@@ -74,9 +78,24 @@ package beside it. Phases, each raising on failure:
    in pages of 1000 and one DeleteObjects removes 250 by VersionId; then
    on phase 6's pools, UploadPartCopy of the object's first 64 parts,
    part by part, into a versioned bucket;
-8. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
+8. heal (heal_phase): on 12 drives in /dev/shm at EC 8+4, the server at
+   build_server's defaults (MRF on) and the auto-healer started as main()
+   starts it, with a 1 s interval. 8 objects of 256 MiB, 512 warp-mix
+   objects PUT by 64 clients, a multipart object of 16 parts of 16 MiB,
+   64 versioned keys x 3 versions with 16 delete markers; 64 PUTs while
+   2 drives refuse every call, drained by the MRF queue once they are
+   back; a GET over a flipped byte and the deep heal it queued;
+   heal_bucket and a dangling object purged; then live replacement: drive
+   5 wiped under the running server and rebuilt by the auto-healer, its
+   format.json, latest journal entries and shard files equal to a copy
+   taken before, and every latest object read with 4 other drives
+   removed. The phases before this one build their servers with
+   enable_mrf=False and no auto-healer, so their degraded reads queue no
+   background heal and their launch counts stay comparable with the
+   earlier runs recorded in PERF.md;
+9. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
    at EC 8+4 behind the S3 server, a bucket of LIST_OBJECTS synthetic
-   objects (halved to 100,000 to fit the 900 s budget, and below only to
+   objects (halved to 50,000 to fit the 1,000 s budget, and below only to
    keep the script under 1,100 s) plus 1,000 real
    ones PUT through the server; ListObjectsV2 over the whole bucket in
    pages of 1,000 (every name once, in order; the real objects' ETag and
@@ -85,7 +104,7 @@ package beside it. Phases, each raising on failure:
    refused on the full bucket and done on an emptied one, then one
    ListObjectsV2 on phase 6's 4 pools naming the 5 GiB object once.
 
-The launch count of each kernel is reset just before each of phases 3-8
+The launch count of each kernel is reset just before each of phases 3-9
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -122,8 +141,13 @@ VER_SIZE, VER_VERSIONS = 256 << 20, 4   # versioning phase: 4 versions of 256 Mi
 VER_KEYS = 64                   # ... and 64 small keys of 4 versions, 1-512 KiB
 VER_DELETE = 250                # ... of which one DeleteObjects removes 250
 VER_COPY_PARTS = 64             # ... and UploadPartCopy of phase 6's first 64 parts
+HEAL_BIG, HEAL_BIG_SIZE = 8, 256 << 20   # heal phase: 8 objects of 256 MiB,
+HEAL_SMALL = 512                # ... 512 warp-mix objects,
+HEAL_MP_PARTS = 16              # ... a multipart object of 16 parts of 16 MiB,
+HEAL_VER_KEYS = 64              # ... 64 versioned keys x 3 versions,
+HEAL_MRF_PUTS = 64              # ... and 64 PUTs with 2 drives refusing
 LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
-LIST_MIN_OBJECTS = 100_000      # ... never cut below this to meet SMOKE_BUDGET_S
+LIST_MIN_OBJECTS = 50_000       # ... never cut below this to meet SMOKE_BUDGET_S
 LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
 LIST_PAGE = 1000                # ListObjectsV2 max-keys
 # The listing phase's cost on the card's machine (NVIDIA H100 80GB HBM3,
@@ -135,7 +159,7 @@ LIST_PAGE = 1000                # ListObjectsV2 max-keys
 LIST_S_PER_OBJECT = 0.004
 LIST_FIXED_S = 90.0
 LIST_BYTES_PER_OBJECT = 12 * 8192
-SMOKE_BUDGET_S = 900.0          # what the whole script should stay under
+SMOKE_BUDGET_S = 1000.0         # what the whole script should stay under
 SMOKE_LIMIT_S = 1100.0          # what it must stay under: 1200 s less a margin
 S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 
@@ -237,6 +261,10 @@ def _time_k2(records, label, path, chunks, lens, flush, bound_rows=None):
         pad = 8 - s % 8
         ci8 = torch.nn.functional.pad(ci8, (0, pad))
         key = torch.nn.functional.pad(key, (0, 0, 0, pad))
+    if n <= 16:
+        # ... and more than 16 rows: zero rows added up to 24 (its time is
+        # then that of a third more rows than K2's).
+        ci8 = torch.nn.functional.pad(ci8, (0, 0, 0, 24 - n))
     ms = _median_ms(lambda: mxsum.digest(chunks, lens), flush)
     plain = _median_ms(lambda: mxsum.digest_plain(chunks, lens), flush)
     lib = _median_ms(lambda: torch._int_mm(ci8, key), flush)
@@ -256,7 +284,7 @@ def kernel_phase(seed: int) -> list[dict]:
     import numpy as np
     import torch
 
-    from minio_tpu_torch.ops import gf, mxsum, rs
+    from minio_tpu_torch.ops import fused, gf, mxsum, rs
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -290,6 +318,31 @@ def kernel_phase(seed: int) -> list[dict]:
           rs.gf2_matmul_plain(xs, w_dec, 4))
     if not torch.equal(rebuilt, shards[:, list(targets)]):
         raise AssertionError("K1 reconstruct did not rebuild the lost shards")
+
+    # A one-drive heal (the heal phase's shapes): K1 rebuilds 1 target from
+    # the first 8 survivors, K2 digests the rebuilt chunks.
+    surv1, tgt1 = (0, 1, 2, 3, 4, 6, 7, 8), (5,)
+    xs1 = shards[:, list(surv1)].contiguous()
+    w_dec1 = rs.device_decode_weights(K, K + M, surv1, tgt1, dev)
+    rebuilt1 = rs.gf2_matmul(xs1, w_dec1, 1)
+    check("gf2_matmul", "K1 reconstruct (1 missing)", rebuilt1,
+          rs.gf2_matmul_plain(xs1, w_dec1, 1))
+    if not torch.equal(rebuilt1, shards[:, list(tgt1)]):
+        raise AssertionError("K1 reconstruct did not rebuild the lost shard")
+    heal_chunks = rebuilt1.reshape(B, S)
+    heal_lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    check("mxsum_digest", "K2 digest of the rebuilt chunks",
+          mxsum.digest(heal_chunks, heal_lens), mxsum.digest_plain(heal_chunks, heal_lens))
+
+    # The static-pattern compositions on K1 then K2, at the S3 shape with
+    # 4 missing, against the same compositions of the plain versions.
+    got, gdig = fused.reconstruct_with_digests(shards, K, K + M, surv, targets)
+    want, wdig = fused.reconstruct_with_digests_plain(shards, K, K + M, surv, targets)
+    check("gf2_matmul", "fused.reconstruct_with_digests (rebuilt)", got, want)
+    check("mxsum_digest", "fused.reconstruct_with_digests (digests)", gdig, wdig)
+    check("gf2_matmul", "fused.reconstruct_only",
+          fused.reconstruct_only(shards, K, K + M, surv, targets),
+          fused.reconstruct_only_plain(shards, K, K + M, surv, targets))
 
     pats = [((0, 1, 2, 3, 4, 5, 6, 7), (8, 9, 10, 11)),
             ((2, 3, 4, 5, 6, 7, 8, 9), (0, 1)),
@@ -346,6 +399,10 @@ def kernel_phase(seed: int) -> list[dict]:
              _gf2_bound_ms(B, K, M, xr.shape[2]), flush)
     for label, rows in (("PUT", n_rows), ("GET verify", B * K), ("heal", B * 4)):
         _time_k2(records, label, "s3", chunks[:rows], lens[:rows], flush)
+    print("  timed at a one-drive heal's shapes (EC 8+4, 1 MiB blocks):")
+    _time_k1(records, "reconstruct 1 missing [16,8,131072]->1", "heal",
+             (xs1, w_dec1, 1), _gf2_bound_ms(B, K, 1, S), flush)
+    _time_k2(records, "heal 1 target", "heal", heal_chunks, heal_lens, flush)
 
     lane_shapes(rng, dev, flush, check, records)
     ec12_shapes(rng, dev, flush, check, records)
@@ -576,6 +633,9 @@ def _fill_launches(records: list[dict], path: str, counts: dict) -> None:
 
 
 def s3_phase(seed: int, card: str, records: list[dict], device: str = "cuda") -> None:
+    """Phase 3 (see the module's docstring). The server runs with
+    enable_mrf=False: a background heal queued by the degraded GETs would
+    race the phase's own deep heals and change its launch counts."""
     import numpy as np
 
     from minio_tpu_torch.ops import kernels
@@ -585,7 +645,7 @@ def s3_phase(seed: int, card: str, records: list[dict], device: str = "cuda") ->
     objects = {key: rng.bytes(size) for key, size in S3_SIZES.items()}
     work = tempfile.mkdtemp(prefix="mtpu-torch-smoke-")
     paths = [os.path.join(work, f"d{i}") for i in range(12)]
-    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
     cl = _Client(srv.url)
     stages = {}
     try:
@@ -734,7 +794,9 @@ def plane_phase(seed: int, card: str, records: list[dict] | None,
     shard files of 2 drives lost GET `n_degraded` objects of 16-128 KiB
     concurrently (reconstruct lanes when on) and heal one of them (the
     digest-fused reconstruct lane when on). Launch counts go into
-    `records` unless it is None. Returns each stage's objects/s."""
+    `records` unless it is None. Returns each stage's objects/s. The
+    server runs with enable_mrf=False, so the degraded GETs queue no
+    background heal."""
     import numpy as np
 
     from minio_tpu_torch import dataplane
@@ -752,7 +814,7 @@ def plane_phase(seed: int, card: str, records: list[dict] | None,
     total = int(sizes.sum())
     work = tempfile.mkdtemp(prefix="mtpu-torch-plane-")
     paths = [os.path.join(work, f"d{i}") for i in range(12)]
-    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
     pool = _Pool(srv.url, n_clients)
     plane = dataplane.get_plane(srv.obj.device) if plane_on else None
     stages, marks = {}, {}
@@ -857,7 +919,7 @@ def hot_tier_phase(seed: int, card: str, records: list[dict], working_set: int,
     hold every hot GET byte-equal and ETag-identical to the drive-path GET
     with K2 launched once per hit, ranged hits byte-equal, an overwrite
     served new, and a flipped resident byte falling back to the drive
-    path."""
+    path. The server runs with enable_mrf=False, as phase 3's does."""
     import numpy as np
     import torch
 
@@ -879,7 +941,7 @@ def hot_tier_phase(seed: int, card: str, records: list[dict], working_set: int,
         total += n
     work = tempfile.mkdtemp(prefix="mtpu-torch-hot-")
     paths = [os.path.join(work, f"d{i}") for i in range(12)]
-    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
     pool = _Pool(srv.url, 8)
     cl = _Client(srv.url)
     try:
@@ -1301,7 +1363,9 @@ def versioning_phase(seed: int, card: str, mp: _Kept | None, device: str = "cuda
     the multipart object's first VER_COPY_PARTS parts into a versioned
     bucket, in its own 16 MiB parts, 4 in flight: every part's ETag the
     source part's md5, the Complete answered with a version id, each part
-    of the copy read back with the source part's md5."""
+    of the copy read back with the source part's md5. The server runs
+    with enable_mrf=False: the degraded GET queues no background heal to
+    race the phase's deep heal."""
     import numpy as np
 
     from minio_tpu_torch.ops import kernels
@@ -1319,7 +1383,7 @@ def versioning_phase(seed: int, card: str, mp: _Kept | None, device: str = "cuda
     shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
     work = tempfile.mkdtemp(prefix="mtpu-torch-ver-", dir=shm)
     paths = [os.path.join(work, f"d{i}") for i in range(12)]
-    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
     cl = _Client(srv.url)
     pool = _Pool(srv.url, clients)
     st = _Stages()
@@ -1596,6 +1660,367 @@ def versioning_phase(seed: int, card: str, mp: _Kept | None, device: str = "cuda
                                                       for k in kernels.KERNELS))
 
 
+class _Down:
+    """A drive that refuses every call, as one pulled from its slot does
+    (is_online false, every other method raising FaultyDisk)."""
+
+    def __init__(self, drive):
+        self.inner = drive
+
+    def endpoint(self) -> str:
+        return self.inner.endpoint()
+
+    def is_online(self) -> bool:
+        return False
+
+    def __getattr__(self, name):
+        from minio_tpu_torch.utils import errors as se
+
+        def refuse(*_a, **_kw):
+            raise se.FaultyDisk(f"{self.inner.endpoint()}: {name} refused")
+
+        return refuse
+
+
+def _wipe_keep_root(root: str) -> None:
+    """Remove everything under a drive's root and keep the root (a blank
+    drive mounted in its place). Retried: the server's healers write."""
+    for _ in range(200):
+        try:
+            for name in os.listdir(root):
+                full = os.path.join(root, name)
+                if os.path.isdir(full):
+                    shutil.rmtree(full)
+                else:
+                    os.remove(full)
+            return
+        except OSError:
+            time.sleep(0.05)
+    raise AssertionError(f"could not wipe {root}")
+
+
+def _heal_bigs_for(free_bytes: int, n_big: int, big_size: int, rest: int) -> int:
+    """n_big, halved (down to 1) until the drives' copy of the phase's data
+    (12/8 of it) plus one drive's copy (1/8) fits in `free_bytes` with a
+    quarter to spare."""
+    while n_big > 1 and (n_big * big_size + rest) * 13 / 8 * 1.25 > free_bytes:
+        n_big //= 2
+    return n_big
+
+
+def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "cuda",
+               n_big: int = HEAL_BIG, big_size: int = HEAL_BIG_SIZE,
+               n_small: int = HEAL_SMALL, mp_parts: int = HEAL_MP_PARTS,
+               ver_keys: int = HEAL_VER_KEYS, mrf_puts: int = HEAL_MRF_PUTS,
+               clients: int = 64, interval: float = 1.0) -> None:
+    """Heal on config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB blocks)
+    behind the port's server at build_server's defaults (each set's MRF
+    healer on) with the auto-healer started as main() starts it (one
+    AutoHealer per pool, `interval` s). Bucket A: `n_big` objects of
+    `big_size`, `n_small` warp-mix objects (1-512 KiB, log-uniform) PUT by
+    `clients` clients, one multipart object of `mp_parts` parts of 16 MiB;
+    bucket B, versioned: `ver_keys` keys x 3 warp-mix versions, delete
+    markers on a quarter of them. Then: `mrf_puts` warp-mix PUTs while 2
+    drives refuse every call, all answered 200, and, once the drives are
+    back, the MRF queue drained with every object ok on all 12 drives; a
+    GET over a flipped byte of a big object, and the deep heal it queued
+    rewriting the shard file equal to its copy; bucket C lost on 2 drives
+    and healed by heal_bucket; an object whose journal is gone from 5
+    drives purged as dangling, its GET then 404. Last, live replacement:
+    drive 5's tree copied, then wiped with its root kept; the auto-healer
+    claims the slot (format.json equal to the copy's) and rebuilds the
+    drive, timed from the wipe until its healing tracker is gone; the shard
+    files of every latest version equal the copy's, and so do their
+    journal entries (inline ones but for the shard index, which the heal
+    writes as pos + 1, as the JAX heal does); and every latest object GETs
+    byte-equal, with its ETag, while 4 other drives are removed. Launch
+    counts go into `records` unless it is None."""
+    import numpy as np
+
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    rng = np.random.default_rng(seed + 9)
+
+    def warp(n):
+        return [int(x) for x in np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10), n))]
+
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-heal-", dir=shm)
+    small_sizes = warp(n_small)
+    ver_sizes = warp(ver_keys * 3)
+    mrf_sizes = warp(mrf_puts)
+    rest = (sum(small_sizes) + sum(ver_sizes) + sum(mrf_sizes)
+            + mp_parts * MP_PART_SIZE + (2 << 20))
+    free = shutil.disk_usage(work).free
+    cut = _heal_bigs_for(free, n_big, big_size, rest)
+    data_bytes = cut * big_size + rest
+    print(f"  drives' filesystem: {free} B free; {cut} objects of {big_size} B"
+          + ("" if cut == n_big else f" (cut from {n_big} to fit)")
+          + f", {n_small} warp-mix objects, {mp_parts} parts of {MP_PART_SIZE} B, "
+          f"{ver_keys} x 3 versioned, {mrf_puts} MRF PUTs: {data_bytes} B of object data")
+    bigs = {f"big-{i}": rng.bytes(big_size) for i in range(cut)}
+    smalls = {f"s{i:04d}": rng.bytes(n) for i, n in enumerate(small_sizes)}
+    parts = [rng.bytes(MP_PART_SIZE) for _ in range(mp_parts)]
+    versions = [(f"v{i // 3:03d}", rng.bytes(n)) for i, n in enumerate(ver_sizes)]
+    mrf_objs = {f"m{i:03d}": rng.bytes(n) for i, n in enumerate(mrf_sizes)}
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv.start_auto_heal(interval=interval)
+    es = srv.obj.pools[0].sets[0]
+    cl = _Client(srv.url)
+    pool = _Pool(srv.url, clients)
+    st = _Stages()
+    try:
+        if es.mrf is None or len(srv.auto_healer) != 1:
+            raise AssertionError("build_server's defaults: MRF and the auto-healer on")
+        print(f"  server {srv.url}: EC {es.n - es.parity}+{es.parity}, block "
+              f"{es.block_size} B, bitrot {es.bitrot_algorithm}, MRF on, auto-heal "
+              f"every {interval} s, {clients} client threads")
+        for b in ("/heal-a", "/heal-b", "/heal-c"):
+            cl.request("PUT", b)
+        cl.request("PUT", "/heal-b", _VERSIONING_ON, query={"versioning": ""})
+        kernels.reset_launches()
+        st.mark("start")
+
+        def put(c, item, bucket="heal-a"):
+            key, data = item
+            r, _ = c.request("PUT", f"/{bucket}/{key}", data)
+            if r.getheader("ETag") != _md5_etag(data):
+                raise AssertionError(f"PUT {bucket}/{key}: ETag")
+            return r.getheader("x-amz-version-id")
+
+        for item in bigs.items():
+            put(cl, item)
+        st.mark("put_big")
+        pool.run(put, smalls.items())
+        st.mark("put_small")
+        _r, doc = cl.request("POST", "/heal-a/mp", query={"uploads": ""})
+        uid = _upload_id(doc)
+        md5s = [hashlib.md5(p).hexdigest() for p in parts]
+        pool.run(lambda c, i: c.request("PUT", "/heal-a/mp", parts[i], query={
+            "partNumber": str(i + 1), "uploadId": uid}), range(mp_parts))
+        cl.request("POST", "/heal-a/mp", _complete_doc(md5s), query={"uploadId": uid})
+        mp_body = b"".join(parts)
+        mp_etag = '"' + hashlib.md5(b"".join(bytes.fromhex(e) for e in md5s)
+                                    ).hexdigest() + f'-{mp_parts}"'
+        st.mark("put_multipart")
+
+        def put_versions(c, key):
+            return [put(c, kv, "heal-b") for kv in versions if kv[0] == key]
+
+        keys_b = sorted({k for k, _ in versions})
+        vids = dict(zip(keys_b, pool.run(put_versions, keys_b)))
+        marked = keys_b[::4]
+        for key in marked:
+            r, _ = cl.request("DELETE", f"/heal-b/{key}")
+            if r.getheader("x-amz-delete-marker") != "true":
+                raise AssertionError(f"DELETE heal-b/{key}: no delete marker")
+        st.mark("put_versioned")
+        latest_b = {k: [d for kk, d in versions if kk == k][-1]
+                    for k in keys_b if k not in marked}
+        print(f"  PUT {cut} x {big_size} B, {n_small} warp-mix, {mp_parts} parts, "
+              f"{len(versions)} versions of {len(keys_b)} keys and {len(marked)} "
+              "delete markers: ok")
+
+        # MRF on PUT: 2 drives refuse every call while the PUTs run.
+        real = {i: es.drives[i] for i in (3, 8)}
+        for i, d in real.items():
+            es.drives[i] = _Down(d)
+        try:
+            pool.run(put, mrf_objs.items())
+        finally:
+            for i, d in real.items():
+                es.drives[i] = d
+        st.mark("mrf_put")
+        t0 = time.perf_counter()
+        if not es.mrf.wait_idle(300):
+            raise AssertionError("the MRF queue did not drain in 300 s")
+        drain_s = time.perf_counter() - t0
+        st.mark("mrf_drain")
+        for key in mrf_objs:
+            res = es.heal_object("heal-a", key, dry_run=True)
+            if [s_.state for s_ in res.before] != ["ok"] * 12:
+                raise AssertionError(f"after the MRF drain, {key}: "
+                                     f"{[s_.state for s_ in res.before]}")
+        print(f"  MRF on PUT: {mrf_puts} PUTs answered 200 with 2 of 12 drives "
+              f"refusing; queue drained {drain_s:.6f} s after the drives came back "
+              f"on {card}; every object ok on all 12 drives")
+
+        # MRF on GET: a flipped byte in the shard a GET reads first.
+        fi = es.latest_fileinfo("heal-a", "big-0")
+        victim = es.drives[fi.erasure.distribution.index(1)]
+        shard = glob.glob(os.path.join(victim.root, "heal-a", "big-0", "*", "part.1"))[0]
+        original = open(shard, "rb").read()
+        raw = bytearray(original)
+        raw[32 + 4096] ^= 0x5A
+        with open(shard, "wb") as fh:
+            fh.write(raw)
+        st.mark("flip")
+        r, data = cl.request("GET", "/heal-a/big-0")
+        if data != bigs["big-0"] or r.getheader("ETag") != _md5_etag(data):
+            raise AssertionError("GET over a flipped byte: bytes or ETag differ")
+        st.mark("mrf_get")
+        if not es.mrf.wait_idle(300) or open(shard, "rb").read() != original:
+            raise AssertionError("the deep heal queued by the GET did not rewrite "
+                                 "the shard file")
+        st.mark("mrf_deep_heal")
+        print("  MRF on GET: byte-equal GET over a flipped byte; the deep heal it "
+              "queued rewrote the shard file equal to its copy: ok")
+
+        # heal_bucket and a dangling object.
+        cl.request("PUT", "/heal-c/keep", b"k" * 1000)
+        dangling = rng.bytes(1 << 20)
+        cl.request("PUT", "/heal-c/dangling", dangling)
+        for i in (0, 1, 2, 3, 4):
+            shutil.rmtree(os.path.join(paths[i], "heal-c", "dangling"))
+        for i in (6, 7):
+            shutil.rmtree(os.path.join(paths[i], "heal-c"))
+        st.mark("damage_c")
+        res = srv.obj.heal_bucket("heal-c")
+        if ([s_.state for s_ in res.before].count("missing") != 2
+                or any(s_.state != "ok" for s_ in res.after)
+                or not all(os.path.isdir(os.path.join(p, "heal-c")) for p in paths)):
+            raise AssertionError(f"heal_bucket: {[s_.state for s_ in res.after]}")
+        res = srv.obj.heal_object("heal-c", "dangling")
+        if not res.purged:
+            raise AssertionError("the dangling object was not purged")
+        r, doc = cl.request("GET", "/heal-c/dangling", check=False)
+        if r.status != 404 or b"<Code>NoSuchKey</Code>" not in doc:
+            raise AssertionError(f"GET of the purged object: {r.status}")
+        st.mark("heal_bucket")
+        print("  heal_bucket recreated heal-c on 2 drives; an object without its "
+              "journal on 5 drives purged as dangling, GET 404 NoSuchKey: ok")
+
+        # Live replacement of drive 5.
+        if not es.mrf.wait_idle(300):
+            raise AssertionError("the MRF queue did not drain before the replacement")
+        drive = es.drives[5]
+        copy = os.path.join(work, "copy-d05")
+        shutil.copytree(drive.root, copy)
+        healer = srv.auto_healer[0]
+        st.mark("copy")
+        t0 = time.perf_counter()
+        _wipe_keep_root(drive.root)
+        tracker = os.path.join(drive.root, ".mtpu.sys", "healing.json")
+        fmt = os.path.join(drive.root, ".mtpu.sys", "format.json")
+        deadline = t0 + 600
+        while not (os.path.exists(fmt) and not os.path.exists(tracker)
+                   and healer.last_walk is not None):
+            if time.perf_counter() > deadline:
+                raise AssertionError("the wiped drive was not rebuilt in 600 s")
+            time.sleep(0.02)
+        replace_s = time.perf_counter() - t0
+        st.mark("replace")
+        walk = healer.last_walk
+        if open(fmt, "rb").read() != open(
+                os.path.join(copy, ".mtpu.sys", "format.json"), "rb").read():
+            raise AssertionError("the rebuilt drive's format.json differs from its copy")
+        old, new = LocalDrive(copy), LocalDrive(drive.root)
+        rebuilt = n_latest = inline_idx = 0
+        for bucket in ("heal-a", "heal-b", "heal-c"):
+            for key in sorted(os.listdir(os.path.join(copy, bucket))):
+                want = old.read_version(bucket, key)
+                got = new.read_version(bucket, key)
+                # What the journal holds beside the entry: the walk heals
+                # latest versions only, so a versioned key's journal on the
+                # new drive holds one version where the copy's holds all.
+                got.num_versions = want.num_versions
+                got.successor_mod_time = want.successor_mod_time
+                if want.inline_data and got.erasure.index != want.erasure.index:
+                    got.erasure.index = want.erasure.index
+                    inline_idx += 1
+                if got != want:
+                    raise AssertionError(f"{bucket}/{key}: the latest version's journal "
+                                         "entry differs from the copy's")
+                for part in want.parts if want.data_dir else ():
+                    rel = os.path.join(bucket, key, want.data_dir, f"part.{part.number}")
+                    body = open(os.path.join(drive.root, rel), "rb").read()
+                    if body != open(os.path.join(copy, rel), "rb").read():
+                        raise AssertionError(f"{rel}: rebuilt shard differs from the copy")
+                    rebuilt += len(body)
+                n_latest += 1
+        st.mark("compare")
+        print(f"  live replacement: format.json, the journal entries of {n_latest} "
+              f"latest versions ({inline_idx} inline ones with the heal's shard "
+              f"index) and {rebuilt} B of shard files equal to the copy's: ok")
+
+        # Every latest object, with 4 other drives removed.
+        removed = {i: es.drives[i] for i in (0, 1, 2, 3)}
+        for i, d in removed.items():
+            es.drives[i] = _Down(d)
+        try:
+            def get_ok(c, item):
+                path, want, etag = item
+                r, data = c.request("GET", path)
+                if data != want or r.getheader("ETag") != (etag or _md5_etag(want)):
+                    raise AssertionError(f"GET {path} with 4 drives removed: differs")
+
+            items = ([(f"/heal-a/{k}", v, None) for k, v in bigs.items()]
+                     + [("/heal-a/mp", mp_body, mp_etag)])
+            for item in items:
+                get_ok(cl, item)
+            pool.run(get_ok, [(f"/heal-a/{k}", v, None) for k, v in smalls.items()]
+                     + [(f"/heal-a/{k}", v, None) for k, v in mrf_objs.items()]
+                     + [(f"/heal-b/{k}", v, None) for k, v in latest_b.items()]
+                     + [("/heal-c/keep", b"k" * 1000, None)])
+            for key in marked:
+                r, _ = cl.request("GET", f"/heal-b/{key}", check=False)
+                if r.status != 404:
+                    raise AssertionError(f"GET heal-b/{key} behind its marker: {r.status}")
+        finally:
+            for i, d in removed.items():
+                es.drives[i] = d
+        st.mark("get_degraded")
+        n_get = len(bigs) + 1 + len(smalls) + len(mrf_objs) + len(latest_b) + 1
+        gib_s = rebuilt / (1 << 30) / replace_s
+        _s, d = st.delta("replace")
+        print(f"  live replacement on {card}: {replace_s:.6f} s from the wipe until "
+              f"the tracker was gone; {rebuilt} B of shards rebuilt, "
+              f"{gib_s:.6f} GiB/s; tracker healed {walk.healed}, failed "
+              f"{walk.failed}, {walk.healed / replace_s:.6f} objects/s; launches "
+              + ", ".join(f"{k} {d[k]}" for k in kernels.KERNELS))
+        print(f"  {n_get} latest objects GET byte-equal with their ETags and "
+              f"{len(marked)} markers 404, 4 other drives removed: ok")
+        if walk.failed:
+            raise AssertionError(f"the walk failed {walk.failed} objects")
+    finally:
+        pool.close()
+        cl.close()
+        backlog = es.mrf.backlog()
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  server closed with {backlog} MRF entries left (heals queued by the "
+          "GETs with 4 drives removed, backing off; dropped at close)")
+    gib = cut * big_size / (1 << 30)
+    report = [("put_big", gib, "GiB", f"{cut} PUTs of {big_size} B"),
+              ("put_small", n_small, "objects", "warp-mix PUTs"),
+              ("put_multipart", mp_parts * MP_PART_SIZE / (1 << 30), "GiB",
+               "multipart, Create to Complete"),
+              ("put_versioned", len(versions) + len(marked), "requests",
+               "versioned PUTs and delete markers"),
+              ("mrf_put", mrf_puts, "objects", "PUTs with 2 drives refusing"),
+              ("mrf_drain", mrf_puts, "objects", "MRF drain after the drives came back"),
+              ("mrf_get", big_size / (1 << 30), "GiB", "GET over a flipped byte"),
+              ("mrf_deep_heal", 1, "objects", "the deep heal the GET queued"),
+              ("heal_bucket", 2, "calls", "heal_bucket and the dangling purge"),
+              ("replace", n_latest, "objects", "live replacement of drive 5"),
+              ("get_degraded", n_get, "objects", "GETs with 4 other drives removed")]
+    for name, amount, unit, what in report:
+        secs, d = st.delta(name)
+        print(f"  heal {name} on {card}: {secs:.6f} s, {amount / secs:.6f} {unit}/s "
+              f"({amount:g} {unit}, {what}); launches "
+              + ", ".join(f"{k} {d[k]}" for k in kernels.KERNELS))
+    for name in ("put_big", "put_small", "mrf_put", "mrf_deep_heal", "replace",
+                 "get_degraded"):
+        st.need(name)
+    total = {k: st.at[-1][1][k] - st.at[0][1][k] for k in kernels.KERNELS}
+    print("  launches heal phase: " + ", ".join(f"{k} {total[k]}" for k in kernels.KERNELS))
+    if records is not None:
+        _fill_launches(records, "heal", total)
+
+
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
@@ -1647,7 +2072,7 @@ def _delete_doc(keys) -> bytes:
 def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
                   n_objects: int | None = None, device: str = "cuda",
                   clients: int = 64) -> None:
-    """Listing and the bucket calls (phase 8) on config 1's deployment: one
+    """Listing and the bucket calls (phase 9) on config 1's deployment: one
     12-drive set at EC 8+4, 1 MiB blocks, mxsum256, behind the port's S3
     server over HTTP with SigV4, its drives on /dev/shm. A bucket of
     LIST_OBJECTS synthetic objects (the JAX package's listing-scale
@@ -1660,7 +2085,8 @@ def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
     their prefix then empty; DeleteBucket on the big bucket answers
     BucketNotEmpty; a small bucket emptied and deleted, then absent from
     ListBuckets; and on phase 6's pools (`mp`), one ListObjectsV2 naming
-    the 5 GiB object once across the 4 pools."""
+    the 5 GiB object once across the 4 pools. The server runs with
+    enable_mrf=False, as every phase's but the heal phase's does."""
     import numpy as np
 
     from minio_tpu_torch.ops import kernels
@@ -1679,7 +2105,7 @@ def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
           f"synthetic objects + {LIST_REAL} real" +
           (f" (cut from {LIST_OBJECTS}: {why})" if n_syn != LIST_OBJECTS else ""))
     paths = [os.path.join(work, f"d{i}") for i in range(12)]
-    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
     layer = srv.obj
     pool = _Pool(srv.url, clients)
     cl = _Client(srv.url)
@@ -1901,6 +2327,9 @@ def main() -> int:
         print("versioning phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; "
               "UploadPartCopy on the 4 pools, EC 12+4):")
         versioning_phase(args.seed, card, mp)
+        print("heal phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; MRF and the "
+              "auto-healer on):")
+        heal_phase(args.seed, card, records)
         print("listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)
     finally:

@@ -9,25 +9,24 @@ formatted by either package boots in the other:
                  "distribution_algo": "sipmod"}}
 
 Any subset of the drives proves by quorum what the layout is; a blank
-or replaced drive is formatted into a free slot at boot. Live format heal
-(heal_format) is later work (ROADMAP.md).
+or replaced drive is formatted into a free slot at boot
+(init_format_erasure) or while the server runs (heal_format, which the
+AutoHealer calls on every pass). Either claim leaves a healing tracker on
+the drive first, so the AutoHealer rebuilds its shards.
 """
 
 from __future__ import annotations
 
-import json
-import time
 import uuid
 from dataclasses import dataclass
 
+from minio_tpu_torch.erasure.autoheal import mark_drive_healing
 from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.storage.api import StorageAPI
-from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.utils import errors as se
 
 FORMAT_ERASURE = "erasure"
 DISTRIBUTION_ALGO = "sipmod"
-TRACKER_PATH = "healing.json"   # minio_tpu/erasure/autoheal.py's tracker
 
 
 @dataclass
@@ -88,6 +87,8 @@ def init_format_erasure(drives: list[StorageAPI],
         bad = [o for o in outcomes if isinstance(o, Exception)]
         if bad:
             raise bad[0]
+        for i, d in enumerate(drives):
+            d.set_disk_id(fmt.sets[i // set_drive_count][i % set_drive_count])
         return fmt
 
     tally: dict[tuple, int] = {}
@@ -118,6 +119,7 @@ def init_format_erasure(drives: list[StorageAPI],
             slot = slot_of.get(f.this)
             if slot is not None and ordered[slot] is None:
                 ordered[slot] = drives[i]
+                drives[i].set_disk_id(f.this)
                 continue
             blank.append(i)
         elif isinstance(r, se.UnformattedDisk):
@@ -134,39 +136,71 @@ def init_format_erasure(drives: list[StorageAPI],
         i = blank.pop(0) if blank else unreadable.pop(0)
         ordered[slot] = drives[i]
         if heal_blanks:
+            # Boot classified every drive, so a placed but duplicate UUID
+            # here is a real duplicate to reclaim.
             _claim_slot(drives[i], ref,
-                        ref.sets[slot // set_drive_count][slot % set_drive_count])
+                        ref.sets[slot // set_drive_count][slot % set_drive_count],
+                        allow_placed_reclaim=True)
     drives[:] = ordered
     return ref
 
 
-def _claim_slot(drive: StorageAPI, fmt: FormatInfo, slot_uuid: str) -> None:
+def _claim_slot(drive: StorageAPI, fmt: FormatInfo, slot_uuid: str,
+                allow_placed_reclaim: bool = False) -> bool:
     """Format a blank drive, or one of this deployment with a stale UUID,
-    into a slot (the boot path of minio_tpu/erasure/format.py:_claim_slot).
-    The healing tracker goes first, so a formatted drive with no shards is
-    never taken for a healthy one: the port has no auto-healer yet, but the
-    tracker is the JAX package's, whose auto-healer rebuilds the drive."""
+    into a slot, bind its disk-ID guard, and leave a healing tracker so the
+    AutoHealer rebuilds its shards (minio_tpu/erasure/format.py
+    _claim_slot; reference healFreshDisk). Shared by boot and heal_format.
+    Returns whether it claimed the drive."""
     try:
         try:
             cur = drive.read_format()
         except se.UnformattedDisk:
             cur = None
         except se.StorageError:
-            return      # unmounted, dying or unparseable: refuse
+            return False    # unmounted, dying or unparseable: refuse
         if cur is not None:
             try:
                 f = FormatInfo.from_doc(cur)
             except (se.StorageError, KeyError, TypeError, ValueError):
-                return
+                return False
             if f.deployment_id != fmt.deployment_id or f.this == slot_uuid:
-                return  # foreign, or claimed already
-        try:
-            drive.read_all(SYS_VOL, TRACKER_PATH)
-        except se.FileNotFound:
-            drive.write_all(SYS_VOL, TRACKER_PATH, json.dumps(
-                {"drive_uuid": slot_uuid, "started": time.time(), "bucket": "",
-                 "object": "", "healed": 0, "failed": 0,
-                 "finished_buckets": []}).encode())
+                return False    # foreign, or claimed already for this slot
+            if any(f.this in s for s in fmt.sets) and not allow_placed_reclaim:
+                # Placed in another slot: someone else claimed the drive.
+                return False
+        # The tracker goes first: a formatted drive with no shards and no
+        # tracker would be taken for a healthy one.
+        mark_drive_healing(drive, slot_uuid)
         drive.write_format(fmt.to_doc(slot_uuid))
+        drive.set_disk_id(slot_uuid)
+        return True
     except se.StorageError:
-        pass
+        return False    # still dying: the next pass or boot retries
+
+
+def heal_format(es_sets) -> int:
+    """Live drive replacement (minio_tpu/erasure/format.py heal_format;
+    reference HealFormat, cmd/erasure-server-pool.go:1366): probe every
+    slot of a running ErasureSets and claim each drive that is blank, or
+    of this deployment with a stale UUID that no slot holds. A foreign
+    drive, or one whose format cannot be read or parsed, is never
+    reformatted. Returns the number of slots claimed."""
+    fmt: FormatInfo = es_sets.format
+    sdc = es_sets.set_drive_count
+    placed = {u for s in fmt.sets for u in s}
+    healed = 0
+    for slot, drive in enumerate(es_sets.drives):
+        slot_uuid = fmt.sets[slot // sdc][slot % sdc]
+        try:
+            f = FormatInfo.from_doc(drive.read_format())
+            if (f.deployment_id != fmt.deployment_id
+                    or f.this == slot_uuid or f.this in placed):
+                continue    # foreign, correct, or placed elsewhere
+        except se.UnformattedDisk:
+            pass
+        except (se.StorageError, KeyError, TypeError, ValueError):
+            continue
+        if _claim_slot(drive, fmt, slot_uuid):
+            healed += 1
+    return healed

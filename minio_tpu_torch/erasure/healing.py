@@ -1,26 +1,38 @@
-"""Object heal: rebuild missing, outdated and corrupt shards of one object
-(counterpart of heal_object in minio_tpu/erasure/healing.py; reference
-cmd/erasure-healing.go:233-498).
+"""Heal: rebuild what a set lost, one bucket, one object or a whole
+namespace at a time, and the MRF queue that heals partial writes and
+damaged reads in the background (counterpart of
+minio_tpu/erasure/healing.py; reference cmd/erasure-healing.go:56-760 and
+cmd/erasure.go:41-75).
 
-Every drive of the set is classified ok / offline / missing / outdated /
-corrupt for the elected version; the target shards of every part are
-rebuilt from any k healthy shards with the decode matrix as runtime data,
-and the rebuilt chunks are digested in the same codec call
+heal_object classifies every drive of the set as ok / offline / missing /
+outdated / corrupt for the elected version; the target shards of every
+part are rebuilt from any k healthy shards with the decode matrix as
+runtime data, and the rebuilt chunks are digested in the same codec call
 (begin_reconstruct(..., with_digests=True): kernel K1 then K2 on the
 device), framed into fresh [digest][chunk] shard files in the tmp area and
-committed with rename_data. Inline objects heal by rewriting the journal.
-As in the JAX package, the rebuilds and the survivor verifies ride the
-batched data plane when it is on (concurrent heals and degraded GETs share
-its reconstruct lanes), and a heal invalidates the hot tier's residence.
+committed with rename_data. Inline objects, delete markers and
+transitioned stubs heal by rewriting the journal; an object that can never
+reach read quorum again (its journal gone from more drives than its
+parity) is purged as dangling. As in the JAX package, the rebuilds and the
+survivor verifies ride the batched data plane when it is on, and a heal
+invalidates the hot tier's residence.
 
-Left for later slices (ROADMAP.md): bucket heal, dangling-object purge,
-the MRF queue and the background auto-heal scanner.
+heal_bucket recreates a bucket on the drives that lack it; heal_objects
+walks a prefix (stream_journals) and heals each name. MRFHealer is one
+daemon thread per set: a PUT or Complete that reached quorum with drives
+missing, or a GET that read around a dead or corrupt shard, queues the
+object, and the thread heals it, backing off while the drives it needs
+are still offline. The AutoHealer (erasure/autoheal.py) rebuilds a
+replaced drive through the same heal_object.
 """
 
 from __future__ import annotations
 
+import os
 import queue
+import random
 import threading
+import time
 import uuid
 from dataclasses import dataclass, field
 
@@ -39,6 +51,10 @@ DRIVE_STATE_MISSING = "missing"
 DRIVE_STATE_CORRUPT = "corrupt"
 DRIVE_STATE_OUTDATED = "outdated"
 
+# Journal key of a version whose data moved to a remote tier (the JAX
+# package's ILM transition): its local stub has no data dir to rebuild.
+TRANSITION_TIER_KEY = "x-mtpu-internal-transition-tier"
+
 
 @dataclass
 class HealDriveState:
@@ -50,6 +66,7 @@ class HealDriveState:
 class HealResultItem:
     """Result of one heal (reference madmin.HealResultItem)."""
 
+    heal_type: str = "object"
     bucket: str = ""
     object: str = ""
     version_id: str = ""
@@ -59,6 +76,8 @@ class HealResultItem:
     disk_count: int = 0
     before: list[HealDriveState] = field(default_factory=list)
     after: list[HealDriveState] = field(default_factory=list)
+    dry_run: bool = False
+    purged: bool = False
 
     @property
     def healed_count(self) -> int:
@@ -133,18 +152,58 @@ class _ShardWriters:
 
 
 class HealingMixin:
-    """heal_object for ErasureObjects (self provides drives, n, device,
-    nslock, bitrot_algorithm)."""
+    """Heal entry points for ErasureObjects (self provides drives, n,
+    device, nslock, bitrot_algorithm, stream_journals, read_sys_config)."""
+
+    # -- bucket heal (reference healBucket, cmd/erasure-healing.go:56) --
+
+    def heal_bucket(self, bucket: str, dry_run: bool = False) -> HealResultItem:
+        """Recreate the bucket on every drive that lacks it, then read its
+        metadata document, whose read-repair rewrites missing copies."""
+        results = parallel_map([lambda d=d: d.stat_vol(bucket) for d in self.drives])
+        res = HealResultItem(heal_type="bucket", bucket=bucket,
+                             disk_count=self.n, dry_run=dry_run)
+        have = [not isinstance(r, Exception) for r in results]
+        for d, r, ok in zip(self.drives, results, have):
+            st = (DRIVE_STATE_OK if ok else DRIVE_STATE_MISSING
+                  if isinstance(r, se.VolumeNotFound) else DRIVE_STATE_OFFLINE)
+            res.before.append(HealDriveState(d.endpoint(), st))
+        if not any(have):
+            raise se.BucketNotFound(bucket)
+        res.after = [HealDriveState(s.endpoint, s.state) for s in res.before]
+        if dry_run:
+            return res
+        for i, (r, ok) in enumerate(zip(results, have)):
+            if ok or not isinstance(r, se.VolumeNotFound):
+                continue
+            try:
+                self.drives[i].make_vol(bucket)
+                res.after[i].state = DRIVE_STATE_OK
+            except se.VolumeExists:
+                res.after[i].state = DRIVE_STATE_OK
+            except se.StorageError:
+                pass
+        try:
+            self.read_sys_config(f"buckets/{bucket}/metadata.mp")
+        except se.StorageError:
+            pass    # no document (the default config) or below quorum
+        return res
+
+    # -- object heal (reference healObject, cmd/erasure-healing.go:233) --
 
     def heal_object(self, bucket: str, obj: str, version_id: str = "",
+                    dry_run: bool = False, remove_dangling: bool = True,
                     scan_deep: bool = False) -> HealResultItem:
         """Heal one object version. scan_deep verifies every shard's
         digests (the only way to find a flipped byte); otherwise a shard is
-        checked for presence and framed size."""
+        checked for presence and framed size. dry_run classifies and
+        changes nothing; remove_dangling=False raises instead of purging."""
         with self.nslock.lock(bucket, obj):
-            return self._heal_object_locked(bucket, obj, version_id, scan_deep)
+            return self._heal_object_locked(bucket, obj, version_id, dry_run,
+                                            remove_dangling, scan_deep)
 
-    def _heal_object_locked(self, bucket, obj, version_id, scan_deep):
+    def _heal_object_locked(self, bucket, obj, version_id, dry_run,
+                            remove_dangling, scan_deep):
         results = parallel_map([lambda d=d: d.read_version(bucket, obj, version_id)
                                 for d in self.drives])
         latest = latest_fileinfo(results)
@@ -153,8 +212,11 @@ class HealingMixin:
                    for r in results):
                 raise se.ObjectNotFound(bucket, obj)
             raise se.InsufficientReadQuorum(bucket, obj, "no readable metadata")
-        if latest.deleted or not latest.erasure.distribution:
-            raise se.ObjectNotFound(bucket, obj, "delete markers heal later")
+        if (latest.deleted or not latest.erasure.distribution
+                or (latest.metadata.get(TRANSITION_TIER_KEY) and not latest.data_dir)):
+            # A delete marker, or a transitioned stub whose data lives on
+            # its tier: heal the journal only, never reconstruct or purge.
+            return self._heal_metadata_only(bucket, obj, latest, results, dry_run)
 
         dist = latest.erasure.distribution
         k = latest.erasure.data_blocks
@@ -166,6 +228,7 @@ class HealingMixin:
             bucket=bucket, object=obj, version_id=latest.version_id,
             object_size=latest.size, data_blocks=k,
             parity_blocks=latest.erasure.parity_blocks, disk_count=self.n,
+            dry_run=dry_run,
             before=[HealDriveState(d.endpoint(), s)
                     for d, s in zip(shuffled_drives, states)])
         res.after = [HealDriveState(s.endpoint, s.state) for s in res.before]
@@ -174,22 +237,93 @@ class HealingMixin:
                    if s in (DRIVE_STATE_MISSING, DRIVE_STATE_CORRUPT,
                             DRIVE_STATE_OUTDATED)]
         if len(avail) < k:
+            # Dangling when the drives without its journal alone exceed
+            # parity: no quorum can ever be reached again (reference
+            # isObjectDangling, cmd/erasure-healing.go:758).
+            notfound = sum(isinstance(r, (se.FileNotFound, se.FileVersionNotFound))
+                           for r in results)
+            if notfound > latest.erasure.parity_blocks and remove_dangling:
+                if not dry_run:
+                    self._purge_dangling(bucket, obj, latest)
+                    res.purged = True
+                return res
             raise se.InsufficientReadQuorum(bucket, obj,
                                             f"{len(avail)} of {k} shards available")
-        if not targets:
+        if not targets or dry_run:
             return res
         if latest.inline_data:
-            outcomes = parallel_map([
-                lambda p=p: shuffled_drives[p].write_metadata(
-                    bucket, obj, _clone_fi(latest, 0)) for p in targets])
-            healed = [p for p, o in zip(targets, outcomes)
-                      if not isinstance(o, Exception)]
-        else:
-            healed = self._reconstruct_to_targets(bucket, obj, latest,
-                                                  shuffled_drives, avail, targets)
+            self._heal_write_metadata(bucket, obj, latest, shuffled_drives,
+                                      targets, res)
+            return res
+        healed = self._reconstruct_to_targets(bucket, obj, latest,
+                                              shuffled_drives, avail, targets)
         for pos in healed:
             res.after[pos].state = DRIVE_STATE_OK
         return res
+
+    # -- journal-only heals (delete markers, transitioned stubs, inline) --
+
+    def _heal_metadata_only(self, bucket, obj, latest, results, dry_run
+                            ) -> HealResultItem:
+        res = HealResultItem(bucket=bucket, object=obj,
+                             version_id=latest.version_id,
+                             object_size=latest.size, disk_count=self.n,
+                             dry_run=dry_run)
+        targets = []
+        for i, r in enumerate(results):
+            if isinstance(r, FileInfo) and _same_version(r, latest):
+                st = DRIVE_STATE_OK
+            elif isinstance(r, (se.FileNotFound, se.FileVersionNotFound, FileInfo)):
+                st = DRIVE_STATE_MISSING
+                targets.append(i)
+            else:
+                st = DRIVE_STATE_OFFLINE
+            res.before.append(HealDriveState(self.drives[i].endpoint(), st))
+        res.after = [HealDriveState(s.endpoint, s.state) for s in res.before]
+        if dry_run:
+            return res
+        self._heal_write_metadata(bucket, obj, latest, self.drives, targets, res,
+                                  positions_are_physical=True)
+        return res
+
+    def _heal_write_metadata(self, bucket, obj, latest, drives, targets, res,
+                             positions_are_physical=False) -> None:
+        """Write the elected journal entry to the target drives: shard
+        index pos + 1 at distribution positions, 0 at physical ones (a
+        journal-only heal), as the JAX package writes them."""
+        self._meta_invalidate(bucket, obj)
+
+        def write(pos):
+            fi = _clone_fi(latest, 0 if positions_are_physical else pos + 1)
+            if latest.deleted:
+                drives[pos].delete_version(bucket, obj, fi)
+            else:
+                drives[pos].write_metadata(bucket, obj, fi)
+
+        outcomes = parallel_map([lambda p=p: write(p) for p in targets])
+        for pos, out in zip(targets, outcomes):
+            if not isinstance(out, Exception):
+                res.after[pos].state = DRIVE_STATE_OK
+
+    # -- namespace heal (reference HealObjects, cmd/erasure-server-pool.go:1500) --
+
+    def heal_objects(self, bucket: str, prefix: str = "", **kw):
+        """Heal every object under prefix, in name order, streamed: yields
+        each HealResultItem, or the ObjectError a name raised."""
+        for name, _meta in self.stream_journals(bucket, prefix):
+            try:
+                yield self.heal_object(bucket, name, **kw)
+            except se.ObjectError as e:
+                yield e
+
+    # -- dangling purge (reference purgeObjectDangling, :700) --
+
+    def _purge_dangling(self, bucket: str, obj: str, latest: FileInfo) -> None:
+        target = FileInfo(volume=bucket, name=obj, version_id=latest.version_id,
+                          data_dir=latest.data_dir)
+        self._meta_invalidate(bucket, obj)
+        parallel_map([lambda d=d: d.delete_version(bucket, obj, target)
+                      for d in self.drives])
 
     def _classify(self, bucket, obj, latest, shuffled_drives, shuffled_results,
                   scan_deep) -> list[str]:
@@ -354,3 +488,135 @@ class HealingMixin:
                 if g != want:
                     raise se.FileCorrupt(f"shard {pos}: bitrot digest mismatch")
         return rows
+
+
+# The JAX package's knobs, same names and defaults: the first retry's
+# delay, the attempts per episode, and the cap of the doubling delay.
+MRF_RETRY_INTERVAL = float(os.environ.get("MTPU_MRF_RETRY_INTERVAL", "1.0"))
+MRF_RETRY_MAX = int(os.environ.get("MTPU_MRF_RETRY_MAX", "600"))
+MRF_RETRY_CAP = float(os.environ.get("MTPU_MRF_RETRY_CAP", "60.0"))
+
+
+class MRFHealer:
+    """Most-recently-failed heal queue of one set (reference mrfOpCh,
+    cmd/erasure.go:41-75; minio_tpu/erasure/healing.py MRFHealer).
+
+    add_partial queues (bucket, object, version); one daemon thread pops
+    each entry before it heals it (so damage that arrives during the heal
+    queues it again) and keeps it in an in-flight set until the heal ends.
+    A heal that found target drives OFFLINE rebuilt nothing for them: the
+    entry comes back after a jittered delay that doubles from
+    MTPU_MRF_RETRY_INTERVAL up to MTPU_MRF_RETRY_CAP, at most
+    MTPU_MRF_RETRY_MAX times, so a degraded write drains once its drives
+    return and a dead drive costs one attempt per cap. An object deleted
+    since drops out."""
+
+    def __init__(self, er, maxsize: int = 10000):
+        self.er = er
+        self.q: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._mu = threading.Lock()
+        # key -> deep: a deep request upgrades a pending shallow one.
+        self._pending: dict[tuple[str, str, str], bool] = {}
+        self._attempts: dict[tuple[str, str, str], int] = {}
+        self._inflight: set[tuple[str, str, str]] = set()
+        self._retry: list[tuple[float, tuple[str, str, str], bool]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._drain, daemon=True,
+                                        name="mtpu-mrf")
+        self._thread.start()
+
+    def add_partial(self, bucket: str, obj: str, version_id: str = "",
+                    deep: bool = False) -> None:
+        """deep=True when the caller saw bitrot: the heal then verifies
+        every shard's digests instead of checking presence and size."""
+        key = (bucket, obj, version_id)
+        with self._mu:
+            if key in self._pending:
+                if deep:
+                    self._pending[key] = True
+                return
+            self._pending[key] = deep
+        try:
+            self.q.put_nowait(key)
+        except queue.Full:
+            with self._mu:
+                self._pending.pop(key, None)
+
+    def _pump_due_retries(self) -> None:
+        now = time.monotonic()
+        with self._mu:
+            due = [(k, d) for t, k, d in self._retry if t <= now]
+            self._retry = [e for e in self._retry if e[0] > now]
+            to_queue = []
+            for k, d in due:
+                # As a first enqueue would: a pending entry absorbs the
+                # retry, and a deep retry upgrades it.
+                if k in self._pending:
+                    self._pending[k] = self._pending[k] or d
+                else:
+                    self._pending[k] = d
+                    to_queue.append(k)
+        for key in to_queue:
+            try:
+                self.q.put_nowait(key)
+            except queue.Full:
+                with self._mu:
+                    self._pending.pop(key, None)
+                    self._attempts.pop(key, None)
+
+    def _drain(self) -> None:
+        while not self._stop.is_set():
+            self._pump_due_retries()
+            try:
+                key = self.q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            with self._mu:
+                deep = self._pending.pop(key, False)
+                self._inflight.add(key)
+            requeue = False
+            try:
+                res = self.er.heal_object(*key, scan_deep=deep)
+                requeue = any(s.state == DRIVE_STATE_OFFLINE
+                              for s in (res.after or res.before))
+            except (se.ObjectNotFound, se.FileNotFound, se.FileVersionNotFound):
+                pass    # deleted since: nothing to heal
+            except Exception:  # noqa: BLE001 - quorum or transport: try again
+                requeue = True
+            with self._mu:
+                self._inflight.discard(key)
+                self._attempts[key] = attempts = self._attempts.get(key, 0) + 1
+                if requeue and attempts < MRF_RETRY_MAX and key not in self._pending:
+                    delay = min(MRF_RETRY_INTERVAL * 2 ** (attempts - 1),
+                                max(MRF_RETRY_INTERVAL, MRF_RETRY_CAP))
+                    delay *= 1.0 + 0.25 * random.random()
+                    self._retry.append((time.monotonic() + delay, key, deep))
+                elif requeue and key in self._pending:
+                    # A concurrent add_partial queued it again: that entry
+                    # is the retry, and keeps an observed bitrot deep.
+                    self._pending[key] = self._pending[key] or deep
+                elif key not in self._pending:
+                    # Episode over: a later degraded write starts afresh.
+                    self._attempts.pop(key, None)
+            self.q.task_done()
+
+    def backlog(self) -> int:
+        """Entries queued, in flight or waiting to retry."""
+        with self._mu:
+            return len(self._pending) + len(self._inflight) + len(self._retry)
+
+    def wait_idle(self, timeout: float = 10.0) -> bool:
+        """Block until nothing is queued, in flight or waiting to retry;
+        False if that took longer than `timeout` seconds."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._mu:
+                if (not self._pending and not self._retry
+                        and not self._inflight and self.q.empty()):
+                    return True
+            time.sleep(0.01)
+        return False
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)

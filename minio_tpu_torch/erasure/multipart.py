@@ -18,10 +18,12 @@ continued and completed by the other. On a versioned bucket Complete
 gives the object a fresh version id. UploadPartCopy is a part PUT fed by
 the S3 layer from a GET of the source range.
 
+A Complete that reaches quorum with drives missing queues the object on
+the set's MRF healer, as a PUT does.
+
 Left for later slices (ROADMAP.md): SSE parts, sessions
 journaled through the JAX metaplane's WAL blob lane (its drives hold them
-in a WAL until it materializes them), MRF for partial commits, the dsync
-lease.
+in a WAL until it materializes them), the dsync lease.
 """
 
 from __future__ import annotations
@@ -347,6 +349,7 @@ class MultipartMixin:
                       for i, d in enumerate(shuffled)])
         parallel_map([lambda d=d: d.delete(SYS_VOL, mp, recursive=True)
                       for d in self.drives])
+        self._queue_partial(bucket, obj, fi, outcomes)
         return self._fi_to_object_info(bucket, obj, fi)
 
     def _restore_session(self, shuffled, outcomes, tokens, fi, parts, mp,

@@ -33,9 +33,15 @@ overwrite adds a version and displaces nothing, and a DELETE without a
 version id writes a delete marker. A read that names a version bypasses
 the hot tier, which holds latest versions only.
 
+With enable_mrf (build_server's default), a PUT that reaches write
+quorum with drives missing, and a GET that read around a dead or corrupt
+shard, queue the object on the set's MRF healer (erasure/healing.py),
+which rebuilds it in the background: deep, digest by digest, when the GET
+saw bitrot. Unlike the JAX package, an inline PUT queues too, so the
+journals it missed come back as the shard files of a streamed PUT do.
+
 Left for later slices (ROADMAP.md): the metadata plane, per-drive
-deadlines and hedged reads, the read-ahead producer, MRF, heal of delete
-markers.
+deadlines and hedged reads, the read-ahead producer.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from minio_tpu_torch import dataplane, hottier
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.codec import (BATCH_BLOCKS, DEFAULT_BLOCK_SIZE,
                                            ErasureCodec)
-from minio_tpu_torch.erasure.healing import HealingMixin
+from minio_tpu_torch.erasure.healing import HealingMixin, MRFHealer
 from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
                                               hash_order, parallel_map,
                                               reduce_write_quorum,
@@ -142,7 +148,8 @@ class _KeyLocks:
 
 class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
     def __init__(self, drives: list[StorageAPI], parity: int | None = None,
-                 block_size: int = DEFAULT_BLOCK_SIZE, device="cuda"):
+                 block_size: int = DEFAULT_BLOCK_SIZE, device="cuda",
+                 enable_mrf: bool = False):
         if not drives:
             raise ValueError("empty drive set")
         self.device = device_mod.resolve(device)
@@ -157,6 +164,19 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         # each version names its own in its checksums.
         self.bitrot_algorithm = bitrot.device_default_algorithm()
         self.nslock = _KeyLocks()
+        self.mrf: MRFHealer | None = MRFHealer(self) if enable_mrf else None
+
+    def close(self) -> None:
+        """Stop the MRF thread (queued heals are dropped)."""
+        if self.mrf is not None:
+            self.mrf.close()
+
+    def _queue_partial(self, bucket: str, obj: str, fi: FileInfo,
+                       outcomes: list) -> None:
+        """After a commit that reached quorum: queue a heal when some
+        drive missed it (reference addPartial, cmd/erasure-object.go:1150)."""
+        if self.mrf is not None and any(isinstance(o, Exception) for o in outcomes):
+            self.mrf.add_partial(bucket, obj, fi.version_id)
 
     def _meta_invalidate(self, bucket: str, obj: str) -> None:
         """After a mutating fan-out (PUT, DELETE, heal): drop the key's
@@ -283,6 +303,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                     for d in shuffled])
                 self._settle_commit(shuffled, outcomes, write_quorum,
                                     bucket, obj, fi)
+            self._queue_partial(bucket, obj, fi, outcomes)
             return listing.fi_to_object_info(bucket, obj, fi)
 
         tmp_rel = f"tmp/{uuid.uuid4().hex}"
@@ -320,6 +341,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             except Exception:
                 cleanup_tmp()
                 raise
+        self._queue_partial(bucket, obj, fi, outcomes)
         return listing.fi_to_object_info(bucket, obj, fi)
 
     def _settle_commit(self, shuffled, outcomes, write_quorum: int,
@@ -538,6 +560,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         shard_data_size = codec.shard_file_size(part.size)
         readers: list = [None] * n
         dead: set[int] = {i for i, d in enumerate(shuffled) if not d.is_online()}
+        corrupt: set[int] = set()   # the shards of `dead` that showed bitrot
 
         def open_reader(i: int) -> bitrot.BitrotReader:
             if readers[i] is None:
@@ -562,7 +585,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                                                         "not enough live shards")
                     try:
                         rows = self._read_chunk_rows(open_reader, readers, chosen,
-                                                     ids, lens, codec, n, dead, algo)
+                                                     ids, lens, codec, n, dead, algo,
+                                                     corrupt)
                         break
                     except se.StorageError:
                         continue   # a shard died: re-choose and retry the batch
@@ -578,14 +602,20 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             for r in readers:
                 if r is not None:
                     r.src.close()
+            # The read went around a dead or corrupt shard: heal it in the
+            # background (reference cmd/erasure-object.go:321-344).
+            if dead and self.mrf is not None:
+                self.mrf.add_partial(bucket, obj, fi.version_id, deep=bool(corrupt))
 
     def _read_chunk_rows(self, open_reader, readers, chosen, batch_ids, block_lens,
-                         codec: ErasureCodec, n: int, dead: set, algo: str):
+                         codec: ErasureCodec, n: int, dead: set, algo: str,
+                         corrupt: set):
         """Read one batch of chunk rows from the chosen shards in parallel,
         then verify every mxsum256 chunk in ONE digest launch (the read
         path's form of the reference's verify-every-ReadAt,
         cmd/bitrot-streaming.go:115-158). A failed or corrupt shard is
-        marked dead and StorageError raised, so the caller re-selects."""
+        marked dead (and, for bitrot, corrupt) and StorageError raised, so
+        the caller re-selects."""
         chunk_lens = [-(-bl // codec.k) for bl in block_lens]
         batched = algo == "mxsum256"
 
@@ -607,6 +637,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         for i, r in failed:
             if not isinstance(r, (se.StorageError, OSError)):
                 raise r
+            if isinstance(r, se.FileCorrupt):
+                corrupt.add(i)
             _retire(readers, dead, i)
         if failed:
             raise se.FileCorrupt(f"shard {failed[0][0]}: {failed[0][1]}")
@@ -622,6 +654,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                                           codec.shard_size(), self.device)
             for (i, want, _c), g in zip(records, got):
                 if g != want:
+                    corrupt.add(i)
                     _retire(readers, dead, i)
                     raise se.FileCorrupt(f"shard {i}: bitrot digest mismatch")
         return rows

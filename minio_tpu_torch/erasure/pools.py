@@ -18,13 +18,12 @@ A key's versions stay in one pool: the owner probe reads the latest
 journal entry, delete markers included, so a delete marker lands in the
 pool that holds the key and a versioned re-PUT after it stays there.
 
-Left for later slices (ROADMAP.md): bucket heal, and pools from more than
-one node (dist/).
+Left for later slices (ROADMAP.md): pools from more than one node (dist/).
 """
 
 from __future__ import annotations
 
-from typing import BinaryIO
+from typing import BinaryIO, Iterator
 
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure import metacache as metacache_mod
@@ -50,8 +49,11 @@ class ErasureServerPools:
         self.metacache = metacache_mod.Metacache(self)
 
     def close(self) -> None:
-        """Stop the metacache's background renderer."""
+        """Stop the metacache's background renderer and every set's MRF
+        thread."""
         self.metacache.close()
+        for p in self.pools:
+            p.close()
 
     @property
     def device(self):
@@ -344,6 +346,20 @@ class ErasureServerPools:
         return self.pools[0].sys_config_signature(path)
 
     # -- heal --
+
+    def heal_bucket(self, bucket: str, dry_run: bool = False) -> HealResultItem:
+        results = [p.heal_bucket(bucket, dry_run) for p in self.pools]
+        out = results[0]
+        for r in results[1:]:
+            out.before.extend(r.before)
+            out.after.extend(r.after)
+            out.disk_count += r.disk_count
+        return out
+
+    def heal_objects(self, bucket: str, prefix: str = "",
+                     **kw) -> Iterator[HealResultItem | Exception]:
+        for p in self.pools:
+            yield from p.heal_objects(bucket, prefix, **kw)
 
     def heal_object(self, bucket: str, obj: str, version_id: str = "",
                     **kw) -> HealResultItem:

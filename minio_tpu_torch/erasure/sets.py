@@ -5,9 +5,11 @@ cmd/erasure-sets.go:55).
 Each object is routed to one set by sipHashMod(key, set count, deployment
 id) (:697-736), the same function as the JAX package's, so both packages
 find every object on the same set's drives. Bucket calls fan out to every
-set. Each set is a whole ErasureObjects engine: quorums, multipart and
-heal stay per set. A listing k-way merges the sets' sorted journal
-streams; system documents (the metacache's blocks) live on set 0.
+set. Each set is a whole ErasureObjects engine: quorums, multipart, heal
+and the MRF queue (enable_mrf) stay per set. A listing k-way merges the
+sets' sorted journal streams; system documents (the metacache's blocks)
+live on set 0. `format` is the elected format.json, which heal_format
+(run by the AutoHealer) needs to claim a replaced drive live.
 
 Left for later slices (ROADMAP.md): transition, health, and the drive
 wrappers of the JAX package (disk-id check, health checker, chaos).
@@ -15,7 +17,7 @@ wrappers of the JAX package (disk-id check, health checker, chaos).
 
 from __future__ import annotations
 
-from typing import BinaryIO
+from typing import BinaryIO, Iterator
 
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.format import init_format_erasure
@@ -42,20 +44,27 @@ def _raise_first(outcomes: list) -> None:
 
 class ErasureSets:
     def __init__(self, drives: list[StorageAPI], set_drive_count: int | None = None,
-                 parity: int | None = None, **set_kwargs):
+                 parity: int | None = None, enable_mrf: bool = False,
+                 **set_kwargs):
         """`drives` are formatted (or their format read) into sets of
-        `set_drive_count` (default: one set); `set_kwargs` (block_size,
-        device) go to every set's engine."""
+        `set_drive_count` (default: one set); `enable_mrf` and
+        `set_kwargs` (block_size, device) go to every set's engine."""
         drives = list(drives)
         set_drive_count = set_drive_count or len(drives)
-        self.deployment_id = init_format_erasure(drives, set_drive_count).deployment_id
+        self.format = init_format_erasure(drives, set_drive_count)
+        self.deployment_id = self.format.deployment_id
         self.set_drive_count = set_drive_count
         self.set_count = len(drives) // set_drive_count
         self.drives = drives
         self.sets: list[ErasureObjects] = [
             ErasureObjects(drives[i * set_drive_count:(i + 1) * set_drive_count],
-                           parity=parity, **set_kwargs)
+                           parity=parity, enable_mrf=enable_mrf, **set_kwargs)
             for i in range(self.set_count)]
+
+    def close(self) -> None:
+        """Stop every set's MRF thread."""
+        for s in self.sets:
+            s.close()
 
     @property
     def device(self):
@@ -215,6 +224,24 @@ class ErasureSets:
 
     # -- heal --
 
+    def heal_bucket(self, bucket: str, dry_run: bool = False) -> HealResultItem:
+        """Every set's heal_bucket, drive states concatenated in set order."""
+        results = [s.heal_bucket(bucket, dry_run) for s in self.sets]
+        out = results[0]
+        for r in results[1:]:
+            out.before.extend(r.before)
+            out.after.extend(r.after)
+            out.disk_count += r.disk_count
+        return out
+
     def heal_object(self, bucket: str, obj: str, version_id: str = "",
                     **kw) -> HealResultItem:
+        """kw: dry_run, remove_dangling, scan_deep."""
         return self.get_hashed_set(obj).heal_object(bucket, obj, version_id, **kw)
+
+    def heal_objects(self, bucket: str, prefix: str = "",
+                     **kw) -> Iterator[HealResultItem | Exception]:
+        """Each set's heal_objects in turn, set 0 first (the JAX package's
+        order, not one merged name order)."""
+        for s in self.sets:
+            yield from s.heal_objects(bucket, prefix, **kw)

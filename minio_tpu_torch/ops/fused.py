@@ -8,6 +8,13 @@ The serving paths call these:
   Heal       -> reconstruct_weights_digests  (rebuilt shards + digests)
   heal lane  -> reconstruct_multi_digests    (dataplane: per-row weights)
 
+reconstruct_with_digests and reconstruct_only are the JAX package's
+static-pattern rebuilds (survivors and targets fixed per call, the decode
+matrix built once per pattern and cached on the device); no path of
+either package calls them yet. Each `*_plain` function is the same
+composition over the plain versions of K1 and K2, which chip_smoke.py
+holds the kernels' composition against on the card.
+
 Where the JAX package fuses the GF(2) contraction and the digest into one
 XLA launch, the port composes two kernel launches (K1 gf2_matmul, K2
 mxsum_digest) on device tensors: parity stays on the device between them,
@@ -75,6 +82,57 @@ def reconstruct_weights_digests(surv: torch.Tensor, w_t: torch.Tensor,
     lens = chunk_lens.repeat_interleave(out_shards)
     digs = mxsum.digest(rebuilt.reshape(b * out_shards, s), lens)
     return rebuilt, digs.reshape(b, out_shards, mxsum.DIGEST_LEN)
+
+
+def reconstruct_only(shards: torch.Tensor, k: int, n: int,
+                     survivors: tuple[int, ...],
+                     targets: tuple[int, ...]) -> torch.Tensor:
+    """shards [B, n, S] u8 (survivor rows meaningful) -> the `targets`
+    rows [B, t, S] rebuilt from the first k `survivors` (K1)."""
+    return rs.reconstruct(shards, k, n, survivors, targets)
+
+
+def reconstruct_with_digests(shards: torch.Tensor, k: int, n: int,
+                             survivors: tuple[int, ...],
+                             targets: tuple[int, ...],
+                             chunk_lens: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """shards [B, n, S] u8 -> (rebuilt [B, t, S] u8, digests [B, t, 32]
+    u8 of each rebuilt chunk's chunk_lens[b] bytes, default S): K1, then
+    K2 on the rebuilt rows, still on the device."""
+    b, _, s = shards.shape
+    t = len(targets)
+    if chunk_lens is None:
+        chunk_lens = torch.full((b,), s, dtype=torch.int32, device=shards.device)
+    rebuilt = rs.reconstruct(shards, k, n, survivors, targets)
+    digs = mxsum.digest(rebuilt.reshape(b * t, s), chunk_lens.repeat_interleave(t))
+    return rebuilt, digs.reshape(b, t, mxsum.DIGEST_LEN)
+
+
+def reconstruct_only_plain(shards: torch.Tensor, k: int, n: int,
+                           survivors: tuple[int, ...],
+                           targets: tuple[int, ...]) -> torch.Tensor:
+    """reconstruct_only over K1's plain version, on any device."""
+    surv = tuple(survivors[:k])
+    w = rs.device_decode_weights(k, n, surv, tuple(targets), shards.device)
+    return rs.gf2_matmul_plain(shards[:, list(surv), :].contiguous(), w,
+                               len(targets))
+
+
+def reconstruct_with_digests_plain(shards: torch.Tensor, k: int, n: int,
+                                   survivors: tuple[int, ...],
+                                   targets: tuple[int, ...],
+                                   chunk_lens: torch.Tensor | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """reconstruct_with_digests over the plain versions of K1 and K2."""
+    b, _, s = shards.shape
+    t = len(targets)
+    if chunk_lens is None:
+        chunk_lens = torch.full((b,), s, dtype=torch.int32, device=shards.device)
+    rebuilt = reconstruct_only_plain(shards, k, n, survivors, targets)
+    digs = mxsum.digest_plain(rebuilt.reshape(b * t, s),
+                              chunk_lens.repeat_interleave(t))
+    return rebuilt, digs.reshape(b, t, mxsum.DIGEST_LEN)
 
 
 def reconstruct_multi_digests(data: torch.Tensor, weights: torch.Tensor,

@@ -41,7 +41,11 @@ come in later slices (ROADMAP.md).
 
 The object layer is any of the port's: build_server assembles drives ->
 ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
-the JAX package's build_server does.
+the JAX package's build_server does, with each set's MRF healer on
+(enable_mrf=False turns it off). start_auto_heal starts one AutoHealer per
+pool, which claims a wiped or replaced drive and rebuilds it; main() calls
+it, as the JAX server's main does. The admin heal route and heal pacing
+from the config plane come with the admin plane (ROADMAP.md).
 
 Run: python -m minio_tpu_torch.s3.server --address 127.0.0.1:9000
 [--set-drive-count N] <drive dirs> (credentials from MTPU_ROOT_USER /
@@ -63,6 +67,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from minio_tpu_torch.bucket.meta import BucketMetadataSys
+from minio_tpu_torch.erasure.autoheal import AutoHealer
 from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
 from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
@@ -170,6 +175,30 @@ class S3Server:
         self.httpd.daemon_threads = True
         self.httpd.s3 = self
         self._thread: threading.Thread | None = None
+        self.auto_healer: list = []
+        # Requests being answered: the AutoHealer's foreground load.
+        self._inflight = 0
+        self._inflight_mu = threading.Lock()
+
+    @property
+    def current_requests(self) -> int:
+        return self._inflight
+
+    def _enter(self, delta: int) -> None:
+        with self._inflight_mu:
+            self._inflight += delta
+
+    def start_auto_heal(self, interval: float = 10.0) -> None:
+        """Start the background drive healer (reference initAutoHeal,
+        cmd/background-newdisks-heal-ops.go:241): one AutoHealer per pool,
+        each pass claiming blank drives live and rebuilding every drive that
+        carries a healing tracker. No config plane yet, so no pacing."""
+        pools = getattr(self.obj, "pools", None) or [self.obj]
+        self.auto_healer = [AutoHealer(p, interval=interval, config=None,
+                                       load_fn=lambda: self.current_requests)
+                            for p in pools]
+        for h in self.auto_healer:
+            h.start()
 
     @property
     def url(self) -> str:
@@ -188,9 +217,11 @@ class S3Server:
             self.httpd.shutdown()
             self._thread.join()
         self.httpd.server_close()
+        for h in self.auto_healer:
+            h.close()
         close = getattr(self.obj, "close", None)
         if close is not None:
-            close()   # the pools' metacache renderer
+            close()   # the metacache renderer and the MRF threads
 
     def _lookup(self, access_key: str):
         return self.creds if access_key == self.creds.access_key else None
@@ -563,6 +594,15 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError:
             length = -1
         body = _Body(self.rfile, max(length, 0))
+        s3 = self.server.s3
+        s3._enter(1)
+        try:
+            self._answer(method, path, query_items, length, body, request_id)
+        finally:
+            s3._enter(-1)
+
+    def _answer(self, method, path, query_items, length: int, body: _Body,
+                request_id: str) -> None:
         try:
             if length < 0:
                 raise S3Error("InvalidArgument", "malformed Content-Length")
@@ -725,14 +765,16 @@ def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                  device="cuda", address: str = "127.0.0.1:0",
                  parity: int | None = None,
                  set_drive_count: int | None = None,
-                 versioned: bool = False) -> S3Server:
+                 versioned: bool = False, enable_mrf: bool = True) -> S3Server:
     """Format (or read the format of) the drives as sets of
     `set_drive_count` (default: one set of all), put them in one pool and
-    bind its S3 server; `versioned` versions every bucket. Call .start()
-    to serve in the background, .close() to stop."""
+    bind its S3 server; `versioned` versions every bucket, `enable_mrf`
+    (the JAX default, on) gives each set its MRF healer. Call .start() to
+    serve in the background, .start_auto_heal() for the drive healer,
+    .close() to stop all of it."""
     sets = ErasureSets([LocalDrive(p) for p in drive_paths],
                        set_drive_count=set_drive_count, parity=parity,
-                       device=device)
+                       enable_mrf=enable_mrf, device=device)
     return S3Server(ErasureServerPools([sets]),
                     sigv4.Credentials(access_key, secret_key), address,
                     versioned_buckets=versioned)
@@ -755,6 +797,7 @@ def main(argv=None) -> None:
                        device=args.device, address=args.address,
                        parity=args.parity, set_drive_count=args.set_drive_count,
                        versioned=args.versioned)
+    srv.start_auto_heal()
     sets = srv.obj.pools[0]
     es = sets.sets[0]
     print(f"serving S3 on {srv.url} ({len(args.drives)} drives, {sets.set_count} "
@@ -763,7 +806,7 @@ def main(argv=None) -> None:
     try:
         srv.httpd.serve_forever()
     finally:
-        srv.httpd.server_close()
+        srv.close()
 
 
 if __name__ == "__main__":

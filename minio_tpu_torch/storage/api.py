@@ -73,6 +73,15 @@ class StorageAPI(abc.ABC):
     @abc.abstractmethod
     def write_format(self, fmt: dict) -> None: ...
 
+    @abc.abstractmethod
+    def get_disk_id(self) -> str:
+        """The drive's UUID; InconsistentDisk if it is not the one the
+        drive was bound to."""
+
+    @abc.abstractmethod
+    def set_disk_id(self, disk_id: str) -> None:
+        """Bind the drive to the slot UUID it was placed under."""
+
     # --- volumes ---
 
     @abc.abstractmethod

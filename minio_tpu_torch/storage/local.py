@@ -118,6 +118,9 @@ class LocalDrive(StorageAPI):
         # (volume, path) -> (signature, XLMeta, {version id: FileInfo})
         self._meta_cache: OrderedDict = OrderedDict()
         self._meta_mu = threading.Lock()
+        # The slot UUID this drive was placed under (set_disk_id); a drive
+        # swapped under the path answers get_disk_id with InconsistentDisk.
+        self._expected_id = ""
         try:
             os.makedirs(os.path.join(self.root, SYS_VOL, "tmp"), exist_ok=True)
         except OSError as e:
@@ -157,6 +160,19 @@ class LocalDrive(StorageAPI):
             os.fsync(f.fileno())
         os.replace(tmp, self._format_path())
         _fsync_dir(os.path.dirname(self._format_path()))
+
+    def get_disk_id(self) -> str:
+        """The drive's UUID from its format.json, checked against the one
+        it was placed under (minio_tpu/storage/local.py get_disk_id)."""
+        fmt = self.read_format()
+        this = fmt.get("erasure", {}).get("this", "") or fmt.get("this", "")
+        if self._expected_id and this != self._expected_id:
+            raise se.InconsistentDisk(
+                f"drive {self.root}: id {this!r} != expected {self._expected_id!r}")
+        return this
+
+    def set_disk_id(self, disk_id: str) -> None:
+        self._expected_id = disk_id
 
     # ---------- path mapping ----------
 

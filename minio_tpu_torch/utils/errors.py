@@ -25,6 +25,11 @@ class UnformattedDisk(StorageError):
     """Drive has no format.json yet."""
 
 
+class InconsistentDisk(StorageError):
+    """The drive at a path is not the one placed in its slot (its
+    format.json names another UUID)."""
+
+
 class VolumeNotFound(StorageError):
     pass
 

@@ -114,6 +114,36 @@ def test_reconstruct_weights_digests_matches_jax():
             assert gd is None and wd is None
 
 
+@pytest.mark.parametrize("surv,targets", [
+    ((0, 1, 2, 3, 6, 7, 9, 11), (4, 5, 8, 10)),     # 4 missing, the S3 shape
+    ((0, 1, 2, 3, 4, 6, 7, 8), (5,)),                # a one-drive heal
+])
+def test_static_pattern_reconstructs_match_jax(surv, targets):
+    """fused.reconstruct_with_digests / reconstruct_only and their plain
+    versions against the JAX functions of the same names."""
+    k, n, s = 8, 12, 700
+    rng = np.random.default_rng(len(targets))
+    shards = rng.integers(0, 256, (3, n, s), dtype=np.uint8)
+    lens = np.array([s, 350, 1], dtype=np.int32)
+    for b, ln in enumerate(lens):
+        shards[b, :, ln:] = 0
+    got, gd = fused.reconstruct_with_digests(torch.from_numpy(shards), k, n,
+                                             surv, targets, torch.from_numpy(lens))
+    want, wd = jfused.reconstruct_with_digests(jnp.asarray(shards), k, n, surv,
+                                               targets, jnp.asarray(lens))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(gd.numpy(), np.asarray(wd))
+    pg, pd = fused.reconstruct_with_digests_plain(torch.from_numpy(shards), k, n,
+                                                  surv, targets, torch.from_numpy(lens))
+    assert np.array_equal(pg.numpy(), got.numpy())
+    assert np.array_equal(pd.numpy(), gd.numpy())
+    only = fused.reconstruct_only(torch.from_numpy(shards), k, n, surv, targets)
+    jonly = jfused.reconstruct_only(jnp.asarray(shards), k, n, surv, targets)
+    assert np.array_equal(only.numpy(), np.asarray(jonly))
+    assert np.array_equal(fused.reconstruct_only_plain(
+        torch.from_numpy(shards), k, n, surv, targets).numpy(), only.numpy())
+
+
 def test_verify_and_host_batch_match_jax():
     rng = np.random.default_rng(4)
     chunks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()

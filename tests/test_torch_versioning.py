@@ -598,7 +598,10 @@ def test_versioned_complete_adds_a_version(tmp_path, planes_off, completer):
 def test_heal_of_a_noncurrent_version(tmp_path, planes_off, inline):
     """The port heals a noncurrent version (not the latest) lost on 4
     drives: the rebuilt shard files equal the originals, the other
-    versions are untouched, and the JAX package reads every version."""
+    versions are untouched, the healed tree is the JAX package's heal of
+    the same damage byte for byte, and the JAX package reads every
+    version. (An inline version's healed journals carry shard index
+    pos + 1, as the JAX heal writes them, where its PUT wrote 0.)"""
     paths = _paths(tmp_path)
     layers = _layers(paths)
     jl, tl = layers["jax"], layers["torch"]
@@ -619,9 +622,19 @@ def test_heal_of_a_noncurrent_version(tmp_path, planes_off, inline):
         meta = d._load_meta(BUCKET, "h")
         meta.delete_version(i_old.version_id, BUCKET, "h")
         d._store_meta(BUCKET, "h", meta)
+    jax_paths = _paths(tmp_path / "jax-heal")
+    for src, dst in zip(paths, jax_paths):
+        shutil.copytree(src, dst)
     res = tl.heal_object(BUCKET, "h", i_old.version_id)
     assert res.version_id == i_old.version_id and res.healed_count == 4
-    assert _tree(paths) == before
+    jres = _layers(jax_paths)["jax"].heal_object(BUCKET, "h", i_old.version_id)
+    assert jres.healed_count == 4
+    assert _tree(paths) == _tree(jax_paths)
+    if inline:
+        changed = {key for key, raw in _tree(paths).items() if before[key] != raw}
+        assert changed == {(i, "h/meta.mp") for i in lost}
+    else:
+        assert _tree(paths) == before
     for layer, pkg in ((jl, "jax"), (tl, "torch")):
         assert _get(layer, "h", i_old.version_id, pkg) == old
         assert _get(layer, "h", pkg=pkg) == new
