@@ -34,7 +34,14 @@ package beside it. Phases, each raising on failure:
    reconstruct_only (K1 then K2, 4 missing) against the same compositions
    of the plain versions. Then what the plane's width gates cost: one
    lane call against the 32 per-object calls it replaces, at 16 and 64 KiB
-   chunks;
+   chunks. Then K3 mxhash256 at the bitrot phase's shapes, [192, 131072]
+   (PUT), [128, 131072] (GET verify), [64, 131072] and [16, 131072]
+   (heal) and [256, 87382] (EC 12+4 PUT), rows of lengths 0, 1, 503,
+   504, 512, 700 and 4096 among full ones in every launch, beside its
+   plain version (no library call computes the chain);
+   mxhash.encode_with_bitrot (K1 then K3) checked against the plain
+   composition; and the mxsum256 and mxhash256 keys this machine's numpy
+   derives held against their pinned SHA-256;
 3. S3: the port's server on 12 tmp drives (device="cuda"), driven over
    http.client with the port's SigV4 signer: PUT 256 MiB, 9 MiB + 12,345 B
    and 1 KiB objects; GET back byte-equal with ETag == md5; a ranged GET;
@@ -102,9 +109,19 @@ package beside it. Phases, each raising on failure:
    Size), a delimiter listing, a v1 marker resume, ListBuckets, GETs of
    every 50th real object, one DeleteObjects of the 1,000, DeleteBucket
    refused on the full bucket and done on an emptied one, then one
-   ListObjectsV2 on phase 6's 4 pools naming the 5 GiB object once.
+   ListObjectsV2 on phase 6's 4 pools naming the 5 GiB object once;
+10. bitrot (bitrot_phase, run before phase 9): every algorithm of the
+   JAX registry on config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB
+   blocks), each through the port's S3Server over
+   ErasureSets(..., bitrot_algorithm=): one 256 MiB object under mxhash256
+   and under sip256, one of 16 MiB under highwayhash256, sha256, xxh64 and
+   blake2b256; PUT, GET (bytes and ETag), GET with 4 of 12 drives' shard
+   files removed, a deep heal of the 4 (files equal their copies,
+   verify_shard_file over each), sampled chunk digests against the plain
+   versions; K3 launched once per batch (the mxhash256 PUT: as often as
+   K1); the host hashes' MB/s on one thread and on 12.
 
-The launch count of each kernel is reset just before each of phases 3-9
+The launch count of each kernel is reset just before each of phases 3-10
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -128,10 +145,11 @@ import time
 import urllib.parse
 
 ACCESS, SECRET = "smokeadmin", "smokesecret123"
+MXSUM_KERNELS = ("gf2_matmul", "mxsum_digest")   # the paths of the mxsum256 phases
 K, M, B, S = 8, 4, 16, 131072   # EC 8+4, 1 MiB blocks: S = 1 MiB / 8
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
-PLANE_OBJECTS = 1024            # plane phase: small objects PUT by 64 clients, per run
+PLANE_OBJECTS = 512             # plane phase: small objects PUT by 64 clients, per run
 PLANE_RUNS = (True, False, False, True)   # the plane on / off, in turns
 HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
 MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
@@ -146,6 +164,10 @@ HEAL_SMALL = 512                # ... 512 warp-mix objects,
 HEAL_MP_PARTS = 16              # ... a multipart object of 16 parts of 16 MiB,
 HEAL_VER_KEYS = 64              # ... 64 versioned keys x 3 versions,
 HEAL_MRF_PUTS = 64              # ... and 64 PUTs with 2 drives refusing
+BITROT_BIG, BITROT_SMALL = 256 << 20, 16 << 20   # bitrot phase: one object each
+BITROT_ALGOS = (("mxhash256", BITROT_BIG), ("sip256", BITROT_BIG),
+                ("highwayhash256", BITROT_SMALL), ("sha256", BITROT_SMALL),
+                ("xxh64", BITROT_SMALL), ("blake2b256", BITROT_SMALL))
 LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
 LIST_MIN_OBJECTS = 50_000       # ... never cut below this to meet SMOKE_BUDGET_S
 LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
@@ -226,7 +248,9 @@ def _record(kernel: str, label: str, path: str, ms: float, plain: float,
     src = {"gf2_matmul": ("minio_tpu_torch/csrc/gf2_matmul.cu",
                           "minio_tpu/ops/rs_pallas.py:48"),
            "mxsum_digest": ("minio_tpu_torch/csrc/mxsum_digest.cu",
-                            "minio_tpu/ops/mxsum.py:153")}[kernel]
+                            "minio_tpu/ops/mxsum.py:153"),
+           "mxhash256": ("minio_tpu_torch/csrc/mxhash256.cu",
+                         "minio_tpu/ops/mxhash.py:104")}[kernel]
     return {"name": f"{kernel} {label}", "route": "cuda", "source": src[0],
             "replaces": src[1], "launches": 0, "max_abs_err": 0, "ms": ms,
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
@@ -276,6 +300,87 @@ def _time_k2(records, label, path, chunks, lens, flush, bound_rows=None):
                            bound, lib))
 
 
+def _mxhash_bound_ms(lens) -> tuple[float, str]:
+    """K3's bound from this run's lengths: each row's bytes read once, the
+    packed key, the lengths and the digests, against the bit contraction
+    of every block the rows need, 2 * 4352 * 256 operations a block,
+    counted at the int8 rate as K1's are."""
+    from minio_tpu_torch.ops import mxhash
+
+    lens = [int(x) for x in lens]
+    blocks = sum(mxhash._pad_blocks(ln) for ln in lens)
+    return _bound_ms(sum(lens) + mxhash.KEY_WORDS * 256 * 8 + 36 * len(lens),
+                     2.0 * blocks * (mxhash.KEY_WORDS * 64) * mxhash.STATE_BITS)
+
+
+def _time_k3(records, label, chunks, lens, flush):
+    """K3 at [N, S] beside its plain version. No one PyTorch call computes
+    the chain, so there is no library time. Its launches come from the
+    bitrot phase."""
+    from minio_tpu_torch.ops import mxhash
+
+    n, s = chunks.shape
+    ms = _median_ms(lambda: mxhash.mxhash256(chunks, lens), flush)
+    plain = _median_ms(lambda: mxhash.mxhash256_plain(chunks, lens), flush)
+    bound = _mxhash_bound_ms(lens.tolist())
+    print(f"  K3 {label} [{n}, {s}]: {ms:.6f} ms, bound {bound[0]:.6f} ms "
+          f"({bound[1]}), {100 * bound[0] / ms:.1f}% of the bound; plain "
+          f"{plain:.6f} ms")
+    records.append(_record("mxhash256", f"{label} [{n},{s}]", "bitrot", ms, plain,
+                           bound, None))
+
+
+def mxhash_shapes(rng, dev, flush, check, records) -> None:
+    """K3 at the bitrot phase's shapes, rows of mixed lengths (0 among
+    them) in every launch, against its plain version; encode_with_bitrot
+    (K1 then K3) against the same composition of the plain versions; the
+    digest keys of mxsum256 and mxhash256 derived by this machine's numpy
+    against their pinned SHA-256."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import mxhash, mxsum, rs
+
+    keys = (("mxhash256", mxhash._key_matrix(), mxhash.KEY_SHA256),
+            ("mxsum256", mxsum._key_rows(mxsum._KEY_CHUNK), mxsum.KEY_SHA256),
+            ("mxsum256 length", mxsum._len_key(), mxsum.LEN_KEY_SHA256))
+    for name, key, want in keys:
+        got = hashlib.sha256(np.ascontiguousarray(key).tobytes()).hexdigest()
+        if got != want:
+            raise AssertionError(f"{name} key: SHA-256 {got} != pinned {want}")
+    print(f"  keys pinned (numpy {np.__version__}): "
+          + ", ".join(f"{name} {want[:16]}" for name, _k, want in keys))
+    mixed = (0, 1, 503, 504, 512, 700, 4096)
+    shapes = (("PUT", B * (K + M), S), ("GET verify", B * K, S),
+              ("heal", B * 4, S), ("heal 1 target", B, S),
+              (f"PUT {K12}+{M12}", B * (K12 + M12), S12))
+    cases = []
+    for label, n, s in shapes:
+        x = torch.from_numpy(rng.integers(0, 256, (n, s), dtype=np.uint8)).to(dev)
+        lens_np = np.full(n, s, dtype=np.int32)
+        lens_np[:len(mixed)] = mixed
+        lens = torch.from_numpy(lens_np).to(dev)
+        got = mxhash.mxhash256(x, lens)
+        check("mxhash256", f"K3 {label} (lengths {', '.join(map(str, mixed))}, "
+              f"{s} ...)", got, mxhash.mxhash256_plain(x, lens))
+        host = mxhash.digest_host(x[2, :503].cpu().numpy().tobytes())
+        if got[2].cpu().numpy().tobytes() != host:
+            raise AssertionError(f"K3 {label}: disagrees with the CPU digest_host")
+        cases.append((label, x, lens))
+    x3 = torch.from_numpy(rng.integers(0, 256, (B, K, S), dtype=np.uint8)).to(dev)
+    par, digs = mxhash.encode_with_bitrot(x3, K, M)
+    w_enc = rs.device_encode_weights(K, M, dev)
+    ppar = rs.gf2_matmul_plain(x3, w_enc, M)
+    pdigs = mxhash.mxhash256_plain(torch.cat([x3, ppar], 1).reshape(B * (K + M), S),
+                                   torch.full((B * (K + M),), S, dtype=torch.int32,
+                                              device=dev)).reshape(B, K + M, 32)
+    check("gf2_matmul", "mxhash.encode_with_bitrot (parity)", par, ppar)
+    check("mxhash256", "mxhash.encode_with_bitrot (digests)", digs, pdigs)
+    print("  timed at the bitrot phase's shapes (EC 8+4 and 12+4, 1 MiB blocks):")
+    for label, x, lens in cases:
+        _time_k3(records, label, x, lens, flush)
+
+
 def kernel_phase(seed: int) -> list[dict]:
     """K1 and K2 on the card against their plain versions, at the S3
     path's shapes and at the lane shapes of the batched data plane and the
@@ -289,7 +394,7 @@ def kernel_phase(seed: int) -> list[dict]:
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    errs = {"gf2_matmul": 0, "mxsum_digest": 0}
+    errs = {"gf2_matmul": 0, "mxsum_digest": 0, "mxhash256": 0}
 
     def check(kernel, name, got, want):
         if got.shape != want.shape:
@@ -406,6 +511,7 @@ def kernel_phase(seed: int) -> list[dict]:
 
     lane_shapes(rng, dev, flush, check, records)
     ec12_shapes(rng, dev, flush, check, records)
+    mxhash_shapes(rng, dev, flush, check, records)
     for r in records:
         r["max_abs_err"] = errs[r["kernel"]]
     return records
@@ -1263,7 +1369,7 @@ def multipart_phase(seed: int, card: str, records: list[dict] | None,
         if b != "lose":
             print(f"  launches {b}: " + ", ".join(
                 f"{n} {stages[b][n] - stages[a][n]}" for n in kernels.KERNELS))
-    for a, b, names in (("start", "put", kernels.KERNELS),
+    for a, b, names in (("start", "put", MXSUM_KERNELS),
                         ("lose", "degraded_get", ("gf2_matmul", "mxsum_digest")),
                         ("degraded_get", "heal", ("gf2_matmul", "mxsum_digest"))):
         for name in names:
@@ -2021,6 +2127,208 @@ def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "
         _fill_launches(records, "heal", total)
 
 
+def _cpu_model() -> str:
+    """The host CPU as lscpu (else /proc/cpuinfo) names it: its model name,
+    or, where a virtual machine reports none, vendor, family, model and
+    stepping."""
+    try:
+        text = subprocess.run(["lscpu"], capture_output=True, text=True,
+                              timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        text = ""
+    try:
+        text += open("/proc/cpuinfo").read()
+    except OSError:
+        pass
+    fields: dict[str, str] = {}
+    for line in text.splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip().lower(), value.strip())
+    name = fields.get("model name", "")
+    if name and name.lower() not in ("unknown", "-"):
+        return name
+    return (f"{fields.get('vendor id') or fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')} "
+            f"stepping {fields.get('stepping', '?')} (no model name)")
+
+
+def _host_hash_rates(seed: int, threads: int = 12, reps: int = 64) -> dict:
+    """MB/s of each host algorithm over 128 KiB chunks (a PUT's chunk at
+    EC 8+4, 1 MiB blocks): one thread, and `threads` threads at once, as
+    the writer threads of a 12-drive PUT hash (ctypes and hashlib release
+    the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from minio_tpu_torch.ops import bitrot
+
+    chunk = np.random.default_rng(seed).bytes(S)
+    rates = {}
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        for name in ("sip256", "highwayhash256", "xxh64", "sha256", "blake2b256"):
+            algo = bitrot.get_algorithm(name)
+            algo.digest(chunk)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                algo.digest(chunk)
+            one = reps * S / (time.perf_counter() - t0) / 1e6
+            t0 = time.perf_counter()
+            list(ex.map(lambda _i: [algo.digest(chunk) for _ in range(reps)],
+                        range(threads)))
+            many = threads * reps * S / (time.perf_counter() - t0) / 1e6
+            rates[name] = (one, many)
+    return rates
+
+
+def _plain_digest(algo: str, chunk: bytes, device: str) -> bytes:
+    """A chunk's digest by the algorithm's plain version (the port's
+    pure-Python host hashes, hashlib, or the plain PyTorch device digests
+    on `device`)."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.native import plain
+    from minio_tpu_torch.ops import bitrot, mxhash, mxsum
+
+    if algo in bitrot.DEVICE_ALGORITHMS:
+        x = torch.from_numpy(np.frombuffer(chunk, dtype=np.uint8).copy())[None].to(device)
+        lens = torch.tensor([len(chunk)], dtype=torch.int32, device=device)
+        fn = mxhash.mxhash256_plain if algo == "mxhash256" else mxsum.digest_plain
+        return fn(x, lens)[0].cpu().numpy().tobytes()
+    return {"sip256": lambda c: plain.sip256_py(bitrot.BITROT_KEY, c),
+            "highwayhash256": lambda c: plain.highwayhash256_py(bitrot.HH_BITROT_KEY, c),
+            "xxh64": lambda c: plain.xxh64_py(c, bitrot.XXH64_SEED).to_bytes(8, "big"),
+            "sha256": lambda c: hashlib.sha256(c).digest(),
+            "blake2b256": lambda c: hashlib.blake2b(c, digest_size=32,
+                                                    key=bitrot.BITROT_KEY).digest(),
+            }[algo](chunk)
+
+
+def bitrot_phase(seed: int, card: str, records: list[dict] | None,
+                 device: str = "cuda", algos=BITROT_ALGOS) -> None:
+    """Every bitrot algorithm of the JAX registry on config 1's set (12
+    drives on /dev/shm, EC 8+4, 1 MiB blocks), each behind the port's S3
+    server over ErasureSets(..., bitrot_algorithm=) in a bucket of its own:
+    one object of the algorithm's size PUT, GET (bytes and ETag), GET with
+    4 of 12 drives' shard files removed, deep-healed (the 4 rebuilt files
+    equal their copies, verify_shard_file over each), and two sampled chunk
+    digests of a data and a parity shard held against the algorithm's plain
+    version. Under mxhash256 every digest comes from K3, one launch per
+    batch: the PUT launches K3 as often as K1. Also the host hashes' MB/s.
+    Launch counts go into `records` unless it is None."""
+    import numpy as np
+
+    from minio_tpu_torch.erasure.pools import ErasureServerPools
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.ops import bitrot, kernels
+    from minio_tpu_torch.s3 import sigv4
+    from minio_tpu_torch.s3.server import S3Server
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    rng = np.random.default_rng(seed + 10)
+    rates = _host_hash_rates(seed)
+    cpu = _cpu_model()
+    for name, (one, many) in rates.items():
+        print(f"  host {name} over {S} B chunks on {cpu} ({os.cpu_count()} "
+              f"cores; card {card}): {one:.3f} MB/s one thread, {many:.3f} MB/s "
+              "12 threads at once")
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-bitrot-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    st = _Stages()
+    lost = (0, 1, 2, 3)
+    try:
+        kernels.reset_launches()
+        st.mark("start")
+        for algo, size in algos:
+            data = rng.bytes(size)
+            sets = ErasureSets([LocalDrive(p) for p in paths], set_drive_count=12,
+                               parity=4, device=device, bitrot_algorithm=algo)
+            srv = S3Server(ErasureServerPools([sets]),
+                           sigv4.Credentials(ACCESS, SECRET)).start()
+            es = sets.sets[0]
+            cl = _Client(srv.url)
+            bucket = f"bitrot-{algo}"
+            try:
+                cl.request("PUT", f"/{bucket}")
+                st.mark(f"{algo}:bucket")
+                r, _ = cl.request("PUT", f"/{bucket}/obj", data)
+                if r.getheader("ETag") != _md5_etag(data):
+                    raise AssertionError(f"{algo}: PUT ETag")
+                st.mark(f"{algo}:put")
+
+                def get_ok(what):
+                    r, got = cl.request("GET", f"/{bucket}/obj")
+                    if got != data or r.getheader("ETag") != _md5_etag(data):
+                        raise AssertionError(f"{algo}: {what} GET: bytes or ETag differ")
+
+                get_ok("intact")
+                st.mark(f"{algo}:get")
+                fi = es.latest_fileinfo(bucket, "obj")
+                if [c.algorithm for c in fi.erasure.checksums] != [algo]:
+                    raise AssertionError(f"{algo}: journal names "
+                                         f"{fi.erasure.checksums}")
+                pos = fi.erasure.distribution
+                files = {i: glob.glob(os.path.join(paths[i], bucket, "obj", "*",
+                                                   "part.1"))[0] for i in range(12)}
+                originals = {i: open(f, "rb").read() for i, f in files.items()}
+                for i in lost:
+                    shutil.rmtree(os.path.dirname(files[i]))
+                get_ok("degraded (4 drives lost)")
+                st.mark(f"{algo}:degraded_get")
+                res = es.heal_object(bucket, "obj", scan_deep=True)
+                if res.healed_count != len(lost) or any(
+                        open(files[i], "rb").read() != originals[i] for i in lost):
+                    raise AssertionError(f"{algo}: heal {res.healed_count}, or files "
+                                         "differ from their copies")
+                st.mark(f"{algo}:heal")
+                shard_data = fi.erasure.shard_file_size(size)
+                for i in lost:
+                    with open(files[i], "rb") as f:
+                        bitrot.verify_shard_file(f, shard_data, fi.erasure.shard_size(),
+                                                 algo, es.device)
+                st.mark(f"{algo}:verify")
+                dl = bitrot.digest_len(algo)
+                n_chunks = -(-shard_data // fi.erasure.shard_size())
+                for shard in (1, 12):   # a data shard and a parity shard
+                    raw = originals[pos.index(shard)]
+                    for ci in (0, n_chunks - 1):
+                        with open(files[pos.index(shard)], "rb") as f:
+                            want, chunk = bitrot.BitrotReader(
+                                f, shard_data, fi.erasure.shard_size(),
+                                algo).read_record(ci)
+                        if want != _plain_digest(algo, chunk, device) or \
+                                raw[ci * (dl + fi.erasure.shard_size()):][:dl] != want:
+                            raise AssertionError(f"{algo}: shard {shard} chunk {ci}: "
+                                                 "digest differs from the plain version")
+            finally:
+                cl.close()
+                srv.close()
+            line = []
+            for stage in ("put", "get", "degraded_get", "heal"):
+                sec, d = st.delta(f"{algo}:{stage}")
+                line.append(f"{stage} {sec:.6f} s ({size / (1 << 30) / sec:.6f} GiB/s; "
+                            f"K1/K2/K3 {d['gf2_matmul']}/{d['mxsum_digest']}/"
+                            f"{d['mxhash256']})")
+            print(f"  {algo}, {size} B on {card}: " + "; ".join(line)
+                  + "; verify of the 4 healed files, sampled digests: ok")
+            _s, put = st.delta(f"{algo}:put")
+            if algo == "mxhash256" and not put["mxhash256"] == put["gf2_matmul"] > 0:
+                raise AssertionError(f"mxhash256 PUT: K3 {put['mxhash256']} launches, "
+                                     f"K1 {put['gf2_matmul']}")
+            if algo not in bitrot.DEVICE_ALGORITHMS and (
+                    put["mxhash256"] or put["mxsum_digest"] or not put["gf2_matmul"]):
+                raise AssertionError(f"{algo} PUT: launches {put}")
+        st.mark("end")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = {k: st.at[-1][1][k] - st.at[0][1][k] for k in st.at[0][1]}
+    print(f"  launches in the phase: {total}")
+    if records is not None:
+        _fill_launches(records, "bitrot", total)
+
+
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
@@ -2245,7 +2553,7 @@ def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
         stats["cleanup_s"] = time.perf_counter() - t0
 
     for stage, at in (("PUT", after_put), ("GET", after_get)):
-        for name in kernels.KERNELS:
+        for name in MXSUM_KERNELS:
             if at[name] <= 0:
                 raise AssertionError(f"{name} did not launch by the listing phase's {stage}s")
     if after_get["mxsum_digest"] <= before_get["mxsum_digest"]:
@@ -2330,6 +2638,9 @@ def main() -> int:
         print("heal phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; MRF and the "
               "auto-healer on):")
         heal_phase(args.seed, card, records)
+        print("bitrot phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; every "
+              "algorithm of the JAX registry):")
+        bitrot_phase(args.seed, card, records)
         print("listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)
     finally:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from minio_tpu_torch.ops import fused, rs
+from minio_tpu_torch.ops import fused, mxhash, rs
 from minio_tpu_torch.utils import device as device_mod
 from minio_tpu_torch.utils import errors as se
 from minio_tpu_torch.utils import shardmath
@@ -65,14 +65,14 @@ class PendingEncode:
         self._padded = padded
         self._launch = launch
 
-    def wait(self) -> tuple[list[list[memoryview]], list[list[bytes]]]:
-        """-> (per block the n shard chunks, per block the n chunk
-        digests). Data chunks alias the caller's block buffers; parity
-        chunks alias the downloaded array."""
+    def wait(self) -> tuple[list[list[memoryview]], list[list[bytes]] | None]:
+        """-> (per block the n shard chunks, per block the n chunk digests,
+        or None when the launch computed none). Data chunks alias the
+        caller's block buffers; parity chunks alias the downloaded array."""
         k, m = self._codec.k, self._codec.m
         parity, digs = self._launch.wait()
         out_chunks: list[list[memoryview]] = []
-        out_digs: list[list[bytes]] = []
+        out_digs: list[list[bytes]] | None = None if digs is None else []
         for bi, block in enumerate(self._blocks):
             s = self._lens[bi]
             src = self._padded[bi] if self._padded[bi] is not None else block
@@ -81,7 +81,8 @@ class PendingEncode:
             if m:
                 chunks += [memoryview(parity[bi, j])[:s] for j in range(m)]
             out_chunks.append(chunks)
-            out_digs.append([bytes(digs[bi, i]) for i in range(k + m)])
+            if out_digs is not None:
+                out_digs.append([bytes(digs[bi, i]) for i in range(k + m)])
         return out_chunks, out_digs
 
 
@@ -157,10 +158,14 @@ class ErasureCodec:
         return torch.tensor(lens, dtype=torch.int32).pin_memory() \
             if self.device.type == "cuda" else torch.tensor(lens, dtype=torch.int32)
 
-    def begin_encode(self, blocks: list) -> PendingEncode:
+    def begin_encode(self, blocks: list,
+                     algorithm: str | None = "mxsum256") -> PendingEncode:
         """Queue one launch encoding a batch of erasure blocks: parity and
-        the mxsum256 digest of every shard chunk. Returns immediately;
-        results come from PendingEncode.wait()."""
+        the digest of every shard chunk under a device `algorithm`
+        (mxsum256: K1 then K2; mxhash256: K1 then K3, the JAX
+        encode_with_bitrot), or, with None, parity alone (a host algorithm
+        hashes on the writer threads). Returns immediately; results come
+        from PendingEncode.wait()."""
         s_full = self.shard_size()
         chunk_lens: list[int] = []
         for bi, block in enumerate(blocks):
@@ -187,10 +192,14 @@ class ErasureCodec:
         k, m = self.k, self.m
 
         def run(data, lens_dev):
+            if algorithm is None:
+                return (rs.encode(data, k, m) if m else None), None
             if m:
+                if algorithm == "mxhash256":
+                    return mxhash.encode_with_bitrot(data, k, m, lens_dev)
                 return fused.encode_with_digests(data, k, m, lens_dev)
             # parity-less geometry: digests of the k shards
-            return None, fused.verify_digests(
+            return None, fused.device_digest(algorithm)(
                 data.reshape(rows * k, s_stage),
                 lens_dev.repeat_interleave(k)).reshape(rows, k, -1)
 
@@ -210,12 +219,16 @@ class ErasureCodec:
         return batch
 
     def begin_reconstruct(self, shard_chunks: list[list], block_lens: list[int],
-                          targets: tuple[int, ...],
-                          with_digests: bool = False) -> PendingDecode:
+                          targets: tuple[int, ...], algorithm: str | None = None,
+                          *, with_digests: bool = False) -> PendingDecode:
         """Queue one rebuild launch for a batch of blocks sharing one
         failure pattern (the heal loop's shape). The decode matrix is
-        runtime data (fused.reconstruct_weights_digests); with_digests=True
-        also digests the rebuilt chunks. Returns immediately."""
+        runtime data (fused.reconstruct_weights_digests); a device
+        `algorithm` also digests the rebuilt chunks on the device (K2 or K3
+        after K1; with_digests=True, the older spelling, is short for
+        "mxsum256"). Returns immediately."""
+        if with_digests and algorithm is None:
+            algorithm = "mxsum256"
         if not shard_chunks:
             return PendingDecode(tuple(targets), [], None)
         n = self.k + self.m
@@ -240,8 +253,14 @@ class ErasureCodec:
         t = len(targets)
 
         def run(surv, lens_dev):
-            return fused.reconstruct_weights_digests(
-                surv, w_t, lens_dev, t, with_digests=with_digests)
+            rebuilt, _ = fused.reconstruct_weights_digests(
+                surv, w_t, lens_dev, t, with_digests=False)
+            if algorithm is None:
+                return rebuilt, None
+            b, _, s = rebuilt.shape
+            digs = fused.device_digest(algorithm)(
+                rebuilt.reshape(b * t, s), lens_dev.repeat_interleave(t))
+            return rebuilt, digs.reshape(b, t, -1)
 
         return PendingDecode(tuple(targets), chunk_lens,
                              self._dispatch(run, batch, lens))

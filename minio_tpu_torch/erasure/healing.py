@@ -8,9 +8,11 @@ heal_object classifies every drive of the set as ok / offline / missing /
 outdated / corrupt for the elected version; the target shards of every
 part are rebuilt from any k healthy shards with the decode matrix as
 runtime data, and the rebuilt chunks are digested in the same codec call
-(begin_reconstruct(..., with_digests=True): kernel K1 then K2 on the
-device), framed into fresh [digest][chunk] shard files in the tmp area and
-committed with rename_data. Inline objects, delete markers and
+under a device algorithm (begin_reconstruct(..., algorithm): kernel K1
+then K2 for mxsum256 or K3 for mxhash256, one launch each per batch) or
+by the target drives' writer threads under a host algorithm, framed into
+fresh [digest][chunk] shard files in the tmp area and committed with
+rename_data. Inline objects, delete markers and
 transitioned stubs heal by rewriting the journal; an object that can never
 reach read quorum again (its journal gone from more drives than its
 parity) is purged as dangling. As in the JAX package, the rebuilds and the
@@ -116,7 +118,7 @@ class _ShardWriters:
     queues by the heal loop (daemon threads, joined by finish())."""
 
     def __init__(self, drives: dict[int, object], rel: dict[int, str],
-                 errs: dict[int, Exception | None]):
+                 errs: dict[int, Exception | None], host=None):
         self.errs = errs
         self.queues: dict[int, queue.Queue] = {}
         self.threads: list[threading.Thread] = []
@@ -129,7 +131,7 @@ class _ShardWriters:
             def writer(pos=pos, drive=drive, q=q):
                 try:
                     drive.create_file(SYS_VOL, rel[pos],
-                                      bitrot.frame_records(iter(q.get, None)))
+                                      bitrot.frame_records(iter(q.get, None), host))
                 except Exception as e:  # noqa: BLE001 - per-drive failure is data
                     self.errs[pos] = e
                     while q.get() is not None:
@@ -139,7 +141,9 @@ class _ShardWriters:
             self.threads.append(t)
             t.start()
 
-    def put(self, pos: int, digest: bytes, chunk: bytes) -> None:
+    def put(self, pos: int, digest: bytes | None, chunk: bytes) -> None:
+        """Queue one record; a None digest is hashed by the writer thread
+        under the host algorithm."""
         q = self.queues.get(pos)
         if q is not None:
             q.put((digest, chunk))
@@ -356,7 +360,8 @@ class HealingMixin:
 
     def _verify_parts(self, drive, bucket: str, obj: str, fi: FileInfo) -> None:
         """Deep verify of one drive's shard files (reference VerifyFile):
-        every chunk digested, in batched kernel launches for mxsum256."""
+        every chunk digested, in batched kernel launches for mxsum256 (K2)
+        and mxhash256 (K3), per chunk for a host algorithm."""
         algo = next((c.algorithm for c in fi.erasure.checksums),
                     bitrot.WRITE_ALGORITHM)
         drive.check_parts(bucket, obj, fi)
@@ -378,7 +383,10 @@ class HealingMixin:
         shard_size = codec.shard_size()
         algo = next((c.algorithm for c in latest.erasure.checksums),
                     self.bitrot_algorithm)
-        use_fused = algo == "mxsum256"
+        # mxsum256 / mxhash256: the rebuilt chunks are digested on the
+        # device after K1, one K2 or K3 launch per batch; a host algorithm
+        # hashes on the target drives' writer threads.
+        device_algo = algo if algo in bitrot.DEVICE_ALGORITHMS else None
         host_algo = bitrot.get_algorithm(algo)
         heal_id = uuid.uuid4().hex
         tmp_dirs = {pos: f"tmp/heal-{heal_id}-{pos}" for pos in targets}
@@ -388,8 +396,10 @@ class HealingMixin:
         # Batched data plane: heal rebuilds coalesce onto the reconstruct
         # lanes (per-row decode matrices), sharing launches with concurrent
         # heals and degraded GETs; the per-object codec serves blocks above
-        # the gate and submits the plane sheds.
-        plane = dataplane.maybe_plane(self.device) if m else None
+        # the gate and submits the plane sheds. The lanes digest with
+        # mxsum256 or not at all, so mxhash256 heals take the codec.
+        plane = (dataplane.maybe_plane(self.device)
+                 if m and algo != "mxhash256" else None)
 
         def begin_rebuild(rows, block_lens):
             if (plane is not None and block_lens
@@ -397,11 +407,10 @@ class HealingMixin:
                 try:
                     return plane.begin_reconstruct(
                         k, m, rows, block_lens, t_tuple,
-                        with_digests=use_fused)
+                        with_digests=algo == "mxsum256")
                 except se.OperationTimedOut:
                     pass  # plane saturated: per-object dispatch serves
-            return codec.begin_reconstruct(rows, block_lens, t_tuple,
-                                           with_digests=use_fused)
+            return codec.begin_reconstruct(rows, block_lens, t_tuple, device_algo)
 
         try:
             for part in latest.parts:
@@ -413,7 +422,7 @@ class HealingMixin:
                 writers = _ShardWriters(
                     {pos: shuffled_drives[pos] for pos in targets},
                     {pos: f"{tmp_dirs[pos]}/part.{part.number}" for pos in targets},
-                    errs)
+                    errs, host_algo)
                 try:
                     # Dispatch-ahead: the host reads batch N+1's survivors
                     # while the device rebuilds batch N.
@@ -423,16 +432,16 @@ class HealingMixin:
                         chunk_rows, dig_rows = pending.pop(0).wait()
                         for j, chunks in enumerate(chunk_rows):
                             for ti, pos in enumerate(t_tuple):
-                                d = (dig_rows[j][ti] if dig_rows is not None
-                                     else host_algo.digest(chunks[ti]))
-                                writers.put(pos, d, chunks[ti])
+                                writers.put(pos, dig_rows[j][ti]
+                                            if dig_rows is not None else None,
+                                            chunks[ti])
 
                     n_blocks = max(1, -(-part.size // bs))
                     for b0 in range(0, n_blocks, BATCH_BLOCKS):
                         ids = range(b0, min(b0 + BATCH_BLOCKS, n_blocks))
                         lens = [min(bs, part.size - b * bs) for b in ids]
                         rows = self._read_survivors(readers, chosen, ids, n,
-                                                    shard_size, use_fused)
+                                                    shard_size, device_algo)
                         pending.append(begin_rebuild(rows, lens))
                         if len(pending) >= 2:
                             drain_one()
@@ -466,10 +475,12 @@ class HealingMixin:
         return healed
 
     def _read_survivors(self, readers, chosen, ids, n, shard_size,
-                        batched) -> list[list]:
-        """Survivor chunks of one batch; mxsum256 chunks verified in one
-        digest launch, or on the plane (a corrupt survivor fails the heal:
-        heal never rebuilds from bad data)."""
+                        device_algo: str | None) -> list[list]:
+        """Survivor chunks of one batch; mxsum256 and mxhash256 chunks
+        verified in one digest launch (mxsum256 on the plane when it is
+        on), host-algorithm chunks one by one (a corrupt survivor fails the
+        heal: heal never rebuilds from bad data)."""
+        batched = device_algo is not None
         rows = [[None] * n for _ in ids]
         records = []
         for pos in chosen:
@@ -482,8 +493,8 @@ class HealingMixin:
                     chunk = r.read_verified(b)
                 rows[j][pos] = chunk
         if records:
-            got = dataplane.digest_chunks([c for _p, _w, c in records],
-                                          shard_size, self.device)
+            got = bitrot.device_digests(device_algo, [c for _p, _w, c in records],
+                                        shard_size, self.device)
             for (pos, want, _c), g in zip(records, got):
                 if g != want:
                     raise se.FileCorrupt(f"shard {pos}: bitrot digest mismatch")

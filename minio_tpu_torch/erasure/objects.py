@@ -1,13 +1,16 @@
 """ErasureObjects — one erasure set: the core object engine (counterpart of
 minio_tpu/erasure/objects.py, reference cmd/erasure-object.go).
 
-PutObject streams blocks through the batched device codec (parity and the
-mxsum256 digest of every shard chunk from the two kernels) and fans
-bitrot-framed shards out to one writer thread per drive, then commits with
+PutObject streams blocks through the batched device codec (parity from
+K1 and, under mxsum256 or mxhash256, the digest of every shard chunk from
+K2 or K3) and fans bitrot-framed shards out to one writer thread per
+drive, which hashes its chunks itself under a host algorithm (sip256,
+highwayhash256, xxh64, blake2b256, sha256), then commits with
 write-quorum accounting. GetObject elects metadata by quorum, reads any k
 shards data-first, verifies every chunk read in one digest launch per
-batch, and reconstructs through the codec only when shards are missing or
-corrupt. Objects up to INLINE_DATA_LIMIT live inside the journal.
+batch (a host algorithm: per chunk on the reader threads), and
+reconstructs through the codec only when shards are missing or corrupt.
+Objects up to INLINE_DATA_LIMIT live inside the journal.
 
 The on-disk result is the JAX package's: same shard placement (hash_order),
 same part files, same journals, so a drive set written by either package
@@ -149,7 +152,7 @@ class _KeyLocks:
 class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
     def __init__(self, drives: list[StorageAPI], parity: int | None = None,
                  block_size: int = DEFAULT_BLOCK_SIZE, device="cuda",
-                 enable_mrf: bool = False):
+                 enable_mrf: bool = False, bitrot_algorithm: str | None = None):
         if not drives:
             raise ValueError("empty drive set")
         self.device = device_mod.resolve(device)
@@ -160,9 +163,15 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             raise ValueError(f"parity {self.parity} invalid for {self.n} drives "
                              f"(bound: drives/2 = {self.n // 2})")
         self.block_size = block_size
-        # Objects written with another registered algorithm stay readable:
-        # each version names its own in its checksums.
-        self.bitrot_algorithm = bitrot.device_default_algorithm()
+        # The algorithm new objects are written with (the JAX constructor
+        # argument; mxsum256 by default, the JAX package's choice on an
+        # accelerator). Objects written with any registered algorithm stay
+        # readable: each version names its own in its checksums. Looking
+        # it up builds the host hash library for a host algorithm, and
+        # raises if that fails.
+        self.bitrot_algorithm = (bitrot_algorithm if bitrot_algorithm
+                                 else bitrot.device_default_algorithm())
+        bitrot.get_algorithm(self.bitrot_algorithm)
         self.nslock = _KeyLocks()
         self.mrf: MRFHealer | None = MRFHealer(self) if enable_mrf else None
 
@@ -381,11 +390,17 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         Returns (bytes consumed, md5 hex, per-drive errors)."""
         qs = [queue.Queue(maxsize=8) for _ in range(self.n)]
         errs: list = [None] * self.n
+        # mxsum256 and mxhash256 digests come from the codec launch (K2 or
+        # K3 after K1); a host algorithm hashes each chunk on its drive's
+        # writer thread, the n drives side by side.
+        algo = self.bitrot_algorithm
+        device_algo = algo if algo in bitrot.DEVICE_ALGORITHMS else None
+        host = bitrot.get_algorithm(algo)
 
         def writer(i: int, drive: StorageAPI):
             try:
                 drive.create_file(SYS_VOL, rel, bitrot.frame_records(
-                    iter(qs[i].get, _WRITE_SENTINEL)))
+                    iter(qs[i].get, _WRITE_SENTINEL), host))
             except Exception as e:  # noqa: BLE001 - per-drive failure is data
                 errs[i] = e
                 while qs[i].get() is not _WRITE_SENTINEL:
@@ -400,14 +415,18 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         # Batched data plane: concurrent PUTs coalesce their encode
         # launches; blocks above its width gate take the per-object codec.
         # A full plane sheds the PUT as 503 SlowDown, as in the JAX package.
-        plane = dataplane.maybe_plane(self.device) if codec.m else None
+        # Its encode lanes compute mxsum256 digests or none, so mxhash256
+        # PUTs take the per-object codec.
+        plane = (dataplane.maybe_plane(self.device)
+                 if codec.m and algo != "mxhash256" else None)
 
         def begin_encode(blocks: list[bytes]):
             if plane is not None and plane.accepts_chunk(
                     -(-max(len(b) for b in blocks) // codec.k)):
                 return plane.begin_encode(codec.k, codec.m, codec.block_size,
-                                          blocks, with_digests=True)
-            return codec.begin_encode(blocks)
+                                          blocks,
+                                          with_digests=algo == "mxsum256")
+            return codec.begin_encode(blocks, device_algo)
 
         md5 = hashlib.md5()
         total = 0
@@ -417,7 +436,9 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             chunk_rows, dig_rows = pending.pop(0).wait()
             for bi, chunks in enumerate(chunk_rows):
                 for i in range(self.n):
-                    qs[i].put((dig_rows[bi][i], chunks[i]))
+                    # A None digest: the writer thread hashes the chunk.
+                    qs[i].put((dig_rows[bi][i] if dig_rows is not None else None,
+                               chunks[i]))
             if sum(e is None for e in errs) < write_quorum:
                 raise se.InsufficientWriteQuorum(bucket, obj,
                                                  "write fan-out lost quorum")
@@ -611,13 +632,14 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                          codec: ErasureCodec, n: int, dead: set, algo: str,
                          corrupt: set):
         """Read one batch of chunk rows from the chosen shards in parallel,
-        then verify every mxsum256 chunk in ONE digest launch (the read
-        path's form of the reference's verify-every-ReadAt,
-        cmd/bitrot-streaming.go:115-158). A failed or corrupt shard is
-        marked dead (and, for bitrot, corrupt) and StorageError raised, so
-        the caller re-selects."""
+        then verify every mxsum256 or mxhash256 chunk in ONE digest launch
+        (K2 or K3; the read path's form of the reference's
+        verify-every-ReadAt, cmd/bitrot-streaming.go:115-158), or each
+        chunk of a host algorithm on its shard's reader thread. A failed
+        or corrupt shard is marked dead (and, for bitrot, corrupt) and
+        StorageError raised, so the caller re-selects."""
         chunk_lens = [-(-bl // codec.k) for bl in block_lens]
-        batched = algo == "mxsum256"
+        batched = algo in bitrot.DEVICE_ALGORITHMS
 
         def read_shard(i: int) -> list:
             r = open_reader(i)
@@ -650,8 +672,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                 if batched:
                     records.append((i, want, chunk))
         if records:
-            got = dataplane.digest_chunks([c for _i, _w, c in records],
-                                          codec.shard_size(), self.device)
+            got = bitrot.device_digests(algo, [c for _i, _w, c in records],
+                                        codec.shard_size(), self.device)
             for (i, want, _c), g in zip(records, got):
                 if g != want:
                     corrupt.add(i)

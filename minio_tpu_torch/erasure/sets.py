@@ -48,7 +48,8 @@ class ErasureSets:
                  **set_kwargs):
         """`drives` are formatted (or their format read) into sets of
         `set_drive_count` (default: one set); `enable_mrf` and
-        `set_kwargs` (block_size, device) go to every set's engine."""
+        `set_kwargs` (block_size, device, bitrot_algorithm) go to every
+        set's engine."""
         drives = list(drives)
         set_drive_count = set_drive_count or len(drives)
         self.format = init_format_erasure(drives, set_drive_count)

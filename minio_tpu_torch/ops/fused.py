@@ -8,6 +8,11 @@ The serving paths call these:
   Heal       -> reconstruct_weights_digests  (rebuilt shards + digests)
   heal lane  -> reconstruct_multi_digests    (dataplane: per-row weights)
 
+for mxsum256; device_digest picks a device algorithm's batched digest
+(mxsum256: K2, mxhash256: K3), and stage_and_digest stages a ragged list
+of byte chunks for it. mxhash256's encode is ops/mxhash.py
+encode_with_bitrot.
+
 reconstruct_with_digests and reconstruct_only are the JAX package's
 static-pattern rebuilds (survivors and targets fixed per call, the decode
 matrix built once per pattern and cached on the device); no path of
@@ -28,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from minio_tpu_torch.ops import mxsum, rs
+from minio_tpu_torch.ops import mxhash, mxsum, rs
 from minio_tpu_torch.utils.device import resolve
 from minio_tpu_torch.utils.shardmath import pow2_bucket
 
@@ -148,6 +153,17 @@ def reconstruct_multi_digests(data: torch.Tensor, weights: torch.Tensor,
     return rebuilt, digs.reshape(r, t, mxsum.DIGEST_LEN)
 
 
+def device_digest(algorithm: str):
+    """The batched digest entry point of a device bitrot algorithm:
+    chunks [N, S] u8, lens [N] int32 -> [N, 32] u8 (on CUDA, K2 for
+    mxsum256, K3 for mxhash256)."""
+    if algorithm == "mxsum256":
+        return verify_digests
+    if algorithm == "mxhash256":
+        return mxhash.mxhash256
+    raise ValueError(f"{algorithm} is not a device bitrot algorithm")
+
+
 def verify_digests(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Batched read-path verify: chunks [N, S] u8 (zero-padded rows), lens
     [N] int32 -> digests [N, 32] u8, compared by the caller with the
@@ -157,9 +173,16 @@ def verify_digests(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 def digest_chunks_host(chunks: list, cap: int, device="cuda") -> list[bytes]:
     """mxsum256 digests of a ragged list of byte chunks (each <= cap) in
-    one launch on `device`. Rows pad to a power of two, as in the JAX
-    package; the staging buffer is pinned when the device is CUDA, so the
-    upload is one DMA."""
+    one launch on `device`."""
+    return stage_and_digest(chunks, cap, device, verify_digests)
+
+
+def stage_and_digest(chunks: list, cap: int, device, digest) -> list[bytes]:
+    """Stage a ragged list of byte chunks (each <= cap) as one [rows, cap]
+    batch and digest it in one launch of `digest(chunks, lens)` on
+    `device`. Rows pad to a power of two, as in the JAX package; the
+    staging buffer is pinned when the device is CUDA, so the upload is one
+    DMA."""
     device = resolve(device)
     n = bucket_rows(len(chunks))
     pinned = device.type == "cuda"
@@ -169,6 +192,6 @@ def digest_chunks_host(chunks: list, cap: int, device="cuda") -> list[bytes]:
     for i, c in enumerate(chunks):
         arr[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
         larr[i] = len(c)
-    got = verify_digests(batch.to(device, non_blocking=True),
-                         lens.to(device, non_blocking=True)).cpu().numpy()
+    got = digest(batch.to(device, non_blocking=True),
+                 lens.to(device, non_blocking=True)).cpu().numpy()
     return [got[i].tobytes() for i in range(len(chunks))]

@@ -28,12 +28,12 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("gf2_matmul.cu", "mxsum_digest.cu")
+SOURCES = ("gf2_matmul.cu", "mxsum_digest.cu", "mxhash256.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("gf2_matmul", "mxsum_digest")
+KERNELS = ("gf2_matmul", "mxsum_digest", "mxhash256")
 
 
 class KernelBuildError(RuntimeError):
@@ -143,6 +143,8 @@ def library() -> ctypes.CDLL:
         lib.mtpu_mxsum_digest.restype = i
         lib.mtpu_mxsum_workspace_words.argtypes = [i]
         lib.mtpu_mxsum_workspace_words.restype = ll
+        lib.mtpu_mxhash256.argtypes = [p, ll, p, p, p, i, p]
+        lib.mtpu_mxhash256.restype = i
         _lib = lib
         return lib
 

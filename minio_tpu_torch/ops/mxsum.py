@@ -6,8 +6,9 @@ for c = 0..7 (eight little-endian uint32 words, 32 bytes). K is an
 unbounded keyed stream of int8 rows and L a fixed int8 length key, both
 derived from BITROT_KEY with numpy's PCG64 exactly as the JAX package
 derives them (byte-identical streams; tests/test_torch_mxsum.py holds
-them equal). Zero padding is free, so a chunk hashes identically under
-any staging width and the length rides in as data.
+them equal, and KEY_SHA256 / LEN_KEY_SHA256 pin them wherever they are
+derived). Zero padding is free, so a chunk hashes identically under any
+staging width and the length rides in as data.
 
 Three implementations of the same function:
 - `digest_np`: host numpy over one chunk (exact int64, then mod 2^32);
@@ -21,6 +22,7 @@ Three implementations of the same function:
 from __future__ import annotations
 
 import functools
+import hashlib
 import threading
 
 import numpy as np
@@ -33,6 +35,28 @@ DIGEST_LEN = 32
 COLS = 8  # uint32 words per digest
 
 _KEY_CHUNK = 1 << 16  # K-stream generation granularity (rows)
+
+# SHA-256 of the first K chunk (rows 0..65535, int8) and of the length key
+# as the JAX package derives them. NumPy does not promise PCG64's integer
+# stream across versions; a digest under another stream would pass every
+# check on one machine and be unreadable by the JAX package. Every K chunk
+# comes from the same generator call under its own seed, so a changed
+# stream shows in the first.
+KEY_SHA256 = "d936f9959c13e19474fcfdaf7c5cf0623c5c8c50087c999e349b2e80006e6b0e"
+LEN_KEY_SHA256 = "fcd229e5e44d90262a38b39342a36d65a0eca6405a3088232ab39daa58e4ff2c"
+
+
+class KeyMismatch(RuntimeError):
+    """numpy derived a key other than the JAX package's."""
+
+
+def check_key(name: str, key: np.ndarray, want: str) -> None:
+    got = hashlib.sha256(np.ascontiguousarray(key).tobytes()).hexdigest()
+    if got != want:
+        raise KeyMismatch(f"{name}: numpy {np.__version__} derived a key of "
+                          f"SHA-256 {got}, not the pinned {want}")
+
+
 _key_lock = threading.Lock()
 _key_i8 = np.zeros((0, COLS), dtype=np.int8)
 _key_i64 = np.zeros((0, COLS), dtype=np.int64)
@@ -52,6 +76,8 @@ def _grow_key(n_rows: int) -> None:
         for ci in range(have // _KEY_CHUNK, n_chunks):
             rng = np.random.Generator(np.random.PCG64(seed + ci))
             parts.append(rng.integers(-128, 128, (_KEY_CHUNK, COLS), dtype=np.int8))
+            if ci == 0:
+                check_key("mxsum256 key", parts[-1], KEY_SHA256)
         _key_i8 = np.concatenate(parts, axis=0)
         _key_i64 = _key_i8.astype(np.int64)
 
@@ -77,7 +103,9 @@ def _len_key() -> np.ndarray:
 
     seed = int.from_bytes(BITROT_KEY[16:24], "little") ^ 0x6C656E
     rng = np.random.Generator(np.random.PCG64(seed))
-    return rng.integers(-128, 128, (8, COLS), dtype=np.int8)
+    key = rng.integers(-128, 128, (8, COLS), dtype=np.int8)
+    check_key("mxsum256 length key", key, LEN_KEY_SHA256)
+    return key
 
 
 # --- host (numpy) -------------------------------------------------------
