@@ -38,10 +38,13 @@ package beside it. Phases, each raising on failure:
    (PUT), [128, 131072] (GET verify), [64, 131072] and [16, 131072]
    (heal) and [256, 87382] (EC 12+4 PUT), rows of lengths 0, 1, 503,
    504, 512, 700 and 4096 among full ones in every launch, beside its
-   plain version (no library call computes the chain);
-   mxhash.encode_with_bitrot (K1 then K3) checked against the plain
-   composition; and the mxsum256 and mxhash256 keys this machine's numpy
-   derives held against their pinned SHA-256;
+   plain version (the chain) and, as its library yardstick, torch._int_mm
+   of the data term alone ([blocks, 4096] bits x [4096, 256] int8; no
+   library call computes the chain); K3 also held against the split plain
+   version at the PUT shape; mxhash.encode_with_bitrot (K1 then K3)
+   checked against the plain composition; and the mxsum256 and mxhash256
+   keys and the table of SK powers this machine's numpy derives held
+   against their pinned SHA-256;
 3. S3: the port's server on 12 tmp drives (device="cuda"), driven over
    http.client with the port's SigV4 signer: PUT 256 MiB, 9 MiB + 12,345 B
    and 1 KiB objects; GET back byte-equal with ETag == md5; a ranged GET;
@@ -302,46 +305,116 @@ def _time_k2(records, label, path, chunks, lens, flush, bound_rows=None):
 
 def _mxhash_bound_ms(lens) -> tuple[float, str]:
     """K3's bound from this run's lengths: each row's bytes read once, the
-    packed key, the lengths and the digests, against the bit contraction
-    of every block the rows need, 2 * 4352 * 256 operations a block,
-    counted at the int8 rate as K1's are."""
+    data key DK packed, the lengths and the digests, against the data term
+    of every block the rows need, 2 * 4096 * 256 operations a block,
+    counted at the int8 rate as K1's are. Folding the chain's state in
+    (SK's 256 rows) costs 2 * 256 * 256 a folded term, and a term may take
+    any number of blocks (K3's take 4), so that part shrinks toward none
+    and is not counted: the chain form's 2 * 4352 * 256 a block counts
+    6.25% more than the function needs."""
     from minio_tpu_torch.ops import mxhash
 
     lens = [int(x) for x in lens]
     blocks = sum(mxhash._pad_blocks(ln) for ln in lens)
-    return _bound_ms(sum(lens) + mxhash.KEY_WORDS * 256 * 8 + 36 * len(lens),
-                     2.0 * blocks * (mxhash.KEY_WORDS * 64) * mxhash.STATE_BITS)
+    return _bound_ms(sum(lens) + mxhash.BLOCK_BITS * mxhash.STATE_BITS // 8 + 36 * len(lens),
+                     2.0 * blocks * mxhash.BLOCK_BITS * mxhash.STATE_BITS)
+
+
+def _kernel_us(fn, runs: int = 10) -> dict[str, float]:
+    """Device microseconds per call of each CUDA kernel fn launches, from
+    torch.profiler (CUPTI); empty where the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if ev.count and total:
+            out[ev.key] = total / ev.count
+    return out
+
+
+def _k3_data_bits(chunks, lens):
+    """The bits of every block the rows need, one block a row as 0/1 int8
+    [sum of blocks, 4096], and DK as int8 [4096, 256]: the operands of
+    torch._int_mm computing the data term (block bits @ DK) of every block,
+    K3's yardstick. Built before any timing."""
+    import torch
+
+    from minio_tpu_torch.ops import mxhash
+
+    msg, nb = mxhash._padded_messages(chunks, lens)
+    n = chunks.shape[0]
+    blocks = msg.reshape(n, -1, mxhash.BLOCK_BYTES)
+    keep = torch.arange(blocks.shape[1], device=chunks.device) < nb.unsqueeze(1)
+    shifts = torch.arange(8, device=chunks.device, dtype=torch.uint8)
+    bits = ((blocks[keep].unsqueeze(-1) >> shifts) & 1).reshape(-1, mxhash.BLOCK_BITS)
+    dk = torch.from_numpy(mxhash._key_matrix()[mxhash.STATE_BITS:]).to(chunks.device)
+    return bits.to(torch.int8).contiguous(), dk.to(torch.int8).contiguous()
 
 
 def _time_k3(records, label, chunks, lens, flush):
-    """K3 at [N, S] beside its plain version. No one PyTorch call computes
-    the chain, so there is no library time. Its launches come from the
-    bitrot phase."""
+    """K3 at [N, S] beside its plain version (the chain) and, as its
+    library yardstick, torch._int_mm of the data term of every block alone
+    (no one PyTorch call computes the chain), with DK row-major and
+    column-major, the faster kept. Then each of K3's two kernels' device
+    time from torch.profiler, and the bound over the group-term kernel's
+    alone. Its launches come from the bitrot phase."""
+    import torch
+
     from minio_tpu_torch.ops import mxhash
 
     n, s = chunks.shape
+    bits, dk = _k3_data_bits(chunks, lens)
+    dk_cols = dk.t().contiguous().t()
+    if not torch.equal(torch._int_mm(bits, dk), torch._int_mm(bits, dk_cols)):
+        raise AssertionError(f"K3 {label}: torch._int_mm differs between DK's layouts")
     ms = _median_ms(lambda: mxhash.mxhash256(chunks, lens), flush)
     plain = _median_ms(lambda: mxhash.mxhash256_plain(chunks, lens), flush)
+    lib_rows = _median_ms(lambda: torch._int_mm(bits, dk), flush)
+    lib_cols = _median_ms(lambda: torch._int_mm(bits, dk_cols), flush)
+    del bits
     bound = _mxhash_bound_ms(lens.tolist())
+    us = _kernel_us(lambda: mxhash.mxhash256(chunks, lens))
+    stage1 = sum(v for name, v in us.items() if "group_term_kernel" in name)
+    combine = sum(v for name, v in us.items() if "combine_kernel" in name)
     print(f"  K3 {label} [{n}, {s}]: {ms:.6f} ms, bound {bound[0]:.6f} ms "
           f"({bound[1]}), {100 * bound[0] / ms:.1f}% of the bound; plain "
-          f"{plain:.6f} ms")
+          f"{plain:.6f} ms; torch._int_mm of the data term {lib_rows:.6f} ms "
+          f"(DK row-major), {lib_cols:.6f} ms (column-major)")
+    groups = sum(-(-mxhash._pad_blocks(int(x)) // mxhash.GROUP_BLOCKS) for x in lens.tolist())
+    if stage1 and combine:
+        print(f"    K3 {label} by kernel (torch.profiler): group terms {stage1:.3f} us "
+              f"({1e3 * stage1 / groups:.3f} ns for each of {groups} groups; alone at "
+              f"{100 * bound[0] / (stage1 / 1e3):.1f}% of the bound), combine "
+              f"{combine:.3f} us")
+    else:
+        print(f"    K3 {label} by kernel: not measured (the profiler recorded {sorted(us)})")
     records.append(_record("mxhash256", f"{label} [{n},{s}]", "bitrot", ms, plain,
-                           bound, None))
+                           bound, min(lib_rows, lib_cols)))
 
 
 def mxhash_shapes(rng, dev, flush, check, records) -> None:
     """K3 at the bitrot phase's shapes, rows of mixed lengths (0 among
-    them) in every launch, against its plain version; encode_with_bitrot
-    (K1 then K3) against the same composition of the plain versions; the
-    digest keys of mxsum256 and mxhash256 derived by this machine's numpy
-    against their pinned SHA-256."""
+    them) in every launch, against its plain version (and at the PUT shape
+    against the split plain version too); encode_with_bitrot (K1 then K3)
+    against the same composition of the plain versions; the digest keys of
+    mxsum256 and mxhash256 and the table of SK powers derived by this
+    machine's numpy against their pinned SHA-256."""
     import numpy as np
     import torch
 
     from minio_tpu_torch.ops import mxhash, mxsum, rs
 
     keys = (("mxhash256", mxhash._key_matrix(), mxhash.KEY_SHA256),
+            ("mxhash256 SK powers", mxhash.sk_powers(), mxhash.POWERS_SHA256),
             ("mxsum256", mxsum._key_rows(mxsum._KEY_CHUNK), mxsum.KEY_SHA256),
             ("mxsum256 length", mxsum._len_key(), mxsum.LEN_KEY_SHA256))
     for name, key, want in keys:
@@ -366,6 +439,9 @@ def mxhash_shapes(rng, dev, flush, check, records) -> None:
         host = mxhash.digest_host(x[2, :503].cpu().numpy().tobytes())
         if got[2].cpu().numpy().tobytes() != host:
             raise AssertionError(f"K3 {label}: disagrees with the CPU digest_host")
+        if label == "PUT":
+            check("mxhash256", f"K3 {label} against the split plain version", got,
+                  mxhash.mxhash256_split_plain(x, lens))
         cases.append((label, x, lens))
     x3 = torch.from_numpy(rng.integers(0, 256, (B, K, S), dtype=np.uint8)).to(dev)
     par, digs = mxhash.encode_with_bitrot(x3, K, M)
@@ -2609,9 +2685,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.library()
     print(f"kernel build+load: {time.perf_counter() - t0:.3f} s")
+    kernel = ""
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {kernel}: {line.strip()}")
     print("kernel phase (EC 8+4, 1 MiB blocks):")
     records = kernel_phase(args.seed)
     print("S3 phase:")

@@ -143,8 +143,10 @@ def library() -> ctypes.CDLL:
         lib.mtpu_mxsum_digest.restype = i
         lib.mtpu_mxsum_workspace_words.argtypes = [i]
         lib.mtpu_mxsum_workspace_words.restype = ll
-        lib.mtpu_mxhash256.argtypes = [p, ll, p, p, p, i, p]
+        lib.mtpu_mxhash256.argtypes = [p, ll, ll, p, p, p, p, p, i, p]
         lib.mtpu_mxhash256.restype = i
+        lib.mtpu_mxhash256_scratch_bytes.argtypes = [i, ll]
+        lib.mtpu_mxhash256_scratch_bytes.restype = ll
         _lib = lib
         return lib
 

@@ -1,9 +1,11 @@
 """mxhash256 of the port (minio_tpu_torch/ops/mxhash.py, K3's plain
-version on the CPU) against the JAX package's minio_tpu/ops/mxhash.py, on
-the same seeded numpy inputs: ragged lengths in one batch, digest_host,
-encode_with_bitrot, the codec's mxhash256 encode and rebuild; and the
-digest keys of mxsum256 and mxhash256 pinned by SHA-256 against the JAX
-package's keys. Tolerance: exact bytes (integer work)."""
+versions on the CPU) against the JAX package's minio_tpu/ops/mxhash.py, on
+the same seeded numpy inputs: ragged lengths in one batch, the split form
+(every block's data term, then a tree of SK powers), digest_host,
+encode_with_bitrot, the codec's mxhash256 encode and rebuild; K3's key
+layout and combine algebra emulated in numpy; and the digest keys of
+mxsum256 and mxhash256 and the table of SK powers pinned by SHA-256.
+Tolerance: exact bytes (integer work)."""
 
 import hashlib
 
@@ -95,12 +97,126 @@ def test_codec_mxhash_encode_and_rebuild_equal_jax_digests():
 
 
 def test_packed_key_is_the_key_matrix():
-    """K3's key layout: bit p of word w of column c is K[64w + p, c]."""
-    key = mxhash._key_matrix()
-    packed = mxhash.packed_key()
-    assert packed.shape == (mxhash.KEY_WORDS, 256) and packed.dtype == np.uint64
-    bits = ((packed[:, :, None] >> np.arange(64, dtype=np.uint64)) & 1).astype(np.uint8)
-    assert np.array_equal(bits.transpose(0, 2, 1).reshape(-1, 256), key)
+    """K3's key, read back as the tensor cores read it: slice s, k-step ks
+    of the 128-byte-swizzled B tiles times the A operand built from a
+    group's bytes as K3 builds it ((word >> b) & 0x01010101), summed over
+    every slice and k-step, is each group's term
+    XOR_v (block v bits @ DK SK^(3 - v)) mod 2, and the stacked keys are
+    DK SK^v."""
+    gb = mxhash.GROUP_BLOCKS
+    key = mxhash.tile_key()
+    assert key.shape == (8 * gb, 4, 256, 128) and key.dtype == np.uint8
+    keys = mxhash.group_keys()
+    sk = mxhash._key_matrix()[:mxhash.STATE_BITS].astype(np.int64)
+    dk = mxhash._key_matrix()[mxhash.STATE_BITS:].astype(np.int64)
+    for v in range(gb):
+        assert np.array_equal(keys[v], dk @ np.linalg.matrix_power(sk, v) % 2)
+    grp = np.random.default_rng(8).integers(0, 256, (64, 512 * gb), dtype=np.uint8)
+    want = np.zeros((64, 256), np.int64)
+    for v in range(gb):
+        bits = np.unpackbits(grp[:, 512 * v:512 * (v + 1)], axis=1, bitorder="little")
+        want ^= (bits.astype(np.int64) @ keys[gb - 1 - v].astype(np.int64)) & 1
+    n, kk = np.arange(256)[:, None], np.arange(128)[None, :]
+    pos = 16 * ((kk // 16) ^ (n % 8)) + kk % 16
+    got = np.zeros((64, 256), np.int64)
+    for s in range(8 * gb):
+        acc = np.zeros((64, 256), np.int64)
+        base = 512 * (s // 8) + 64 * (s % 8)
+        for ks in range(16):
+            b_tile = np.take_along_axis(key[s, ks // 4], pos, axis=1)   # [n, 128]
+            b_step = b_tile[:, 32 * (ks % 4):32 * (ks % 4) + 32]        # [n, k]
+            raw = grp[:, base + 4 * ks:base + 4 * ks + 4]               # [row, e]
+            a_step = np.stack([(raw >> b) & 1 for b in range(8)], 1).reshape(64, 32)
+            acc += a_step.astype(np.int64) @ b_step.T.astype(np.int64)
+        got ^= acc & 1
+    assert np.array_equal(got, want)
+
+
+def _power_np(e: int) -> np.ndarray:
+    sk = mxhash._key_matrix()[:mxhash.STATE_BITS].astype(np.int64)
+    p, b = np.eye(mxhash.STATE_BITS, dtype=np.int64), sk
+    while e:
+        if e & 1:
+            p = p @ b % 2
+        b = b @ b % 2
+        e >>= 1
+    return p
+
+
+def test_sk_powers_are_squarings_and_pinned():
+    """Each SK^(2^l) of the table is l squarings of SK over GF(2), the table
+    matches its pinned SHA-256, and K3's combine columns are
+    SK^(4 * 2^l), l < 9, bit p of word q of column c = P[32 q + p, c]."""
+    table = mxhash.sk_powers()
+    assert table.shape == (mxhash.POWER_LEVELS, 256, 256) and table.dtype == np.uint8
+    assert hashlib.sha256(table.tobytes()).hexdigest() == mxhash.POWERS_SHA256
+    p = mxhash._key_matrix()[:mxhash.STATE_BITS].astype(np.int64)
+    for level in range(mxhash.POWER_LEVELS):
+        assert np.array_equal(table[level], p), level
+        p = p @ p % 2
+    cols = mxhash.combine_columns()
+    assert cols.shape == (mxhash.POWER_LEVELS, 256, 8) and cols.dtype == np.uint32
+    for level in range(mxhash.POWER_LEVELS):
+        bits = np.unpackbits(cols[level].view(np.uint8).reshape(256, 32), axis=1,
+                             bitorder="little")                         # [c, p]
+        assert np.array_equal(bits.T, _power_np(mxhash.GROUP_BLOCKS << level)), level
+
+
+@pytest.mark.parametrize("seed,pad", [(21, 0), (22, 5), (23, 16)])
+def test_split_plain_equals_jax_and_the_chain(seed, pad):
+    """mxhash256_split_plain (every block's data term as one product, then
+    the tree with SK^(2^l)) over one ragged batch of rows `pad` bytes wider
+    than the longest (strided rows): byte-equal to the chain and, row by
+    row, to the JAX mxhash256."""
+    s = max(LENS)
+    wide = np.random.default_rng(seed).integers(0, 256, (len(LENS), s + pad), dtype=np.uint8)
+    view = torch.from_numpy(wide)[:, pad:]
+    lens = torch.tensor(LENS, dtype=torch.int32)
+    got = mxhash.mxhash256_split_plain(view, lens)
+    assert torch.equal(got, mxhash.mxhash256_plain(view, lens))
+    for i, ln in enumerate(LENS):
+        assert got[i].numpy().tobytes() == _jax_digest(wide[i, pad:pad + ln]), ln
+
+
+def test_group_terms_and_windowed_combine_equal_the_chain():
+    """K3's algebra: the terms T_g = XOR_v (block bits @ DK SK^(3 - v)) of
+    4-block groups counted from a row's end (zero blocks in front of the
+    first), folded in windows of 256 terms by levels with K3's combine
+    powers SK^(4 * 2^l) and the windows joined by Horner with SK^1024, give
+    the chain's digest, here for rows of 1 to 1,201 blocks (over 256
+    terms: two windows)."""
+    lens = [0, 503, 2039, 2040, 20000, 1201 * 512 - 9]
+    x = np.random.default_rng(31).integers(0, 256, (len(lens), max(lens)), dtype=np.uint8)
+    tl = torch.tensor(lens, dtype=torch.int32)
+    want = mxhash.mxhash256_plain(torch.from_numpy(x), tl).numpy()
+    msg, nb = mxhash._padded_messages(torch.from_numpy(x), tl)
+    keys = mxhash.group_keys().astype(np.int64)
+    cols = mxhash.combine_columns()
+    pw = [np.unpackbits(cols[level].view(np.uint8).reshape(256, 32), axis=1,
+                        bitorder="little").T.astype(np.int64) for level in range(9)]
+    gb = mxhash.GROUP_BLOCKS
+    for r, ln in enumerate(lens):
+        nbr = int(nb[r])
+        bits = np.unpackbits(msg[r, :nbr * 512].numpy(), bitorder="little").reshape(nbr, 4096)
+        terms = []
+        for g in range(-(-nbr // gb)):
+            t = np.zeros(256, np.int64)
+            for v in range(gb):
+                blk = nbr - gb * (g + 1) + v
+                if blk >= 0:
+                    t += bits[blk].astype(np.int64) @ keys[gb - 1 - v]
+            terms.append(t % 2)
+        acc = None
+        for k in reversed(range(0, len(terms), 256)):
+            e = terms[k:k + 256]
+            level = 0
+            while len(e) > 1:
+                e = [(e[2 * j] + (e[2 * j + 1] @ pw[level] if 2 * j + 1 < len(e) else 0)) % 2
+                     for j in range((len(e) + 1) // 2)]
+                level += 1
+            acc = e[0] if acc is None else (acc @ pw[8] + e[0]) % 2
+        got = np.packbits(acc.astype(np.uint8), bitorder="little")
+        assert got.tobytes() == want[r].tobytes(), ln
 
 
 def test_keys_pinned_to_the_jax_packages():
