@@ -59,7 +59,7 @@ package beside it. Phases, each raising on failure:
    on PUT, a
    reconstruct lane launched for the degraded GETs and for the heal. The
    same traffic again with the plane off (MTPU_BATCHED_DATAPLANE=0), in
-   turns on, off, off, on, and each stage's objects/s side by side;
+   turns on, off, and each stage's objects/s side by side;
 5. the hot tier (MTPU_HOTTIER=1, 2 GiB budget): PUT ~2.5 GiB of 4-32 MiB
    objects, heat them until admission and eviction have run, then hot
    GETs byte-equal and ETag-identical to the drive path with one K2
@@ -86,7 +86,7 @@ package beside it. Phases, each raising on failure:
    REPLACE); tags on a version; If-Match and If-None-Match; 64 clients
    PUT 64 keys x 4 versions of 1-512 KiB, ListObjectVersions walks them
    in pages of 1000 and one DeleteObjects removes 250 by VersionId; then
-   on phase 6's pools, UploadPartCopy of the object's first 64 parts,
+   on phase 6's pools, UploadPartCopy of the object's first 32 parts,
    part by part, into a versioned bucket;
 8. heal (heal_phase): on 12 drives in /dev/shm at EC 8+4, the server at
    build_server's defaults (MRF on) and the auto-healer started as main()
@@ -105,8 +105,8 @@ package beside it. Phases, each raising on failure:
    earlier runs recorded in PERF.md;
 9. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
    at EC 8+4 behind the S3 server, a bucket of LIST_OBJECTS synthetic
-   objects (halved to 50,000 to fit the 1,000 s budget, and below only to
-   keep the script under 1,100 s) plus 1,000 real
+   objects (halved down to 25,000 to fit the 1,000 s budget, and below only
+   to keep the script under 1,100 s) plus 1,000 real
    ones PUT through the server; ListObjectsV2 over the whole bucket in
    pages of 1,000 (every name once, in order; the real objects' ETag and
    Size), a delimiter listing, a v1 marker resume, ListBuckets, GETs of
@@ -122,9 +122,44 @@ package beside it. Phases, each raising on failure:
    files removed, a deep heal of the 4 (files equal their copies,
    verify_shard_file over each), sampled chunk digests against the plain
    versions; K3 launched once per batch (the mxhash256 PUT: as often as
-   K1); the host hashes' MB/s on one thread and on 12.
+   K1); the host hashes' MB/s on one thread and on 12;
+11. observability and the admin plane (obs_phase, run first, right after
+   the build: on the card's machine torch.profiler drops the GPU events
+   of a process more than a minute or two old, their device timestamps
+   drifting out of the capture's window, so the profiling route is
+   checked while the process is young):
+   config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB blocks, mxsum256,
+   the plane at its default, MRF off) behind the port's S3 server. A
+   trace subscriber streams /minio/admin/v3/trace while a 256 MiB object
+   is PUT, GET and range-GET; 4 drives' shard files copied and removed, a
+   degraded GET, POST /minio/admin/v3/heal/<bucket> (scanMode 2) whose
+   rebuilt files must equal the copies, a GET again. The cluster and node
+   scrapes pass the strict 0.0.4 parse of tests/test_observability.py;
+   their minio_tpu_kernel_launches_total{backend="gpu"} per label equals
+   K1's and K2's own counts over the PUT/GET stages and over the heal
+   (labels to kernels as in ops/fused.py: OBS_K1, OBS_K2), their request
+   counts equal the requests sent, the drive latency covers all 12 drives
+   and 12 disks are online. The trace holds the PUT's http, storage and
+   kernel records; perf/timeline?traceid= its stages auth, rx_drain,
+   encode, commit, resp_drain. profiling/start?profilerType=cpu,device
+   around one 32 MiB PUT+GET: the zip holds cpu.txt and a device trace
+   naming K1's and K2's CUDA kernels. Then the cost of observing, printed
+   and not gated: 3 PUTs and GETs of the 256 MiB object with no
+   subscriber, with a trace subscriber and under MTPU_KERNEL_SYNC=1, and
+   one PUT+GET's kernel seconds under sync (each hand-written kernel's
+   device time, between events around its launch) beside torch.profiler's
+   device times of K1 and K2 in another PUT+GET. After phase 10, late_profile_check asks the
+   route for a device profile again, on a process by then many minutes
+   old, around a 32 MiB PUT+GET on a new server: the download must hold
+   an event of every K1 and K2 launch or answer InternalError saying the
+   capture lost some; a 200 without them fails.
 
-The launch count of each kernel is reset just before each of phases 3-10
+Depth cut to make room for phase 11 under SMOKE_BUDGET_S, no width
+changed: phase 4 runs twice (on, off) instead of four times, phase 7
+copies 32 of phase 6's parts instead of 64, and the listing phase may
+halve down to 25,000 objects instead of 50,000.
+
+The launch count of each kernel is reset just before each of phases 3-11
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -139,6 +174,7 @@ import hashlib
 import http.client
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -148,12 +184,13 @@ import time
 import urllib.parse
 
 ACCESS, SECRET = "smokeadmin", "smokesecret123"
+T_START = time.perf_counter()   # the script's start: process age in prints
 MXSUM_KERNELS = ("gf2_matmul", "mxsum_digest")   # the paths of the mxsum256 phases
 K, M, B, S = 8, 4, 16, 131072   # EC 8+4, 1 MiB blocks: S = 1 MiB / 8
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
 PLANE_OBJECTS = 512             # plane phase: small objects PUT by 64 clients, per run
-PLANE_RUNS = (True, False, False, True)   # the plane on / off, in turns
+PLANE_RUNS = (True, False)      # the plane on, then off
 HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
 MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
 MP_INFLIGHT = 4                 # part uploads in flight
@@ -161,7 +198,7 @@ K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
 VER_SIZE, VER_VERSIONS = 256 << 20, 4   # versioning phase: 4 versions of 256 MiB
 VER_KEYS = 64                   # ... and 64 small keys of 4 versions, 1-512 KiB
 VER_DELETE = 250                # ... of which one DeleteObjects removes 250
-VER_COPY_PARTS = 64             # ... and UploadPartCopy of phase 6's first 64 parts
+VER_COPY_PARTS = 32             # ... and UploadPartCopy of phase 6's first 32 parts
 HEAL_BIG, HEAL_BIG_SIZE = 8, 256 << 20   # heal phase: 8 objects of 256 MiB,
 HEAL_SMALL = 512                # ... 512 warp-mix objects,
 HEAL_MP_PARTS = 16              # ... a multipart object of 16 parts of 16 MiB,
@@ -171,18 +208,22 @@ BITROT_BIG, BITROT_SMALL = 256 << 20, 16 << 20   # bitrot phase: one object each
 BITROT_ALGOS = (("mxhash256", BITROT_BIG), ("sip256", BITROT_BIG),
                 ("highwayhash256", BITROT_SMALL), ("sha256", BITROT_SMALL),
                 ("xxh64", BITROT_SMALL), ("blake2b256", BITROT_SMALL))
+OBS_SIZE = 256 << 20            # obs phase: the object PUT, GET and healed
+OBS_PROFILE_SIZE = 32 << 20     # ... the object PUT and GET under the profilers
+OBS_RUNS = 3                    # ... PUT+GET of OBS_SIZE per observing mode
 LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
-LIST_MIN_OBJECTS = 50_000       # ... never cut below this to meet SMOKE_BUDGET_S
+LIST_MIN_OBJECTS = 25_000       # ... never cut below this to meet SMOKE_BUDGET_S
 LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
 LIST_PAGE = 1000                # ListObjectsV2 max-keys
 # The listing phase's cost on the card's machine (NVIDIA H100 80GB HBM3,
 # 12 drives on /dev/shm), bounded from above by this script's runs there
-# at 12,500, 25,000 and 50,000 objects (115, 156 and 282 s; PERF.md 5):
-# seconds per synthetic object (build, walk, removal), the rest of the
-# phase, and tmpfs bytes per synthetic object (12 journal files and their
+# at 12,500, 25,000, 50,000 and 100,000 objects (115, 156, 282-353 and
+# 337 s; PERF.md 5, 6.12; the 353 s on a slower host): seconds per
+# synthetic object (build, walk, removal), the rest of the phase, and
+# tmpfs bytes per synthetic object (12 journal files and their
 # directories, with room to spare).
-LIST_S_PER_OBJECT = 0.004
-LIST_FIXED_S = 90.0
+LIST_S_PER_OBJECT = 0.005
+LIST_FIXED_S = 110.0
 LIST_BYTES_PER_OBJECT = 12 * 8192
 SMOKE_BUDGET_S = 1000.0         # what the whole script should stay under
 SMOKE_LIMIT_S = 1100.0          # what it must stay under: 1200 s less a margin
@@ -2405,6 +2446,408 @@ def bitrot_phase(seed: int, card: str, records: list[dict] | None,
         _fill_launches(records, "bitrot", total)
 
 
+# The strict Prometheus 0.0.4 text parse of tests/test_observability.py:
+# every line HELP, TYPE or a sample, samples only of a TYPEd family,
+# values numeric.
+_HELP_RE = re.compile(r"^# HELP ([a-zA-Z_:][a-zA-Z0-9_:]*) .*$")
+_TYPE_RE = re.compile(r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) "
+                      r"(counter|gauge|histogram|summary|untyped)$")
+_SAMPLE_RE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_exposition(text: str):
+    """-> (families {name: type}, samples [(name, labels, value)]); raises
+    on any line the 0.0.4 text format does not allow."""
+    families: dict[str, str] = {}
+    samples: list = []
+    for ln, line in enumerate(text.split("\n"), 1):
+        if not line or _HELP_RE.match(line):
+            continue
+        m = _TYPE_RE.match(line)
+        if m:
+            families[m.group(1)] = m.group(2)
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise AssertionError(f"scrape line {ln} is not HELP/TYPE/sample: {line!r}")
+        name, rawlbl, rawval = m.groups()
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[: -len(suffix)] in families:
+                base = name[: -len(suffix)]
+        if base not in families:
+            raise AssertionError(f"scrape line {ln}: sample {name} has no TYPE")
+        labels = dict(_LABEL_RE.findall(rawlbl[1:-1])) if rawlbl else {}
+        samples.append((name, labels, float("inf") if rawval == "+Inf" else float(rawval)))
+    return families, samples
+
+
+def _by_label(samples, name: str, key: str, **match) -> dict:
+    out: dict = {}
+    for n, lbl, v in samples:
+        if n == name and all(lbl.get(k) == w for k, w in match.items()):
+            out[lbl.get(key, "")] = out.get(lbl.get(key, ""), 0) + v
+    return out
+
+
+# Which of K1 and K2 each observed label launches (ops/fused.py's table;
+# mxsum256 paths, so every label of a rebuild carries its digests).
+OBS_K1 = ("encode", "encode_digests", "reconstruct", "reconstruct_digests",
+          "reconstruct_weights", "dp_encode", "dp_reconstruct")
+OBS_K2 = ("encode_digests", "reconstruct_digests", "reconstruct_weights",
+          "verify_digests", "dp_encode", "dp_verify", "dp_reconstruct")
+
+
+class _Tracer:
+    """A `mc admin trace` client: streams GET /minio/admin/v3/trace in a
+    thread and keeps every record; stop() leaves (the server sees the
+    client gone at its next heartbeat and unsubscribes)."""
+
+    def __init__(self, url: str):
+        import threading
+
+        self.records: list[dict] = []
+        self._stop = threading.Event()
+        self._cl = _Client(url)
+        self._resp = self._cl.send("GET", "/minio/admin/v3/trace")
+        self._t = threading.Thread(target=self._run, daemon=True, name="smoke-trace")
+        self._t.start()
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                line = self._resp.readline()
+                if not line:
+                    return
+                if line.strip():
+                    self.records.append(json.loads(line))
+        except (OSError, ValueError):
+            return
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._t.join(5)
+        self._cl.close()
+        self._t.join(5)
+
+
+def _k12_window(name: str, launches: dict, before, after, backend: str) -> dict:
+    """Check one stage's K1/K2 launches against the scrape's
+    minio_tpu_kernel_launches_total{backend=...} deltas ("gpu" on the card)
+    under OBS_K1 / OBS_K2; -> the per-label deltas."""
+    a = _by_label(after[1], "minio_tpu_kernel_launches_total", "kernel", backend=backend)
+    b = _by_label(before[1], "minio_tpu_kernel_launches_total", "kernel", backend=backend)
+    delta = {k: int(v - b.get(k, 0)) for k, v in a.items() if v - b.get(k, 0)}
+    k1 = sum(delta.get(k, 0) for k in OBS_K1)
+    k2 = sum(delta.get(k, 0) for k in OBS_K2)
+    print(f"  {name}: scrape kernel launches {delta}; K1 {launches['gf2_matmul']} "
+          f"(labels {k1}), K2 {launches['mxsum_digest']} (labels {k2})")
+    if (k1, k2) != (launches["gf2_matmul"], launches["mxsum_digest"]):
+        raise AssertionError(f"{name}: scrape's kernel launches disagree with the "
+                             "kernels' counts")
+    return delta
+
+
+def obs_phase(seed: int, card: str, device: str = "cuda", size: int = OBS_SIZE,
+              profile_size: int = OBS_PROFILE_SIZE, runs: int = OBS_RUNS) -> dict:
+    """Phase 11, observability and the admin plane: config 1's set (12
+    drives on /dev/shm, EC 8+4, 1 MiB blocks, mxsum256, the plane at its
+    default, MRF off) behind the port's S3 server, observed only through
+    its own routes. A trace subscriber streams /minio/admin/v3/trace while
+    one `size` object is PUT, GET and range-GET; 4 drives' shard files are
+    copied and removed, a degraded GET, then POST
+    /minio/admin/v3/heal/<bucket> (scanMode 2) must rebuild them equal to
+    the copies, and a GET again. The cluster and node scrapes must pass
+    the strict parse, their kernel launches per label must equal the
+    kernels' own counts (OBS_K1, OBS_K2) over the PUT/GET and heal stages,
+    their request counts the requests sent, and their drive latency must
+    cover all 12 drives. The trace must hold the PUT's http, storage and
+    kernel records, perf/timeline its JAX stage names. Profiling
+    (cpu,device) around one PUT+GET must give cpu.txt and a device trace
+    naming K1's and K2's CUDA kernels. Last, `runs` PUTs and GETs of the
+    object with no subscriber, with one, and under MTPU_KERNEL_SYNC=1,
+    and one PUT+GET's kernel seconds under sync against torch.profiler's
+    device times of K1 and K2 in a second PUT+GET without sync; the times
+    are printed, not gated."""
+    import io
+    import zipfile
+
+    import numpy as np
+
+    from minio_tpu_torch.obs import kernel as obs_kernel
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    cuda = device == "cuda"
+    backend = "gpu" if cuda else device
+    rng = np.random.default_rng(seed + 11)
+    data = rng.bytes(size)
+    small = rng.bytes(profile_size)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-obs-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+    cl = _Client(srv.url)
+    sent: dict[str, int] = {}
+    out: dict = {}
+    tracer = None
+
+    def req(api, method, path, body=b"", headers=None, query=None):
+        sent[api] = sent.get(api, 0) + 1
+        return cl.request(method, path, body, headers, query)
+
+    def scrape(path="/minio/v2/metrics/cluster"):
+        return parse_exposition(cl.request("GET", path)[1].decode())
+
+    def part_file(i):
+        hits = glob.glob(os.path.join(paths[i], "obs", "big", "*", "part.1"))
+        return hits[0] if hits else None
+
+    try:
+        kernels.reset_launches()
+        phase0 = kernels.launches()
+        req("CreateBucket", "PUT", "/obs")
+        tracer = _Tracer(srv.url)
+        time.sleep(0.5)
+        s0, l0 = scrape(), kernels.launches()
+        r, _ = req("PutObject", "PUT", "/obs/big", data)
+        put_id = r.getheader("x-amz-request-id")
+        r, got = req("GetObject", "GET", "/obs/big")
+        if got != data:
+            raise AssertionError("GET bytes differ")
+        r, got = req("GetObject", "GET", "/obs/big",
+                     headers={"Range": "bytes=1000000-3999999"})
+        if r.status != 206 or got != data[1000000:4000000]:
+            raise AssertionError("ranged GET")
+        s1, l1 = scrape(), kernels.launches()
+        _k12_window("PUT, GET, ranged GET", {k: l1[k] - l0[k] for k in l1}, s0, s1,
+                    backend)
+
+        originals = {i: open(part_file(i), "rb").read() for i in range(12)}
+        for i in range(4):
+            shutil.rmtree(os.path.dirname(part_file(i)))
+        if req("GetObject", "GET", "/obs/big")[1] != data:
+            raise AssertionError("degraded GET bytes differ")
+        s2, l2 = scrape(), kernels.launches()
+        t0 = time.perf_counter()
+        r, doc = cl.request("POST", "/minio/admin/v3/heal/obs",
+                            json.dumps({"scanMode": 2}).encode())
+        heal_s = time.perf_counter() - t0
+        items = json.loads(doc)["items"]
+        s3, l3 = scrape(), kernels.launches()
+        heal = _k12_window("admin heal", {k: l3[k] - l2[k] for k in l3}, s2, s3,
+                           backend)
+        big = [i for i in items if i["object"] == "big"]
+        healed = sum(b["state"] != "ok" and a["state"] == "ok"
+                     for b, a in zip(big[0]["before"], big[0]["after"])) if big else 0
+        if healed != 4 or any(open(part_file(i), "rb").read() != originals[i]
+                              for i in range(4)):
+            raise AssertionError(f"admin heal: {healed} healed or files differ: {items}")
+        if not heal.get("reconstruct_weights"):
+            raise AssertionError("admin heal did not launch K1 through reconstruct_weights")
+        if req("GetObject", "GET", "/obs/big")[1] != data:
+            raise AssertionError("GET after heal")
+        print(f"  admin heal (scanMode 2) of 4 shards: {heal_s:.6f} s, items "
+              f"{[(i['object'], i.get('error', 'ok')) for i in items]}")
+
+        fams, samples = scrape()
+        node_fams, _ns = scrape("/minio/v2/metrics/node")
+        reqs = _by_label(samples, "minio_tpu_s3_requests_total", "api")
+        for api, n in sent.items():
+            if reqs.get(api) != n:
+                raise AssertionError(f"requests_total{{api={api}}}: {reqs.get(api)} "
+                                     f"!= {n} sent")
+        drives = {lbl["drive"] for n, lbl, v in samples
+                  if n == "minio_tpu_drive_latency_seconds_count" and v > 0}
+        if not set(paths) <= drives:
+            raise AssertionError(f"drive latency covers {len(set(paths) & drives)} "
+                                 "of 12 drives")
+        online = sum(v for n, _l, v in samples
+                     if n == "minio_tpu_cluster_disk_online_total")
+        if online != 12:
+            raise AssertionError(f"disk online {online}")
+        hists = sorted(f for f, t in fams.items() if t == "histogram")
+        print(f"  scrape: {len(fams)} families ({len(hists)} histograms), "
+              f"{len(samples)} samples, node scrape {len(node_fams)} families; "
+              f"requests {reqs}; drive latency on {len(set(paths) & drives)} drives; "
+              f"disks online {online:.0f}")
+
+        tracer.stop()
+        mine = [x for x in tracer.records
+                if put_id in (x.get("trace_id"), x.get("requestId"))]
+        types = sorted({x["type"] for x in mine})
+        print(f"  trace: {len(tracer.records)} records, {len(mine)} of the PUT "
+              f"({put_id}): types {types}")
+        if not {"http", "storage", "kernel"} <= set(types):
+            raise AssertionError(f"trace of the PUT holds {types}")
+        tracer = None
+
+        doc = json.loads(cl.request("GET", "/minio/admin/v3/perf/timeline",
+                                    query={"traceid": put_id})[1])
+        stages = [(x["stage"], x["plane"], x["dur_ns"]) for x in
+                  doc["timelines"][0]["stages"]] if doc["timelines"] else []
+        print(f"  perf/timeline of the PUT: {stages}")
+        if [x[0] for x in stages if x[0] in ("auth", "rx_drain", "encode", "commit",
+                                              "resp_drain")] != \
+                ["auth", "rx_drain", "encode", "commit", "resp_drain"]:
+            raise AssertionError("the PUT's timeline lacks the JAX stage names")
+
+        cl.request("POST", "/minio/admin/v3/profiling/start",
+                   query={"profilerType": "cpu,device" if cuda else "cpu"})
+        req("PutObject", "PUT", "/obs/profiled", small)
+        if req("GetObject", "GET", "/obs/profiled")[1] != small:
+            raise AssertionError("profiled GET")
+        zdoc = cl.request("GET", "/minio/admin/v3/profiling/download")[1]
+        z = zipfile.ZipFile(io.BytesIO(zdoc))
+        names = sorted(z.namelist())
+        trace = zipfile.ZipFile(io.BytesIO(z.read("local/device_trace.zip"))) \
+            .read("trace.json").decode() if cuda else ""
+        found = {k: k in trace for k in ("gf2_kernel", "mxsum_kernel") if cuda}
+        cats: dict = {}
+        for ev in (json.loads(trace).get("traceEvents", []) if trace else []):
+            cats[ev.get("cat", "-")] = cats.get(ev.get("cat", "-"), 0) + 1
+        print(f"  profiling zip {names}; device trace {len(trace)} B, events by "
+              f"category {cats}, names {found}")
+        if "local/cpu.txt" not in names or not all(found.values()):
+            raise AssertionError("profiling: cpu.txt or K1/K2 missing from the zip")
+
+        costs = {}
+        for mode in ("no subscriber", "trace subscriber", "MTPU_KERNEL_SYNC=1"):
+            if mode == "trace subscriber":
+                tracer = _Tracer(srv.url)
+            obs_kernel.set_sync(mode == "MTPU_KERNEL_SYNC=1")
+            put_s, get_s = [], []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                req("PutObject", "PUT", "/obs/cost", data)
+                put_s.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                req("GetObject", "GET", "/obs/cost")
+                get_s.append(time.perf_counter() - t0)
+            if tracer is not None:
+                tracer.stop()
+                tracer = None
+            costs[mode] = (put_s, get_s)
+            print(f"  {size >> 20} MiB on {card}, {mode}: PUT s "
+                  f"{', '.join(f'{x:.6f}' for x in put_s)}; GET s "
+                  f"{', '.join(f'{x:.6f}' for x in get_s)}")
+        out["costs"] = costs
+
+        # Under sync, one PUT+GET's kernel seconds (the family's _sum)
+        # against torch.profiler's device times of the same launches in
+        # a second PUT+GET of the object, without sync: the profiler slows
+        # every CUDA call it traces, which would stretch the gaps the
+        # sync records' events see between the host's calls.
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def ksum():
+            return sum(v for n, lbl, v in scrape()[1]
+                       if n == "minio_tpu_kernel_seconds_sum"
+                       and lbl.get("backend") == backend)
+
+        obs_kernel.set_sync(True)
+        k0, n0 = ksum(), kernels.launches()
+        req("PutObject", "PUT", "/obs/cost", data)
+        req("GetObject", "GET", "/obs/cost")
+        k_s = ksum() - k0
+        n_k = {k: v - n0[k] for k, v in kernels.launches().items()}
+        obs_kernel.set_sync(False)
+        with profile(activities=[ProfilerActivity.CUDA if cuda
+                                 else ProfilerActivity.CPU]) as prof:
+            req("PutObject", "PUT", "/obs/cost", data)
+            req("GetObject", "GET", "/obs/cost")
+            if cuda:
+                torch.cuda.synchronize()
+        dev_us, dev_n = {}, {}
+        for ev in prof.key_averages():
+            total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            for name in ("gf2_kernel", "mxsum_kernel"):
+                if name in ev.key and total:
+                    dev_us[name] = dev_us.get(name, 0.0) + total
+                    dev_n[name] = dev_n.get(name, 0) + ev.count
+        dev_s = sum(dev_us.values()) / 1e6
+        print(f"  under MTPU_KERNEL_SYNC=1, one PUT+GET: minio_tpu_kernel_seconds "
+              f"{k_s:.6f} s over the launches (K1 {n_k['gf2_matmul']}, K2 "
+              f"{n_k['mxsum_digest']}); torch.profiler, another PUT+GET without "
+              f"sync: device time K1 {dev_us.get('gf2_kernel', 0) / 1e6:.6f} s, K2 "
+              f"{dev_us.get('mxsum_kernel', 0) / 1e6:.6f} s over {dev_n} kernels; "
+              f"ratio {k_s / dev_s if dev_s else float('nan'):.4f}")
+        out["sync_vs_profiler"] = (k_s, dev_s)
+    finally:
+        obs_kernel.set_sync(False)
+        if tracer is not None:
+            tracer.stop()
+        cl.close()
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+    total = {k: v - phase0[k] for k, v in kernels.launches().items()}
+    print(f"  launches in the phase: {total}")
+    for k in MXSUM_KERNELS:
+        if total[k] <= 0:
+            raise AssertionError(f"{k} never launched in the obs phase")
+    return out
+
+
+def late_profile_check(seed: int, card: str, size: int = OBS_PROFILE_SIZE,
+                       device: str = "cuda") -> str:
+    """profilerType=device as an operator uses it, on a process that has
+    run for minutes: around one PUT+GET of `size` bytes the download must
+    either hold every K1 and K2 launch of the capture as a kernel event or
+    answer InternalError saying the capture lost some. A 200 whose trace
+    lacks any of them fails. -> "captured" or "refused"."""
+    import io
+    import zipfile
+
+    import numpy as np
+
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    data = np.random.default_rng(seed + 12).bytes(size)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-lateprof-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+    cl = _Client(srv.url)
+    try:
+        cl.request("PUT", "/late")
+        cl.request("POST", "/minio/admin/v3/profiling/start",
+                   query={"profilerType": "device"})
+        before = kernels.launches()
+        cl.request("PUT", "/late/o", data)
+        if cl.request("GET", "/late/o")[1] != data:
+            raise AssertionError("profiled GET bytes differ")
+        launched = {k: n - before[k] for k, n in kernels.launches().items()}
+        if not all(launched[k] for k in MXSUM_KERNELS):
+            raise AssertionError(f"the profiled PUT+GET launched {launched}")
+        r, doc = cl.request("GET", "/minio/admin/v3/profiling/download", check=False)
+    finally:
+        cl.close()
+        srv.close()
+        shutil.rmtree(work, ignore_errors=True)
+    if r.status == 500 and b"the profiler lost the card's events" in doc:
+        print(f"  device profile after {time.perf_counter() - T_START:.1f} s of the "
+              f"process on {card}: refused, {doc[:400]!r}")
+        return "refused"
+    if r.status != 200:
+        raise AssertionError(f"profiling download: {r.status} {doc[:300]!r}")
+    z = zipfile.ZipFile(io.BytesIO(doc))
+    trace = zipfile.ZipFile(io.BytesIO(z.read("local/device_trace.zip"))).read("trace.json")
+    events = json.loads(trace).get("traceEvents", [])
+    names = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+    found = {k: min(sum(dn in n for n in names) for dn in kernels.DEVICE_NAMES[k])
+             for k in MXSUM_KERNELS}
+    print(f"  device profile after {time.perf_counter() - T_START:.1f} s of the process "
+          f"on {card}: captured, {len(names)} kernel events, {found}; launches "
+          f"{launched}")
+    if any(found[k] < launched[k] for k in MXSUM_KERNELS):
+        raise AssertionError(f"profiling answered 200 without every K1/K2 launch: "
+                             f"{found}, launches {launched}")
+    return "captured"
+
+
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
@@ -2691,11 +3134,16 @@ def main() -> int:
             kernel = line.split("'")[1] if "'" in line else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"  ptxas: {kernel}: {line.strip()}")
-    print("kernel phase (EC 8+4, 1 MiB blocks):")
+    print("obs phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; the admin plane "
+          "and the scrapes):")
+    obs_phase(args.seed, card)
+    print(f"kernel phase (EC 8+4, 1 MiB blocks; begun at "
+          f"{time.perf_counter() - t_start:.1f} s):")
     records = kernel_phase(args.seed)
     print("S3 phase:")
     s3_phase(args.seed, card, records)
-    print("plane phase (EC 8+4, 1 MiB blocks; the plane on, off, off, on):")
+    print(f"plane phase (EC 8+4, 1 MiB blocks; the plane on, then off; begun at "
+          f"{time.perf_counter() - t_start:.1f} s):")
     rates = {True: [], False: []}
     for i, on in enumerate(PLANE_RUNS):
         rates[on].append(plane_phase(args.seed, card, records if i == 0 else None,
@@ -2708,19 +3156,24 @@ def main() -> int:
               f"{sum(on) / sum(off):.3f}")
     print("hot-tier phase (MTPU_HOTTIER=1):")
     hot_tier_phase(args.seed, card, records, HOT_WORKING_SET)
-    print("multipart phase (4 pools x 16 drives, EC 12+4, 1 MiB blocks):")
+    print(f"multipart phase (4 pools x 16 drives, EC 12+4, 1 MiB blocks; begun at "
+          f"{time.perf_counter() - t_start:.1f} s):")
     mp = multipart_phase(args.seed, card, records, keep=True)
     try:
         print("versioning phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; "
               "UploadPartCopy on the 4 pools, EC 12+4):")
         versioning_phase(args.seed, card, mp)
-        print("heal phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; MRF and the "
-              "auto-healer on):")
+        print(f"heal phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; MRF and the "
+              f"auto-healer on; begun at {time.perf_counter() - t_start:.1f} s):")
         heal_phase(args.seed, card, records)
-        print("bitrot phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; every "
-              "algorithm of the JAX registry):")
+        print(f"bitrot phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; every "
+              f"algorithm of the JAX registry; begun at {time.perf_counter() - t_start:.1f} s):")
         bitrot_phase(args.seed, card, records)
-        print("listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm):")
+        print(f"late device profile (the admin route on an old process; begun at "
+              f"{time.perf_counter() - t_start:.1f} s):")
+        late_profile_check(args.seed, card)
+        print(f"listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm; begun at "
+              f"{time.perf_counter() - t_start:.1f} s):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)
     finally:
         mp.close()

@@ -1,0 +1,251 @@
+"""The /minio/admin/v3 API on the port's stdlib front door (counterpart of
+minio_tpu/admin/handlers.py).
+
+Routes served, under /minio/admin/v3/:
+
+    GET  info                          server info (drives, health, stats)
+    GET  metrics                       the cluster scrape (Prometheus text)
+    POST heal/{bucket}[/{prefix}]      heal_bucket + heal_objects, the item
+                                       JSON of each (body: madmin HealOpts,
+                                       dryRun and scanMode)
+    GET  top/api                       the requests in flight
+    GET  trace                         the trace bus as JSON lines, chunked,
+                                       until the client goes (?type=,
+                                       ?traceid=, ?plane=)
+    GET  perf/timeline                 flight-recorder timelines (?traceid=,
+                                       ?api=, ?worst=)
+    POST profiling/start               ?profilerType=cpu,device
+    GET  profiling/download            the profiles, zipped (InternalError
+                                       where the device capture lost
+                                       events of kernels that ran)
+
+The port has the root credential only: a signed root request is allowed
+and an anonymous one answers AccessDenied. The JAX package's other admin
+ops (IAM, config-kv, KMS, consolelog, obd, data usage, locks, service...)
+answer NotImplemented until their planes land in the port (ROADMAP.md);
+an op neither package has answers MethodNotAllowed, as the JAX server's
+does.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+from minio_tpu_torch import obs
+from minio_tpu_torch.admin.metrics import PROM_CONTENT_TYPE, maybe_gzip
+from minio_tpu_torch.admin.profiling import IncompleteDeviceTrace, zip_profiles
+from minio_tpu_torch.obs import flight
+from minio_tpu_torch.s3.errors import S3Error
+from minio_tpu_torch.utils import errors as se
+
+VERSION = "minio_tpu/1.0"
+ADMIN_PREFIX = "/minio/admin/v3/"
+
+_SERVED = frozenset({"info", "metrics", "heal", "top", "trace", "perf", "profiling"})
+
+# Admin ops of the JAX package whose planes the port does not have yet.
+_NOT_YET = frozenset({
+    "datausageinfo", "slo", "force-unlock", "config-kv", "config",
+    "consolelog", "set-remote-target", "list-remote-targets",
+    "remove-remote-target", "replication-status", "replication-resync",
+    "cache", "bandwidth", "faults", "service", "update", "tier", "kms",
+    "obdinfo", "healthinfo", "add-user", "remove-user", "list-users",
+    "set-user-status", "add-canned-policy", "remove-canned-policy",
+    "list-canned-policies", "set-user-or-group-policy",
+    "update-group-members", "add-service-account", "delete-service-account"})
+
+TRACE_HEARTBEAT_S = 0.5   # an idle trace stream writes a newline this often
+
+
+class AdminAPI:
+    def __init__(self, server):
+        """server: the S3Server (obj, stats, profiler, closing)."""
+        self.s = server
+        self.started = time.time()
+
+    def handle(self, method: str, path: str, q: dict, headers,
+               read_body, anonymous: bool):
+        """Dispatch /minio/admin/v3/<op>; `path` excludes the prefix,
+        read_body() returns the (verified) request body. -> (status,
+        headers, body), body bytes or, for the trace stream, an iterator
+        of chunks."""
+        op, _, rest = path.partition("/")
+        if op not in _SERVED and op not in _NOT_YET:
+            raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + path)
+        if anonymous:
+            raise S3Error("AccessDenied", "admin API requires credentials")
+        if op == "info" and method == "GET":
+            return _json(self._server_info())
+        if op == "metrics" and method == "GET":
+            body, enc = maybe_gzip(self.s.cluster_scrape(),
+                                   headers.get("Accept-Encoding"))
+            hdr = {"Content-Type": PROM_CONTENT_TYPE}
+            if enc:
+                hdr["Content-Encoding"] = enc
+            return 200, hdr, body
+        if op == "heal":
+            return self._heal(method, rest, read_body)
+        if op == "top" and rest == "api" and method == "GET":
+            return _json({"requests": self.s.stats.inflight()})
+        if op == "trace" and method == "GET":
+            return 200, {"Content-Type": "application/json"}, self._bus_stream(
+                q.get("type", ""), q.get("traceid", ""), q.get("plane", ""))
+        if op == "perf" and rest == "timeline" and method == "GET":
+            return _json(self._perf_timelines(q))
+        if op == "profiling" and rest == "start" and method == "POST":
+            kinds = tuple(q.get("profilerType", q.get("kinds", "cpu")).split(","))
+            if "tpu" in kinds:
+                raise S3Error("InvalidArgument", "profilerType tpu has no "
+                              "meaning on this device: ask for device")
+            try:
+                self.s.profiler.start(kinds)
+            except ValueError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            return _json({"startResults": [{"success": True}]})
+        if op == "profiling" and rest == "download" and method == "GET":
+            try:
+                files = self.s.profiler.stop_collect()
+            except IncompleteDeviceTrace as e:
+                raise S3Error("InternalError", str(e)) from None
+            return 200, {"Content-Type": "application/zip"}, zip_profiles(
+                {"local": files})
+        if op in _NOT_YET or (op == "top" and rest == "locks"):
+            raise S3Error("NotImplemented",
+                          f"admin {path} is not served by this server yet")
+        raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + path)
+
+    # ------------------------------------------------------------------
+
+    def _server_info(self) -> dict:
+        """The JAX package's _server_info (handlers.py:407) for one node:
+        no drive health checker and no peer fabric yet."""
+        drives = []
+        online = offline = 0
+        for d in self.s.obj.all_drives():
+            try:
+                di = d.disk_info()
+                online += 1
+                drives.append({"endpoint": di.endpoint or di.mount_path,
+                               "state": "ok", "uuid": di.id,
+                               "totalspace": di.total, "availspace": di.free,
+                               "healing": di.healing})
+            except Exception:  # noqa: BLE001 - an unreadable drive is offline
+                offline += 1
+                drives.append({"endpoint": d.endpoint(), "state": "offline"})
+        try:
+            health = self.s.obj.health()
+        except Exception:  # noqa: BLE001 - info must answer
+            health = {}
+        return {
+            "mode": "online" if health.get("healthy") else "degraded",
+            "version": VERSION,
+            "uptime": round(time.time() - self.started, 3),
+            "drives": drives,
+            "drivesOnline": online,
+            "drivesOffline": offline,
+            "backend": {"backendType": "Erasure",
+                        "pools": health.get("pools", health.get("sets", []))},
+            "peerFabric": [],
+            "stats": self.s.stats.snapshot(),
+        }
+
+    def _heal(self, method: str, rest: str, read_body):
+        """POST heal/{bucket}[/{prefix}]: runs the heal and returns the
+        per-item results (handlers.py:536; synchronous, as there)."""
+        if method != "POST":
+            raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + "heal/" + rest)
+        bucket, _, prefix = rest.partition("/")
+        opts = {}
+        body = read_body()
+        if body:
+            try:
+                opts = json.loads(body)
+            except ValueError:
+                raise S3Error("InvalidArgument", "bad heal opts") from None
+        dry = bool(opts.get("dryRun"))
+        deep = _scan_deep(opts.get("scanMode", None))
+        obj = self.s.obj
+        items = []
+        try:
+            if not bucket:
+                for b in obj.list_buckets():
+                    items.append(obj.heal_bucket(b.name, dry_run=dry))
+            else:
+                items.append(obj.heal_bucket(bucket, dry_run=dry))
+                items.extend(obj.heal_objects(bucket, prefix, dry_run=dry,
+                                              scan_deep=deep))
+        except se.BucketNotFound:
+            raise S3Error("NoSuchBucket", resource=f"/{bucket}") from None
+        return _json({"items": [heal_item(i) for i in items]})
+
+    def _perf_timelines(self, q: dict) -> dict:
+        try:
+            worst = int(q.get("worst") or 0)
+        except (TypeError, ValueError):
+            worst = 0
+        return {"node": obs.current_node(),
+                "timelines": flight.snapshot(q.get("traceid", ""), q.get("api", ""),
+                                             worst)}
+
+    def _bus_stream(self, type_filter: str, traceid: str, plane_filter: str):
+        """The process trace bus as JSON lines (handlers.py:638 for one
+        node): a newline every TRACE_HEARTBEAT_S while idle, so a client
+        that went away is seen at the next write; the stream ends then,
+        or when the server closes, and unsubscribes."""
+        sub = obs.trace_bus().subscribe()
+        try:
+            while not self.s.closing.is_set():
+                item = sub.get(timeout=TRACE_HEARTBEAT_S)
+                if item is None:
+                    yield b"\n"
+                    continue
+                if type_filter and item.get("type", "") != type_filter:
+                    continue
+                if plane_filter and item.get("plane", "") != plane_filter:
+                    continue
+                if traceid and traceid not in (item.get("trace_id"),
+                                               item.get("requestId")):
+                    continue
+                yield json.dumps(item).encode() + b"\n"
+        finally:
+            sub.close()
+
+
+def _scan_deep(sm) -> bool:
+    """madmin HealOpts.ScanMode: 0/1 (or "normal") shallow, 2 (or "deep")
+    verifies every shard's digests; anything else is refused, so a
+    mistyped deep request never runs shallow (handlers.py:552-573)."""
+    if sm in (None, ""):
+        return False
+    try:
+        smi = int(sm)
+    except (TypeError, ValueError):
+        smi = {"normal": 1, "deep": 2}.get(str(sm).lower())
+    if smi not in (0, 1, 2):
+        raise S3Error("InvalidArgument", f"unrecognized scanMode {sm!r}")
+    return smi == 2
+
+
+def heal_item(i) -> dict:
+    """One heal result as the JAX route's JSON (handlers.py:781)."""
+    out = {"bucket": getattr(i, "bucket", ""),
+           "object": getattr(i, "object", ""),
+           "versionId": getattr(i, "version_id", ""),
+           "objectSize": getattr(i, "object_size", 0),
+           "diskCount": getattr(i, "disk_count", 0)}
+    if isinstance(i, Exception):
+        out["error"] = f"{type(i).__name__}: {i}"
+    if getattr(i, "purged", False):
+        out["purged"] = True
+    before = getattr(i, "before", None)
+    after = getattr(i, "after", None)
+    if before is not None:
+        out["before"] = [{"endpoint": s.endpoint, "state": s.state} for s in before]
+    if after is not None:
+        out["after"] = [{"endpoint": s.endpoint, "state": s.state} for s in after]
+    return out
+
+
+def _json(doc):
+    return 200, {"Content-Type": "application/json"}, json.dumps(doc).encode()

@@ -1,0 +1,194 @@
+"""Prometheus exposition (counterpart of minio_tpu/admin/metrics.py).
+
+Role-equivalent of cmd/metrics-v2.go: cluster/node metric families
+rendered in the text format at /minio/v2/metrics/cluster and /node.
+Collectors are lazy — gathered per scrape. The port serves one node, so
+the cluster scrape is this node's collectors; the JAX package's peer
+federation (merge_expositions) and its SLO collector are not carried.
+"""
+
+from __future__ import annotations
+
+
+from minio_tpu_torch import obs
+
+# Prometheus text exposition 0.0.4 — scrapers content-negotiate on the
+# version parameter; bare text/plain is rejected by strict clients.
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4"
+
+# OpenMetrics flavor: same families, plus exemplar annotations on
+# histogram buckets and a trailing `# EOF`. Served when the scraper's
+# Accept header asks for it.
+OPENMETRICS_CONTENT_TYPE = ("application/openmetrics-text; "
+                            "version=1.0.0; charset=utf-8")
+
+
+def _esc(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+class PromText:
+    """Text sink for the duck-typed family/sample render contract.
+    `openmetrics=True` switches on the exemplar-bearing flavor:
+    histogram vecs see `wants_exemplars` and pass captured
+    (trace_id, value, ts) tuples, rendered as
+    `... # {trace_id="..."} value ts` per the OpenMetrics exemplar
+    syntax, and `render()` appends the mandatory `# EOF`."""
+
+    def __init__(self, openmetrics: bool = False):
+        self.lines: list[str] = []
+        self.openmetrics = openmetrics
+        self.wants_exemplars = openmetrics
+
+    def family(self, name: str, help_: str, typ: str = "gauge") -> None:
+        self.lines.append(f"# HELP {name} {help_}")
+        self.lines.append(f"# TYPE {name} {typ}")
+
+    def sample(self, name: str, value, labels: dict | None = None,
+               exemplar: tuple | None = None) -> None:
+        if labels:
+            lbl = ",".join(f'{k}="{_esc(str(v))}"'
+                           for k, v in sorted(labels.items()))
+            line = f"{name}{{{lbl}}} {value}"
+        else:
+            line = f"{name} {value}"
+        if exemplar is not None and self.openmetrics:
+            tid, ex_val, ex_ts = exemplar
+            line += (f' # {{trace_id="{_esc(str(tid))}"}} '
+                     f"{ex_val} {round(float(ex_ts), 3)}")
+        self.lines.append(line)
+
+    def render(self) -> bytes:
+        body = "\n".join(self.lines) + "\n"
+        if self.openmetrics:
+            body += "# EOF\n"
+        return body.encode()
+
+
+def wants_openmetrics(accept: str | None) -> bool:
+    """Content negotiation: any Accept mentioning the OpenMetrics media
+    type gets the exemplar-bearing flavor."""
+    return "application/openmetrics-text" in (accept or "")
+
+
+def maybe_gzip(body: bytes, accept_encoding: str | None,
+               min_size: int = 256) -> tuple[bytes, str | None]:
+    """(body, Content-Encoding header value or None): gzip when the
+    client advertises it and the body is big enough for the header
+    overhead to pay off."""
+    if "gzip" in (accept_encoding or "").lower() and len(body) >= min_size:
+        import gzip as _gzip
+
+        return _gzip.compress(body, 5), "gzip"
+    return body, None
+
+
+def collect_metrics(object_layer, stats, *, openmetrics: bool = False) -> bytes:
+    """The cluster scrape of a deployment of one node (the JAX package's
+    collect_metrics, and its federated scrape's answer without peers)."""
+    p = PromText(openmetrics)
+
+    # -- process --
+    p.family("minio_tpu_process_uptime_seconds", "Server uptime", "counter")
+    p.sample("minio_tpu_process_uptime_seconds", round(stats.uptime(), 3))
+
+    # -- per-API request stats --
+    snap = stats.snapshot()
+    p.family("minio_tpu_s3_requests_total",
+             "Total S3 requests by API", "counter")
+    p.family("minio_tpu_s3_requests_errors_total",
+             "Total S3 requests that errored, by API", "counter")
+    p.family("minio_tpu_s3_requests_4xx_errors_total",
+             "Total S3 requests that errored with 4xx, by API", "counter")
+    p.family("minio_tpu_s3_requests_5xx_errors_total",
+             "Total S3 requests that errored with 5xx, by API", "counter")
+    p.family("minio_tpu_s3_requests_canceled_total",
+             "Total S3 requests canceled by the client, by API", "counter")
+    p.family("minio_tpu_s3_requests_seconds_total",
+             "Cumulative time serving each API", "counter")
+    p.family("minio_tpu_s3_traffic_received_bytes",
+             "Bytes received by API", "counter")
+    p.family("minio_tpu_s3_traffic_sent_bytes", "Bytes sent by API", "counter")
+    for api, s in sorted(snap["apis"].items()):
+        lbl = {"api": api}
+        p.sample("minio_tpu_s3_requests_total", s["count"], lbl)
+        p.sample("minio_tpu_s3_requests_errors_total", s["errors"], lbl)
+        p.sample("minio_tpu_s3_requests_4xx_errors_total", s["4xx"], lbl)
+        p.sample("minio_tpu_s3_requests_5xx_errors_total", s["5xx"], lbl)
+        p.sample("minio_tpu_s3_requests_canceled_total", s["canceled"], lbl)
+        p.sample("minio_tpu_s3_requests_seconds_total", s["totalSeconds"], lbl)
+        p.sample("minio_tpu_s3_traffic_received_bytes", s["rxBytes"], lbl)
+        p.sample("minio_tpu_s3_traffic_sent_bytes", s["txBytes"], lbl)
+    p.family("minio_tpu_s3_requests_current", "In-flight S3 requests")
+    p.sample("minio_tpu_s3_requests_current", snap["currentRequests"])
+    _render_inflight(p, stats)
+
+    # -- drives / capacity --
+    online = offline = 0
+    total_cap = free_cap = 0
+    for d in getattr(object_layer, "all_drives", lambda: [])():
+        try:
+            di = d.disk_info()
+            online += 1
+            total_cap += di.total
+            free_cap += di.free
+        except Exception:  # noqa: BLE001
+            offline += 1
+    p.family("minio_tpu_cluster_disk_online_total", "Drives online")
+    p.sample("minio_tpu_cluster_disk_online_total", online)
+    p.family("minio_tpu_cluster_disk_offline_total", "Drives offline")
+    p.sample("minio_tpu_cluster_disk_offline_total", offline)
+    p.family("minio_tpu_cluster_capacity_raw_total_bytes", "Raw capacity")
+    p.sample("minio_tpu_cluster_capacity_raw_total_bytes", total_cap)
+    p.family("minio_tpu_cluster_capacity_raw_free_bytes", "Raw free")
+    p.sample("minio_tpu_cluster_capacity_raw_free_bytes", free_cap)
+
+    # -- health --
+    try:
+        healthy = 1 if object_layer.health().get("healthy") else 0
+    except Exception:  # noqa: BLE001
+        healthy = 0
+    p.family("minio_tpu_cluster_health_status",
+             "1 when every set holds write quorum")
+    p.sample("minio_tpu_cluster_health_status", healthy)
+
+    # -- observability registry (latency/TTFB/drive/kernel histograms,
+    #    plane counters, encode gauge — whatever the planes registered) --
+    obs.render_into(p)
+    _render_trace_dropped(p)
+    return p.render()
+
+
+def _render_trace_dropped(p: PromText) -> None:
+    p.family("minio_tpu_trace_dropped_total",
+             "Trace records dropped on slow trace subscribers", "counter")
+    p.sample("minio_tpu_trace_dropped_total", obs.trace_bus().dropped)
+
+
+def _render_inflight(p: PromText, stats) -> None:
+    """Per-API in-flight gauge from the stats inflight registry (the
+    scrape itself always shows as one in-flight `metrics` request)."""
+    p.family("minio_tpu_s3_requests_inflight",
+             "In-flight S3 requests by API")
+    by_api = getattr(stats, "inflight_by_api", dict)()
+    for api, n in sorted(by_api.items()):
+        p.sample("minio_tpu_s3_requests_inflight", n, {"api": api})
+
+
+def collect_node_metrics(stats, *, openmetrics: bool = False) -> bytes:
+    """Node-scope scrape (/minio/v2/metrics/node): this process's own
+    planes — request/TTFB latency, per-drive op latency, RPC fabric —
+    without the cluster-wide capacity/usage/health collectors (the
+    reference's node vs cluster metrics-v2 split)."""
+    p = PromText(openmetrics)
+    p.family("minio_tpu_process_uptime_seconds", "Server uptime", "counter")
+    p.sample("minio_tpu_process_uptime_seconds", round(stats.uptime(), 3))
+    p.family("minio_tpu_s3_requests_current", "In-flight S3 requests")
+    p.sample("minio_tpu_s3_requests_current", stats.current_requests)
+    _render_inflight(p, stats)
+    obs.render_into(p)
+    _render_trace_dropped(p)
+    return p.render()
+
+
+# --- cluster federation ------------------------------------------------------

@@ -48,7 +48,10 @@ from concurrent.futures import Future, InvalidStateError
 import numpy as np
 import torch
 
+from minio_tpu_torch import obs
 from minio_tpu_torch.dataplane import ring
+from minio_tpu_torch.obs import flight
+from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.ops import rs
 from minio_tpu_torch.utils import admission
 from minio_tpu_torch.utils import device as device_mod
@@ -88,7 +91,8 @@ class CodecRequest:
     callback run by the dispatcher, a finish callback run by the
     completion thread, and the future the request thread waits on."""
 
-    __slots__ = ("base", "rows", "stage", "finish", "future")
+    __slots__ = ("base", "rows", "stage", "finish", "future", "t_submit",
+                 "trace_id", "tl")
 
     def __init__(self, base: _BaseKey, rows: int, stage, finish):
         self.base = base
@@ -96,6 +100,11 @@ class CodecRequest:
         self.stage = stage
         self.finish = finish
         self.future: Future = Future()
+        self.t_submit = time.perf_counter()
+        # The submitting request's trace id and timeline ride the request
+        # into the dispatcher thread, which has no request context.
+        self.trace_id = obs.trace_id()
+        self.tl = flight.current()
 
 
 class _OpenBatch:
@@ -235,10 +244,11 @@ class BatchPlane:
         self._gate.set()
         # launches/requests/rows/capacity/op launches are written by the
         # dispatcher only; "rejected" by request threads under _close_mu.
+        # The process-wide families (minio_tpu_dataplane_*, and
+        # minio_tpu_kernel_*{kernel="dp_<op>"}) count the same launches.
         self._stats = {"launches": 0, "requests": 0, "rows": 0,
                        "capacity": 0, "rejected": 0}
-        # Launches per lane op: the JAX package's `op` label on its launch
-        # counter (the metric family waits for the port's obs/).
+        # Launches per lane op (the families' `op` label).
         self._op_launches = {ring.OP_ENCODE: 0, ring.OP_VERIFY: 0,
                              ring.OP_RECONSTRUCT: 0}
         self._dispatch_t = threading.Thread(
@@ -492,6 +502,7 @@ class BatchPlane:
         except queue.Full:
             with self._close_mu:  # rejected count: cross-thread writes
                 self._stats["rejected"] += 1
+            obs_kernel.dataplane_rejected(req.base.op)
             raise admission.shed(
                 "dataplane", "lane_full",
                 "batched dataplane saturated (bounded queue full)") from None
@@ -573,14 +584,43 @@ class BatchPlane:
                 args.append(slot.weights_t[:rb])
             if op != ring.OP_RECONSTRUCT or digests:
                 args.append(slot.lens_t[:rb])
+            t0 = time.perf_counter()
             if self._stream is None:
+                launch = obs_kernel.start(self.device)
                 outs = kern(*args)
             else:
                 with torch.cuda.stream(self._stream):
                     dev = [a.to(self.device, non_blocking=True) for a in args]
-                    outs = _download(kern(*dev))
+                    # Under MTPU_KERNEL_SYNC the record is the device time
+                    # of the lane's kernels alone: not the upload before,
+                    # nor the download after.
+                    launch = obs_kernel.start(self.device)
+                    try:
+                        res = kern(*dev)
+                    finally:
+                        obs_kernel.stop(launch)
+                    outs = _download(res)
                     event = torch.cuda.Event()
                     event.record(self._stream)
+            obs_kernel.observe(f"dp_{op}", obs_kernel.backend(self.device), launch,
+                               blocks=rb, nbytes=args[0].numel())
+            now = time.perf_counter()
+            obs_kernel.dataplane_launch(op, batch.fill, cap,
+                                        [now - r.t_submit for r in batch.reqs])
+            for r in batch.reqs:
+                if r.tl is not None:
+                    # Queue wait: submit to launch (batching wait + staging);
+                    # launch: the whole batch's upload, kernels and
+                    # download queued.
+                    r.tl.stamp("dp_queue_wait", t0 - r.t_submit, "dataplane")
+                    r.tl.stamp("dp_launch", now - t0, "dataplane")
+            if obs.has_subscribers():
+                obs.publish({
+                    "type": "batch", "plane": "dataplane", "op": op,
+                    "rows": batch.fill, "capacity": cap,
+                    "requests": len(batch.reqs),
+                    "members": [r.trace_id for r in batch.reqs if r.trace_id],
+                    "time": time.time(), "durationNs": int((now - t0) * 1e9)})
             st = self._stats
             st["launches"] += 1
             self._op_launches[op] += 1

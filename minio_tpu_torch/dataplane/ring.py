@@ -140,19 +140,22 @@ def lane_kernel(key: LaneKey):
     reconstruct (data [R,k,W], w [R,k*8,t*8]) -> rebuilt [R,t,W]
     reconstruct+digests (data, w, lens [R]) -> (rebuilt, digs [R,t,32]),
     the heal lane: the rebuilt chunks' digests come from the same call.
+
+    The compositions are fused's, unobserved (`__wrapped__`): the
+    dispatcher records each lane launch once, as dp_<op>.
     """
     from minio_tpu_torch.ops import fused, rs
 
     k, aux = key.k, key.aux
     if key.op == OP_ENCODE and key.digests:
         def launch(data, lens):
-            return fused.encode_with_digests(data, k, aux, lens)
+            return fused.encode_with_digests.__wrapped__(data, k, aux, lens)
     elif key.op == OP_ENCODE:
         def launch(data, lens):
-            return fused.encode_only(data, k, aux), None
+            return fused.encode_only.__wrapped__(data, k, aux), None
     elif key.op == OP_VERIFY:
         def launch(data, lens):
-            return fused.verify_digests(data, lens)
+            return fused.verify_digests.__wrapped__(data, lens)
     elif key.op == OP_RECONSTRUCT and key.digests:
         def launch(data, weights, lens):
             return fused.reconstruct_multi_digests(data, weights, lens, aux)

@@ -193,7 +193,7 @@ class ErasureCodec:
 
         def run(data, lens_dev):
             if algorithm is None:
-                return (rs.encode(data, k, m) if m else None), None
+                return (fused.encode_only(data, k, m) if m else None), None
             if m:
                 if algorithm == "mxhash256":
                     return mxhash.encode_with_bitrot(data, k, m, lens_dev)
@@ -253,10 +253,12 @@ class ErasureCodec:
         t = len(targets)
 
         def run(surv, lens_dev):
-            rebuilt, _ = fused.reconstruct_weights_digests(
-                surv, w_t, lens_dev, t, with_digests=False)
-            if algorithm is None:
-                return rebuilt, None
+            # mxsum256 digests come from the same observed call, as in the
+            # JAX package (one reconstruct_weights launch record).
+            rebuilt, digs = fused.reconstruct_weights_digests(
+                surv, w_t, lens_dev, t, with_digests=algorithm == "mxsum256")
+            if algorithm in (None, "mxsum256"):
+                return rebuilt, digs
             b, _, s = rebuilt.shape
             digs = fused.device_digest(algorithm)(
                 rebuilt.reshape(b * t, s), lens_dev.repeat_interleave(t))

@@ -38,7 +38,7 @@ import time
 import uuid
 from dataclasses import dataclass, field
 
-from minio_tpu_torch import dataplane
+from minio_tpu_torch import dataplane, obs
 from minio_tpu_torch.erasure.codec import BATCH_BLOCKS, ErasureCodec
 from minio_tpu_torch.erasure.metadata import parallel_map, shuffle_by_distribution
 from minio_tpu_torch.ops import bitrot
@@ -137,7 +137,9 @@ class _ShardWriters:
                     while q.get() is not None:
                         pass
 
-            t = threading.Thread(target=writer, daemon=True, name=f"heal-writer-{pos}")
+            # ctx_wrap: the drive's records carry the heal's trace id.
+            t = threading.Thread(target=obs.ctx_wrap(writer), daemon=True,
+                                 name=f"heal-writer-{pos}")
             self.threads.append(t)
             t.start()
 
@@ -507,6 +509,10 @@ MRF_RETRY_INTERVAL = float(os.environ.get("MTPU_MRF_RETRY_INTERVAL", "1.0"))
 MRF_RETRY_MAX = int(os.environ.get("MTPU_MRF_RETRY_MAX", "600"))
 MRF_RETRY_CAP = float(os.environ.get("MTPU_MRF_RETRY_CAP", "60.0"))
 
+_MRF_REQUEUES = obs.counter(
+    "minio_tpu_mrf_requeues_total",
+    "MRF heals requeued because target drives were still offline")
+
 
 class MRFHealer:
     """Most-recently-failed heal queue of one set (reference mrfOpCh,
@@ -602,6 +608,7 @@ class MRFHealer:
                                 max(MRF_RETRY_INTERVAL, MRF_RETRY_CAP))
                     delay *= 1.0 + 0.25 * random.random()
                     self._retry.append((time.monotonic() + delay, key, deep))
+                    _MRF_REQUEUES.labels().inc()
                 elif requeue and key in self._pending:
                     # A concurrent add_partial queued it again: that entry
                     # is the retry, and keeps an observed bitrot deep.

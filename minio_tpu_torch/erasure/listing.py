@@ -19,6 +19,7 @@ import queue
 import threading
 from typing import Callable, Iterator
 
+from minio_tpu_torch import obs
 from minio_tpu_torch.erasure.types import (DeletedObject, ListObjectsInfo,
                                            ListObjectVersionsInfo, ObjectInfo,
                                            ObjectOptions)
@@ -214,7 +215,7 @@ def prefetch_stream(gen, depth: int = 128, deadline: float | None = None, *,
         finally:
             put(DONE)
 
-    t = threading.Thread(target=pump, daemon=True, name="walk-prefetch")
+    t = threading.Thread(target=obs.ctx_wrap(pump), daemon=True, name="walk-prefetch")
     t.start()
     try:
         while True:

@@ -13,6 +13,7 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Sequence
 
+from minio_tpu_torch import obs
 from minio_tpu_torch.storage.fileinfo import FileInfo
 from minio_tpu_torch.utils import errors as se
 
@@ -72,7 +73,9 @@ def parallel_map(fns: Sequence[Callable]) -> list:
             run(i)
         return results
     pool = _shared_pool()
-    futs = [pool.submit(run, i) for i in range(len(fns))]
+    # ctx_wrap per submission: pool workers do not inherit context
+    # variables, and the drives' trace records need the request's.
+    futs = [pool.submit(obs.ctx_wrap(run), i) for i in range(len(fns))]
     for i, f in enumerate(futs):
         if f.cancel():
             run(i)

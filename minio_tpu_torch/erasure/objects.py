@@ -57,7 +57,7 @@ import uuid
 from contextlib import contextmanager
 from typing import BinaryIO, Iterator
 
-from minio_tpu_torch import dataplane, hottier
+from minio_tpu_torch import dataplane, hottier, obs
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.codec import (BATCH_BLOCKS, DEFAULT_BLOCK_SIZE,
                                            ErasureCodec)
@@ -68,6 +68,7 @@ from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
                                               shuffle_by_distribution)
 from minio_tpu_torch.erasure.multipart import MultipartMixin
 from minio_tpu_torch.erasure.sysstore import SysConfigStore
+from minio_tpu_torch.obs import flight
 from minio_tpu_torch.erasure.types import (BucketInfo, DeletedObject,
                                            ListObjectsInfo,
                                            ListObjectVersionsInfo, ObjectInfo,
@@ -85,6 +86,19 @@ from minio_tpu_torch.utils import errors as se
 # Objects at or below this size are inlined into the journal instead of
 # getting shard files (reference inlines small objects in xl.meta v2).
 INLINE_DATA_LIMIT = 16 << 10
+
+# Rolling erasure-encode throughput, EWMA over per-fan-out bytes/wall (the
+# JAX package's gauge, minio_tpu/erasure/objects.py:73).
+_ENCODE_GIBPS = obs.gauge(
+    "minio_tpu_encode_gibps",
+    "Rolling erasure encode+fan-out throughput in GiB/s (EWMA)")
+
+# Latest-only caches (the hot tier) bypass explicitly versioned reads and
+# account them here instead of as misses.
+_CACHE_BYPASS = obs.counter(
+    "minio_tpu_cache_bypass_total",
+    "Reads that bypassed a latest-only cache tier by contract",
+    ("reason",))
 
 # Longest wait for a drive's next walk entry before the listing merge
 # drops that drive as if it were offline: the JAX package's seed for its
@@ -174,6 +188,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         bitrot.get_algorithm(self.bitrot_algorithm)
         self.nslock = _KeyLocks()
         self.mrf: MRFHealer | None = MRFHealer(self) if enable_mrf else None
+        self._encode_gibps: float | None = None
 
     def close(self) -> None:
         """Stop the MRF thread (queued heals are dropped)."""
@@ -195,6 +210,20 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         tier = hottier.maybe_tier(self.device)
         if tier is not None:
             tier.invalidate(bucket, obj)
+
+    def all_drives(self) -> list[StorageAPI]:
+        return list(self.drives)
+
+    def health(self) -> dict:
+        """Drives online against write quorum (the JAX package's health,
+        minio_tpu/erasure/objects.py:280): what the health probes, the
+        scrape and the admin info read. A drive whose disk_info raises
+        counts as offline."""
+        results = parallel_map([lambda d=d: d.disk_info() for d in self.drives])
+        online = sum(1 for r in results if not isinstance(r, Exception))
+        quorum = self._write_quorum_data(self.parity)
+        return {"healthy": online >= quorum,
+                "sets": [{"online": online, "total": self.n, "write_quorum": quorum}]}
 
     def parity_for_class(self, sc: str) -> int:
         """Parity for a storage class (reference GetParityForSC,
@@ -285,6 +314,9 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
         first_block = _read_full(
             data, min(self.block_size, size) if size >= 0 else self.block_size)
+        # Timeline: the body up to the first block boundary (a small
+        # object's whole body) is the rx_drain stage.
+        flight.mark("rx_drain")
         if len(first_block) <= INLINE_DATA_LIMIT and (
                 size < 0 and len(first_block) < self.block_size
                 or 0 <= size <= INLINE_DATA_LIMIT):
@@ -303,7 +335,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             journal = XLMeta()
             journal.add_version(fi)
             raw = journal.serialize()
-            with self.nslock.lock(bucket, obj):
+            with self.nslock.lock(bucket, obj), \
+                    obs.span("commit", bucket=bucket, object=obj, inline=True):
                 # Each drive parks what the commit displaces and returns
                 # its token, as rename_data does.
                 outcomes = parallel_map([
@@ -312,6 +345,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                     for d in shuffled])
                 self._settle_commit(shuffled, outcomes, write_quorum,
                                     bucket, obj, fi)
+            flight.mark("commit", "metaplane")
             self._queue_partial(bucket, obj, fi, outcomes)
             return listing.fi_to_object_info(bucket, obj, fi)
 
@@ -322,9 +356,12 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                           for d in shuffled])
 
         try:
-            total, md5_hex, errs = self._fan_out_encode(
-                shuffled, f"{tmp_rel}/part.1", data, size, codec, write_quorum,
-                bucket, obj, first_block)
+            with obs.span("encode", bucket=bucket, object=obj) as sp:
+                total, md5_hex, errs = self._fan_out_encode(
+                    shuffled, f"{tmp_rel}/part.1", data, size, codec,
+                    write_quorum, bucket, obj, first_block)
+                sp.set(bytes=total)
+            flight.mark("encode", "dataplane")
         except (se.StorageError, se.ObjectError):
             cleanup_tmp()
             raise
@@ -341,7 +378,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             return drive.rename_data(SYS_VOL, tmp_rel, _clone_for_drive(fi, i + 1),
                                      bucket, obj, defer_reclaim=True)
 
-        with self.nslock.lock(bucket, obj):
+        with self.nslock.lock(bucket, obj), \
+                obs.span("commit", bucket=bucket, object=obj):
             outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
                                      for i, d in enumerate(shuffled)])
             try:
@@ -350,6 +388,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             except Exception:
                 cleanup_tmp()
                 raise
+        flight.mark("commit", "metaplane")
         self._queue_partial(bucket, obj, fi, outcomes)
         return listing.fi_to_object_info(bucket, obj, fi)
 
@@ -406,8 +445,9 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                 while qs[i].get() is not _WRITE_SENTINEL:
                     pass   # drain so the producer never blocks on a dead drive
 
-        threads = [threading.Thread(target=writer, args=(i, d), daemon=True,
-                                    name=f"shard-writer-{i}")
+        # ctx_wrap: each drive's records carry the request's trace id.
+        threads = [threading.Thread(target=obs.ctx_wrap(writer), args=(i, d),
+                                    daemon=True, name=f"shard-writer-{i}")
                    for i, d in enumerate(shuffled)]
         for t in threads:
             t.start()
@@ -431,6 +471,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         md5 = hashlib.md5()
         total = 0
         pending: list = []
+        t_enc = time.perf_counter()
 
         def drain_one() -> None:
             chunk_rows, dig_rows = pending.pop(0).wait()
@@ -467,7 +508,17 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                 q.put(_WRITE_SENTINEL)
             for t in threads:
                 t.join()
+        self._note_encode_rate(total, time.perf_counter() - t_enc)
         return total, md5.hexdigest(), errs
+
+    def _note_encode_rate(self, nbytes: int, wall: float) -> None:
+        """Rolling encode throughput: EWMA over per-fan-out bytes/wall."""
+        if nbytes <= 0 or wall <= 0.0:
+            return
+        gibps = nbytes / wall / (1 << 30)
+        e = self._encode_gibps
+        self._encode_gibps = gibps if e is None else 0.7 * e + 0.3 * gibps
+        _ENCODE_GIBPS.set(self._encode_gibps)
 
     # ------------------------------------------------------------------
     # get (cmd/erasure-object.go:137-358)
@@ -475,8 +526,9 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def _read_quorum_fileinfo(self, bucket: str, obj: str,
                               version_id: str = "") -> FileInfo:
-        results = parallel_map([lambda d=d: d.read_version(bucket, obj, version_id)
-                                for d in self.drives])
+        with obs.span("quorum-read", bucket=bucket, object=obj):
+            results = parallel_map([lambda d=d: d.read_version(bucket, obj, version_id)
+                                    for d in self.drives])
         if all(isinstance(r, se.FileNotFound) for r in results):
             self.get_bucket_info(bucket)   # a missing bucket answers as such
             raise se.ObjectNotFound(bucket, obj)
@@ -515,6 +567,9 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         size before it can resolve a Range)."""
         opts = opts or ObjectOptions()
         fi = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
+        # Timeline: the quorum metadata election (decode and transfer land
+        # in the trailing resp_drain stage).
+        flight.mark("meta_elect", "metaplane")
         if fi.deleted:
             raise se.ObjectIsDeleteMarker(bucket, obj, fi.version_id,
                                           named=bool(opts.version_id))
@@ -537,8 +592,11 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                                   f"[{offset}, {offset + length}) of {fi.size}")
         if fi.inline_data:
             return iter([fi.inline_data[offset:offset + length]])
-        hot = None if pinned else hottier.maybe_tier(self.device)
-        if hot is not None:
+        hot = hottier.maybe_tier(self.device)
+        if hot is not None and pinned:
+            # Latest-only tier: a read that names a version bypasses it.
+            _CACHE_BYPASS.labels(reason="hottier_versioned").inc()
+        elif hot is not None:
             served = hot.serve(bucket, obj, fi, offset, length)
             if served is not None:
                 # Device-resident hit: one digest launch and one download,

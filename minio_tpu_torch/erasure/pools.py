@@ -66,7 +66,8 @@ class ErasureServerPools:
         free = 0
         for d in pool.drives:
             try:
-                free += d.disk_info().free
+                # statvfs alone: the drive id costs a read of format.json.
+                free += d.disk_info(with_id=False).free
             except Exception:  # noqa: BLE001 - an unreadable drive adds nothing
                 pass
         return free
@@ -344,6 +345,16 @@ class ErasureServerPools:
 
     def sys_config_signature(self, path: str) -> tuple:
         return self.pools[0].sys_config_signature(path)
+
+    # -- health --
+
+    def all_drives(self) -> list:
+        return [d for p in self.pools for d in p.all_drives()]
+
+    def health(self) -> dict:
+        """Every pool's health (minio_tpu/erasure/pools.py:412)."""
+        pools = [p.health() for p in self.pools]
+        return {"healthy": all(h["healthy"] for h in pools), "pools": pools}
 
     # -- heal --
 

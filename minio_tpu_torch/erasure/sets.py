@@ -223,6 +223,18 @@ class ErasureSets:
         return self.get_hashed_set(obj).complete_multipart_upload(
             bucket, obj, upload_id, parts, opts)
 
+    # -- health --
+
+    def all_drives(self) -> list:
+        return [d for s in self.sets for d in s.drives]
+
+    def health(self) -> dict:
+        """Per-set drive health: online counts against write quorum
+        (minio_tpu/erasure/sets.py:326)."""
+        per_set = [s.health() for s in self.sets]
+        return {"healthy": all(h["healthy"] for h in per_set),
+                "sets": [h["sets"][0] for h in per_set]}
+
     # -- heal --
 
     def heal_bucket(self, bucket: str, dry_run: bool = False) -> HealResultItem:

@@ -25,8 +25,11 @@ invalidation bumps the key's epoch, and an admit installs only if the
 epoch it captured before reading is still current. Eviction drops the
 coldest entries when the byte budget needs room.
 
-The JAX package's metric families (minio_tpu_hottier_*) and flight-recorder
-marks wait for the port's obs/; `stats()` carries the same counts.
+The JAX package's families count the same events process-wide
+(minio_tpu_hottier_hits_total, _misses_total, _admits_total,
+_evictions_total, _bytes, _hit_ratio, _heat{le}); a hit stamps
+`hottier_serve` on the request's timeline and, while someone traces,
+publishes a `hottier` record. `stats()` carries this tier's counts.
 """
 
 from __future__ import annotations
@@ -40,12 +43,44 @@ import time
 import numpy as np
 import torch
 
+from minio_tpu_torch import obs
 from minio_tpu_torch.hottier import arena
+from minio_tpu_torch.obs import flight
 from minio_tpu_torch.utils import device as device_mod
 from minio_tpu_torch.utils import errors as se
 from minio_tpu_torch.utils.shardmath import ceil_div
 
 _log = logging.getLogger(__name__)
+
+_HITS = obs.counter(
+    "minio_tpu_hottier_hits_total",
+    "Hot-tier GETs served from device-resident shards (zero drive I/O)"
+).labels()
+_MISSES = obs.counter(
+    "minio_tpu_hottier_misses_total",
+    "Hot-tier lookups that fell back to the drive path "
+    "(absent, cold, identity-changed, digest-mismatch, or oversize)"
+).labels()
+_ADMITS = obs.counter(
+    "minio_tpu_hottier_admits_total",
+    "Objects admitted (or re-admitted) into device residence").labels()
+_EVICTIONS = obs.counter(
+    "minio_tpu_hottier_evictions_total",
+    "Resident entries dropped (budget pressure, invalidation, or "
+    "digest mismatch)").labels()
+_BYTES = obs.gauge(
+    "minio_tpu_hottier_bytes",
+    "Device bytes currently charged to resident hot objects")
+_HIT_RATIO = obs.gauge(
+    "minio_tpu_hottier_hit_ratio",
+    "Hot-tier hit ratio (hits / lookups) since process start")
+_HEAT = obs.gauge(
+    "minio_tpu_hottier_heat",
+    "Tracked keys whose decayed heat is <= le (cumulative buckets; "
+    "+Inf = all tracked keys) — the admission-threshold tuning view",
+    ("le",))
+# Bucket bounds bracketing the admission threshold (the JAX package's).
+_HEAT_BOUNDS = (0.5, 1.0, 2.0, 4.0, 8.0, 16.0)
 
 DEFAULT_MAX_OBJECT = 8 << 20
 # One GET scores ~1.0 heat; the default threshold sits between the first
@@ -134,6 +169,7 @@ class HotObjectTier:
         self.closed = False
         self._stats = {"hits": 0, "misses": 0, "admits": 0,
                        "evictions": 0, "admit_errors": 0}
+        self._gauge_t = 0.0  # last heat/hit-ratio gauge refresh
         self._admit_t = threading.Thread(
             target=self._admit_loop, daemon=True, name="mtpu-hottier-admit")
         self._admit_t.start()
@@ -158,6 +194,25 @@ class HotObjectTier:
     def _heat_of(self, key: tuple, now: float) -> float:
         val, t = self._heat.get(key, (0.0, now))
         return val * (0.5 ** (max(0.0, now - t) / self.halflife))
+
+    def _refresh_gauges(self) -> None:
+        """Throttled (1 s) refresh of the heat-distribution and hit-ratio
+        gauges from whichever lookup got here first, so no lookup pays a
+        full pass over the keys."""
+        now = time.monotonic()
+        with self._mu:
+            if now - self._gauge_t < 1.0:
+                return
+            self._gauge_t = now
+            heats = [v * (0.5 ** (max(0.0, now - t) / self.halflife))
+                     for v, t in self._heat.values()]
+            hits = self._stats["hits"]
+            misses = self._stats["misses"]
+        for b in _HEAT_BOUNDS:
+            _HEAT.labels(le=str(b)).set(sum(1 for h in heats if h <= b))
+        _HEAT.labels(le="+Inf").set(len(heats))
+        if hits + misses:
+            _HIT_RATIO.set(hits / (hits + misses))
 
     # ------------------------------------------------------------------
     # the serving path
@@ -188,14 +243,26 @@ class HotObjectTier:
             self._evict(drop)
         if entry is None:
             return None
+        t0 = time.perf_counter()
         out = self._serve_entry(entry, offset, length)
         if out is None:
             # Digest mismatch: resident bits rotted; evict, and the
             # caller's note_miss accounts the fallback.
             self.invalidate(bucket, obj)
             return None
+        dt = time.perf_counter() - t0
+        _HITS.inc()
         with self._mu:
             self._stats["hits"] += 1
+        # The device serve replaces the drive read inside the request's
+        # resp_drain stage.
+        flight.stamp("hottier_serve", dt, "hottier")
+        if obs.has_subscribers():
+            obs.publish({"type": "hottier", "plane": "hottier",
+                         "event": "hit", "bucket": bucket, "obj": obj,
+                         "bytes": length, "time": time.time(),
+                         "durationNs": int(dt * 1e9)})
+        self._refresh_gauges()
         return out
 
     def _serve_entry(self, entry: _Entry, offset: int, length: int):
@@ -247,8 +314,10 @@ class HotObjectTier:
         (data_blocks, block_size): it shapes the resident layout only."""
         if getattr(_tl, "in_admit", False):
             return  # the admit thread's own oracle read is not demand
+        _MISSES.inc()
         with self._mu:
             self._stats["misses"] += 1
+        self._refresh_gauges()
         if size <= 0 or size > self.max_object:
             return
         key = (bucket, obj)
@@ -402,8 +471,10 @@ class HotObjectTier:
         if not installed:
             self.arena.release(shape)
             return
+        _ADMITS.inc()
         if displaced is not None:
             self.arena.release(displaced.shape)
+        _BYTES.set(self.arena.used_bytes)
 
     def _grid(self, grid: tuple | None) -> tuple[int, int]:
         """(k, block_size): the object's erasure grid from the miss note,
@@ -511,6 +582,8 @@ class HotObjectTier:
         """Uncharge an entry dropped from residence; its tensor goes with
         the last reference (a serve in flight keeps it until it is done)."""
         self.arena.release(entry.shape)
+        _EVICTIONS.inc()
+        _BYTES.set(self.arena.used_bytes)
         with self._mu:
             self._stats["evictions"] += 1
 
@@ -551,3 +624,4 @@ class HotObjectTier:
             self._pending.clear()
             self._readers.clear()
         self.arena.clear()
+        _BYTES.set(0)

@@ -24,8 +24,10 @@ and heals any drive set a JAX deployment stores.
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import BinaryIO, Iterable, Iterator
 
+from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.utils import errors as se
 
 # Fixed 256-bit bitrot key (same bytes as the JAX package: the keyed
@@ -51,6 +53,7 @@ DEVICE_ALGORITHMS = ("mxsum256", "mxhash256")
 
 
 class _Blake2b256:
+    name = "blake2b256"
     digest_len = 32
 
     @staticmethod
@@ -59,6 +62,7 @@ class _Blake2b256:
 
 
 class _Sha256:
+    name = "sha256"
     digest_len = 32
 
     @staticmethod
@@ -67,6 +71,7 @@ class _Sha256:
 
 
 class _Sip256:
+    name = "sip256"
     digest_len = 32
 
     @staticmethod
@@ -77,6 +82,7 @@ class _Sip256:
 
 
 class _HighwayHash256:
+    name = "highwayhash256"
     digest_len = 32
 
     @staticmethod
@@ -90,6 +96,7 @@ class _Xxh64:
     """XXH64 written big-endian: xxHash's canonical form, the bytes the
     xxhash package's digest() gives the JAX package."""
 
+    name = "xxh64"
     digest_len = 8
 
     @staticmethod
@@ -154,8 +161,15 @@ def frame_records(records: Iterable[tuple[bytes | None, bytes]],
     algorithm, on the thread that writes the file (the JAX package's
     per-drive writer hashing, cmd/bitrot-streaming.go:46). Yields the
     pieces unconcatenated, so no chunk is copied on its way to the file."""
+    label = f"bitrot_{getattr(host, 'name', '')}"
     for digest, chunk in records:
-        yield digest if digest is not None else host.digest(chunk)
+        if digest is None:
+            # The write path's host "kernel", in the family the device
+            # launches feed (minio_tpu/ops/bitrot.py:195).
+            t0 = time.perf_counter()
+            digest = host.digest(chunk)
+            obs_kernel.observe(label, "host", t0, nbytes=len(chunk))
+        yield digest
         yield chunk
 
 
@@ -172,6 +186,7 @@ class BitrotReader:
         self.data_size = data_size
         self.shard_size = shard_size
         self.algo = get_algorithm(algorithm)
+        self._obs_kernel = f"bitrot_verify_{algorithm}"
 
     def read_record(self, chunk_index: int) -> tuple[bytes, bytes]:
         """One raw (digest, chunk) record, NOT verified."""
@@ -190,7 +205,10 @@ class BitrotReader:
     def read_verified(self, chunk_index: int) -> bytes:
         """One chunk, verified host-side against its record digest."""
         want, chunk = self.read_record(chunk_index)
-        if self.algo.digest(chunk) != want:
+        t0 = time.perf_counter()
+        got = self.algo.digest(chunk)
+        obs_kernel.observe(self._obs_kernel, "host", t0, nbytes=len(chunk))
+        if got != want:
             raise se.FileCorrupt(f"bitrot digest mismatch at chunk {chunk_index}")
         return chunk
 

@@ -26,13 +26,33 @@ mxsum_digest) on device tensors: parity stays on the device between them,
 with no host round trip. K1 takes any shard width, so the 512-lane padding
 the Pallas dispatch needs is gone; K2's digests are width-invariant, so
 rows zero-padded to a staging width hash as their real length.
+
+Each entry point below is observed under the JAX package's label
+(minio_tpu_kernel_seconds / _launches_total{kernel,backend}, obs/kernel.py),
+and each observed call launches:
+
+    encode               K1            encode_digests       K1, K2
+    reconstruct          K1            reconstruct_digests  K1, K2
+    reconstruct_weights  K1 (and K2 with digests)
+    verify_digests       K2
+
+The batched data plane's lanes call the same compositions unobserved
+(`.__wrapped__`) and record their launches as dp_<op> (dataplane/
+batcher.py): dp_encode K1 and K2, dp_verify K2, dp_reconstruct K1 and, in
+the heal lane, K2. As in the JAX package, the degraded-read decode
+(erasure/codec.py decode_blocks, K1 alone), the hot tier's serve (K2) and
+mxhash256's launches (K3) are not observed.
 """
 
 from __future__ import annotations
 
+import functools
+import time
+
 import numpy as np
 import torch
 
+from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.ops import mxhash, mxsum, rs
 from minio_tpu_torch.utils.device import resolve
 from minio_tpu_torch.utils.shardmath import pow2_bucket
@@ -51,11 +71,33 @@ def bucket_width(s: int) -> int:
     return pow2_bucket(s, floor=512)
 
 
+def _observed(kernel: str):
+    """Record each call of an entry point as one launch of `kernel`: its
+    first argument is the batch (shape[0] and size label the launch), and
+    under MTPU_KERNEL_SYNC the record is the device time of the kernels
+    it launched."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(data, *a, **kw):
+            t0 = obs_kernel.start(data.device)
+            try:
+                out = fn(data, *a, **kw)
+            finally:
+                obs_kernel.stop(t0)
+            obs_kernel.observe(kernel, obs_kernel.backend(data.device), t0,
+                               blocks=data.shape[0], nbytes=data.numel())
+            return out
+        return wrapper
+    return deco
+
+
+@_observed("encode")
 def encode_only(data: torch.Tensor, k: int, m: int) -> torch.Tensor:
     """data [B, k, S] u8 -> parity [B, m, S] u8."""
     return rs.encode(data, k, m)
 
 
+@_observed("encode_digests")
 def encode_with_digests(data: torch.Tensor, k: int, m: int,
                         chunk_lens: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,6 +115,7 @@ def encode_with_digests(data: torch.Tensor, k: int, m: int,
     return parity, digs.reshape(b, n, mxsum.DIGEST_LEN)
 
 
+@_observed("reconstruct_weights")
 def reconstruct_weights_digests(surv: torch.Tensor, w_t: torch.Tensor,
                                 chunk_lens: torch.Tensor, out_shards: int,
                                 with_digests: bool = True):
@@ -89,6 +132,7 @@ def reconstruct_weights_digests(surv: torch.Tensor, w_t: torch.Tensor,
     return rebuilt, digs.reshape(b, out_shards, mxsum.DIGEST_LEN)
 
 
+@_observed("reconstruct")
 def reconstruct_only(shards: torch.Tensor, k: int, n: int,
                      survivors: tuple[int, ...],
                      targets: tuple[int, ...]) -> torch.Tensor:
@@ -97,6 +141,7 @@ def reconstruct_only(shards: torch.Tensor, k: int, n: int,
     return rs.reconstruct(shards, k, n, survivors, targets)
 
 
+@_observed("reconstruct_digests")
 def reconstruct_with_digests(shards: torch.Tensor, k: int, n: int,
                              survivors: tuple[int, ...],
                              targets: tuple[int, ...],
@@ -164,6 +209,7 @@ def device_digest(algorithm: str):
     raise ValueError(f"{algorithm} is not a device bitrot algorithm")
 
 
+@_observed("verify_digests")
 def verify_digests(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Batched read-path verify: chunks [N, S] u8 (zero-padded rows), lens
     [N] int32 -> digests [N, 32] u8, compared by the caller with the

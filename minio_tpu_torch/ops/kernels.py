@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("gf2_matmul", "mxsum_digest", "mxhash256")
+# The CUDA kernels each counted launch runs, by the name a profiler's
+# trace gives them (a part of it: the trace's names are demangled).
+DEVICE_NAMES = {"gf2_matmul": ("gf2_kernel",), "mxsum_digest": ("mxsum_kernel",),
+                "mxhash256": ("group_term_kernel", "combine_kernel")}
 
 
 class KernelBuildError(RuntimeError):

@@ -40,6 +40,7 @@ import threading
 import numpy as np
 import torch
 
+from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.ops import kernels, rs
 from minio_tpu_torch.ops.mxsum import check_key
 from minio_tpu_torch.utils.device import upload
@@ -329,11 +330,13 @@ def mxhash256(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     # read by the second, both on this stream.
     part = torch.empty(lib.mtpu_mxhash256_scratch_bytes(n, s), dtype=torch.uint8,
                        device=chunks.device)
+    begin = obs_kernel.device_begin(stream)
     kernels.check(lib.mtpu_mxhash256(chunks.data_ptr(), chunks.stride(0), s,
                                      lens.data_ptr(), key.data_ptr(),
                                      powers.data_ptr(), part.data_ptr(),
                                      out.data_ptr(), n, stream.cuda_stream),
                   "mxhash256")
+    obs_kernel.device_end(begin, stream)
     kernels.note_launch("mxhash256")
     return out
 

@@ -28,6 +28,7 @@ import threading
 import numpy as np
 import torch
 
+from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.ops import kernels
 from minio_tpu_torch.utils.device import upload
 
@@ -250,11 +251,13 @@ def digest(chunks: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     # this launch has run, their memory must not go to another tensor.
     key.record_stream(stream)
     lkey.record_stream(stream)
+    begin = obs_kernel.device_begin(stream)
     kernels.check(lib.mtpu_mxsum_digest(chunks.data_ptr(), lens.data_ptr(),
                                         key.data_ptr(), key.stride(0),
                                         lkey.data_ptr(), out.data_ptr(),
                                         work.data_ptr(), n, s, stream.cuda_stream),
                   "mxsum_digest")
+    obs_kernel.device_end(begin, stream)
     kernels.note_launch("mxsum_digest")
     return out
 

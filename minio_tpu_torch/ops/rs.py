@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.ops import gf, kernels
 from minio_tpu_torch.utils.device import upload
 
@@ -107,9 +108,11 @@ def gf2_matmul(x: torch.Tensor, w: torch.Tensor, out_shards: int) -> torch.Tenso
     # caches below); until this launch has run, its memory must not go to
     # another tensor when the cache drops it.
     w.record_stream(stream)
+    begin = obs_kernel.device_begin(stream)
     kernels.check(lib.mtpu_gf2_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                                       b, kin, t, s, stride, stream.cuda_stream),
                   "gf2_matmul")
+    obs_kernel.device_end(begin, stream)
     kernels.note_launch("gf2_matmul")
     return out
 

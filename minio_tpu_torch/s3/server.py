@@ -28,24 +28,44 @@ headers and error documents:
     POST /bucket/key?uploadId=U              CompleteMultipartUpload
     GET /bucket?uploads                      ListMultipartUploads
 
+    GET|HEAD /minio/health/{live,ready,cluster}[?maintenance=true]
+                                             health probes, unsigned
+    GET /minio/v2/metrics/{cluster,node}     Prometheus scrape (OpenMetrics
+                                             on Accept), signed
+    /minio/admin/v3/...                      the admin plane (admin/handlers.py:
+                                             info, metrics, heal, top/api,
+                                             trace, perf/timeline, profiling)
+
 Object calls take ?versionId (the literal "null" names the null version);
 GET and HEAD take If-Match and If-None-Match (412, or 304). A bucket's
 versioning lives in its metadata document (bucket/meta.py), the JAX
 package's, so both servers on the same drives keep the same versions.
 
-Every request must carry SigV4 header auth (signed payload or
-UNSIGNED-PAYLOAD); anything else answers NotImplemented or AccessDenied,
-as does any other query string. Object lock, SSE, the other bucket
-subresources, presigned URLs, aws-chunked bodies, IAM and the admin plane
-come in later slices (ROADMAP.md).
+Every request but the health probes must carry SigV4 header auth (signed
+payload or UNSIGNED-PAYLOAD); anything else answers NotImplemented or
+AccessDenied, as does any other query string. Any other /minio/ path
+answers as the JAX server answers it, never as bucket "minio". Object
+lock, SSE, the other bucket subresources, presigned URLs, aws-chunked
+bodies, IAM and the admin plane's other ops come in later slices
+(ROADMAP.md).
+
+Every request is in flight in HTTPStats (admin/stats.py) from its first
+byte until just before the last byte of its answer is written, so a
+client that has read an answer never sees it in flight. Once the answer
+is written, its per-API counts, the minio_tpu_s3_requests_latency_seconds
+and minio_tpu_s3_ttfb_seconds families (TTFB stamped when a streamed
+answer's headers flush), its flight-recorder timeline and, while someone
+traces, an `http` record take it, the body's send included.
+The request id is the trace id of every record the request causes.
 
 The object layer is any of the port's: build_server assembles drives ->
 ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
 the JAX package's build_server does, with each set's MRF healer on
 (enable_mrf=False turns it off). start_auto_heal starts one AutoHealer per
 pool, which claims a wiped or replaced drive and rebuilds it; main() calls
-it, as the JAX server's main does. The admin heal route and heal pacing
-from the config plane come with the admin plane (ROADMAP.md).
+it, as the JAX server's main does. The admin heal route
+(POST /minio/admin/v3/heal/<bucket>) heals on demand; heal pacing waits
+for the config plane (ROADMAP.md).
 
 Run: python -m minio_tpu_torch.s3.server --address 127.0.0.1:9000
 [--set-drive-count N] <drive dirs> (credentials from MTPU_ROOT_USER /
@@ -66,13 +86,24 @@ import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from minio_tpu_torch import obs
+from minio_tpu_torch.admin.handlers import ADMIN_PREFIX, AdminAPI
+from minio_tpu_torch.admin.metrics import (OPENMETRICS_CONTENT_TYPE,
+                                           PROM_CONTENT_TYPE,
+                                           collect_metrics,
+                                           collect_node_metrics, maybe_gzip,
+                                           wants_openmetrics)
+from minio_tpu_torch.admin.profiling import Profiler
+from minio_tpu_torch.admin.stats import HTTPStats
 from minio_tpu_torch.bucket.meta import BucketMetadataSys
 from minio_tpu_torch.erasure.autoheal import AutoHealer
 from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
 from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
                                            ObjectOptions, ObjectToDelete)
+from minio_tpu_torch.obs import flight
 from minio_tpu_torch.s3 import sigv4, xmlutil
+from minio_tpu_torch.s3.actions import action_for
 from minio_tpu_torch.s3.errors import S3Error, from_exception
 from minio_tpu_torch.storage.local import LocalDrive
 
@@ -97,6 +128,19 @@ _SECURITY_HEADERS = {
 
 
 _DRAIN_LIMIT = 1 << 20   # unread request bytes read off before answering
+
+# Request-path latency distributions (the JAX server's families, reference
+# metrics-v2 minio_s3_requests_* / minio_s3_ttfb_seconds).
+_REQ_LATENCY = obs.histogram(
+    "minio_tpu_s3_requests_latency_seconds",
+    "End-to-end request latency by API", ("api",))
+_REQ_TTFB = obs.histogram(
+    "minio_tpu_s3_ttfb_seconds",
+    "Time to first response byte by API", ("api",))
+
+# /minio/ paths of the JAX server's web console, which the port lacks.
+_WEB_PATHS = ("/minio/browser", "/minio/webrpc", "/minio/upload/",
+              "/minio/download/")
 
 
 class _Body:
@@ -138,11 +182,36 @@ class _IterReader:
 
 
 class _Response:
+    """An answer; `length` None with an iterator body sends it chunked
+    (the trace stream)."""
+
     def __init__(self, status: int, headers: dict, body=b"", length: int | None = None):
         self.status = status
         self.headers = headers
         self.body = body                       # bytes, or an iterator of chunks
-        self.length = len(body) if length is None else length
+        self.length = (len(body) if length is None and isinstance(body, (bytes, bytearray))
+                       else length)
+
+
+class _Request:
+    """One request's accounting: its API once dispatch has classified it,
+    the moment its answer's headers flushed, whether it has left the
+    in-flight count, and the end of its accounting, done at most once."""
+
+    __slots__ = ("id", "method", "path", "remote", "api", "t0", "ttfb", "rx",
+                 "left", "done")
+
+    def __init__(self, request_id: str, method: str, path: str, remote: str, rx: int):
+        self.id = request_id
+        self.method = method
+        self.path = path
+        self.remote = remote
+        self.api = ""
+        self.t0 = 0.0
+        self.ttfb: float | None = None
+        self.rx = rx
+        self.left = False
+        self.done = False
 
 
 def _int_q(q: dict, name: str, default: int, lo: int = 0, hi: int = 100_000) -> int:
@@ -176,17 +245,18 @@ class S3Server:
         self.httpd.s3 = self
         self._thread: threading.Thread | None = None
         self.auto_healer: list = []
-        # Requests being answered: the AutoHealer's foreground load.
-        self._inflight = 0
-        self._inflight_mu = threading.Lock()
+        self.stats = HTTPStats()
+        self.admin = AdminAPI(self)
+        self.profiler = Profiler()
+        self.closing = threading.Event()   # ends the trace streams
 
     @property
     def current_requests(self) -> int:
-        return self._inflight
+        """Requests being answered: the AutoHealer's foreground load."""
+        return self.stats.current_requests
 
-    def _enter(self, delta: int) -> None:
-        with self._inflight_mu:
-            self._inflight += delta
+    def cluster_scrape(self, openmetrics: bool = False) -> bytes:
+        return collect_metrics(self.obj, self.stats, openmetrics=openmetrics)
 
     def start_auto_heal(self, interval: float = 10.0) -> None:
         """Start the background drive healer (reference initAutoHeal,
@@ -213,6 +283,9 @@ class S3Server:
         return self
 
     def close(self) -> None:
+        self.closing.set()
+        if self.profiler.running:
+            self.profiler.stop_collect()
         if self._thread is not None:
             self.httpd.shutdown()
             self._thread.join()
@@ -233,18 +306,30 @@ class S3Server:
     # ------------------------------------------------------------------
 
     def dispatch(self, method: str, path: str, query_items, headers,
-                 body: _Body, request_id: str) -> _Response:
-        hdr = {"x-amz-request-id": request_id, **_SECURITY_HEADERS}
-        if "X-Amz-Signature" in dict(query_items):
+                 body: _Body, req: _Request) -> _Response:
+        hdr = {"x-amz-request-id": req.id, **_SECURITY_HEADERS}
+        q = dict(query_items)
+        if path.startswith("/minio/health/"):
+            req.api = "healthcheck"
+            return self._health(path, q)
+        if "X-Amz-Signature" in q:
             raise S3Error("NotImplemented", "presigned URLs are not served yet")
-        if not headers.get("Authorization", "").startswith(sigv4.ALGORITHM):
-            raise S3Error("AccessDenied")
-        _, payload_hash = sigv4.verify_header_auth(method, path, query_items,
-                                                   headers, self._lookup)
+        anonymous = not headers.get("Authorization", "").startswith(sigv4.ALGORITHM)
+        payload_hash = sigv4.UNSIGNED_PAYLOAD
+        if not anonymous:
+            _, payload_hash = sigv4.verify_header_auth(method, path, query_items,
+                                                       headers, self._lookup)
         if payload_hash == sigv4.STREAMING_PAYLOAD:
             raise S3Error("NotImplemented", "aws-chunked bodies are not served yet")
+        flight.mark("auth")
+        if path.startswith("/minio/"):
+            return self._minio_plane(method, path, q, headers, body, payload_hash,
+                                     anonymous, req)
         bucket, _, key = path.lstrip("/").partition("/")
-        q = dict(query_items)
+        req.api = action_for(method, {k for k in q if not k.startswith("X-Amz-")},
+                             bucket, key, headers).split(":", 1)[-1]
+        if anonymous:
+            raise S3Error("AccessDenied")
         if not bucket:
             if method == "GET":
                 return _xml(hdr, xmlutil.list_buckets_xml(self.obj.list_buckets()))
@@ -329,6 +414,59 @@ class S3Server:
             if info.version_id:
                 extra["x-amz-version-id"] = info.version_id
             return _Response(204, {**hdr, **extra})
+        raise S3Error("MethodNotAllowed", resource=path)
+
+    def _health(self, path: str, q: dict) -> _Response:
+        """The unsigned probes (the JAX server's, minio_tpu/s3/server.py:
+        1012-1102, for one node): live answers while the process does;
+        ready and cluster answer 200 while every set keeps write quorum,
+        and with ?maintenance=true while every set would keep it with one
+        more drive down."""
+        kind = path.rsplit("/", 1)[-1]
+        if kind == "live":
+            return _Response(200, {})
+        if kind not in ("ready", "cluster"):
+            raise S3Error("MethodNotAllowed", resource=path)
+        h = self.obj.health()
+        sets = h.get("sets") or [s for p in h.get("pools", []) for s in p.get("sets", [])]
+        healthy = bool(h.get("healthy"))
+        if q.get("maintenance", "").lower() in ("true", "1", "yes") and sets:
+            healthy = all(s.get("online", 0) >= s.get("write_quorum", 0) + 1
+                          for s in sets)
+        headers = {}
+        if sets:
+            headers["X-Minio-Write-Quorum"] = str(max(s.get("write_quorum", 0)
+                                                      for s in sets))
+            headers["X-Minio-Server-Status"] = "online" if healthy else "degraded"
+        return _Response(200 if healthy else 503, headers)
+
+    def _minio_plane(self, method, path, q, headers, body: _Body, payload_hash,
+                     anonymous: bool, req: _Request) -> _Response:
+        """The /minio/ namespace: the admin plane and the scrapes (signed
+        root requests only); never a bucket named minio."""
+        if path.startswith(ADMIN_PREFIX):
+            rest = path[len(ADMIN_PREFIX):]
+            req.api = "admin." + rest.split("/", 1)[0]
+            status, hdr, out = self.admin.handle(
+                method, rest, q, headers,
+                lambda: _with_body(headers, body, payload_hash,
+                                   lambda data, size: data.read()),
+                anonymous)
+            return _Response(status, {"x-amz-request-id": req.id, **hdr}, out)
+        if path.startswith(_WEB_PATHS):
+            raise S3Error("NotImplemented", "the web console is not served")
+        if path in ("/minio/v2/metrics/cluster", "/minio/v2/metrics/node"):
+            req.api = "metrics"
+            if anonymous:
+                raise S3Error("AccessDenied", "admin API requires credentials")
+            om = wants_openmetrics(headers.get("Accept"))
+            out = (self.cluster_scrape(om) if path.endswith("/cluster")
+                   else collect_node_metrics(self.stats, openmetrics=om))
+            out, enc = maybe_gzip(out, headers.get("Accept-Encoding"))
+            hdr = {"Content-Type": OPENMETRICS_CONTENT_TYPE if om else PROM_CONTENT_TYPE}
+            if enc:
+                hdr["Content-Encoding"] = enc
+            return _Response(200, {"x-amz-request-id": req.id, **hdr}, out)
         raise S3Error("MethodNotAllowed", resource=path)
 
     def _versioning(self, method, bucket, headers, body: _Body, payload_hash,
@@ -594,25 +732,68 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError:
             length = -1
         body = _Body(self.rfile, max(length, 0))
-        s3 = self.server.s3
-        s3._enter(1)
+        req = _Request(request_id, method, path, self.client_address[0], max(length, 0))
+        # The request id is the trace id: bound to this handler thread's
+        # context for the request, and carried by obs.ctx_wrap into every
+        # thread that works on its behalf.
+        tokens = obs.set_trace_context(request_id)
+        flight.begin(request_id)
+        req.t0 = self.server.s3.stats.begin(request_id, api_hint=method.lower(),
+                                            remote=req.remote,
+                                            api_get=lambda: req.api)
+        resp = None
         try:
-            self._answer(method, path, query_items, length, body, request_id)
+            resp = self._answer(method, path, query_items, length, body, req)
         finally:
-            s3._enter(-1)
+            self._account(req, resp.status if resp is not None else 500,
+                          resp.length if resp is not None else 0)
+            obs.reset_trace_context(tokens)
+
+    def _leave(self, req: _Request) -> None:
+        """Take the request out of the in-flight count, once: just before
+        the last byte of its answer goes out."""
+        if not req.left:
+            req.left = True
+            self.server.s3.stats.leave(req.id)
+
+    def _account(self, req: _Request, status: int, tx: int) -> None:
+        """End the request's accounting, once the answer is written (or
+        has failed): HTTPStats, the latency and TTFB families, its
+        timeline and, while someone traces, its `http` record."""
+        if req.done:
+            return
+        req.done = True
+        self._leave(req)
+        s3 = self.server.s3
+        api = req.api or req.method.lower()
+        dt = time.perf_counter() - req.t0
+        flight.set_api(api)
+        flight.end(status=status)
+        s3.stats.end(api, req.t0, status, rx=req.rx, tx=tx or 0, request_id=req.id,
+                     left=True)
+        _REQ_LATENCY.labels(api=api).observe(dt)
+        _REQ_TTFB.labels(api=api).observe(dt if req.ttfb is None else req.ttfb)
+        if obs.has_subscribers():
+            rec = {"type": "http", "time": time.time(), "api": api,
+                   "method": req.method, "path": req.path, "status": status,
+                   "requestId": req.id, "remote": req.remote,
+                   "durationNs": int(dt * 1e9), "rx": req.rx, "tx": tx or 0}
+            if req.ttfb is not None:
+                rec["ttfbNs"] = int(req.ttfb * 1e9)
+            obs.publish(rec)
 
     def _answer(self, method, path, query_items, length: int, body: _Body,
-                request_id: str) -> None:
+                req: _Request) -> _Response:
         try:
             if length < 0:
                 raise S3Error("InvalidArgument", "malformed Content-Length")
             resp = self.server.s3.dispatch(method, path, query_items, self.headers,
-                                           body, request_id)
+                                           body, req)
         except Exception as e:  # noqa: BLE001 - every failure answers as S3 XML
             err = from_exception(e, path)
-            doc = xmlutil.error_xml(err.api.code, err.message, path, request_id)
+            doc = xmlutil.error_xml(err.api.code, err.message, path, req.id)
             resp = _Response(err.api.http_status,
-                             {"x-amz-request-id": request_id,
+                             {"x-amz-request-id": req.id,
                               "Content-Type": XML_TYPE, **_SECURITY_HEADERS,
                               **err.headers}, doc)
         if 0 < body.remaining <= _DRAIN_LIMIT:
@@ -625,28 +806,54 @@ class _Handler(BaseHTTPRequestHandler):
             # Unread request body left on the connection: it cannot carry
             # another request.
             self.close_connection = True
+        chunked = resp.length is None
         self.send_response(resp.status)
         for k, v in resp.headers.items():
             if k != "Content-Length":
                 self.send_header(k, v)
-        if resp.status not in (204, 304) and (method != "HEAD" or resp.length):
+        if chunked:
+            self.send_header("Transfer-Encoding", "chunked")
+        elif resp.status not in (204, 304) and (method != "HEAD" or resp.length):
             # No length on a 204 or 304, and a HEAD answer states one only
             # where there is one (an object's size, an error document's),
             # as the JAX server does.
             self.send_header("Content-Length", str(resp.length))
+        streamed = not isinstance(resp.body, (bytes, bytearray))
+        if method == "HEAD" or not streamed:
+            # Everything goes out with the headers: leave the in-flight
+            # count now, so a client that has read the answer never sees
+            # it in flight.
+            self._leave(req)
+            self.end_headers()
+            if method != "HEAD":
+                self.wfile.write(resp.body)
+            return resp
         self.end_headers()
-        if method == "HEAD":
-            return
-        if isinstance(resp.body, (bytes, bytearray)):
-            self.wfile.write(resp.body)
-            return
+        req.ttfb = time.perf_counter() - req.t0
         try:
-            for chunk in resp.body:
-                self.wfile.write(chunk)
+            it = iter(resp.body)
+            chunk = next(it, None)
+            while chunk is not None:
+                nxt = next(it, None)
+                if nxt is None and not chunked:
+                    self._leave(req)
+                if chunked:
+                    self.wfile.write(b"%x\r\n%s\r\n" % (len(chunk), chunk))
+                else:
+                    self.wfile.write(chunk)
+                chunk = nxt
+            if chunked:
+                self._leave(req)
+                self.wfile.write(b"0\r\n\r\n")
         except Exception:  # noqa: BLE001 - headers are out: only a cut
             # connection can tell the client the body is incomplete.
             self.close_connection = True
+            if chunked:
+                return resp   # the trace client went away: the stream ends
             raise
+        finally:
+            _close(resp.body)
+        return resp
 
 
 def _metadata_headers(headers) -> dict:

@@ -23,10 +23,18 @@ class VolInfo:
 
 @dataclass
 class DiskInfo:
-    """Free space of one drive (reference DiskInfo,
-    cmd/storage-interface.go:36-41): what pool placement weighs."""
+    """Identity and space of one drive (reference DiskInfo,
+    cmd/storage-interface.go:36-41): pool placement weighs `free`, the
+    admin info and the scrape read the rest."""
 
     free: int = 0
+    total: int = 0
+    used: int = 0
+    used_inodes: int = 0
+    endpoint: str = ""
+    mount_path: str = ""
+    id: str = ""
+    healing: bool = False
 
 
 @dataclass
@@ -63,7 +71,9 @@ class StorageAPI(abc.ABC):
     def endpoint(self) -> str: ...
 
     @abc.abstractmethod
-    def disk_info(self) -> DiskInfo: ...
+    def disk_info(self, *, with_id: bool = True) -> DiskInfo:
+        """Space and identity; `with_id=False` leaves `id` empty and skips
+        reading it (pool placement needs only `free`)."""
 
     # --- identity ---
 

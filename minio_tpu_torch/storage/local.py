@@ -48,6 +48,7 @@ import uuid
 from collections import OrderedDict
 from typing import BinaryIO, Iterable, Iterator
 
+from minio_tpu_torch import obs
 from minio_tpu_torch.storage.api import (MARKER_GROUP_PAD, DiskInfo,
                                          StorageAPI, VolInfo, WalkEntry)
 from minio_tpu_torch.storage.fileinfo import FileInfo
@@ -121,6 +122,9 @@ class LocalDrive(StorageAPI):
         # The slot UUID this drive was placed under (set_disk_id); a drive
         # swapped under the path answers get_disk_id with InconsistentDisk.
         self._expected_id = ""
+        # minio_tpu_drive_latency_seconds{drive,op} over obs.DRIVE_OPS, and
+        # `storage` records while someone traces.
+        self._observe_op = obs.drive_op_observer(self.root)
         try:
             os.makedirs(os.path.join(self.root, SYS_VOL, "tmp"), exist_ok=True)
         except OSError as e:
@@ -129,9 +133,19 @@ class LocalDrive(StorageAPI):
     def endpoint(self) -> str:
         return self.root
 
-    def disk_info(self) -> DiskInfo:
+    def disk_info(self, *, with_id: bool = True) -> DiskInfo:
         st = os.statvfs(self.root)
-        return DiskInfo(free=st.f_bavail * st.f_frsize)
+        disk_id = ""
+        if with_id:
+            try:
+                disk_id = self.get_disk_id()
+            except se.StorageError:
+                pass
+        return DiskInfo(free=st.f_bavail * st.f_frsize,
+                        total=st.f_blocks * st.f_frsize,
+                        used=(st.f_blocks - st.f_bfree) * st.f_frsize,
+                        used_inodes=st.f_files - st.f_ffree,
+                        endpoint=self.root, mount_path=self.root, id=disk_id)
 
     # ---------- identity ----------
 
@@ -320,6 +334,10 @@ class LocalDrive(StorageAPI):
         _fsync_dir(os.path.dirname(dst))
 
     def create_file(self, volume: str, path: str, chunks: Iterable[bytes]) -> int:
+        with obs.timed_op(self._observe_op, "create_file", volume, path):
+            return self._create_file(volume, path, chunks)
+
+    def _create_file(self, volume: str, path: str, chunks: Iterable[bytes]) -> int:
         fp = self._file_path(volume, path)
         os.makedirs(os.path.dirname(fp), exist_ok=True)
         written = 0
@@ -419,6 +437,12 @@ class LocalDrive(StorageAPI):
     def write_metadata_single(self, volume: str, path: str, fi: FileInfo,
                               raw: bytes, defer_reclaim: bool = False
                               ) -> str | None:
+        with obs.timed_op(self._observe_op, "write_metadata_single", volume, path):
+            return self._write_metadata_single(volume, path, fi, raw, defer_reclaim)
+
+    def _write_metadata_single(self, volume: str, path: str, fi: FileInfo,
+                               raw: bytes, defer_reclaim: bool = False
+                               ) -> str | None:
         """Store an inline version whose one-version journal the caller
         serialized once for the whole set (`raw`). Where the drive's
         journal holds other versions, fi is merged into it instead. With
@@ -452,6 +476,20 @@ class LocalDrive(StorageAPI):
 
     def read_version(self, volume: str, path: str,
                      version_id: str = "") -> FileInfo:
+        # Inline timing (not obs.timed_op): a cached journal read is a few
+        # microseconds, and a generator context manager costs about one.
+        t0 = time.perf_counter()
+        err: BaseException | None = None
+        try:
+            return self._read_version(volume, path, version_id)
+        except BaseException as e:
+            err = e
+            raise
+        finally:
+            self._observe_op("read_version", t0, volume, path, err)
+
+    def _read_version(self, volume: str, path: str,
+                      version_id: str = "") -> FileInfo:
         """The version's FileInfo (a copy: callers mutate it), from the
         journal read cache while the file is unchanged."""
         key = (volume, path)
@@ -506,6 +544,13 @@ class LocalDrive(StorageAPI):
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
                     dst_volume: str, dst_path: str,
                     defer_reclaim: bool = False) -> str | None:
+        with obs.timed_op(self._observe_op, "rename_data", dst_volume, dst_path):
+            return self._rename_data(src_volume, src_path, fi, dst_volume,
+                                     dst_path, defer_reclaim)
+
+    def _rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
+                     dst_volume: str, dst_path: str,
+                     defer_reclaim: bool = False) -> str | None:
         src_dir = self._file_path(src_volume, src_path)
         obj_dir = self._file_path(dst_volume, dst_path)
         os.makedirs(obj_dir, exist_ok=True)

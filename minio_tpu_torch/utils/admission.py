@@ -4,17 +4,25 @@ minio_tpu/utils/admission.py).
 A plane whose bounded queue is full, or that is closed, rejects the
 submit with AdmissionShed, an OperationTimedOut that the S3 error map
 answers as 503 SlowDown. Each shed is counted by (plane, cause), with the
-JAX package's slugs ("dataplane"; "lane_full", "closed"). The port has no
-metrics registry yet, so the counts live in a plain dict that `stats()`
-returns; the Prometheus family minio_tpu_admission_shed_total waits for
-`obs/`.
+JAX package's slugs ("dataplane"; "lane_full", "closed"), in the family
+minio_tpu_admission_shed_total{plane,cause,tenant}; the port has no
+tenants yet (the QoS plane), so `tenant` is "-", the JAX package's label
+for unattributed work. `stats()` returns this process's counts by
+(plane, cause).
 """
 
 from __future__ import annotations
 
 import threading
 
+from minio_tpu_torch import obs
 from minio_tpu_torch.utils import errors as se
+
+_SHED = obs.counter(
+    "minio_tpu_admission_shed_total",
+    "Requests shed at a full batch-plane admission queue "
+    "(surfaces as 503 SlowDown)",
+    ("plane", "cause", "tenant"))
 
 _mu = threading.Lock()
 _sheds: dict[tuple[str, str], int] = {}
@@ -22,6 +30,7 @@ _sheds: dict[tuple[str, str], int] = {}
 
 def shed(plane: str, cause: str, msg: str) -> se.AdmissionShed:
     """Count one shed and build the typed rejection; the caller raises it."""
+    _SHED.labels(plane=plane, cause=cause, tenant="-").inc()
     with _mu:
         _sheds[(plane, cause)] = _sheds.get((plane, cause), 0) + 1
     return se.AdmissionShed(msg=msg)

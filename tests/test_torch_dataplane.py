@@ -234,6 +234,13 @@ def test_backpressure_is_slowdown_not_deadlock():
     try:
         k, m, bs = 4, 2, 1 << 12
         p.begin_encode(k, m, bs, [_blob(rng, 64)]).wait()
+        # The future resolves on the completion thread, possibly before the
+        # dispatcher is back in its queue wait: wait for it there, or the
+        # gate cleared below parks it before it takes the request.
+        deadline = time.monotonic() + 10
+        while not p._q.not_empty._waiters:
+            assert time.monotonic() < deadline, "dispatcher never waited on its queue"
+            time.sleep(0.005)
         # Park the dispatcher at its gate: clear it and feed one request,
         # whose consumption walks the loop back to the cleared gate.
         p._gate.clear()
