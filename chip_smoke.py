@@ -13,9 +13,11 @@ package beside it. Phases, each raising on failure:
    inputs (tolerance: exact, all integer work) and timed with CUDA events
    (median of 20 runs after warm-up, L2 flushed and the launches queued
    behind a short device spin before each run, so host launch overhead
-   stays out of the device time) beside its bound, its plain version and,
-   for K2, torch._int_mm (the library call that computes its main
-   contraction). Shapes: at EC 8+4 with 1 MiB blocks (B=16, k=8,
+   stays out of the device time) beside its bound, its plain version and
+   torch._int_mm (the library call that computes its main contraction:
+   for K1 the bit-plane product [B*S, kin*8] @ [kin*8, t*8] before mod 2
+   and repacking, checked to give K1's parity once reduced; no single call
+   takes K1's per-block weights). Shapes: at EC 8+4 with 1 MiB blocks (B=16, k=8,
    S=131072), K1 gf2_matmul for encode, a 4-missing reconstruct,
    per-block weights with 3 failure patterns and a ragged S=87382, and K2
    mxsum_digest over [B*12, S] with lengths 0, 1, 513 and S among the rows
@@ -154,12 +156,39 @@ package beside it. Phases, each raising on failure:
    an event of every K1 and K2 launch or answer InternalError saying the
    capture lost some; a 200 without them fails.
 
+12. the metadata plane and drive resilience (meta_phase, run after
+   phase 10): config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB
+   blocks) behind the server at build_server's defaults (the group-commit
+   metadata plane on, MRF on) with the auto-healer every 1 s. K1 at the
+   PUT shape and K2 at the GET-verify shape are held against their plain
+   versions and timed, and the GET verify's host path (ops/fused.py
+   stage_and_digest: staging into the pinned pool, the upload, K2 and the
+   download) is timed at the same shape. (a) 64 clients
+   PUT 512 warp-mix objects (1-512 KiB, log-uniform) and GET them back
+   byte-equal; objects/s and the node scrape's
+   minio_tpu_metaplane_commits_total and _fsyncs_total deltas; (b) a child
+   process runs the server's entry point (python -m
+   minio_tpu_torch.s3.server) on fresh drives, 16 clients each cycle
+   three keys through PUT, overwrite and delete, out of step, for
+   META_CRASH_S seconds, the child is SIGKILLed, and the port mounts the
+   drives (replaying their WALs): every key whose last operation was
+   acknowledged reads back in that state (bytes and ETag, verified by K2;
+   absent after a delete), and acknowledged overwrites and deletes must
+   be among them; the replay's record count and seconds; (c) with DynamicTimeout(0.5, 0.1) on every
+   drive and deadline class, one drive hung by a wrapper: first its shard
+   reads (a 256 MiB GET hedges around it), then every call (a 256 MiB PUT
+   and its GET at quorum); the drive walks to OFFLINE through FAULTY, in
+   the scrape and in admin info; hedged reads launched and won; (d)
+   released: the probe restores it, and the auto-healer rebuilds the
+   shard it missed, equal to a copy of the same shard of an object of the
+   same bytes taken before the hang.
+
 Depth cut to make room for phase 11 under SMOKE_BUDGET_S, no width
 changed: phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
 halve down to 25,000 objects instead of 50,000.
 
-The launch count of each kernel is reset just before each of phases 3-11
+The launch count of each kernel is reset just before each of phases 3-12
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -208,6 +237,8 @@ BITROT_BIG, BITROT_SMALL = 256 << 20, 16 << 20   # bitrot phase: one object each
 BITROT_ALGOS = (("mxhash256", BITROT_BIG), ("sip256", BITROT_BIG),
                 ("highwayhash256", BITROT_SMALL), ("sha256", BITROT_SMALL),
                 ("xxh64", BITROT_SMALL), ("blake2b256", BITROT_SMALL))
+META_BIG = 256 << 20            # phase 12: the objects PUT and GET with a drive hung,
+META_CRASH_S = 8.0              # ... and the seconds of traffic before the SIGKILL
 OBS_SIZE = 256 << 20            # obs phase: the object PUT, GET and healed
 OBS_PROFILE_SIZE = 32 << 20     # ... the object PUT and GET under the profilers
 OBS_RUNS = 3                    # ... PUT+GET of OBS_SIZE per observing mode
@@ -301,14 +332,51 @@ def _record(kernel: str, label: str, path: str, ms: float, plain: float,
             "library_ms": library, "kernel": kernel, "path": path}
 
 
+def _k1_bit_planes(x):
+    """K1's input as the bit planes it contracts: x [B, kin, S] u8 ->
+    [B*S, kin*8] int8 of 0/1, bit j of input i in column i*8 + j."""
+    import torch
+
+    b, kin, s = x.shape
+    shifts = torch.arange(8, device=x.device, dtype=torch.uint8)
+    return (((x.unsqueeze(-1) >> shifts) & 1).permute(0, 2, 1, 3)
+            .reshape(b * s, kin * 8).to(torch.int8).contiguous())
+
+
+def _k1_library_matches(x, w, out) -> bool:
+    """Whether torch._int_mm of the bit planes, taken mod 2 and repacked,
+    is K1's output `out`: the library call computes K1's function."""
+    import torch
+
+    b, _kin, s = x.shape
+    t = w.shape[1] // 8
+    shifts = torch.arange(8, device=x.device, dtype=torch.int32)
+    y = torch._int_mm(_k1_bit_planes(x), w) & 1
+    got = (y.reshape(b, s, t, 8) << shifts).sum(3).to(torch.uint8).permute(0, 2, 1)
+    return torch.equal(got, out)
+
+
 def _time_k1(records, label, path, args, bound, flush):
+    """K1 at one shape beside its plain version and torch._int_mm of its
+    bit-plane product [B*S, kin*8] @ [kin*8, t*8] (the GF(2) contraction
+    before mod 2 and repacking; no single library call takes per-block
+    weights, so those rows have none)."""
+    import torch
+
     from minio_tpu_torch.ops import rs
 
     ms = _median_ms(lambda: rs.gf2_matmul(*args), flush)
     plain = _median_ms(lambda: rs.gf2_matmul_plain(*args), flush)
+    lib = None
+    if args[1].dim() == 2:
+        bits = _k1_bit_planes(args[0])
+        lib = _median_ms(lambda: torch._int_mm(bits, args[1]), flush)
+        del bits
     print(f"  K1 {label}: {ms:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]}), "
-          f"{100 * bound[0] / ms:.1f}% of the bound; plain {plain:.6f} ms")
-    records.append(_record("gf2_matmul", label, path, ms, plain, bound, None))
+          f"{100 * bound[0] / ms:.1f}% of the bound; plain {plain:.6f} ms; "
+          + (f"torch._int_mm of the bit planes {lib:.6f} ms" if lib is not None
+             else "no library call (per-block weights)"))
+    records.append(_record("gf2_matmul", label, path, ms, plain, bound, lib))
 
 
 def _time_k2(records, label, path, chunks, lens, flush, bound_rows=None):
@@ -607,6 +675,9 @@ def kernel_phase(seed: int) -> list[dict]:
     lib_out = torch._int_mm(chunks.view(torch.int8), key)
     print("  torch._int_mm with the length term and packing equals K2's "
           f"digests: {torch.equal(mxsum._pack_words(lib_out.to(torch.int64) + lterm), digs)}")
+
+    print("  torch._int_mm of K1's bit planes, mod 2 and repacked, equals K1's "
+          f"parity: {_k1_library_matches(x, w_enc, parity)}")
 
     records: list[dict] = []
     print("  timed at the S3 path's shapes (EC 8+4, 1 MiB blocks):")
@@ -945,7 +1016,7 @@ def s3_phase(seed: int, card: str, records: list[dict], device: str = "cuda") ->
         mark("end")
     finally:
         cl.close()
-        srv.close()
+        _close_server(srv)
         shutil.rmtree(work, ignore_errors=True)
 
     def delta(a, b, name):
@@ -1088,7 +1159,7 @@ def plane_phase(seed: int, card: str, records: list[dict] | None,
         mark("heal")
     finally:
         pool.close()
-        srv.close()
+        _close_server(srv)
         os.environ.pop("MTPU_BATCHED_DATAPLANE", None)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1272,7 +1343,7 @@ def hot_tier_phase(seed: int, card: str, records: list[dict], working_set: int,
     finally:
         pool.close()
         cl.close()
-        srv.close()
+        _close_server(srv)
         hottier.reset_global()
         for k in env:
             os.environ.pop(k, None)
@@ -1439,6 +1510,7 @@ def multipart_phase(seed: int, card: str, records: list[dict] | None,
         # the 4 that hold data shards 1-4, so a read must rebuild.
         dist = es.latest_fileinfo("mpu", "object-5g").erasure.distribution
         lost = [d.root for d, shard in zip(es.drives, dist) if shard <= 4]
+        _settle(es.drives)
         originals = {}
         for d in lost:
             for f in glob.glob(os.path.join(d, "mpu", "object-5g", "*", "part.*")):
@@ -1475,7 +1547,7 @@ def multipart_phase(seed: int, card: str, records: list[dict] | None,
         cl.close()
 
         def close():
-            srv.close()
+            _close_server(srv)
             shutil.rmtree(work, ignore_errors=True)
 
         if not keep:
@@ -1797,7 +1869,7 @@ def versioning_phase(seed: int, card: str, mp: _Kept | None, device: str = "cuda
     finally:
         pool.close()
         cl.close()
-        srv.close()
+        _close_server(srv)
         shutil.rmtree(work, ignore_errors=True)
 
     if mp is not None:
@@ -1883,6 +1955,47 @@ def versioning_phase(seed: int, card: str, mp: _Kept | None, device: str = "cuda
                                                       for k in kernels.KERNELS))
 
 
+def _settle(drives) -> None:
+    """Every acknowledged journal of these set drives on disk, before the
+    phase copies or damages their files directly: with the metadata plane
+    on, a commit is acknowledged by its WAL fsync and its meta.mp written
+    later."""
+    from minio_tpu_torch.storage import healthcheck
+
+    for d in drives:
+        healthcheck.unwrap(d).flush_wal()
+
+
+def _reader_drive(root: str):
+    """A LocalDrive over `root` for reading its files, mounted with the
+    metadata plane off so it leaves the server's WAL of the drive alone."""
+    from minio_tpu_torch.storage.local import LocalDrive
+
+    prev = os.environ.get("MTPU_METAPLANE")
+    os.environ["MTPU_METAPLANE"] = "0"
+    try:
+        return LocalDrive(root)
+    finally:
+        if prev is None:
+            os.environ.pop("MTPU_METAPLANE")
+        else:
+            os.environ["MTPU_METAPLANE"] = prev
+
+
+def _close_server(srv) -> None:
+    """Close a phase's server and its drives' WALs: a server owns its
+    drives for the process's life in a deployment, but this script
+    builds one per phase, and each idle committer left behind wakes twice
+    a second for the interpreter lock the later phases' threads need."""
+    from minio_tpu_torch.storage import healthcheck
+
+    srv.close()
+    for d in srv.obj.all_drives():
+        base = healthcheck.unwrap(d)
+        if hasattr(base, "close_wal"):
+            base.close_wal()
+
+
 class _Down:
     """A drive that refuses every call, as one pulled from its slot does
     (is_online false, every other method raising FaultyDisk)."""
@@ -1962,8 +2075,7 @@ def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "
 
     from minio_tpu_torch.ops import kernels
     from minio_tpu_torch.s3.server import build_server
-    from minio_tpu_torch.storage.local import LocalDrive
-
+    
     rng = np.random.default_rng(seed + 9)
 
     def warp(n):
@@ -2096,6 +2208,7 @@ def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "
         cl.request("PUT", "/heal-c/keep", b"k" * 1000)
         dangling = rng.bytes(1 << 20)
         cl.request("PUT", "/heal-c/dangling", dangling)
+        _settle(es.drives)
         for i in (0, 1, 2, 3, 4):
             shutil.rmtree(os.path.join(paths[i], "heal-c", "dangling"))
         for i in (6, 7):
@@ -2121,6 +2234,7 @@ def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "
             raise AssertionError("the MRF queue did not drain before the replacement")
         drive = es.drives[5]
         copy = os.path.join(work, "copy-d05")
+        _settle(es.drives)
         shutil.copytree(drive.root, copy)
         healer = srv.auto_healer[0]
         st.mark("copy")
@@ -2140,7 +2254,8 @@ def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "
         if open(fmt, "rb").read() != open(
                 os.path.join(copy, ".mtpu.sys", "format.json"), "rb").read():
             raise AssertionError("the rebuilt drive's format.json differs from its copy")
-        old, new = LocalDrive(copy), LocalDrive(drive.root)
+        _settle(es.drives)
+        old, new = _reader_drive(copy), _reader_drive(drive.root)
         rebuilt = n_latest = inline_idx = 0
         for bucket in ("heal-a", "heal-b", "heal-c"):
             for key in sorted(os.listdir(os.path.join(copy, bucket))):
@@ -2212,7 +2327,7 @@ def heal_phase(seed: int, card: str, records: list[dict] | None, device: str = "
         pool.close()
         cl.close()
         backlog = es.mrf.backlog()
-        srv.close()
+        _close_server(srv)
         shutil.rmtree(work, ignore_errors=True)
     print(f"  server closed with {backlog} MRF entries left (heals queued by the "
           "GETs with 4 drives removed, backing off; dropped at close)")
@@ -2421,7 +2536,7 @@ def bitrot_phase(seed: int, card: str, records: list[dict] | None,
                                                  "digest differs from the plain version")
             finally:
                 cl.close()
-                srv.close()
+                _close_server(srv)
             line = []
             for stage in ("put", "get", "degraded_get", "heal"):
                 sec, d = st.delta(f"{algo}:{stage}")
@@ -2449,6 +2564,510 @@ def bitrot_phase(seed: int, card: str, records: list[dict] | None,
 # The strict Prometheus 0.0.4 text parse of tests/test_observability.py:
 # every line HELP, TYPE or a sample, samples only of a TYPEd family,
 # values numeric.
+class _Hang:
+    """Phase 12's hung drive: a wrapper whose calls named in `methods`
+    (every call that reaches the disk when it is "all") block until
+    `release` is set, as the verify skill's NaughtyDisk HANG does."""
+
+    def __init__(self, inner):
+        import threading
+
+        self.inner = inner
+        self.methods: str | set = set()
+        self.release = threading.Event()
+
+    def endpoint(self) -> str:
+        return self.inner.endpoint()
+
+    def is_online(self) -> bool:
+        return self.inner.is_online()   # no I/O: a hung disk answers it
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+        if not callable(fn) or name.startswith("_"):
+            return fn
+
+        def call(*a, **kw):
+            if self.methods == "all" or name in self.methods:
+                self.release.wait()
+            return fn(*a, **kw)
+
+        return call
+
+
+def _scrape_meta(cl: _Client, paths: list[str]) -> dict:
+    """The node scrape's metadata-plane and drive-health samples for the
+    drives at `paths`: {family: {drive: value}}."""
+    _r, body = cl.request("GET", "/minio/v2/metrics/node")
+    _fams, samples = parse_exposition(body.decode())
+    roots = {os.path.abspath(p) for p in paths}
+    out = {}
+    for fam in ("minio_tpu_metaplane_commits_total", "minio_tpu_metaplane_fsyncs_total",
+                "minio_tpu_drive_state", "minio_tpu_drive_timeouts_total"):
+        out[fam] = {d: v for d, v in _by_label(samples, fam, "drive").items() if d in roots}
+    return out
+
+
+def _crash_child(paths: list[str], port: int, device: str):
+    """The port's server entry point (python -m minio_tpu_torch.s3.server)
+    in a child process over `paths`; returns once it serves."""
+    env = dict(os.environ, MTPU_ROOT_USER=ACCESS, MTPU_ROOT_PASSWORD=SECRET)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.s3.server", *paths,
+         "--address", f"127.0.0.1:{port}", "--device", device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
+    line = proc.stdout.readline()
+    if "serving S3" not in line:
+        proc.kill()
+        rest = proc.communicate(timeout=30)[0]
+        raise AssertionError(f"crash child did not start: {line}{rest[-2000:]}")
+    return proc
+
+
+def _counter_value(name: str) -> float:
+    """A counter family's total over its label sets, in this process."""
+    from minio_tpu_torch import obs
+
+    for vec in obs.registry():
+        if vec.name == name:
+            return sum(c.value for c in vec._children.values())
+    return 0.0
+
+
+class _StateLog:
+    """The distinct states a health-checked drive passes through, sampled
+    every 5 ms on a daemon thread."""
+
+    def __init__(self, hc):
+        import threading
+
+        self.seen = [hc.state]
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(0.005):
+                if hc.state != self.seen[-1]:
+                    self.seen.append(hc.state)
+
+        self._t = threading.Thread(target=run, daemon=True, name="smoke-state-log")
+        self._t.start()
+
+    def stop(self) -> list[str]:
+        self._stop.set()
+        self._t.join()
+        return self.seen
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def meta_phase(seed: int, card: str, records: list[dict] | None, device: str = "cuda",
+               n_objects: int = PLANE_OBJECTS, clients: int = 64,
+               big_size: int = META_BIG, crash_clients: int = 16,
+               crash_s: float = META_CRASH_S, interval: float = 1.0) -> None:
+    """Phase 12 (see the module's docstring): the metadata plane and drive
+    resilience on config 1's set behind the server at build_server's
+    defaults (the metadata plane on, MRF on) and the auto-healer."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.erasure.sets import ErasureSets
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+    from minio_tpu_torch.storage import healthcheck
+    from minio_tpu_torch.storage.local import LocalDrive
+    from minio_tpu_torch.utils import bufpool
+    from minio_tpu_torch.utils.dyntimeout import DynamicTimeout
+
+    if os.environ.get("MTPU_METAPLANE", "1") in ("0", "false", "off"):
+        raise AssertionError("phase 12 runs the metadata plane at its default (on)")
+    rng = np.random.default_rng(seed + 12)
+
+    def warp(n):
+        return [int(x) for x in np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10), n))]
+
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-meta-", dir=shm)
+    paths = [os.path.join(work, "a", f"d{i:02d}") for i in range(12)]
+    objects = {f"w{i:04d}": rng.bytes(n) for i, n in enumerate(warp(n_objects))}
+    st = _Stages()
+    if records is not None:
+        # K1 and K2 at the phase's main shapes, against their plain
+        # versions: the PUT encode and the GET verify of 1 MiB blocks.
+        dev = torch.device(device)
+        flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+        x = torch.from_numpy(rng.integers(0, 256, (B, K, S), dtype=np.uint8)).to(dev)
+        from minio_tpu_torch.ops import mxsum, rs
+
+        w = rs.device_encode_weights(K, M, dev)
+        if not torch.equal(rs.gf2_matmul(x, w, M), rs.gf2_matmul_plain(x, w, M)):
+            raise AssertionError("K1 disagrees with plain at the phase-12 PUT shape")
+        chunks = x.reshape(B * K, S)
+        lens = torch.full((B * K,), S, dtype=torch.int32, device=dev)
+        if not torch.equal(mxsum.digest(chunks, lens), mxsum.digest_plain(chunks, lens)):
+            raise AssertionError("K2 disagrees with plain at the phase-12 GET shape")
+        print("  K1 [16,8,131072]->4 and K2 [128,131072] byte-equal to plain")
+        _time_k1(records, "encode [16,8,131072]->4, metadata plane", "meta",
+                 (x, w, M), _gf2_bound_ms(B, K, M, S), flush)
+        _time_k2(records, "GET verify digest [128,131072], metadata plane", "meta",
+                 chunks, lens, flush)
+        # The GET verify's host path around K2: stage_and_digest copies
+        # the chunks into a pinned pool tensor, uploads it, digests and
+        # downloads; its tensors come back to the pool after each call.
+        from minio_tpu_torch.ops import fused
+        from minio_tpu_torch.utils import bufpool
+
+        host = [bytes(r) for r in chunks.cpu().numpy()]
+        want = [bytes(r) for r in mxsum.digest_plain(chunks, lens).cpu().numpy()]
+        if fused.stage_and_digest(host, S, dev, mxsum.digest) != want:
+            raise AssertionError("stage_and_digest disagrees with K2's plain version")
+        pooled = sum(len(v) for v in bufpool.GLOBAL_POOL._pools.values())
+        n0 = kernels.launches()["mxsum_digest"]
+        stage_ms = _host_ms(lambda: fused.stage_and_digest(host, S, dev, mxsum.digest))
+        ran = kernels.launches()["mxsum_digest"] - n0
+        if ran <= 0 or sum(len(v) for v in bufpool.GLOBAL_POOL._pools.values()) != pooled:
+            raise AssertionError(f"stage_and_digest: {ran} K2 launches, pooled tensors "
+                                 "not reused")
+        print(f"  GET verify host path, stage_and_digest of {B * K} x {S} B through the "
+              f"pinned pool on {card}: {stage_ms:.6f} ms median ({ran} K2 launches, "
+              f"{pooled} pooled tensors reused)")
+        del flush, x, host
+    srv = build_server(paths, ACCESS, SECRET, device=device).start()
+    srv.start_auto_heal(interval=interval)
+    es = srv.obj.pools[0].sets[0]
+    bases = [healthcheck.unwrap(d) for d in es.drives]
+    hang = None
+    cl = _Client(srv.url)
+    pool = _Pool(srv.url, clients)
+    child = None
+    try:
+        if es.mrf is None or es._setcache is None or len(srv.auto_healer) != 1:
+            raise AssertionError("build_server's defaults: metadata plane, MRF and "
+                                 "the auto-healer on")
+        if any(getattr(healthcheck.unwrap(d), "_wal", None) is None for d in es.drives):
+            raise AssertionError("a drive's WAL is not armed")
+        print(f"  server {srv.url}: EC {es.n - es.parity}+{es.parity}, block "
+              f"{es.block_size} B, bitrot {es.bitrot_algorithm}, metadata plane on, "
+              f"MRF on, auto-heal every {interval} s")
+        cl.request("PUT", "/meta")
+        kernels.reset_launches()
+        st.mark("start")
+
+        # (a) a burst of the warp mix
+        m0 = _scrape_meta(cl, paths)
+
+        def put(c, item):
+            key, data = item
+            r, _ = c.request("PUT", f"/meta/{key}", data)
+            if r.getheader("ETag") != _md5_etag(data):
+                raise AssertionError(f"PUT {key}: ETag")
+
+        def get_ok(c, key, want=None):
+            r, data = c.request("GET", f"/meta/{key}")
+            want = objects[key] if want is None else want
+            if data != want or r.getheader("ETag") != _md5_etag(want):
+                raise AssertionError(f"GET {key}: bytes or ETag differ")
+
+        t0 = time.perf_counter()
+        pool.run(put, objects.items())
+        put_s = time.perf_counter() - t0
+        st.mark("burst_put")
+        t0 = time.perf_counter()
+        pool.run(get_ok, objects)
+        get_s = time.perf_counter() - t0
+        st.mark("burst_get")
+        m1 = _scrape_meta(cl, paths)
+        commits = sum(m1["minio_tpu_metaplane_commits_total"].values()) - sum(
+            m0["minio_tpu_metaplane_commits_total"].values())
+        fsyncs = sum(m1["minio_tpu_metaplane_fsyncs_total"].values()) - sum(
+            m0["minio_tpu_metaplane_fsyncs_total"].values())
+        if commits < len(objects) * es.n or fsyncs <= 0:
+            raise AssertionError(f"burst: {commits} WAL commits, {fsyncs} fsyncs")
+        pinned = [t for lst in bufpool.GLOBAL_POOL._pools.values() for t in lst]
+        if not pinned or (torch.device(device).type == "cuda"
+                          and not all(t.is_pinned() for t in pinned)):
+            raise AssertionError("GET verify staged without the pinned pool")
+        print(f"  (a) burst on {card}: {n_objects} warp-mix objects by {clients} "
+              f"clients; PUT {n_objects / put_s:.3f} objects/s ({put_s:.6f} s), GET "
+              f"{n_objects / get_s:.3f} objects/s ({get_s:.6f} s); scrape: "
+              f"minio_tpu_metaplane_commits_total +{commits:.0f}, "
+              f"_fsyncs_total +{fsyncs:.0f} ({commits / fsyncs:.3f} commits per fsync); "
+              f"{len(pinned)} pinned staging tensors in the pool")
+
+        # (b) a SIGKILL inside a burst of PUTs, overwrites and deletes
+        cpaths = [os.path.join(work, "b", f"d{i:02d}") for i in range(12)]
+        cport = _free_port()
+        t0 = time.perf_counter()
+        child = _crash_child(cpaths, cport, device)
+        print(f"  (b) crash child serving after {time.perf_counter() - t0:.3f} s")
+        curl = f"http://127.0.0.1:{cport}"
+        _Client(curl).request("PUT", "/crash")
+        stop = threading.Event()
+        logs: list[list] = [[] for _ in range(crash_clients)]   # per client
+        refused: list[str] = []
+        crng = np.random.default_rng(seed + 13)
+        bodies = [crng.bytes(n) for n in warp(256)]
+        cycle = ("put", "overwrite", "delete")
+
+        def crash_client(ci):
+            # Three keys in turn, key k's j-th operation cycle[(j + k) % 3]:
+            # the keys stay out of step, so whenever the kill lands the two
+            # keys without a request in flight end on two different kinds
+            # of operation. A PUT is an overwrite when the key was PUT
+            # since its last delete.
+            c = _Client(curl)
+            log = logs[ci]
+            live = [False] * 3
+            n = 0
+            try:
+                while not stop.is_set():
+                    k = n % 3
+                    key = f"c{ci:02d}-{k}"
+                    op = cycle[(n // 3 + k) % 3]
+                    if op != "delete":
+                        op = "overwrite" if live[k] else "put"
+                    live[k] = op != "delete"
+                    body = bodies[(ci * 7 + n) % len(bodies)] if live[k] else None
+                    entry = [key, op, body, False]
+                    log.append(entry)
+                    if op == "delete":
+                        # A key already absent answers NoSuchKey, as in
+                        # the JAX server: acknowledged absent all the same.
+                        r, _ = c.request("DELETE", f"/crash/{key}", check=False)
+                        if r.status not in (204, 404):
+                            raise AssertionError(f"DELETE {key}: {r.status}")
+                    else:
+                        c.request("PUT", f"/crash/{key}", body)
+                    entry[3] = True
+                    n += 1
+            except (OSError, http.client.HTTPException):
+                return   # the server died under the request: not acked
+            except AssertionError as e:
+                refused.append(str(e)[:200])   # answered, but with an error
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=crash_client, args=(i,), daemon=True)
+                   for i in range(crash_clients)]
+        for t in threads:
+            t.start()
+        time.sleep(crash_s)
+        child.kill()
+        child.wait(timeout=60)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        child_out = child.stdout.read()
+        child.stdout.close()
+        child = None
+        acked = {op: sum(e[3] and e[1] == op for log in logs for e in log)
+                 for op in cycle}
+        drives = [LocalDrive(p) for p in cpaths]
+        replay = [d.last_replay for d in drives]
+        if any(r is None for r in replay):
+            raise AssertionError("a drive replayed nothing at mount")
+        rec_n = sum(r[0] for r in replay)
+        rec_s = sum(r[2] for r in replay)
+        if any(r[1] for r in replay):
+            raise AssertionError(f"replay failed records: {replay}")
+        st.mark("crash")
+        cs = ErasureSets(drives, enable_mrf=False, device=device)
+        try:
+            checked = {op: 0 for op in cycle}
+            in_flight = split = 0
+            for log in logs:
+                last: dict = {}   # key -> (state, acknowledged, operation)
+                for key, op, body, ok in log:
+                    last[key] = (body, ok, op)
+                for key, (want, ok, op) in last.items():
+                    try:
+                        info, it = cs.get_object("crash", key)
+                        got = b"".join(bytes(c) for c in it)
+                        if info.etag != hashlib.md5(got).hexdigest():
+                            raise AssertionError(f"crash {key}: ETag is not the md5")
+                    except Exception as e:  # noqa: BLE001 - the answer is checked
+                        if ok and type(e).__name__ != "ObjectNotFound":
+                            raise
+                        got = None if type(e).__name__ == "ObjectNotFound" else e
+                    if ok:
+                        # The last op of the key was acknowledged: exactly it.
+                        if got != want:
+                            raise AssertionError(
+                                f"crash {key}: acknowledged "
+                                f"{op} reads back "
+                                f"{'absent' if got is None else len(got)}")
+                        checked[op] += 1
+                    else:
+                        # In flight at the kill, never acknowledged: it may
+                        # have landed on some drives and not on others.
+                        in_flight += 1
+                        split += isinstance(got, Exception)
+        finally:
+            cs.close()
+            for d in drives:
+                d.close_wal()
+        st.mark("crash_verify")
+        if "Traceback" in child_out:
+            raise AssertionError(f"crash child failed: {child_out[-2000:]}")
+        if refused:
+            raise AssertionError(f"crash child answered errors before the kill: {refused}")
+        if not (acked["overwrite"] and acked["delete"]
+                and checked["overwrite"] and checked["delete"]):
+            raise AssertionError(f"crash: acknowledged {acked}, checked last "
+                                 f"operations {checked}: overwrites and deletes must "
+                                 "be acknowledged and read back")
+        print(f"  (b) SIGKILL after {crash_s} s of {crash_clients} clients' PUTs, "
+              f"overwrites and deletes: acknowledged "
+              + ", ".join(f"{acked[op]} {op}s" for op in cycle)
+              + "; after the port mounted the drives, the keys whose last operation "
+              "was acknowledged each read back in that state: "
+              + ", ".join(f"{checked[op]} after {'an' if op == 'overwrite' else 'a'} "
+                          f"{op}" for op in cycle)
+              + f" ({in_flight} keys had one in flight, {split} of them below read "
+              f"quorum); replay applied {rec_n} records on 12 drives in {rec_s:.6f} s "
+              "(summed over the drives)")
+
+        # (c) one drive hung: every call of it blocks
+        for d in es.drives:
+            d._deadlines = {c: DynamicTimeout(0.5, 0.1)
+                            for c in healthcheck.DEFAULT_DEADLINES}
+        from minio_tpu_torch.erasure.metadata import hash_order
+
+        big = rng.bytes(big_size)
+        twin = rng.bytes(big_size)
+        cl.request("PUT", "/meta/pre", big)
+        cl.request("PUT", "/meta/twin", twin)
+        get_ok(cl, "pre", big)
+        # The victim holds data shard 1 of "pre": the GET's first,
+        # data-first selection reads it, so the hedge must cover it.
+        victim = hash_order("meta/pre", 12).index(1)
+        hc = es.drives[victim]
+        # "during" is PUT while the victim hangs, with the bytes of "twin":
+        # the victim's shard of it must come back equal to twin's shard of
+        # the same index, copied before the hang.
+        during_shard = hash_order("meta/during", 12)[victim]
+        twin_drive = hash_order("meta/twin", 12).index(during_shard)
+        expected = open(glob.glob(os.path.join(paths[twin_drive], "meta", "twin", "*",
+                                               "part.1"))[0], "rb").read()
+        hang = _Hang(hc._inner)
+        hc._inner = hang
+        es.hedge_delay = 0.05   # pinned: the burst's latencies set no bound
+        hedged0 = _counter_value("minio_tpu_hedged_reads_total")
+        won0 = _counter_value("minio_tpu_hedged_reads_won_total")
+        log = _StateLog(hc)
+        # The shard reads hang first, so the GET meets the hang there and
+        # hedges around it; then every call of the drive hangs.
+        hang.methods = {"read_file_stream"}
+        st.mark("hang")
+        t0 = time.perf_counter()
+        get_ok(cl, "pre", big)
+        hget_s = time.perf_counter() - t0
+        hang.methods = "all"
+        t0 = time.perf_counter()
+        cl.request("PUT", "/meta/during", twin)
+        hput_s = time.perf_counter() - t0
+        get_ok(cl, "during", twin)
+        st.mark("hung_io")
+        end = time.monotonic() + 30
+        while hc.state != healthcheck.OFFLINE and time.monotonic() < end:
+            time.sleep(0.05)
+        walked = log.stop()
+        states = _scrape_meta(cl, paths)
+        root = os.path.abspath(paths[victim])
+        _r, info_doc = cl.request("GET", "/minio/admin/v3/info")
+        info = json.loads(info_doc)
+        info_state = [d.get("healthState") for d in info["drives"]
+                      if d.get("endpoint") == root]
+        hedged = _counter_value("minio_tpu_hedged_reads_total") - hedged0
+        won = _counter_value("minio_tpu_hedged_reads_won_total") - won0
+        # A call that succeeds while the drive is FAULTY brings it back
+        # ONLINE; the walk must end FAULTY -> OFFLINE.
+        if (walked[0] != healthcheck.ONLINE
+                or walked[-2:] != [healthcheck.FAULTY, healthcheck.OFFLINE]
+                or states["minio_tpu_drive_state"].get(root) != 2.0
+                or info_state != ["offline"]):
+            raise AssertionError(f"hung drive: states {walked}, scrape "
+                                 f"{states['minio_tpu_drive_state'].get(root)}, "
+                                 f"info {info_state}")
+        if hedged <= 0 or won <= 0:
+            raise AssertionError(f"hung drive: hedged reads {hedged}, won {won}")
+        print(f"  (c) drive {victim} hung (DynamicTimeout(0.5, 0.1) on every class): "
+              f"GET of {big_size >> 20} MiB {hget_s:.6f} s, PUT {hput_s:.6f} s, both "
+              f"at quorum and byte-equal; the drive went "
+              f"{' -> '.join(walked)} "
+              f"(scrape minio_tpu_drive_state 2.0, "
+              f"minio_tpu_drive_timeouts_total "
+              f"{states['minio_tpu_drive_timeouts_total'].get(root, 0):.0f}; admin info "
+              f"healthState {info_state[0]}); hedged reads {hedged:.0f}, won {won:.0f}")
+
+        # (d) released: the probe restores it, the auto-healer rebuilds it
+        t0 = time.perf_counter()
+        hang.methods = set()
+        hang.release.set()
+        rebuilt = os.path.join(paths[victim], "meta", "during")
+        end = time.monotonic() + 120
+        done = False
+        while time.monotonic() < end:
+            hits = glob.glob(os.path.join(rebuilt, "*", "part.1"))
+            if (hc.state == healthcheck.ONLINE and hits
+                    and open(hits[0], "rb").read() == expected
+                    and not os.path.exists(os.path.join(paths[victim], ".mtpu.sys",
+                                                        "healing.json"))):
+                done = True
+                break
+            time.sleep(0.1)
+        restore_s = time.perf_counter() - t0
+        if not done:
+            raise AssertionError(f"restore: state {hc.state}, the missed shard "
+                                 "not rebuilt equal to the copy taken before the hang")
+        get_ok(cl, "during", twin)
+        st.mark("restore")
+        walk = srv.auto_healer[0].last_walk
+        if walk is None:
+            raise AssertionError("restore: the auto-healer never walked the drive")
+        print(f"  (d) released: probe restore and the missed shard rebuilt in "
+              f"{restore_s:.6f} s, equal to shard {during_shard}'s copy taken before "
+              f"the hang; the auto-healer's walk of the restored drive healed "
+              f"{walk.healed} objects ({walk.failed} failed) and removed its tracker")
+    finally:
+        if child is not None:
+            child.kill()
+            child.wait(timeout=60)
+        if hang is not None:
+            hang.methods = set()
+            hang.release.set()
+        pool.close()
+        cl.close()
+        _close_server(srv)
+        for base in bases:
+            base.close_wal()
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ("burst_put", "burst_get", "crash_verify", "hung_io", "restore"):
+        secs, d = st.delta(name)
+        print(f"  meta {name}: {secs:.6f} s; launches "
+              + ", ".join(f"{k} {d[k]}" for k in kernels.KERNELS))
+    st.need("burst_put")
+    st.need("burst_get", ("mxsum_digest",))
+    st.need("hung_io")
+    total = {k: st.at[-1][1][k] - st.at[0][1][k] for k in kernels.KERNELS}
+    if records is not None:
+        _fill_launches(records, "meta", total)
+    print("  launches metadata-plane phase: " + ", ".join(
+        f"{k} {total[k]}" for k in kernels.KERNELS))
+
+
 _HELP_RE = re.compile(r"^# HELP ([a-zA-Z_:][a-zA-Z0-9_:]*) .*$")
 _TYPE_RE = re.compile(r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) "
                       r"(counter|gauge|histogram|summary|untyped)$")
@@ -2780,7 +3399,7 @@ def obs_phase(seed: int, card: str, device: str = "cuda", size: int = OBS_SIZE,
         if tracer is not None:
             tracer.stop()
         cl.close()
-        srv.close()
+        _close_server(srv)
         shutil.rmtree(work, ignore_errors=True)
     total = {k: v - phase0[k] for k, v in kernels.launches().items()}
     print(f"  launches in the phase: {total}")
@@ -2825,7 +3444,7 @@ def late_profile_check(seed: int, card: str, size: int = OBS_PROFILE_SIZE,
         r, doc = cl.request("GET", "/minio/admin/v3/profiling/download", check=False)
     finally:
         cl.close()
-        srv.close()
+        _close_server(srv)
         shutil.rmtree(work, ignore_errors=True)
     if r.status == 500 and b"the profiler lost the card's events" in doc:
         print(f"  device profile after {time.perf_counter() - T_START:.1f} s of the "
@@ -3063,7 +3682,7 @@ def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
     finally:
         pool.close()
         cl.close()
-        srv.close()
+        _close_server(srv)
         t0 = time.perf_counter()
         rms = [subprocess.Popen(["rm", "-rf", p]) for p in paths]
         for p in rms:
@@ -3169,6 +3788,10 @@ def main() -> int:
         print(f"bitrot phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; every "
               f"algorithm of the JAX registry; begun at {time.perf_counter() - t_start:.1f} s):")
         bitrot_phase(args.seed, card, records)
+        print(f"metadata plane and drive resilience phase (EC 8+4, 1 MiB blocks, "
+              f"drives on /dev/shm; the metadata plane, MRF and the auto-healer on; "
+              f"begun at {time.perf_counter() - t_start:.1f} s):")
+        meta_phase(args.seed, card, records)
         print(f"late device profile (the admin route on an old process; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         late_profile_check(args.seed, card)

@@ -35,8 +35,10 @@ import time
 from minio_tpu_torch import obs
 from minio_tpu_torch.admin.metrics import PROM_CONTENT_TYPE, maybe_gzip
 from minio_tpu_torch.admin.profiling import IncompleteDeviceTrace, zip_profiles
+from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.s3.errors import S3Error
+from minio_tpu_torch.storage.healthcheck import fleet_deadlines
 from minio_tpu_torch.utils import errors as se
 
 VERSION = "minio_tpu/1.0"
@@ -119,20 +121,30 @@ class AdminAPI:
 
     def _server_info(self) -> dict:
         """The JAX package's _server_info (handlers.py:407) for one node:
-        no drive health checker and no peer fabric yet."""
+        each drive with its health state and deadline hits (from its
+        HealthChecker; absent on a bare drive); no peer fabric yet."""
         drives = []
         online = offline = 0
-        for d in self.s.obj.all_drives():
-            try:
-                di = d.disk_info()
+        all_drives = self.s.obj.all_drives()
+        # Deadline'd: info answers while a drive hangs (as offline).
+        infos = parallel_map([d.disk_info for d in all_drives],
+                             deadline=fleet_deadlines(all_drives)[0])
+        for d, di in zip(all_drives, infos):
+            hs = getattr(d, "health_state", None)
+            health_state = hs() if callable(hs) else None
+            if not isinstance(di, Exception):
                 online += 1
-                drives.append({"endpoint": di.endpoint or di.mount_path,
-                               "state": "ok", "uuid": di.id,
-                               "totalspace": di.total, "availspace": di.free,
-                               "healing": di.healing})
-            except Exception:  # noqa: BLE001 - an unreadable drive is offline
+                entry = {"endpoint": di.endpoint or di.mount_path,
+                         "state": "ok", "uuid": di.id,
+                         "totalspace": di.total, "availspace": di.free,
+                         "healing": di.healing}
+            else:
                 offline += 1
-                drives.append({"endpoint": d.endpoint(), "state": "offline"})
+                entry = {"endpoint": d.endpoint(), "state": "offline"}
+            if health_state is not None:
+                entry["healthState"] = health_state
+                entry["timeouts"] = int(getattr(d, "timeouts", 0) or 0)
+            drives.append(entry)
         try:
             health = self.s.obj.health()
         except Exception:  # noqa: BLE001 - info must answer

@@ -24,6 +24,7 @@ import time
 from minio_tpu_torch.storage.api import StorageAPI
 from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.utils import errors as se
+from minio_tpu_torch.utils.dyntimeout import parse_duration
 
 TRACKER_PATH = "healing.json"
 CHECKPOINT_EVERY = 16   # objects healed between tracker saves
@@ -89,22 +90,6 @@ def mark_drive_healing(drive: StorageAPI, drive_uuid: str) -> None:
     writer of the tracker document (cmd/erasure-sets.go:197 healFreshDisk)."""
     if HealingTracker.load(drive) is None:
         HealingTracker(drive_uuid=drive_uuid).save(drive)
-
-
-def parse_duration(raw: str, default: float = 0.0) -> float:
-    """A Go-style duration ("250ms", "1.5s", "2m", "1h", bare seconds) in
-    seconds; `default` on empty or invalid input (the JAX package's
-    minio_tpu/utils/dyntimeout.py parse_duration)."""
-    s = (raw or "").strip().lower()
-    if not s:
-        return default
-    try:
-        for suffix, mult in (("ms", 1e-3), ("s", 1.0), ("m", 60.0), ("h", 3600.0)):
-            if s.endswith(suffix):
-                return float(s[:-len(suffix)]) * mult
-        return float(s)
-    except ValueError:
-        return default
 
 
 class AutoHealer:

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 from minio_tpu_torch.erasure.autoheal import mark_drive_healing
 from minio_tpu_torch.erasure.metadata import parallel_map
+from minio_tpu_torch.storage.healthcheck import fleet_deadlines, unwrap
 from minio_tpu_torch.storage.api import StorageAPI
 from minio_tpu_torch.utils import errors as se
 
@@ -74,7 +75,8 @@ def init_format_erasure(drives: list[StorageAPI],
     if n % set_drive_count:
         raise ValueError(f"{n} drives not divisible into sets of {set_drive_count}")
     set_count = n // set_drive_count
-    results = parallel_map([d.read_format for d in drives])
+    results = parallel_map([d.read_format for d in drives],
+                           deadline=fleet_deadlines(drives)[0])
     existing = [FormatInfo.from_doc(r) for r in results if isinstance(r, dict)]
     if not existing:
         fmt = FormatInfo(deployment_id=str(uuid.uuid4()),
@@ -152,9 +154,12 @@ def _claim_slot(drive: StorageAPI, fmt: FormatInfo, slot_uuid: str,
     AutoHealer rebuilds its shards (minio_tpu/erasure/format.py
     _claim_slot; reference healFreshDisk). Shared by boot and heal_format.
     Returns whether it claimed the drive."""
+    # The tracker is written through the bare drive: the disk-ID check
+    # rightly refuses a drive whose format does not name the slot yet.
+    base = unwrap(drive)
     try:
         try:
-            cur = drive.read_format()
+            cur = base.read_format()
         except se.UnformattedDisk:
             cur = None
         except se.StorageError:
@@ -171,7 +176,7 @@ def _claim_slot(drive: StorageAPI, fmt: FormatInfo, slot_uuid: str,
                 return False
         # The tracker goes first: a formatted drive with no shards and no
         # tracker would be taken for a healthy one.
-        mark_drive_healing(drive, slot_uuid)
+        mark_drive_healing(base, slot_uuid)
         drive.write_format(fmt.to_doc(slot_uuid))
         drive.set_disk_id(slot_uuid)
         return True

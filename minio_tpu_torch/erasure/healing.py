@@ -166,7 +166,8 @@ class HealingMixin:
     def heal_bucket(self, bucket: str, dry_run: bool = False) -> HealResultItem:
         """Recreate the bucket on every drive that lacks it, then read its
         metadata document, whose read-repair rewrites missing copies."""
-        results = parallel_map([lambda d=d: d.stat_vol(bucket) for d in self.drives])
+        results = parallel_map([lambda d=d: d.stat_vol(bucket) for d in self.drives],
+                               deadline=self._meta_deadline())
         res = HealResultItem(heal_type="bucket", bucket=bucket,
                              disk_count=self.n, dry_run=dry_run)
         have = [not isinstance(r, Exception) for r in results]
@@ -211,7 +212,8 @@ class HealingMixin:
     def _heal_object_locked(self, bucket, obj, version_id, dry_run,
                             remove_dangling, scan_deep):
         results = parallel_map([lambda d=d: d.read_version(bucket, obj, version_id)
-                                for d in self.drives])
+                                for d in self.drives],
+                               deadline=self._meta_deadline())
         latest = latest_fileinfo(results)
         if latest is None:
             if all(isinstance(r, (se.FileNotFound, se.FileVersionNotFound))
@@ -306,7 +308,8 @@ class HealingMixin:
             else:
                 drives[pos].write_metadata(bucket, obj, fi)
 
-        outcomes = parallel_map([lambda p=p: write(p) for p in targets])
+        outcomes = parallel_map([lambda p=p: write(p) for p in targets],
+                                deadline=self._meta_deadline())
         for pos, out in zip(targets, outcomes):
             if not isinstance(out, Exception):
                 res.after[pos].state = DRIVE_STATE_OK
@@ -329,7 +332,8 @@ class HealingMixin:
                           data_dir=latest.data_dir)
         self._meta_invalidate(bucket, obj)
         parallel_map([lambda d=d: d.delete_version(bucket, obj, target)
-                      for d in self.drives])
+                      for d in self.drives],
+                     deadline=self._meta_deadline())
 
     def _classify(self, bucket, obj, latest, shuffled_drives, shuffled_results,
                   scan_deep) -> list[str]:
@@ -353,7 +357,9 @@ class HealingMixin:
         fns = [(lambda d=d: self._verify_parts(d, bucket, obj, latest))
                if scan_deep else (lambda d=d: d.check_parts(bucket, obj, latest))
                for _, d in checks]
-        for (i, _), out in zip(checks, parallel_map(fns)):
+        # A deep verify reads whole shard files: no deadline bounds it.
+        deadline = None if scan_deep else self._data_deadline()
+        for (i, _), out in zip(checks, parallel_map(fns, deadline=deadline)):
             if isinstance(out, Exception):
                 states[i] = (DRIVE_STATE_CORRUPT
                              if isinstance(out, (se.FileCorrupt, se.FileNotFound))
@@ -455,7 +461,8 @@ class HealingMixin:
                     writers.finish()
         except Exception:
             parallel_map([lambda p=p: shuffled_drives[p].delete(
-                SYS_VOL, tmp_dirs[p], recursive=True) for p in targets])
+                SYS_VOL, tmp_dirs[p], recursive=True) for p in targets],
+                         deadline=self._meta_deadline())
             raise
 
         self._meta_invalidate(bucket, obj)

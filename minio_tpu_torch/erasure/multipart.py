@@ -21,9 +21,11 @@ the S3 layer from a GET of the source range.
 A Complete that reaches quorum with drives missing queues the object on
 the set's MRF healer, as a PUT does.
 
-Left for later slices (ROADMAP.md): SSE parts, sessions
-journaled through the JAX metaplane's WAL blob lane (its drives hold them
-in a WAL until it materializes them), the dsync lease.
+Session and part journals ride each drive's WAL blob lane when the
+metadata plane is armed (sysstore.mirror_write_all), and a session the
+JAX package left in its WAL is replayed when the port mounts the drives.
+
+Left for later slices (ROADMAP.md): SSE parts, the dsync lease.
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ class MultipartMixin:
         majority content; ties go to the newer mod_time. A drive that
         missed a rewrite within write tolerance never serves stale state."""
         results = parallel_map([lambda d=d: d.read_all(SYS_VOL, rel)
-                                for d in self.drives])
+                                for d in self.drives],
+                               deadline=self._meta_deadline())
         tally: dict[bytes, tuple[int, bytes]] = {}
         for r in results:
             if isinstance(r, (bytes, bytearray)):
@@ -160,7 +163,8 @@ class MultipartMixin:
 
         def cleanup_tmp():
             parallel_map([lambda d=d: d.delete(SYS_VOL, tmp_rel)
-                          for d in shuffled])
+                          for d in shuffled],
+                         deadline=self._meta_deadline())
 
         try:
             total, md5_hex, errs = self._fan_out_encode(
@@ -180,6 +184,9 @@ class MultipartMixin:
                 raise errs[i]
             drive.rename_file(SYS_VOL, tmp_rel, SYS_VOL, f"{mp}/part.{part_number}")
 
+        # No fan-out deadline, as in the JAX package: each rename is bounded
+        # at the drive, and a commit stamped timed out would race the
+        # cleanup below (renaming tmp_rel into part.N after its delete).
         outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
                                  for i, d in enumerate(shuffled)])
         # The part journal goes only to drives whose shard rename landed,
@@ -207,7 +214,8 @@ class MultipartMixin:
         # Union of part numbers across drives: one drive may have missed a
         # part within quorum tolerance.
         listings = parallel_map([lambda d=d: d.list_dir(SYS_VOL, mp)
-                                 for d in self.drives])
+                                 for d in self.drives],
+                                deadline=self._meta_deadline())
         numbers: set[int] = set()
         for names in listings:
             if isinstance(names, Exception):
@@ -231,7 +239,8 @@ class MultipartMixin:
         # Union of session dirs across all drives, then elect each.
         sessions: set[str] = set()
         listings = parallel_map([lambda d=d: d.list_dir(SYS_VOL, MP_ROOT)
-                                 for d in self.drives])
+                                 for d in self.drives],
+                                deadline=self._meta_deadline())
         for drive, hash_dirs in zip(self.drives, listings):
             if isinstance(hash_dirs, Exception):
                 continue
@@ -259,8 +268,10 @@ class MultipartMixin:
     def abort_multipart_upload(self, bucket: str, obj: str, upload_id: str) -> None:
         self._read_mp_meta(bucket, obj, upload_id)
         mp = self._mp_dir(bucket, obj, upload_id)
+        # A session's rmtree is O(parts) of I/O: the data deadline.
         parallel_map([lambda d=d: d.delete(SYS_VOL, mp, recursive=True)
-                      for d in self.drives])
+                      for d in self.drives],
+                     deadline=self._data_deadline())
 
     def complete_multipart_upload(self, bucket: str, obj: str, upload_id: str,
                                   parts: list[CompletePart],
@@ -326,6 +337,9 @@ class MultipartMixin:
         # undo mutates the live namespace, and a PUT landing between the
         # commit and its undo must never lose its acknowledged version.
         with self.nslock.lock(bucket, obj):
+            # No fan-out deadline, as in the JAX package: a commit is
+            # O(parts) renames, each bounded at the drive, and one stamped
+            # timed out would race _restore_session's rollback.
             outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
                                      for i, d in enumerate(shuffled)])
             # Some drives moved, whatever the outcome: drop the residence.
@@ -345,10 +359,13 @@ class MultipartMixin:
             elif tokens[i]:
                 drive.commit_rename(tokens[i])
 
+        # Both reclaim O(parts) trees: the data deadline.
         parallel_map([lambda i=i, d=d: post_commit(i, d)
-                      for i, d in enumerate(shuffled)])
+                      for i, d in enumerate(shuffled)],
+                     deadline=self._data_deadline())
         parallel_map([lambda d=d: d.delete(SYS_VOL, mp, recursive=True)
-                      for d in self.drives])
+                      for d in self.drives],
+                     deadline=self._data_deadline())
         self._queue_partial(bucket, obj, fi, outcomes)
         return self._fi_to_object_info(bucket, obj, fi)
 
@@ -380,5 +397,7 @@ class MultipartMixin:
             except se.StorageError:
                 pass
 
+        # Runs to completion on every drive (a rollback abandoned midway
+        # strands a half-restored session); its calls are drive-bounded.
         parallel_map([lambda i=i, d=d: restore(i, d)
                       for i, d in enumerate(shuffled)])

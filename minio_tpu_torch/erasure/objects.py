@@ -43,8 +43,20 @@ which rebuilds it in the background: deep, digest by digest, when the GET
 saw bitrot. Unlike the JAX package, an inline PUT queues too, so the
 journals it missed come back as the shard files of a streamed PUT do.
 
-Left for later slices (ROADMAP.md): the metadata plane, per-drive
-deadlines and hedged reads, the read-ahead producer.
+With the metadata plane armed (metaplane/, on unless MTPU_METAPLANE=0),
+an inline PUT submits its journal to every drive's WAL and then waits
+once for the shared fsyncs, and GET/HEAD answer from the set-level
+FileInfo cache while every local drive's signature of the key is
+unchanged; mutations invalidate it through `_meta_invalidate`.
+
+Every drive fan-out carries the drives' adaptive deadline of its class
+(storage/healthcheck.py), so a hung drive costs one deadline and counts
+as a failed drive. A GET reads its shards first-k-wins: after a hedge
+delay (four times the rolling shard-read latency) a spare reader starts
+on an unused parity shard for each straggler, and the batch completes
+with the first k results. A GET of more than one batch reads batch N+1
+on a `shard-readahead` thread while batch N is verified, decoded and
+sent.
 """
 
 from __future__ import annotations
@@ -57,14 +69,14 @@ import uuid
 from contextlib import contextmanager
 from typing import BinaryIO, Iterator
 
-from minio_tpu_torch import dataplane, hottier, obs
+from minio_tpu_torch import dataplane, hottier, metaplane, obs
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.codec import (BATCH_BLOCKS, DEFAULT_BLOCK_SIZE,
                                            ErasureCodec)
 from minio_tpu_torch.erasure.healing import HealingMixin, MRFHealer
 from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
-                                              hash_order, parallel_map,
-                                              reduce_write_quorum,
+                                              hash_order, note_leaked_worker,
+                                              parallel_map, reduce_write_quorum,
                                               shuffle_by_distribution)
 from minio_tpu_torch.erasure.multipart import MultipartMixin
 from minio_tpu_torch.erasure.sysstore import SysConfigStore
@@ -74,6 +86,7 @@ from minio_tpu_torch.erasure.types import (BucketInfo, DeletedObject,
                                            ListObjectVersionsInfo, ObjectInfo,
                                            ObjectOptions, ObjectToDelete)
 from minio_tpu_torch.ops import bitrot
+from minio_tpu_torch.storage import healthcheck
 from minio_tpu_torch.storage.api import StorageAPI
 from minio_tpu_torch.storage.fileinfo import (ChecksumInfo, ErasureInfo,
                                               FileInfo, PartInfo)
@@ -100,11 +113,14 @@ _CACHE_BYPASS = obs.counter(
     "Reads that bypassed a latest-only cache tier by contract",
     ("reason",))
 
-# Longest wait for a drive's next walk entry before the listing merge
-# drops that drive as if it were offline: the JAX package's seed for its
-# "walk" deadline class (minio_tpu/storage/healthcheck.py:58). Its
-# per-drive adaptive deadlines are later work (ROADMAP.md).
-WALK_DEADLINE = 30.0
+# Tail-latency hedging of shard reads (first-k-wins): spares launched,
+# and how many of them beat the straggler they covered for.
+_HEDGED_READS = obs.counter(
+    "minio_tpu_hedged_reads_total",
+    "Spare shard reads launched after the hedge delay").labels()
+_HEDGED_WINS = obs.counter(
+    "minio_tpu_hedged_reads_won_total",
+    "Hedged shard reads that made quorum before the straggler").labels()
 
 _WRITE_SENTINEL = None
 
@@ -189,11 +205,51 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         self.nslock = _KeyLocks()
         self.mrf: MRFHealer | None = MRFHealer(self) if enable_mrf else None
         self._encode_gibps: float | None = None
+        self._read_pool = None
+        self._read_pool_mu = threading.Lock()
+        # Hedged shard reads: an EWMA of one shard's batch-read latency
+        # sets the hedge delay; hedge_delay pins it (tests, operators).
+        # No history and no pin: no hedge before the data deadline.
+        self._shard_lat: float | None = None
+        self.hedge_delay: float | None = None
+        self._setcache = None
+        if metaplane.enabled():
+            from minio_tpu_torch.metaplane.setcache import SetFileInfoCache
+
+            self._setcache = SetFileInfoCache(metaplane.cache_objects())
 
     def close(self) -> None:
-        """Stop the MRF thread (queued heals are dropped)."""
+        """Stop the MRF thread (queued heals are dropped) and the shard
+        read pool."""
         if self.mrf is not None:
             self.mrf.close()
+        with self._read_pool_mu:
+            if self._read_pool is not None:
+                # Kept referenced: a racing GET then gets RuntimeError from
+                # submit (a quorum error), never a fresh leaked pool.
+                self._read_pool.shutdown(wait=False, cancel_futures=True)
+
+    def _meta_deadline(self) -> float:
+        """The fan-out deadline of metadata calls: the largest of the
+        drives' adaptive deadlines of the class."""
+        return healthcheck.fleet_deadlines(self.drives)[0]
+
+    def _data_deadline(self) -> float:
+        return healthcheck.fleet_deadlines(self.drives)[1]
+
+    def _walk_deadline(self) -> float:
+        return healthcheck.fleet_deadlines(self.drives)[2]
+
+    def _shard_read_pool(self):
+        """The set's pool of shard readers (one per GET stream would pay
+        thread starts on the read path)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with self._read_pool_mu:
+            if self._read_pool is None:
+                self._read_pool = ThreadPoolExecutor(
+                    max_workers=max(self.n, 8), thread_name_prefix="shard-read")
+            return self._read_pool
 
     def _queue_partial(self, bucket: str, obj: str, fi: FileInfo,
                        outcomes: list) -> None:
@@ -204,9 +260,12 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def _meta_invalidate(self, bucket: str, obj: str) -> None:
         """After a mutating fan-out (PUT, DELETE, heal): drop the key's
-        residence in the hot tier (a still-hot key re-admits). Advisory:
-        a hit also needs the freshly elected FileInfo to match the
-        resident entry."""
+        set-cache entry (signatures would catch the change too; this
+        spares the next read a miss probe) and its residence in the hot
+        tier (a still-hot key re-admits). The tier's is advisory: a hit
+        also needs the freshly elected FileInfo to match."""
+        if self._setcache is not None:
+            self._setcache.invalidate(bucket, obj)
         tier = hottier.maybe_tier(self.device)
         if tier is not None:
             tier.invalidate(bucket, obj)
@@ -219,7 +278,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         minio_tpu/erasure/objects.py:280): what the health probes, the
         scrape and the admin info read. A drive whose disk_info raises
         counts as offline."""
-        results = parallel_map([lambda d=d: d.disk_info() for d in self.drives])
+        results = parallel_map([lambda d=d: d.disk_info() for d in self.drives],
+                               deadline=self._meta_deadline())
         online = sum(1 for r in results if not isinstance(r, Exception))
         quorum = self._write_quorum_data(self.parity)
         return {"healthy": online >= quorum,
@@ -248,7 +308,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def make_bucket(self, bucket: str) -> None:
         _validate_bucket_name(bucket)
-        results = parallel_map([lambda d=d: d.make_vol(bucket) for d in self.drives])
+        results = parallel_map([lambda d=d: d.make_vol(bucket) for d in self.drives],
+                               deadline=self._meta_deadline())
         if sum(isinstance(r, se.VolumeExists) for r in results) \
                 >= self._write_quorum_meta():
             raise se.BucketExists(bucket)
@@ -256,7 +317,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         reduce_write_quorum(results, self._write_quorum_meta(), bucket)
 
     def get_bucket_info(self, bucket: str) -> BucketInfo:
-        results = parallel_map([lambda d=d: d.stat_vol(bucket) for d in self.drives])
+        results = parallel_map([lambda d=d: d.stat_vol(bucket) for d in self.drives],
+                               deadline=self._meta_deadline())
         for r in results:
             if not isinstance(r, Exception):
                 return BucketInfo(r.name, r.created)
@@ -265,7 +327,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         raise se.BucketNotFound(bucket, "", "no drive answered")
 
     def list_buckets(self) -> list[BucketInfo]:
-        results = parallel_map([lambda d=d: d.list_vols() for d in self.drives])
+        results = parallel_map([lambda d=d: d.list_vols() for d in self.drives],
+                               deadline=self._meta_deadline())
         seen: dict[str, BucketInfo] = {}
         for r in results:
             if isinstance(r, Exception):
@@ -279,7 +342,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         tier = hottier.maybe_tier(self.device)
         if tier is not None:
             tier.invalidate_bucket(bucket)
-        results = parallel_map([lambda d=d: d.delete_vol(bucket) for d in self.drives])
+        results = parallel_map([lambda d=d: d.delete_vol(bucket) for d in self.drives],
+                               deadline=self._meta_deadline())
         if any(isinstance(r, se.VolumeNotEmpty) for r in results):
             raise se.BucketNotEmpty(bucket)
         if all(isinstance(r, se.VolumeNotFound) for r in results):
@@ -339,12 +403,22 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                     obs.span("commit", bucket=bucket, object=obj, inline=True):
                 # Each drive parks what the commit displaces and returns
                 # its token, as rename_data does.
-                outcomes = parallel_map([
-                    lambda d=d: d.write_metadata_single(bucket, obj, fi, raw,
-                                                        defer_reclaim=True)
-                    for d in shuffled])
+                outcomes = None
+                if self._setcache is not None:
+                    outcomes = self._inline_commit_fast(shuffled, bucket, obj,
+                                                        fi, raw, journal)
+                if outcomes is None:
+                    outcomes = parallel_map(
+                        [lambda d=d: d.write_metadata_single(
+                            bucket, obj, fi, raw, defer_reclaim=True)
+                         for d in shuffled],
+                        deadline=self._meta_deadline())
                 self._settle_commit(shuffled, outcomes, write_quorum,
                                     bucket, obj, fi)
+                if self._setcache is not None:
+                    # Write-through: the committed journal is what an
+                    # election would return (index 0 on every drive).
+                    self._setcache.populate(bucket, obj, "", fi, shuffled)
             flight.mark("commit", "metaplane")
             self._queue_partial(bucket, obj, fi, outcomes)
             return listing.fi_to_object_info(bucket, obj, fi)
@@ -353,7 +427,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
         def cleanup_tmp():
             parallel_map([lambda d=d: d.delete(SYS_VOL, tmp_rel, recursive=True)
-                          for d in shuffled])
+                          for d in shuffled],
+                         deadline=self._meta_deadline())
 
         try:
             with obs.span("encode", bucket=bucket, object=obj) as sp:
@@ -381,7 +456,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         with self.nslock.lock(bucket, obj), \
                 obs.span("commit", bucket=bucket, object=obj):
             outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
-                                     for i, d in enumerate(shuffled)])
+                                     for i, d in enumerate(shuffled)],
+                                    deadline=self._meta_deadline())
             try:
                 self._settle_commit(shuffled, outcomes, write_quorum,
                                     bucket, obj, fi)
@@ -411,11 +487,66 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                                data_dir=fi.data_dir)
             parallel_map([lambda d=d, t=t: d.undo_rename(bucket, obj, undo_fi, t)
                           for d, t in zip(shuffled, outcomes)
-                          if not isinstance(t, Exception)])
+                          if not isinstance(t, Exception)],
+                         deadline=self._meta_deadline())
             raise
         parallel_map([lambda d=d, t=t: d.commit_rename(t)
                       for d, t in zip(shuffled, outcomes)
-                      if t and not isinstance(t, Exception)])
+                      if t and not isinstance(t, Exception)],
+                     deadline=self._meta_deadline())
+
+    def _inline_commit_fast(self, shuffled, bucket: str, obj: str,
+                            fi: FileInfo, raw: bytes, journal: XLMeta):
+        """The inline commit in two phases through the group-commit plane:
+        submit the journal to every drive's WAL (journal_commit_async,
+        through the drives' wrappers), then wait for every shared-fsync
+        future under the meta deadline. Outcomes are the synchronous fan-
+        out's: a reclaim token or an exception per drive. The submits are
+        pure memory on a bare armed drive and run inline; when a wrapper
+        may block them they run under run_bounded, and a wedged loop
+        falls back to the synchronous fan-out (a repeated store of the
+        same bytes is idempotent). None when a drive is not armed."""
+        from concurrent.futures import TimeoutError as FutureTimeout
+
+        from minio_tpu_torch.erasure.metadata import run_bounded
+        from minio_tpu_torch.erasure.sysstore import submits_may_block
+
+        futs: list = []
+
+        def submit_all():
+            for d in shuffled:
+                try:
+                    f = d.journal_commit_async(bucket, obj, fi, raw, meta=journal,
+                                               defer_reclaim=True)
+                except Exception as e:  # noqa: BLE001 - per-drive outcome
+                    futs.append(e)
+                    continue
+                if f is None:
+                    futs.append(None)   # not armed: the synchronous fan-out
+                    return
+                futs.append(f)
+
+        if submits_may_block(shuffled):
+            if not run_bounded(submit_all, self._meta_deadline()):
+                return None
+        else:
+            submit_all()
+        if any(f is None for f in futs):
+            return None
+        end = time.monotonic() + self._meta_deadline()
+        outcomes: list = []
+        for f in futs:
+            if isinstance(f, Exception):
+                outcomes.append(f)
+                continue
+            try:
+                outcomes.append(f.result(timeout=max(0.0, end - time.monotonic())))
+            except FutureTimeout:
+                outcomes.append(se.OperationTimedOut(
+                    bucket, obj, "wal group commit exceeded deadline"))
+            except Exception as e:  # noqa: BLE001 - per-drive outcome
+                outcomes.append(e)
+        return outcomes
 
     def _fan_out_encode(self, shuffled: list[StorageAPI], rel: str,
                         data: BinaryIO, size: int, codec: ErasureCodec,
@@ -429,6 +560,24 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         Returns (bytes consumed, md5 hex, per-drive errors)."""
         qs = [queue.Queue(maxsize=8) for _ in range(self.n)]
         errs: list = [None] * self.n
+        # A writer stuck in a hung create_file stops draining its queue:
+        # once the queue stays full past the data deadline the drive is
+        # timed out and fed no more, and the PUT completes at quorum (the
+        # hung daemon thread is accounted as leaked).
+        gave_up = [False] * self.n
+        put_timeout = self._data_deadline()
+
+        def feed(i: int, item) -> None:
+            if gave_up[i]:
+                return
+            try:
+                qs[i].put(item, timeout=put_timeout)
+            except queue.Full:
+                gave_up[i] = True
+                if errs[i] is None:
+                    errs[i] = se.OperationTimedOut(
+                        msg=f"drive shard write stalled > {put_timeout:.1f}s")
+                note_leaked_worker()
         # mxsum256 and mxhash256 digests come from the codec launch (K2 or
         # K3 after K1); a host algorithm hashes each chunk on its drive's
         # writer thread, the n drives side by side.
@@ -478,8 +627,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             for bi, chunks in enumerate(chunk_rows):
                 for i in range(self.n):
                     # A None digest: the writer thread hashes the chunk.
-                    qs[i].put((dig_rows[bi][i] if dig_rows is not None else None,
-                               chunks[i]))
+                    feed(i, (dig_rows[bi][i] if dig_rows is not None else None,
+                             chunks[i]))
             if sum(e is None for e in errs) < write_quorum:
                 raise se.InsufficientWriteQuorum(bucket, obj,
                                                  "write fan-out lost quorum")
@@ -504,10 +653,23 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             while pending:
                 drain_one()
         finally:
-            for q in qs:
-                q.put(_WRITE_SENTINEL)
-            for t in threads:
-                t.join()
+            for i, q in enumerate(qs):
+                try:
+                    q.put(_WRITE_SENTINEL, timeout=0.1 if gave_up[i] else put_timeout)
+                except queue.Full:
+                    gave_up[i] = True
+            # A healthy writer drains to its sentinel well inside the
+            # deadline; a wedged one is timed out and left behind.
+            join_end = time.monotonic() + put_timeout
+            for i, t in enumerate(threads):
+                t.join(timeout=0.1 if gave_up[i]
+                       else max(0.1, join_end - time.monotonic()))
+                if t.is_alive():
+                    gave_up[i] = True
+                    if errs[i] is None:
+                        errs[i] = se.OperationTimedOut(
+                            msg="drive shard writer did not finish")
+                        note_leaked_worker()
         self._note_encode_rate(total, time.perf_counter() - t_enc)
         return total, md5.hexdigest(), errs
 
@@ -526,9 +688,25 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def _read_quorum_fileinfo(self, bucket: str, obj: str,
                               version_id: str = "") -> FileInfo:
+        sc = self._setcache
+        pre_sigs = None
+        if sc is not None:
+            fi = sc.lookup(bucket, obj, version_id)
+            if fi is not None:
+                return fi   # signatures unchanged: no fan-out, no election
+            # Taken before the election: a mutation racing the fan-out
+            # leaves them stale, so the entry misses at the next lookup.
+            pre_sigs = sc.snapshot_sigs(bucket, obj, self.drives)
+        fi = self._elect_fileinfo(bucket, obj, version_id)
+        if sc is not None:
+            sc.populate(bucket, obj, version_id, fi, self.drives, sigs=pre_sigs)
+        return fi
+
+    def _elect_fileinfo(self, bucket: str, obj: str, version_id: str) -> FileInfo:
         with obs.span("quorum-read", bucket=bucket, object=obj):
             results = parallel_map([lambda d=d: d.read_version(bucket, obj, version_id)
-                                    for d in self.drives])
+                                    for d in self.drives],
+                                   deadline=self._meta_deadline())
         if all(isinstance(r, se.FileNotFound) for r in results):
             self.get_bucket_info(bucket)   # a missing bucket answers as such
             raise se.ObjectNotFound(bucket, obj)
@@ -638,69 +816,202 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         rel = f"{obj}/{fi.data_dir}/part.{part.number}"
         shard_data_size = codec.shard_file_size(part.size)
         readers: list = [None] * n
-        dead: set[int] = {i for i, d in enumerate(shuffled) if not d.is_online()}
-        corrupt: set[int] = set()   # the shards of `dead` that showed bitrot
 
         def open_reader(i: int) -> bitrot.BitrotReader:
-            if readers[i] is None:
-                f = shuffled[i].read_file_stream(bucket, rel)
-                readers[i] = bitrot.BitrotReader(f, shard_data_size,
-                                                 codec.shard_size(), algo)
-            return readers[i]
+            f = shuffled[i].read_file_stream(bucket, rel)
+            return bitrot.BitrotReader(f, shard_data_size, codec.shard_size(), algo)
 
-        first_block = offset // bs
-        last_block = (offset + length - 1) // bs
-        try:
-            bi = first_block
-            while bi <= last_block:
-                ids = list(range(bi, min(bi + BATCH_BLOCKS, last_block + 1)))
-                lens = [min(bs, part.size - b * bs) for b in ids]
-                while True:
-                    # Data shards first, parity only on demand (the staggered
-                    # any-k read, cmd/erasure-decode.go:120-188).
+        # Drives known dead (health OFFLINE) start excluded, so selection
+        # goes straight to reconstruction. Hedge losers are benched:
+        # healthy but slow, never heal-triggering, and taken back when
+        # selection runs short.
+        dead: set[int] = {i for i, d in enumerate(shuffled) if not d.is_online()}
+        corrupt: set[int] = set()   # the shards of `dead` that showed bitrot
+        benched: set[int] = set()
+        pool = self._shard_read_pool()
+
+        def read_batch(ids: list[int], lens: list[int]):
+            while True:
+                # Data shards first, parity only on demand (the staggered
+                # any-k read, cmd/erasure-decode.go:120-188).
+                chosen = [i for i in range(n) if i not in dead and i not in benched][:k]
+                if len(chosen) < k and benched:
+                    benched.clear()   # slow beats no quorum
                     chosen = [i for i in range(n) if i not in dead][:k]
-                    if len(chosen) < k:
-                        raise se.InsufficientReadQuorum(bucket, obj,
-                                                        "not enough live shards")
-                    try:
-                        rows = self._read_chunk_rows(open_reader, readers, chosen,
-                                                     ids, lens, codec, n, dead, algo,
-                                                     corrupt)
-                        break
-                    except se.StorageError:
-                        continue   # a shard died: re-choose and retry the batch
-                decoded = self._decode_rows(codec, rows, lens)
-                for j, b in enumerate(ids):
-                    blk_start = b * bs
-                    lo = max(offset, blk_start) - blk_start
-                    hi = min(offset + length, blk_start + lens[j]) - blk_start
-                    if hi > lo:
-                        yield from _yield_block_range(decoded[j], lo, hi)
-                bi = ids[-1] + 1
-        finally:
+                if len(chosen) < k:
+                    raise se.InsufficientReadQuorum(bucket, obj, "not enough live shards")
+                try:
+                    return self._read_chunk_rows(open_reader, readers, chosen, ids, lens,
+                                                 codec, n, dead, algo, corrupt, pool,
+                                                 benched)
+                except se.StorageError:
+                    continue   # a shard died: re-choose and retry the batch
+
+        def emit(ids: list[int], lens: list[int], rows) -> Iterator[bytes]:
+            decoded = self._decode_rows(codec, rows, lens)
+            for j, b in enumerate(ids):
+                blk_start = b * bs
+                lo = max(offset, blk_start) - blk_start
+                hi = min(offset + length, blk_start + lens[j]) - blk_start
+                if hi > lo:
+                    yield from _yield_block_range(decoded[j], lo, hi)
+
+        batches = []
+        bi, last_block = offset // bs, (offset + length - 1) // bs
+        while bi <= last_block:
+            ids = list(range(bi, min(bi + BATCH_BLOCKS, last_block + 1)))
+            batches.append((ids, [min(bs, part.size - b * bs) for b in ids]))
+            bi = ids[-1] + 1
+
+        def close_readers() -> None:
             for r in readers:
                 if r is not None:
                     r.src.close()
+
+        def heal_if_degraded() -> None:
             # The read went around a dead or corrupt shard: heal it in the
             # background (reference cmd/erasure-object.go:321-344).
             if dead and self.mrf is not None:
                 self.mrf.add_partial(bucket, obj, fi.version_id, deep=bool(corrupt))
 
+        if len(batches) == 1:
+            # One batch (a small or ranged GET): nothing to overlap.
+            try:
+                ids, lens = batches[0]
+                yield from emit(ids, lens, read_batch(ids, lens))
+            finally:
+                close_readers()
+                heal_if_degraded()
+            return
+
+        # Read-ahead: one producer thread reads batch N+1 while this
+        # generator verifies, decodes and sends batch N. Only the producer
+        # touches readers, dead and the re-selection; the bounded queue and
+        # stop-checked puts end it promptly when the consumer closes early.
+        out_q: queue.Queue = queue.Queue(maxsize=2)
+        stop = threading.Event()
+        cleanup_mu = threading.Lock()
+        cleaned = [False]
+
+        def offer(item) -> bool:
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def close_once() -> None:
+            # From the consumer's finally, or from the producer's exit when
+            # the consumer gave up waiting on a hung read.
+            with cleanup_mu:
+                if cleaned[0]:
+                    return
+                cleaned[0] = True
+            close_readers()
+
+        def producer() -> None:
+            try:
+                for ids, lens in batches:
+                    if stop.is_set():
+                        return
+                    rows = read_batch(ids, lens)
+                    if not offer(("rows", ids, lens, rows)):
+                        return
+                offer(("done", None, None, None))
+            except BaseException as e:  # noqa: BLE001 - relayed to the consumer
+                offer(("err", e, None, None))
+            finally:
+                if stop.is_set():
+                    close_once()
+
+        prod = threading.Thread(target=obs.ctx_wrap(producer), daemon=True,
+                                name="shard-readahead")
+        prod.start()
+        try:
+            while True:
+                tag, ids, lens, rows = out_q.get()
+                if tag == "done":
+                    break
+                if tag == "err":
+                    raise ids
+                yield from emit(ids, lens, rows)
+        finally:
+            # Runs at the end and at an early close: stop and join the
+            # producer before closing the readers it owns.
+            stop.set()
+            while True:
+                try:
+                    out_q.get_nowait()
+                except queue.Empty:
+                    break
+            prod.join(timeout=5.0)
+            if not prod.is_alive():
+                close_once()
+            heal_if_degraded()
+
+    def _hedge_delay(self) -> float | None:
+        """Seconds to wait on a straggling shard before a spare reader
+        starts on an unused parity shard: pinned by self.hedge_delay, else
+        four times the rolling shard-read latency (at least 20 ms); None
+        without history (the data deadline then decides)."""
+        if self.hedge_delay is not None:
+            return self.hedge_delay
+        e = self._shard_lat
+        return None if e is None else max(4.0 * e, 0.02)
+
+    def _note_shard_latency(self, dur: float) -> None:
+        e = self._shard_lat
+        self._shard_lat = dur if e is None else 0.8 * e + 0.2 * dur
+
+    def _abandon_shard(self, i: int, fut, readers, dead, benched, failed: bool) -> None:
+        """A straggler lost the hedge (benched, failed=False) or hit the
+        data deadline (dead): its reader is closed when its read returns,
+        and the pool worker it holds is lent back until then."""
+        (dead if failed else benched).add(i)
+        rdr = readers[i]
+        readers[i] = None
+
+        def cleanup(_f, rdr=rdr):
+            if rdr is not None:
+                rdr.src.close()
+
+        if fut.cancel():
+            cleanup(None)
+            return
+        note_leaked_worker(self._read_pool, fut)
+        fut.add_done_callback(cleanup)
+
     def _read_chunk_rows(self, open_reader, readers, chosen, batch_ids, block_lens,
                          codec: ErasureCodec, n: int, dead: set, algo: str,
-                         corrupt: set):
-        """Read one batch of chunk rows from the chosen shards in parallel,
-        then verify every mxsum256 or mxhash256 chunk in ONE digest launch
-        (K2 or K3; the read path's form of the reference's
-        verify-every-ReadAt, cmd/bitrot-streaming.go:115-158), or each
-        chunk of a host algorithm on its shard's reader thread. A failed
-        or corrupt shard is marked dead (and, for bitrot, corrupt) and
-        StorageError raised, so the caller re-selects."""
+                         corrupt: set, pool, benched: set):
+        """Read one batch of chunk rows from the chosen shards, one pool
+        worker per shard, first-k-wins: after the hedge delay a spare
+        reader starts on an unused shard for each straggler, and the batch
+        completes with the first k results; stragglers still out then, or
+        at the data deadline, are abandoned, never awaited. Then every
+        mxsum256 or mxhash256 chunk read is verified in ONE digest launch
+        (K2 or K3; the read path's verify-every-ReadAt,
+        cmd/bitrot-streaming.go:115-158); a host algorithm verifies each
+        chunk on its shard's reader. A failed or corrupt shard is marked
+        dead (and, for bitrot, corrupt) and StorageError raised, so the
+        caller re-selects."""
+        from concurrent.futures import FIRST_COMPLETED, CancelledError
+        from concurrent.futures import wait as futures_wait
+
         chunk_lens = [-(-bl // codec.k) for bl in block_lens]
         batched = algo in bitrot.DEVICE_ALGORITHMS
+        shard_errors = (se.StorageError, OSError, CancelledError, RuntimeError)
 
         def read_shard(i: int) -> list:
-            r = open_reader(i)
+            r = readers[i]
+            if r is None:
+                r = open_reader(i)
+                if i in dead or i in benched:
+                    r.src.close()   # abandoned while opening: publish nothing
+                    raise se.FaultyDisk(f"shard {i}: abandoned")
+                readers[i] = r
             out = []
             for j, b in enumerate(batch_ids):
                 if batched:
@@ -712,20 +1023,105 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                 out.append((want, chunk))
             return out
 
-        results = parallel_map([lambda i=i: read_shard(i) for i in chosen])
-        failed = [(i, r) for i, r in zip(chosen, results) if isinstance(r, Exception)]
-        for i, r in failed:
-            if not isinstance(r, (se.StorageError, OSError)):
-                raise r
-            if isinstance(r, se.FileCorrupt):
+        results: dict[int, list] = {}
+        first_err: tuple[int, Exception] | None = None
+
+        def record_failure(i: int, e: Exception) -> None:
+            nonlocal first_err
+            dead.add(i)
+            if isinstance(e, se.FileCorrupt):
                 corrupt.add(i)
-            _retire(readers, dead, i)
-        if failed:
-            raise se.FileCorrupt(f"shard {failed[0][0]}: {failed[0][1]}")
+            readers[i] = None
+            if first_err is None:
+                first_err = (i, e)
+
+        futures: dict = {}
+        rev: dict = {}
+        started: dict[int, float] = {}
+
+        def submit(i: int) -> bool:
+            try:
+                f = pool.submit(obs.ctx_wrap(read_shard), i)
+            except RuntimeError:
+                return False   # the set is closing
+            futures[i] = f
+            rev[f] = i
+            started[i] = time.monotonic()
+            return True
+
+        if not all(submit(i) for i in chosen):
+            # Closing mid-submit: the running reads share the readers'
+            # seek state, so wait them out and fail the batch cleanly.
+            for f in futures.values():
+                f.cancel()
+            futures_wait(list(futures.values()))
+            for i in chosen:
+                dead.add(i)
+                readers[i] = None
+            raise se.FileCorrupt("layer closing")
+
+        need = len(chosen)
+        t0 = time.monotonic()
+        end = t0 + self._data_deadline()
+        hd = self._hedge_delay()
+        hedge_at = t0 + hd if hd is not None else None
+        hedged: set[int] = set()
+        pending = set(futures)
+        while pending and len(results) < need:
+            now = time.monotonic()
+            if now >= end:
+                break
+            timeout = end - now
+            if hedge_at is not None:
+                timeout = min(timeout, max(0.0, hedge_at - now))
+            done, _ = futures_wait({futures[i] for i in pending}, timeout=timeout,
+                                   return_when=FIRST_COMPLETED)
+            for f in done:
+                i = rev[f]
+                pending.discard(i)
+                try:
+                    results[i] = f.result()
+                    self._note_shard_latency(time.monotonic() - started[i])
+                    if (i in hedged and len(results) <= need
+                            and any(j not in hedged for j in pending)):
+                        _HEDGED_WINS.inc()
+                except shard_errors as e:
+                    record_failure(i, e)
+            if (len(results) < need and pending and hedge_at is not None
+                    and time.monotonic() >= hedge_at):
+                # One spare per straggler, in parity order, never a shard
+                # already dead, benched or in play.
+                hedge_at = None
+                spares = [s for s in range(n)
+                          if s not in dead and s not in futures and s not in benched]
+                for sp in spares[:len(pending)]:
+                    if submit(sp):
+                        pending.add(sp)
+                        hedged.add(sp)
+                        _HEDGED_READS.inc()
+        # Leftovers: take the ones already done, abandon the rest.
+        deadline_hit = len(results) < need
+        for i in list(pending):
+            f = futures[i]
+            if f.done():
+                try:
+                    results[i] = f.result()
+                except shard_errors as e:
+                    record_failure(i, e)
+                continue
+            self._abandon_shard(i, f, readers, dead, benched, failed=deadline_hit)
+            if deadline_hit and first_err is None:
+                first_err = (i, se.OperationTimedOut(
+                    msg="shard read exceeded the data deadline"))
+        if len(results) < need:
+            i, e = first_err if first_err is not None else (
+                -1, se.FaultyDisk("no shard results"))
+            raise se.FileCorrupt(f"shard {i}: {e}") from e
+
         rows = [[None] * n for _ in batch_ids]
         records = []
-        for i, res in zip(chosen, results):
-            for j, (want, chunk) in enumerate(res):
+        for i in sorted(results):
+            for j, (want, chunk) in enumerate(results[i]):
                 rows[j][i] = chunk
                 if batched:
                     records.append((i, want, chunk))
@@ -769,7 +1165,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                               deleted=True, mod_time=time.time())
             with self.nslock.lock(bucket, obj):
                 results = parallel_map([lambda d=d: d.delete_version(bucket, obj, marker)
-                                        for d in self.drives])
+                                        for d in self.drives],
+                                       deadline=self._meta_deadline())
                 self._meta_invalidate(bucket, obj)
                 reduce_write_quorum(results, self._write_quorum_meta(), bucket, obj)
             return ObjectInfo(bucket=bucket, name=obj, version_id=marker.version_id,
@@ -779,7 +1176,8 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             target = FileInfo(volume=bucket, name=obj, version_id=opts.version_id,
                               data_dir=fi.data_dir)
             results = parallel_map([lambda d=d: d.delete_version(bucket, obj, target)
-                                    for d in self.drives])
+                                    for d in self.drives],
+                                   deadline=self._meta_deadline())
             self._meta_invalidate(bucket, obj)
             # A drive that never had the version is as good as deleted on it.
             results = [None if isinstance(r, (se.FileNotFound, se.FileVersionNotFound))
@@ -843,12 +1241,14 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             except se.StorageError:
                 return   # offline or unformatted drive: quorum covers it
 
-        # A drive that stalls mid-walk past WALK_DEADLINE drops out of the
-        # merge, as an offline drive would, instead of wedging the listing;
-        # the other producers wait a quarter of that for its turn, once.
-        baton = listing.WalkBaton(WALK_DEADLINE / 4)
+        # A drive that stalls mid-walk past the walk deadline drops out of
+        # the merge, as an offline drive would, instead of wedging the
+        # listing; the other producers wait a quarter of that for its
+        # turn, once.
+        walk_deadline = self._walk_deadline()
+        baton = listing.WalkBaton(walk_deadline / 4)
         return listing.elect_journal_streams(
-            [listing.prefetch_stream(drive_stream(d), deadline=WALK_DEADLINE,
+            [listing.prefetch_stream(drive_stream(d), deadline=walk_deadline,
                                      baton=baton)
              for d in self.drives])
 
@@ -880,9 +1280,10 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                     fi.metadata[k] = v
             drives = (shuffle_by_distribution(self.drives, fi.erasure.distribution)
                       if fi.erasure.distribution else self.drives)
-            results = parallel_map([
-                lambda d=d, f=_clone_for_drive(fi, i + 1): d.write_metadata(bucket, obj, f)
-                for i, d in enumerate(drives)])
+            results = parallel_map(
+                [lambda d=d, f=_clone_for_drive(fi, i + 1): d.write_metadata(bucket, obj, f)
+                 for i, d in enumerate(drives)],
+                deadline=self._meta_deadline())
             self._meta_invalidate(bucket, obj)
             reduce_write_quorum(results, self._write_quorum_meta(), bucket, obj)
         return listing.fi_to_object_info(bucket, obj, fi)

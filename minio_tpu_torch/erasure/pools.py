@@ -37,6 +37,7 @@ from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
                                            ObjectOptions, ObjectToDelete,
                                            PartInfoResult)
 from minio_tpu_torch.storage.fileinfo import FileInfo
+from minio_tpu_torch.storage.healthcheck import fleet_deadlines
 from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils import errors as se
 
@@ -63,14 +64,12 @@ class ErasureServerPools:
 
     @staticmethod
     def _pool_free(pool: ErasureSets) -> int:
-        free = 0
-        for d in pool.drives:
-            try:
-                # statvfs alone: the drive id costs a read of format.json.
-                free += d.disk_info(with_id=False).free
-            except Exception:  # noqa: BLE001 - an unreadable drive adds nothing
-                pass
-        return free
+        # statvfs alone: the drive id costs a read of format.json. An
+        # unreadable or hung drive adds nothing.
+        results = parallel_map([lambda d=d: d.disk_info(with_id=False)
+                                for d in pool.drives],
+                               deadline=fleet_deadlines(pool.drives)[0])
+        return sum(r.free for r in results if not isinstance(r, Exception))
 
     def _get_pool_idx_existing(self, bucket: str, obj: str,
                                version_id: str = "") -> int | None:

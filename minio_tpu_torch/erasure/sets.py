@@ -11,8 +11,12 @@ sets' sorted journal streams; system documents (the metacache's blocks)
 live on set 0. `format` is the elected format.json, which heal_format
 (run by the AutoHealer) needs to claim a replaced drive live.
 
-Left for later slices (ROADMAP.md): transition, health, and the drive
-wrappers of the JAX package (disk-id check, health checker, chaos).
+Once the format is known, every drive is wrapped as in the JAX package:
+a disk-ID check (a swapped drive answers DiskNotFound) under a health
+checker (adaptive per-call deadlines, ONLINE -> FAULTY -> OFFLINE, a
+background probe whose restore leaves a healing tracker for the
+AutoHealer). Left for later slices (ROADMAP.md): transition, and the JAX
+package's chaos wrapper between the two.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from minio_tpu_torch.erasure.types import (BucketInfo, CompletePart,
                                            ObjectOptions, ObjectToDelete,
                                            PartInfoResult)
 from minio_tpu_torch.storage.api import StorageAPI
+from minio_tpu_torch.storage.healthcheck import wrap_with_healthcheck
+from minio_tpu_torch.storage.idcheck import wrap_with_id_check
 from minio_tpu_torch.storage.fileinfo import FileInfo
 from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils.siphash import sip_hash_mod
@@ -53,6 +59,8 @@ class ErasureSets:
         drives = list(drives)
         set_drive_count = set_drive_count or len(drives)
         self.format = init_format_erasure(drives, set_drive_count)
+        drives = wrap_with_healthcheck(wrap_with_id_check(drives, self.format),
+                                       self.format)
         self.deployment_id = self.format.deployment_id
         self.set_drive_count = set_drive_count
         self.set_count = len(drives) // set_drive_count

@@ -5,26 +5,93 @@ Small documents (multipart session and part journals, metacache blocks)
 are not striped: each is written whole to every drive, and reads elect
 the content by majority, so they survive the drive losses the data path
 survives. SysConfigStore keeps them under `.mtpu.sys/config/`, the JAX
-package's layout, so either package reads what the other wrote.
+package's layout, so either package reads what the other wrote. With the
+metadata plane armed, the writes ride each drive's WAL blob lane: one
+shared fsync per drive and batch acknowledges them.
 """
 
 from __future__ import annotations
 
 import hashlib
 
-from minio_tpu_torch.erasure.metadata import parallel_map, reduce_write_quorum
-from minio_tpu_torch.storage.local import SYS_VOL
+import time
+from concurrent.futures import TimeoutError as FutureTimeout
+
+from minio_tpu_torch.erasure.metadata import (parallel_map, reduce_write_quorum,
+                                              run_bounded)
+from minio_tpu_torch.storage import healthcheck
+from minio_tpu_torch.storage.local import SYS_VOL, LocalDrive
 from minio_tpu_torch.utils import errors as se
 
 CONFIG_PREFIX = "config"
 
 
-def mirror_write_all(drives, vol: str, rel: str, data: bytes) -> list:
-    """Write `data` to `vol/rel` on every drive in parallel, each with its
-    own fsync (the JAX function's branch for drives without a group-commit
-    WAL, which the port's drives do not have). Returns per-drive outcomes
-    (None | Exception) for the caller's quorum reducer."""
-    return parallel_map([lambda d=d: d.write_all(vol, rel, data) for d in drives])
+def submits_may_block(drives) -> bool:
+    """Whether a WAL submit to these drives could block: true when some
+    drive, under its health and disk-ID wrappers, is not a LocalDrive (a
+    wrapper that may stall any call, as the resilience tests install).
+    The JAX package asks the same of its chaos layer."""
+    return any(type(healthcheck.unwrap(d)) is not LocalDrive for d in drives)
+
+
+def mirror_write_all(drives, vol: str, rel: str, data: bytes,
+                     deadline: float | None = None) -> list:
+    """Write `data` to `vol/rel` on every drive through the WAL's blob
+    lane where the drive has one armed (submit to every drive, then wait
+    for the shared fsyncs under the deadline), else by write_all with its
+    own fsync. Returns per-drive outcomes (None | Exception) for the
+    caller's quorum reducer."""
+    if deadline is None:
+        deadline = healthcheck.fleet_deadlines(drives)[0]
+    n = len(drives)
+    futs: list = [None] * n
+    sync_idx: list[int] = []
+
+    def submit_all():
+        for i, d in enumerate(drives):
+            fn = getattr(d, "write_all_async", None)
+            if fn is None:
+                sync_idx.append(i)
+                continue
+            try:
+                f = fn(vol, rel, data)
+            except Exception as e:  # noqa: BLE001 - per-drive outcome
+                futs[i] = e
+                continue
+            if f is None:
+                sync_idx.append(i)   # not armed: synchronous write
+            else:
+                futs[i] = f
+
+    if submits_may_block(drives):
+        # A wedged submit loop degrades every drive to the bounded
+        # synchronous fan-out (a repeated store writes the same bytes).
+        if not run_bounded(submit_all, deadline):
+            futs = [None] * n
+            sync_idx = list(range(n))
+    else:
+        submit_all()
+    outcomes: list = [None] * n
+    if sync_idx:
+        sync_out = parallel_map([lambda d=drives[i]: d.write_all(vol, rel, data)
+                                 for i in sync_idx], deadline=deadline)
+        for i, out in zip(sync_idx, sync_out):
+            outcomes[i] = out
+    end = time.monotonic() + deadline
+    for i, f in enumerate(futs):
+        if f is None:
+            continue
+        if isinstance(f, Exception):
+            outcomes[i] = f
+            continue
+        try:
+            f.result(timeout=max(0.0, end - time.monotonic()))
+        except FutureTimeout:
+            outcomes[i] = se.OperationTimedOut(
+                msg="wal blob commit exceeded deadline")
+        except Exception as e:  # noqa: BLE001 - per-drive outcome
+            outcomes[i] = e
+    return outcomes
 
 
 class SysConfigStore:
@@ -38,7 +105,8 @@ class SysConfigStore:
         minority of visible drives may be the old generation)."""
         rel = f"{CONFIG_PREFIX}/{path}"
         results = parallel_map([lambda d=d: d.read_all(SYS_VOL, rel)
-                                for d in self.drives])
+                                for d in self.drives],
+                               deadline=self._meta_deadline())
         tally: dict[bytes, tuple[int, bytes]] = {}
         for r in results:
             if isinstance(r, (bytes, bytearray)):
@@ -57,7 +125,8 @@ class SysConfigStore:
                 # Best effort: a drive that fails the repair stays
                 # divergent and is retried on the next read.
                 parallel_map([lambda d=d: d.write_all(SYS_VOL, rel, data)
-                              for d in lag])
+                              for d in lag],
+                             deadline=self._meta_deadline())
         return data
 
     def write_sys_config(self, path: str, data: bytes) -> None:
@@ -68,7 +137,8 @@ class SysConfigStore:
     def delete_sys_config(self, path: str) -> None:
         rel = f"{CONFIG_PREFIX}/{path}"
         results = parallel_map([lambda d=d: d.delete(SYS_VOL, rel)
-                                for d in self.drives])
+                                for d in self.drives],
+                               deadline=self._meta_deadline())
         results = [None if isinstance(r, se.FileNotFound) else r for r in results]
         reduce_write_quorum(results, self._write_quorum_meta(), SYS_VOL, path)
 
@@ -77,20 +147,18 @@ class SysConfigStore:
         has none or cannot say: every write replaces the file by a rename,
         so an equal signature means no copy was rewritten in between."""
         rel = f"{CONFIG_PREFIX}/{path}"
-        sig = []
-        for d in self.drives:
-            try:
-                sig.append(d.stat_file(SYS_VOL, rel))
-            except se.StorageError:
-                sig.append(None)
-        return tuple(sig)
+        results = parallel_map([lambda d=d: d.stat_file(SYS_VOL, rel)
+                                for d in self.drives],
+                               deadline=self._meta_deadline())
+        return tuple(None if isinstance(r, Exception) else r for r in results)
 
     def list_sys_config(self, prefix: str = "") -> list[str]:
         """Sorted keys under prefix, the union across drives (a key exists
         if any drive has it; stale deletes resolve on read)."""
         rel = f"{CONFIG_PREFIX}/{prefix}".rstrip("/")
         names: set[str] = set()
-        for r in parallel_map([lambda d=d: _walk_names(d, rel) for d in self.drives]):
+        for r in parallel_map([lambda d=d: _walk_names(d, rel) for d in self.drives],
+                              deadline=self._meta_deadline()):
             if isinstance(r, set):
                 names |= r
         strip = len(CONFIG_PREFIX) + 1

@@ -49,12 +49,10 @@ from minio_tpu_torch.obs.span import (  # noqa: F401
     trace_id,
 )
 
-# The StorageAPI ops carrying the object hot path that the port's drives
-# have — the per-drive latency family tracks exactly these (reference
-# minio_node_drive_latency_us). The JAX package's two group-commit ops
-# (journal_commit_async, write_all_async) come with the metadata plane.
+# The StorageAPI ops carrying the object hot path — the per-drive latency
+# family tracks exactly these (reference minio_node_drive_latency_us).
 DRIVE_OPS = ("read_version", "create_file", "write_metadata_single",
-             "rename_data")
+             "rename_data", "journal_commit_async", "write_all_async")
 
 
 def drive_op_observer(drive: str):

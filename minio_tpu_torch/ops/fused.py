@@ -54,6 +54,7 @@ import torch
 
 from minio_tpu_torch.obs import kernel as obs_kernel
 from minio_tpu_torch.ops import mxhash, mxsum, rs
+from minio_tpu_torch.utils import bufpool
 from minio_tpu_torch.utils.device import resolve
 from minio_tpu_torch.utils.shardmath import pow2_bucket
 
@@ -226,18 +227,32 @@ def digest_chunks_host(chunks: list, cap: int, device="cuda") -> list[bytes]:
 def stage_and_digest(chunks: list, cap: int, device, digest) -> list[bytes]:
     """Stage a ragged list of byte chunks (each <= cap) as one [rows, cap]
     batch and digest it in one launch of `digest(chunks, lens)` on
-    `device`. Rows pad to a power of two, as in the JAX package; the
-    staging buffer is pinned when the device is CUDA, so the upload is one
-    DMA."""
+    `device`. Rows pad to a power of two, as in the JAX package, with
+    zeros past each chunk. The staging tensors come from the pinned pool
+    (utils/bufpool.py) when the device is CUDA, so the upload is one DMA
+    and no GET batch page-locks a buffer of its own; they go back once
+    the copies reading them completed."""
     device = resolve(device)
     n = bucket_rows(len(chunks))
     pinned = device.type == "cuda"
-    batch = torch.zeros((n, cap), dtype=torch.uint8, pin_memory=pinned)
-    lens = torch.zeros(n, dtype=torch.int32, pin_memory=pinned)
-    arr, larr = batch.numpy(), lens.numpy()
-    for i, c in enumerate(chunks):
-        arr[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
-        larr[i] = len(c)
-    got = digest(batch.to(device, non_blocking=True),
-                 lens.to(device, non_blocking=True)).cpu().numpy()
+    batch = bufpool.GLOBAL_POOL.get((n, cap), torch.uint8, pinned)
+    lens = bufpool.GLOBAL_POOL.get((n,), torch.int32, pinned)
+    copied = None
+    try:
+        arr, larr = batch.numpy(), lens.numpy()
+        for i, c in enumerate(chunks):
+            arr[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
+            arr[i, len(c):] = 0
+            larr[i] = len(c)
+        arr[len(chunks):] = 0
+        larr[len(chunks):] = 0
+        dev_batch = batch.to(device, non_blocking=True)
+        dev_lens = lens.to(device, non_blocking=True)
+        if pinned:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(device))
+        got = digest(dev_batch, dev_lens).cpu().numpy()
+    finally:
+        bufpool.GLOBAL_POOL.put(batch, copied)
+        bufpool.GLOBAL_POOL.put(lens, copied)
     return [got[i].tobytes() for i in range(len(chunks))]

@@ -31,9 +31,16 @@ file's (inode, mtime, size), as the JAX package's does: a quorum read of
 a multipart object's journal (hundreds of parts, decoded by the port's
 pure-Python msgpack) otherwise costs milliseconds per drive and request.
 
-Left for later slices (ROADMAP.md): the group-commit WAL and its
-write_all_async blob lane (and so the WAL flush before a walk), O_DIRECT
-writes.
+The group-commit metadata plane (metaplane/, on unless MTPU_METAPLANE=0)
+arms a per-drive WAL at mount, after replaying any WAL a previous process
+left (a replay runs whatever the gate says). Armed, every journal store
+and removal rides the WAL and is acknowledged by its shared fsync; the
+meta.mp files materialize later, so every journal read consults the
+pending overlay before the read cache and the disk, and walk_dir,
+list_dir and a volume delete flush the WAL first. write_all_async is the
+blob lane of system files (multipart part journals, config documents).
+
+Left for later slices (ROADMAP.md): O_DIRECT shard writes.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import uuid
 from collections import OrderedDict
 from typing import BinaryIO, Iterable, Iterator
 
-from minio_tpu_torch import obs
+from minio_tpu_torch import metaplane, obs
 from minio_tpu_torch.storage.api import (MARKER_GROUP_PAD, DiskInfo,
                                          StorageAPI, VolInfo, WalkEntry)
 from minio_tpu_torch.storage.fileinfo import FileInfo
@@ -122,6 +129,14 @@ class LocalDrive(StorageAPI):
         # The slot UUID this drive was placed under (set_disk_id); a drive
         # swapped under the path answers get_disk_id with InconsistentDisk.
         self._expected_id = ""
+        # Volume existence with a short positive TTL (the WAL committer's
+        # per-record check).
+        self._vol_ok: dict[str, float] = {}
+        # Volumes this process created empty -> the keys it may have
+        # journaled there: a key outside the set provably has no journal,
+        # so the committer skips its existence check. None: tracking lost.
+        self._fresh_vols: dict[str, set | None] = {}
+        self._fresh_vol_cap = 1 << 17
         # minio_tpu_drive_latency_seconds{drive,op} over obs.DRIVE_OPS, and
         # `storage` records while someone traces.
         self._observe_op = obs.drive_op_observer(self.root)
@@ -129,6 +144,24 @@ class LocalDrive(StorageAPI):
             os.makedirs(os.path.join(self.root, SYS_VOL, "tmp"), exist_ok=True)
         except OSError as e:
             raise se.DiskAccessDenied(str(e)) from e
+        # (applied, failed, seconds) of the WAL replay at this mount, if any.
+        self.last_replay: tuple[int, int, float] | None = None
+        self._wal = None
+        if metaplane.enabled():
+            from minio_tpu_torch.metaplane.groupcommit import DriveWAL
+
+            self._wal = DriveWAL(self)   # replays a leftover WAL first
+        else:
+            from minio_tpu_torch.metaplane import wal as walfmt
+
+            wal_dir = os.path.join(self.root, SYS_VOL, "wal")
+            if walfmt.segment_paths(wal_dir):
+                from minio_tpu_torch.metaplane import groupcommit
+
+                groupcommit.replay_all(self, wal_dir)
+
+    def sys_volume(self) -> str:
+        return SYS_VOL
 
     def endpoint(self) -> str:
         return self.root
@@ -205,9 +238,11 @@ class LocalDrive(StorageAPI):
 
     def make_vol(self, volume: str) -> None:
         d = self._vol_dir(volume)
+        self._vol_ok.pop(volume, None)
         try:
             # mkdir, not makedirs: a missing root means an unmounted drive.
             os.mkdir(d)
+            self._fresh_vols[volume] = set()
         except FileExistsError:
             raise se.VolumeExists(volume) from None
         except FileNotFoundError:
@@ -234,8 +269,43 @@ class LocalDrive(StorageAPI):
             raise se.VolumeNotFound(volume) from None
         return VolInfo(volume, st.st_ctime)
 
+    def _note_journal_key(self, volume: str, path: str) -> None:
+        """A journal may now exist at (volume, path); past the cap the
+        volume's tracking is dropped, never wrong."""
+        s = self._fresh_vols.get(volume)
+        if s is None:
+            return
+        if len(s) >= self._fresh_vol_cap:
+            self._fresh_vols[volume] = None
+            return
+        s.add(path)
+
+    def journal_known_absent(self, volume: str, path: str) -> bool:
+        """True only when this process created the volume empty and never
+        journaled the key (the WAL committer then skips its stat)."""
+        if not metaplane.single_owner():
+            return False
+        s = self._fresh_vols.get(volume)
+        return s is not None and path not in s
+
+    def _stat_vol_cached(self, volume: str) -> None:
+        """stat_vol with a 2 s positive TTL: the committer's per-record
+        volume check. make_vol and delete_vol invalidate it."""
+        now = time.monotonic()
+        exp = self._vol_ok.get(volume)
+        if exp is not None and exp > now:
+            return
+        self.stat_vol(volume)
+        self._vol_ok[volume] = now + 2.0
+
     def delete_vol(self, volume: str) -> None:
         d = self._vol_dir(volume)
+        self._vol_ok.pop(volume, None)
+        self._fresh_vols.pop(volume, None)
+        if self._wal is not None:
+            # rmdir decides emptiness from the filesystem: acked journals
+            # still in the overlay must be on disk first.
+            self._wal.flush()
         try:
             os.rmdir(d)
         except FileNotFoundError:
@@ -249,6 +319,15 @@ class LocalDrive(StorageAPI):
 
     def delete(self, volume: str, path: str, recursive: bool = False) -> None:
         fp = self._file_path(volume, path)
+        wal_blob_pending = False
+        if self._wal is not None:
+            # What vanishes out of band must not come back at replay.
+            if recursive:
+                self._wal.forget_subtree(volume, path)
+            elif os.path.basename(fp) == META_FILE:
+                self._wal.forget_key(volume, os.path.dirname(path))
+            elif self._wal.has_blob_state(volume, path):
+                wal_blob_pending = self._wal.forget_blob(volume, path)
         try:
             if recursive:
                 shutil.rmtree(fp)
@@ -257,6 +336,8 @@ class LocalDrive(StorageAPI):
             else:
                 os.remove(fp)
         except FileNotFoundError:
+            if wal_blob_pending:
+                return   # the file only ever lived in the overlay
             raise se.FileNotFound(f"{volume}/{path}") from None
         except OSError as e:
             if e.errno == errno.ENOTEMPTY:
@@ -287,8 +368,68 @@ class LocalDrive(StorageAPI):
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
 
+    def write_all_async(self, volume: str, path: str, data: bytes):
+        """write_all through the WAL's blob lane: the future resolves after
+        the shared fsync covering the record, and the file materializes
+        later. None when the WAL is not armed (callers use write_all)."""
+        if self._wal is None:
+            return None
+        self.stat_vol(volume)
+        self._file_path(volume, path)   # validate before journaling
+        t0 = time.perf_counter()
+        fut = self._wal.submit_blob(volume, path, data)
+
+        def done(f, t0=t0):
+            self._observe_op("write_all_async", t0, volume, path, f.exception())
+
+        fut.add_done_callback(obs.ctx_wrap(done))
+        return fut
+
+    def _store_blob_disk(self, volume: str, path: str, raw) -> None:
+        """Materialize a WAL blob record: tmp + rename, no fsync (the WAL
+        holds durability until its checkpoint)."""
+        fp = self._file_path(volume, path)
+        os.makedirs(os.path.dirname(fp), exist_ok=True)
+        tmp = fp + f".tmp.{uuid.uuid4().hex}"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(raw)
+            os.replace(tmp, fp)
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+
+    def _remove_blob_disk(self, volume: str, path: str) -> None:
+        fp = self._file_path(volume, path)
+        try:
+            os.remove(fp)
+        except FileNotFoundError:
+            pass
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+        self._prune_empty_parents(os.path.dirname(fp), volume)
+
+    def _disk_blob_mt(self, volume: str, path: str) -> float | None:
+        """mtime of the blob file on disk, None when absent: the replay
+        tiebreak of blob records."""
+        try:
+            return os.stat(self._file_path(volume, path)).st_mtime
+        except (FileNotFoundError, NotADirectoryError):
+            return None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
+
     def stat_file(self, volume: str, path: str) -> tuple[int, int, int]:
-        """The file's (inode, mtime in ns, size)."""
+        """The file's (inode, mtime in ns, size). For an acked write of it
+        still in the WAL overlay, without waiting for the committer to
+        write the file: (minus the WAL's generation, unique in the
+        process, the write's sequence number in it, its size), a
+        signature no file on disk has."""
+        if self._wal is not None:
+            pe = self._wal.pending_blob(volume, path)
+            if pe is not None:
+                if pe.removed:
+                    raise se.FileNotFound(f"{volume}/{path}")
+                return -self._wal.generation, pe.lsn, len(pe.raw)
         try:
             st = os.stat(self._file_path(volume, path))
         except (FileNotFoundError, NotADirectoryError):
@@ -298,6 +439,12 @@ class LocalDrive(StorageAPI):
         return st.st_ino, st.st_mtime_ns, st.st_size
 
     def read_all(self, volume: str, path: str) -> bytes:
+        if self._wal is not None:
+            pe = self._wal.pending_blob(volume, path)
+            if pe is not None:   # acked, not yet on disk: the overlay is the file
+                if pe.removed:
+                    raise se.FileNotFound(f"{volume}/{path}")
+                return pe.raw
         fp = self._file_path(volume, path)
         try:
             with open(fp, "rb") as f:
@@ -310,6 +457,8 @@ class LocalDrive(StorageAPI):
             raise se.FaultyDisk(str(e)) from e
 
     def list_dir(self, volume: str, dir_path: str) -> list[str]:
+        if self._wal is not None:
+            self._wal.flush()   # the directory must show every acked commit
         try:
             with os.scandir(self._file_path(volume, dir_path)) as it:
                 return sorted(e.name + "/" if e.is_dir() else e.name for e in it)
@@ -369,10 +518,18 @@ class LocalDrive(StorageAPI):
         return os.path.join(self._file_path(volume, path), META_FILE)
 
     def _load_meta(self, volume: str, path: str) -> XLMeta:
+        """A fresh parse of the key's journal (callers mutate it): the
+        WAL overlay's when the key has a pending entry, else the disk's."""
+        if self._wal is not None:
+            pe = self._wal.pending_entry(volume, path)
+            if pe is not None:
+                if pe.removed:
+                    raise se.FileNotFound(f"{volume}/{path}")
+                return XLMeta.parse(pe.raw)
         return self._read_meta(volume, path)[0]
 
     def _read_meta(self, volume: str, path: str) -> tuple[XLMeta, tuple]:
-        """The journal and the (inode, mtime, size) of the file it came from."""
+        """The on-disk journal and the (inode, mtime, size) of its file."""
         try:
             with open(self._meta_path(volume, path), "rb") as f:
                 st = os.fstat(f.fileno())
@@ -383,38 +540,72 @@ class LocalDrive(StorageAPI):
             raise se.FaultyDisk(str(e)) from e
         return XLMeta.parse(raw), (st.st_ino, st.st_mtime_ns, st.st_size)
 
-    def _store_meta(self, volume: str, path: str, meta: XLMeta) -> None:
-        self._store_raw_meta(volume, path, meta.serialize())
+    def _disk_meta_mt(self, volume: str, path: str) -> float | None:
+        """mod time of the newest version of the journal on disk, None
+        when absent: the replay tiebreak (never the overlay's)."""
+        try:
+            return self._read_meta(volume, path)[0].latest_mt
+        except se.FileNotFound:
+            return None
 
-    def _store_raw_meta(self, volume: str, path: str, raw: bytes) -> None:
+    def _store_meta(self, volume: str, path: str, meta: XLMeta) -> None:
+        raw = meta.serialize()
+        if self._wal is not None:
+            # Acked by the shared WAL fsync; meta.mp materializes later.
+            self._wal_wait(self._wal.submit_commit(volume, path, raw, meta))
+            return
+        self._store_meta_disk(volume, path, raw)
+
+    def _store_meta_disk(self, volume: str, path: str, raw,
+                         fsync: bool = True) -> None:
+        """Write journal bytes to meta.mp: tmp, fsync unless the WAL holds
+        durability, rename."""
         mp = self._meta_path(volume, path)
+        self._note_journal_key(volume, path)
         os.makedirs(os.path.dirname(mp), exist_ok=True)
         tmp = mp + f".tmp.{uuid.uuid4().hex}"
         try:
             fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
             try:
                 os.write(fd, raw)
-                os.fsync(fd)
+                if fsync:
+                    os.fsync(fd)
             finally:
                 os.close(fd)
             os.replace(tmp, mp)
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
+        with self._meta_mu:
+            self._meta_cache.pop((volume, path), None)
 
-    def _remove_meta(self, volume: str, path: str) -> None:
+    def _remove_meta_disk(self, volume: str, path: str) -> None:
+        """Remove a journal and prune the empty directories above it."""
         mp = self._meta_path(volume, path)
         try:
             os.remove(mp)
-        except FileNotFoundError:
-            return
+        except (FileNotFoundError, NotADirectoryError):
+            pass
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
+        with self._meta_mu:
+            self._meta_cache.pop((volume, path), None)
         obj_dir = os.path.dirname(mp)
         try:
             os.rmdir(obj_dir)
         except OSError:
             return  # data dirs remain, or already gone
         self._prune_empty_parents(os.path.dirname(obj_dir), volume)
+
+    @staticmethod
+    def _wal_wait(fut):
+        """Wait for a group-commit future (a single's reclaim token); a
+        commit that does not come back becomes FaultyDisk."""
+        from concurrent.futures import TimeoutError as FutureTimeout
+
+        try:
+            return fut.result(timeout=60.0)
+        except FutureTimeout:
+            raise se.FaultyDisk("wal group commit stalled") from None
 
     def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
         self.stat_vol(volume)
@@ -444,35 +635,85 @@ class LocalDrive(StorageAPI):
                                raw: bytes, defer_reclaim: bool = False
                                ) -> str | None:
         """Store an inline version whose one-version journal the caller
-        serialized once for the whole set (`raw`). Where the drive's
-        journal holds other versions, fi is merged into it instead. With
-        defer_reclaim the replaced version (entry and data dir) goes to a
-        reclaim capsule and its token is returned, the contract of
-        rename_data, so a below-quorum inline overwrite can be undone."""
+        serialized once for the whole set (`raw`); see _single_prework."""
+        if self._wal is not None:
+            return self._wal_wait(self._wal.submit_single(
+                volume, path, fi, raw, XLMeta.parse(raw), defer_reclaim))
         self.stat_vol(volume)
+        token, merged = self._single_prework(volume, path, fi, defer_reclaim)
+        if merged is not None:
+            self._store_meta_disk(volume, path, merged.serialize())
+        else:
+            self._store_meta_disk(volume, path, raw)
+        return token
+
+    def journal_commit_async(self, volume: str, path: str, fi: FileInfo, raw,
+                             meta: XLMeta | None = None,
+                             defer_reclaim: bool = False):
+        """write_metadata_single in two phases: enqueue the record (the
+        prework runs in the committer) and return a future that resolves
+        to the reclaim token after the shared WAL fsync, so a set submits
+        to every drive and then waits once. None when the WAL is not
+        armed (callers take the synchronous fan-out)."""
+        if self._wal is None:
+            return None
+        t0 = time.perf_counter()
+        fut = self._wal.submit_single(volume, path, fi, raw,
+                                      meta if meta is not None else XLMeta.parse(raw),
+                                      defer_reclaim)
+
+        def done(f, t0=t0):
+            self._observe_op("journal_commit_async", t0, volume, path, f.exception())
+
+        fut.add_done_callback(obs.ctx_wrap(done))
+        return fut
+
+    def _reclaim_dir(self, d: str, defer_fs: bool) -> None:
+        """Remove a displaced data dir; in the committer (defer_fs) park it
+        with one rename and remove it at the next idle drain, so a large
+        tree never holds up a group commit."""
+        if defer_fs and self._wal is not None:
+            trash = os.path.join(self.root, SYS_VOL, "tmp", f"trash-{uuid.uuid4().hex}")
+            try:
+                os.replace(d, trash)
+            except OSError:
+                pass
+            else:
+                self._wal.note_trash(trash)
+                return
+        shutil.rmtree(d, ignore_errors=True)
+
+    def _single_prework(self, volume: str, path: str, fi: FileInfo,
+                        defer_reclaim: bool, assume_new: bool = False,
+                        defer_fs: bool = False) -> tuple:
+        """The non-commit half of a single-journal store: park (with
+        defer_reclaim, returning its token) or reclaim what the write
+        displaces, and detect a journal holding other versions, for which
+        fi is merged in. Returns (token, merged journal or None, when
+        the caller's one-version journal may be stored as it is). Runs in
+        the WAL committer when the plane is armed."""
+        if assume_new:
+            return None, None
         try:
             meta = self._load_meta(volume, path)
         except se.FileNotFound:
-            meta = None
+            return None, None
         token: str | None = None
-        if meta is not None:
-            try:
-                old = meta.exact_version(volume, path, fi.version_id)
-            except se.StorageError:
-                old = None
-            if old is not None and not old.deleted:
-                displaces = bool(old.data_dir and old.data_dir != fi.data_dir)
-                if defer_reclaim:
-                    token = self._stash_displaced(volume, path, old,
-                                                  move_data=displaces)
-                elif displaces:
-                    shutil.rmtree(os.path.join(self._file_path(volume, path),
-                                               old.data_dir), ignore_errors=True)
-            if old is None or len(meta.versions) != 1:
-                meta.add_version(fi)
-                raw = meta.serialize()
-        self._store_raw_meta(volume, path, raw)
-        return token
+        try:
+            old = meta.exact_version(volume, path, fi.version_id)
+        except se.StorageError:
+            old = None
+        if old is not None and not old.deleted:
+            displaces = bool(old.data_dir and old.data_dir != fi.data_dir)
+            if defer_reclaim:
+                token = self._stash_displaced(volume, path, old, move_data=displaces)
+            elif displaces:
+                self._reclaim_dir(os.path.join(self._file_path(volume, path),
+                                               old.data_dir), defer_fs)
+        if old is None or len(meta.versions) != 1:
+            meta.add_version(fi)
+            return token, meta
+        return token, None
 
     def read_version(self, volume: str, path: str,
                      version_id: str = "") -> FileInfo:
@@ -490,21 +731,33 @@ class LocalDrive(StorageAPI):
 
     def _read_version(self, volume: str, path: str,
                       version_id: str = "") -> FileInfo:
-        """The version's FileInfo (a copy: callers mutate it), from the
-        journal read cache while the file is unchanged."""
+        """The version's FileInfo (a copy: callers mutate it): from the WAL
+        overlay while the key has a pending entry, else from the journal
+        read cache while the file is unchanged."""
         key = (volume, path)
-        try:
-            st = os.stat(self._meta_path(volume, path))
-        except (FileNotFoundError, NotADirectoryError):
-            raise se.FileNotFound(f"{volume}/{path}") from None
-        except OSError as e:
-            raise se.FaultyDisk(str(e)) from e
-        with self._meta_mu:
-            hit = self._meta_cache.get(key)
-            if hit is not None and hit[0] == (st.st_ino, st.st_mtime_ns, st.st_size):
-                self._meta_cache.move_to_end(key)
-            else:
-                hit = None
+        hit = None
+        if self._wal is not None:
+            pe = self._wal.pending_entry(volume, path)
+            if pe is not None:
+                if pe.removed:
+                    raise se.FileNotFound(f"{volume}/{path}")
+                if pe.meta is None:
+                    pe.meta = XLMeta.parse(pe.raw)
+                hit = (None, pe.meta, pe.memo)
+        if hit is None:
+            try:
+                st = os.stat(self._meta_path(volume, path))
+            except (FileNotFoundError, NotADirectoryError):
+                raise se.FileNotFound(f"{volume}/{path}") from None
+            except OSError as e:
+                raise se.FaultyDisk(str(e)) from e
+            with self._meta_mu:
+                hit = self._meta_cache.get(key)
+                if hit is not None and hit[0] == (st.st_ino, st.st_mtime_ns,
+                                                  st.st_size):
+                    self._meta_cache.move_to_end(key)
+                else:
+                    hit = None
         if hit is None:
             meta, sig = self._read_meta(volume, path)
             hit = (sig, meta, {})
@@ -538,8 +791,11 @@ class LocalDrive(StorageAPI):
                                        removed.data_dir), ignore_errors=True)
         if meta.versions:
             self._store_meta(volume, path, meta)
+        elif self._wal is not None:
+            # WAL-ordered, or replay would bring back an earlier commit.
+            self._wal_wait(self._wal.submit_remove(volume, path))
         else:
-            self._remove_meta(volume, path)
+            self._remove_meta_disk(volume, path)
 
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
                     dst_volume: str, dst_path: str,
@@ -680,6 +936,8 @@ class LocalDrive(StorageAPI):
         reference's dir-entries-carry-a-trailing-slash convention,
         cmd/metacache-walk.go). Keys nested under an object key ('a' and
         'a/b') both list."""
+        if self._wal is not None:
+            self._wal.flush()   # the walk reads meta.mp off the filesystem
         base = self._vol_dir(volume)
         if not os.path.isdir(base):
             raise se.VolumeNotFound(volume)
@@ -721,3 +979,31 @@ class LocalDrive(StorageAPI):
                     yield WalkEntry(name=name, meta=raw)
 
         yield from walk("", base)
+
+    # ---------- metadata plane hooks ----------
+
+    def meta_sig(self, volume: str, path: str):
+        """The signature of this drive's journal of a key for the set-level
+        FileInfo cache: the WAL's ("w", lsn) while armed, else the file's
+        (inode, mtime, size). None: absent or unknown (re-elect)."""
+        if self._wal is not None:
+            sig = self._wal.key_sig(volume, path)
+            if sig is not None:
+                return sig
+        try:
+            st = os.stat(self._meta_path(volume, path))
+        except OSError:
+            return None
+        return (st.st_ino, st.st_mtime_ns, st.st_size)
+
+    def flush_wal(self) -> None:
+        """Every acknowledged journal and blob on disk (for tools and tests
+        that copy or damage the drive's files directly)."""
+        if self._wal is not None:
+            self._wal.flush()
+
+    def close_wal(self) -> None:
+        """Drain, checkpoint and stop the group-commit thread (tests, and
+        servers that close; a process's drives otherwise die with it)."""
+        if self._wal is not None:
+            self._wal.close()

@@ -9,7 +9,10 @@ reads the other's drives:
 body lengths u32[n], version-id and data-dir byte lengths u16[n], the ids
 and data dirs as joined utf-8 buffers); each version body is an
 individually packed msgpack document, concatenated after the envelope.
-Versions are kept newest-first by mod_time.
+Versions are kept newest-first by mod_time. Journals of the v1 layout
+(magic "MTP1" and one msgpack map {"v": 1, "versions": [doc, ...]}, each
+version an inline document) still parse, as in the JAX package, and are
+written back in the current layout.
 
 The JAX package keeps the journal columnar and decodes lazily for speed;
 this port materializes the (few) versions on parse, which writes the same
@@ -27,6 +30,7 @@ from minio_tpu_torch.utils import msgpack
 from minio_tpu_torch.utils.crc32c import crc32c
 
 MAGIC = b"MTP2"
+MAGIC_V1 = b"MTP1"
 FORMAT_VERSION = 2
 
 VTYPE_OBJECT = 1
@@ -148,6 +152,8 @@ class XLMeta:
 
     @classmethod
     def parse(cls, raw: bytes) -> "XLMeta":
+        if raw[:4] == MAGIC_V1:
+            return cls._parse_v1(raw)
         if len(raw) < 12 or raw[:4] != MAGIC:
             raise se.CorruptedFormat("bad meta magic or truncated header")
         if crc32c(raw, offset=8) != int.from_bytes(raw[4:8], "little"):
@@ -178,6 +184,21 @@ class XLMeta:
                                     raw[pos:pos + bls[i]]))
             pos += bls[i]
         return cls(versions)
+
+    @classmethod
+    def _parse_v1(cls, raw: bytes) -> "XLMeta":
+        try:
+            doc = msgpack.unpackb(bytes(raw[4:]))
+        except ValueError as e:
+            raise se.CorruptedFormat(f"meta unpack: {e}") from e
+        if not isinstance(doc, dict) or doc.get("v") != 1:
+            raise se.CorruptedFormat("unknown meta version")
+        try:
+            return cls([Version(d.get("mt", 0.0), d.get("vid", ""), d["t"],
+                                d.get("dd", ""), msgpack.packb(d))
+                        for d in doc.get("versions", [])])
+        except (KeyError, TypeError, AttributeError) as e:
+            raise se.CorruptedFormat(f"bad v1 version doc: {e}") from e
 
     @property
     def version_count(self) -> int:

@@ -13,6 +13,11 @@ class StorageError(Exception):
     """Base for all per-drive storage errors."""
 
 
+class DiskNotFound(StorageError):
+    """Drive is offline or not reachable: the health checker has it
+    OFFLINE, or the disk-ID check found another drive in its slot."""
+
+
 class FaultyDisk(StorageError):
     """Drive returned an unexpected I/O error."""
 

@@ -34,7 +34,8 @@ BUCKET = "adm"
 # registries hold the same families whatever ran before in this process.
 FAMILY_MODULES = ("obs.kernel", "obs.flight", "hottier.tier", "dataplane.batcher",
                   "utils.admission", "erasure.healing", "erasure.objects",
-                  "storage.local", "s3.server")
+                  "erasure.metadata", "storage.local", "storage.healthcheck",
+                  "metaplane.groupcommit", "metaplane.setcache", "s3.server")
 for _m in FAMILY_MODULES:
     importlib.import_module(f"minio_tpu.{_m}")
     importlib.import_module(f"minio_tpu_torch.{_m}")
@@ -43,11 +44,7 @@ for _m in FAMILY_MODULES:
 # with the ROADMAP.md Queue 1 item that brings it. A family the JAX scrape
 # shows and the port's does not must be defined in one of these.
 JAX_ONLY_MODULES = {
-    "minio_tpu/storage/healthcheck.py": 3,   # drive health, deadlines
-    "minio_tpu/erasure/metadata.py": 3,      # hung drive workers (deadlines)
     "minio_tpu/storage/local.py": 3,         # directory fsync errors
-    "minio_tpu/erasure/objects.py": 3,       # hedged reads
-    "minio_tpu/metaplane/": 3,               # group-commit WAL, set cache
     "minio_tpu/frontdoor/": 6,               # the multi-process front door
     "minio_tpu/qos/": 6,
     "minio_tpu/s3/server.py": 6,             # per-tenant families (qos)
@@ -292,10 +289,12 @@ def test_info_top_health_and_refusals_match_jax(pair):
     cls = _clients(pair)
     infos = {k: c.get("/minio/admin/v3/info").json() for k, c in cls.items()}
     assert _norm_info(infos["torch"]) == _norm_info(infos["jax"])
-    # healthState and timeouts come from the JAX drive health checker
-    # (ROADMAP.md Queue 1 item 3), which the port does not have yet.
+    # healthState and timeouts come from each package's drive health
+    # checker.
     assert [sorted(d) for d in infos["torch"]["drives"]] == \
-        [sorted(set(d) - {"healthState", "timeouts"}) for d in infos["jax"]["drives"]]
+        [sorted(d) for d in infos["jax"]["drives"]]
+    assert [(d["healthState"], d["timeouts"]) for d in infos["torch"]["drives"]] == \
+        [(d["healthState"], d["timeouts"]) for d in infos["jax"]["drives"]]
     assert infos["torch"]["drivesOnline"] == infos["jax"]["drivesOnline"] == 4
     assert infos["torch"]["backend"] == infos["jax"]["backend"]
     assert infos["torch"]["mode"] == infos["jax"]["mode"] == "online"

@@ -426,6 +426,8 @@ def test_jax_written_with_plane_read_by_port(tmp_path, planes_on):
 
 def test_plane_off_is_the_per_object_path(tmp_path, monkeypatch):
     monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
+    # _layers mounts the drives in both packages at once: their WALs off.
+    monkeypatch.setenv("MTPU_METAPLANE", "0")
     dataplane.reset_global()
     try:
         _paths, _jl, tl = _layers(tmp_path)

@@ -7,10 +7,13 @@ blocks to keep the CPU run short), copies the drive tree, does the same
 damage to both copies, heals one copy with the JAX package and the other
 with the port, and asserts the per-drive states of the two results equal
 and the two healed trees byte-equal (journals and shard files; the tmp
-area aside). Both ways: the JAX package writes and both heal, the port
-writes and both heal. The JAX side runs as its own per-request oracle:
-both batch planes off and bitrot_algorithm="mxsum256", the checksum the
-port writes. Tolerance: exact bytes."""
+area and the WAL aside). Both ways: the JAX package writes and both
+heal, the port writes and both heal. Every case runs twice, with both
+packages' group-commit metadata plane at its default (on) and with
+MTPU_METAPLANE=0 (tests/torch_planes.py): drive trees are copied and
+compared with every WAL closed. The batched data plane is off, and the
+JAX side writes bitrot_algorithm="mxsum256", the checksum the port
+writes. Tolerance: exact bytes."""
 
 import glob
 import io
@@ -34,16 +37,11 @@ from minio_tpu_torch.erasure.sets import ErasureSets as TorchSets
 from minio_tpu_torch.erasure.types import CompletePart as TorchPart
 from minio_tpu_torch.erasure.types import ObjectOptions as TorchOpts
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
+from tests.torch_planes import planes  # noqa: F401 - the fixture
 
 BS = 64 << 10
 BUCKET = "heal"
 N = 12
-
-
-@pytest.fixture(autouse=True)
-def planes_off(monkeypatch):
-    monkeypatch.setenv("MTPU_METAPLANE", "0")
-    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
 
 
 def _payload(size, seed):
@@ -54,25 +52,29 @@ def _paths(root, n=N):
     return [str(root / f"d{i:02d}") for i in range(n)]
 
 
-def _layer(pkg, paths):
-    if pkg == "jax":
-        return JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
-                          bitrot_algorithm="mxsum256")
-    return TorchObjects([TorchDrive(p) for p in paths], parity=4, block_size=BS,
-                        device="cpu")
+def _layer(planes, pkg, paths):
+    jl, tl = planes.layers(
+        paths,
+        lambda: JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
+                           bitrot_algorithm="mxsum256"),
+        lambda: TorchObjects([TorchDrive(p) for p in paths], parity=4, block_size=BS,
+                             device="cpu"))
+    return jl if pkg == "jax" else tl
 
 
 def _opts(pkg, **kw):
     return (JaxOpts if pkg == "jax" else TorchOpts)(**kw)
 
 
-def _tree(paths):
-    """{(drive, relative path): bytes} of every file but the tmp area's."""
+def _tree(planes, paths):
+    """{(drive, relative path): bytes} of every file but the tmp area's and
+    the WAL's, with every layer's WAL closed first."""
+    planes.release()
     out = {}
     for i, p in enumerate(paths):
         for root, dirs, files in os.walk(p):
             rel = os.path.relpath(root, p)
-            if rel.split(os.sep)[:2] == [".mtpu.sys", "tmp"]:
+            if rel.split(os.sep)[:2] in ([".mtpu.sys", "tmp"], [".mtpu.sys", "wal"]):
                 dirs[:] = []
                 continue
             for f in files:
@@ -82,7 +84,8 @@ def _tree(paths):
     return out
 
 
-def _copy(paths, root):
+def _copy(planes, paths, root):
+    planes.release()   # every journal on disk, no WAL left to copy
     dst = _paths(root, len(paths))
     for a, b in zip(paths, dst):
         shutil.copytree(a, b)
@@ -98,16 +101,16 @@ def _states(res):
     return [s.state for s in res.before], [s.state for s in res.after]
 
 
-def _heal_both(tmp_path, paths, damage, *args, **kw):
+def _heal_both(planes, tmp_path, paths, damage, *args, **kw):
     """Copy `paths`, apply damage(paths') to both copies, heal the first
     with the JAX package and the second with the port: -> (jax result or
     exception, port result or exception, jax paths, port paths)."""
     out = []
     for pkg in ("jax", "torch"):
-        cp = _copy(paths, tmp_path / f"heal-{pkg}")
+        cp = _copy(planes, paths, tmp_path / f"heal-{pkg}")
         damage(cp)
         try:
-            res = _layer(pkg, cp).heal_object(BUCKET, *args, **kw)
+            res = _layer(planes, pkg, cp).heal_object(BUCKET, *args, **kw)
         except Exception as e:  # noqa: BLE001 - compared by name below
             res = e
         out += [res, cp]
@@ -121,10 +124,10 @@ def _heal_both(tmp_path, paths, damage, *args, **kw):
     return jres, tres, jp, tp
 
 
-def _written(tmp_path, writer, objects, versioned=False):
+def _written(planes, tmp_path, writer, objects, versioned=False):
     """Write {key: payload} with `writer`; -> (paths, {key: version id})."""
     paths = _paths(tmp_path / "orig")
-    layer = _layer(writer, paths)
+    layer = _layer(planes, writer, paths)
     layer.make_bucket(BUCKET)
     vids = {}
     for key, data in objects.items():
@@ -158,77 +161,80 @@ DAMAGE = {
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 @pytest.mark.parametrize("kind,deep", [("missing", False), ("corrupt", True),
                                        ("truncated", False), ("corrupt", False)])
-def test_heal_object_per_drive_state(tmp_path, writer, kind, deep):
+def test_heal_object_per_drive_state(tmp_path, planes, writer, kind, deep):
     """Missing, corrupt and truncated shards on 3 drives: both packages
     classify them alike and rebuild byte-equal files; a flipped byte is
     seen by the deep scan only."""
     data = _payload((1 << 20) + 12345, 1)
-    paths, _ = _written(tmp_path, writer, {"obj": data})
-    before = _tree(paths)
+    paths, _ = _written(planes, tmp_path, writer, {"obj": data})
+    before = _tree(planes, paths)
 
     def damage(cp):
         for i in (1, 5, 9):
             DAMAGE[kind](_part_file(cp[i], "obj"))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "obj", scan_deep=deep)
-    assert _tree(jp) == _tree(tp)
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "obj", scan_deep=deep)
+    assert _tree(planes, jp) == _tree(planes, tp)
     if kind == "corrupt" and not deep:
         assert tres.healed_count == 0
     else:
         assert tres.healed_count == 3
-        assert _tree(tp) == before
-    info, it = _layer("jax", tp).get_object(BUCKET, "obj")
+        assert _tree(planes, tp) == before
+    info, it = _layer(planes, "jax", tp).get_object(BUCKET, "obj")
     assert b"".join(bytes(c) for c in it) == data
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_heal_inline_object(tmp_path, writer):
+def test_heal_inline_object(tmp_path, planes, writer):
     """An inline object's journal lost on 3 drives comes back with shard
     index pos + 1, as the JAX heal writes it, byte-equal in both."""
     data = _payload(3000, 2)
-    paths, _ = _written(tmp_path, writer, {"tiny": data})
+    paths, _ = _written(planes, tmp_path, writer, {"tiny": data})
 
     def damage(cp):
         for i in (0, 4, 7):
             shutil.rmtree(os.path.join(cp[i], BUCKET, "tiny"))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "tiny")
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "tiny")
     assert tres.healed_count == 3
-    assert _tree(jp) == _tree(tp)
+    assert _tree(planes, jp) == _tree(planes, tp)
     for pkg in ("jax", "torch"):
-        _info, it = _layer(pkg, tp).get_object(BUCKET, "tiny")
+        _info, it = _layer(planes, pkg, tp).get_object(BUCKET, "tiny")
         assert b"".join(bytes(c) for c in it) == data
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_heal_delete_marker(tmp_path, writer):
+def test_heal_delete_marker(tmp_path, planes, writer):
     """A delete marker that 3 drives missed is healed onto them (a
     journal-only heal), where the port used to answer ObjectNotFound."""
     data = _payload(200 << 10, 3)
-    paths, _ = _written(tmp_path, writer, {"obj": data}, versioned=True)
+    paths, _ = _written(planes, tmp_path, writer, {"obj": data}, versioned=True)
+    planes.release()
     saved = {i: open(os.path.join(paths[i], BUCKET, "obj", "meta.mp"), "rb").read()
              for i in (2, 3, 11)}
-    layer = _layer(writer, paths)
+    layer = _layer(planes, writer, paths)
     marker = layer.delete_object(BUCKET, "obj", _opts(writer, versioned=True))
     assert marker.delete_marker
+    planes.release()
     for i, raw in saved.items():          # these drives never saw the marker
         open(os.path.join(paths[i], BUCKET, "obj", "meta.mp"), "wb").write(raw)
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, lambda cp: None, "obj")
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, lambda cp: None, "obj")
     assert tres.version_id == marker.version_id
     assert [s.state for s in tres.before].count("missing") == 3
     assert all(s.state == "ok" for s in tres.after)
-    assert _tree(jp) == _tree(tp)
+    assert _tree(planes, jp) == _tree(planes, tp)
     for i in saved:                       # the marker is now their latest
-        fi = TorchDrive(tp[i]).read_version(BUCKET, "obj")
+        with planes.drive(TorchDrive, tp[i]) as d:
+            fi = d.read_version(BUCKET, "obj")
         assert fi.deleted and fi.version_id == marker.version_id
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_heal_multipart_object(tmp_path, writer):
+def test_heal_multipart_object(tmp_path, planes, writer):
     """A 3-part object with its part files lost on 4 drives."""
     paths = _paths(tmp_path / "orig")
-    layer = _layer(writer, paths)
+    layer = _layer(planes, writer, paths)
     layer.make_bucket(BUCKET)
     parts = [_payload(MIN_PART_SIZE, 10), _payload(MIN_PART_SIZE, 11),
              _payload(70_000, 12)]
@@ -238,126 +244,128 @@ def test_heal_multipart_object(tmp_path, writer):
     Part = JaxPart if writer == "jax" else TorchPart
     layer.complete_multipart_upload(BUCKET, "mp", uid,
                                     [Part(n, e) for n, e in enumerate(etags, 1)])
-    before = _tree(paths)
+    before = _tree(planes, paths)
 
     def damage(cp):
         for i in (0, 3, 6, 10):
             shutil.rmtree(os.path.dirname(_part_file(cp[i], "mp")))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "mp")
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "mp")
     assert tres.healed_count == 4
-    assert _tree(jp) == _tree(tp) == before
+    assert _tree(planes, jp) == _tree(planes, tp) == before
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_heal_noncurrent_version_by_id(tmp_path, writer):
+def test_heal_noncurrent_version_by_id(tmp_path, planes, writer):
     paths = _paths(tmp_path / "orig")
-    layer = _layer(writer, paths)
+    layer = _layer(planes, writer, paths)
     layer.make_bucket(BUCKET)
     old, new = _payload(300 << 10, 20), _payload(150 << 10, 21)
     v1 = layer.put_object(BUCKET, "v", io.BytesIO(old), len(old),
                           _opts(writer, versioned=True)).version_id
     layer.put_object(BUCKET, "v", io.BytesIO(new), len(new),
                      _opts(writer, versioned=True))
-    before = _tree(paths)
-    fi = TorchDrive(paths[0]).read_version(BUCKET, "v", v1)
+    before = _tree(planes, paths)
+    with planes.drive(TorchDrive, paths[0]) as d:
+        fi = d.read_version(BUCKET, "v", v1)
 
     def damage(cp):
         for i in (1, 2):
             shutil.rmtree(os.path.join(cp[i], BUCKET, "v", fi.data_dir))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "v", v1)
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "v", v1)
     assert tres.version_id == v1 and tres.healed_count == 2
-    assert _tree(jp) == _tree(tp) == before
+    assert _tree(planes, jp) == _tree(planes, tp) == before
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_dry_run_changes_nothing(tmp_path, writer):
-    paths, _ = _written(tmp_path, writer, {"obj": _payload(400 << 10, 4)})
+def test_dry_run_changes_nothing(tmp_path, planes, writer):
+    paths, _ = _written(planes, tmp_path, writer, {"obj": _payload(400 << 10, 4)})
 
     def damage(cp):
         for i in (2, 8):
             shutil.rmtree(os.path.dirname(_part_file(cp[i], "obj")))
 
-    damaged = _copy(paths, tmp_path / "damaged")
+    damaged = _copy(planes, paths, tmp_path / "damaged")
     damage(damaged)
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "obj", dry_run=True)
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "obj", dry_run=True)
     assert tres.dry_run and tres.healed_count == 0
     # A journal without its part file classifies corrupt, in both.
     assert [s.state for s in tres.before].count("corrupt") == 2
-    assert _tree(jp) == _tree(tp) == _tree(damaged)
+    assert _tree(planes, jp) == _tree(planes, tp) == _tree(planes, damaged)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 @pytest.mark.parametrize("remove_dangling", [True, False])
-def test_dangling_object(tmp_path, writer, remove_dangling):
+def test_dangling_object(tmp_path, planes, writer, remove_dangling):
     """Journal gone from 5 drives (> parity 4): both packages purge it,
     or, with remove_dangling=False, both raise InsufficientReadQuorum."""
-    paths, _ = _written(tmp_path, writer, {"obj": _payload(300 << 10, 5),
+    paths, _ = _written(planes, tmp_path, writer, {"obj": _payload(300 << 10, 5),
                                            "keep": _payload(1000, 6)})
 
     def damage(cp):
         for i in range(5):
             shutil.rmtree(os.path.join(cp[i], BUCKET, "obj"))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "obj",
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "obj",
                                     remove_dangling=remove_dangling)
-    assert _tree(jp) == _tree(tp)
+    assert _tree(planes, jp) == _tree(planes, tp)
     if remove_dangling:
         assert tres.purged and jres.purged
-        assert not any(k[1].startswith(f"{BUCKET}/obj") for k in _tree(tp))
+        assert not any(k[1].startswith(f"{BUCKET}/obj") for k in _tree(planes, tp))
         for pkg in ("jax", "torch"):
             with pytest.raises(Exception) as ei:
-                _layer(pkg, tp).get_object_info(BUCKET, "obj")
+                _layer(planes, pkg, tp).get_object_info(BUCKET, "obj")
             assert type(ei.value).__name__ == "ObjectNotFound"
     else:
         assert type(tres).__name__ == "InsufficientReadQuorum"
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_unhealable_but_not_dangling_raises(tmp_path, writer):
+def test_unhealable_but_not_dangling_raises(tmp_path, planes, writer):
     """Shard files gone from 5 drives, journals kept: not dangling, so
     both raise InsufficientReadQuorum and purge nothing."""
-    paths, _ = _written(tmp_path, writer, {"obj": _payload(300 << 10, 7)})
+    paths, _ = _written(planes, tmp_path, writer, {"obj": _payload(300 << 10, 7)})
 
     def damage(cp):
         for i in range(5):
             shutil.rmtree(os.path.dirname(_part_file(cp[i], "obj")))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "obj")
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "obj")
     assert type(tres).__name__ == "InsufficientReadQuorum"
-    assert _tree(jp) == _tree(tp)
+    assert _tree(planes, jp) == _tree(planes, tp)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_transitioned_stub_heals_journal_only(tmp_path, writer):
+def test_transitioned_stub_heals_journal_only(tmp_path, planes, writer):
     """A version whose data moved to a remote tier (the transition key, no
     data dir), with its journal gone from 5 drives: healed journal-only,
     never reconstructed and never purged as dangling."""
-    paths, _ = _written(tmp_path, writer, {"obj": _payload(300 << 10, 8)})
+    paths, _ = _written(planes, tmp_path, writer, {"obj": _payload(300 << 10, 8)})
     for p in paths:
-        d = TorchDrive(p)
-        fi = d.read_version(BUCKET, "obj")
-        shutil.rmtree(os.path.join(p, BUCKET, "obj", fi.data_dir))
-        fi.data_dir = ""
-        fi.metadata[TRANSITION_TIER_KEY] = "WARM"
-        d.write_metadata(BUCKET, "obj", fi)
+        with planes.drive(TorchDrive, p) as d:
+            fi = d.read_version(BUCKET, "obj")
+            shutil.rmtree(os.path.join(p, BUCKET, "obj", fi.data_dir))
+            fi.data_dir = ""
+            fi.metadata[TRANSITION_TIER_KEY] = "WARM"
+            d.write_metadata(BUCKET, "obj", fi)
 
     def damage(cp):
         for i in range(5):
             shutil.rmtree(os.path.join(cp[i], BUCKET, "obj"))
 
-    jres, tres, jp, tp = _heal_both(tmp_path, paths, damage, "obj")
+    jres, tres, jp, tp = _heal_both(planes, tmp_path, paths, damage, "obj")
     assert not tres.purged and tres.healed_count == 5
-    assert _tree(jp) == _tree(tp)
+    assert _tree(planes, jp) == _tree(planes, tp)
+    planes.release()
     assert all(os.path.exists(os.path.join(p, BUCKET, "obj", "meta.mp")) for p in tp)
 
 
 # -- heal_bucket and heal_objects --
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_heal_bucket(tmp_path, writer):
-    paths, _ = _written(tmp_path, writer, {"a": _payload(1000, 9)})
+def test_heal_bucket(tmp_path, planes, writer):
+    paths, _ = _written(planes, tmp_path, writer, {"a": _payload(1000, 9)})
 
     def damage(cp):
         for i in (2, 5):
@@ -365,15 +373,16 @@ def test_heal_bucket(tmp_path, writer):
 
     out = {}
     for pkg in ("jax", "torch"):
-        cp = _copy(paths, tmp_path / f"bucket-{pkg}")
+        cp = _copy(planes, paths, tmp_path / f"bucket-{pkg}")
         damage(cp)
-        res = _layer(pkg, cp).heal_bucket(BUCKET)
+        res = _layer(planes, pkg, cp).heal_bucket(BUCKET)
         out[pkg] = (_states(res), res.heal_type, cp)
     assert out["jax"][:2] == out["torch"][:2]
     before, after = out["torch"][0]
     assert before.count("missing") == 2 and set(after) == {"ok"}
+    planes.release()
     assert all(os.path.isdir(os.path.join(p, BUCKET)) for p in out["torch"][2])
-    assert _tree(out["jax"][2]) == _tree(out["torch"][2])
+    assert _tree(planes, out["jax"][2]) == _tree(planes, out["torch"][2])
 
 
 def _two_set_layers(pkg, paths):
@@ -385,7 +394,7 @@ def _two_set_layers(pkg, paths):
 
 
 @pytest.mark.parametrize("top", ["sets", "pools"])
-def test_heal_objects_over_sets_and_pools(tmp_path, top):
+def test_heal_objects_over_sets_and_pools(tmp_path, planes, top):
     """heal_objects over a prefix on 2 sets of 6 (and on 2 pools of them):
     both packages heal the same names in the same order, with the same
     drive states, and leave byte-equal trees."""
@@ -393,10 +402,15 @@ def test_heal_objects_over_sets_and_pools(tmp_path, top):
     roots = [_paths(tmp_path / f"orig{p}") for p in range(n_pools)]
 
     def build(pkg, rs):
-        sets = [_two_set_layers(pkg, r) for r in rs]
-        if top == "sets":
-            return sets[0]
-        return (JaxPools if pkg == "jax" else TorchPools)(sets)
+        def make(pkg):
+            sets = [_two_set_layers(pkg, r) for r in rs]
+            if top == "sets":
+                return sets[0]
+            return (JaxPools if pkg == "jax" else TorchPools)(sets)
+
+        jl, tl = planes.layers([p for r in rs for p in r],
+                               lambda: make("jax"), lambda: make("torch"))
+        return jl if pkg == "jax" else tl
 
     layer = build("torch", roots)
     layer.make_bucket(BUCKET)
@@ -404,20 +418,18 @@ def test_heal_objects_over_sets_and_pools(tmp_path, top):
     for i, key in enumerate(keys):
         data = _payload(20_000 + 7000 * i, 30 + i)
         layer.put_object(BUCKET, key, io.BytesIO(data), len(data))
-    layer.close()
     results = {}
     for pkg in ("jax", "torch"):
-        cps = [_copy(r, tmp_path / f"objs-{pkg}-{p}") for p, r in enumerate(roots)]
+        cps = [_copy(planes, r, tmp_path / f"objs-{pkg}-{p}") for p, r in enumerate(roots)]
         for cp in cps:
             for i in (1, 7):
                 for obj_dir in glob.glob(os.path.join(cp[i], BUCKET, "pre", "*")):
                     shutil.rmtree(obj_dir)
         lay = build(pkg, cps)
         got = list(lay.heal_objects(BUCKET, "pre/"))
-        lay.close()
         results[pkg] = ([(r.object, _states(r)) for r in got], cps)
     assert results["jax"][0] == results["torch"][0]
     names = [n for n, _ in results["torch"][0]]
     assert sorted(names) == keys[:10]
     for pj, pt in zip(results["jax"][1], results["torch"][1]):
-        assert _tree(pj) == _tree(pt)
+        assert _tree(planes, pj) == _tree(planes, pt)

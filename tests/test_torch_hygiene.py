@@ -1,6 +1,7 @@
 """Hygiene of the port (minio_tpu_torch) and chip_smoke.py:
 
-- no module imports jax or the JAX package (checked on the AST);
+- no module imports jax or the JAX package, nor a library the card's
+  machine lacks (aiohttp, msgpack, requests, xxhash), checked on the AST;
 - every entry point raises without CUDA unless given device="cpu";
 - a tensor that is not on the CPU never falls back to a plain version:
   with no kernel library it raises.
@@ -13,11 +14,28 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "minio_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xxhash"}
+
+# Modules of the metadata plane and drive-resilience slice, each its own
+# copy of the JAX module it ports: they must be in the scan.
+SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
+                 "metaplane/groupcommit.py", "metaplane/setcache.py",
+                 "storage/idcheck.py", "storage/healthcheck.py",
+                 "utils/dyntimeout.py", "utils/bufpool.py")
 
 
 def _port_files():
     return sorted((ROOT / "minio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_scanned_and_import(module):
+    import importlib
+
+    path = ROOT / "minio_tpu_torch" / module
+    assert path in _port_files()
+    name = "minio_tpu_torch." + module[:-3].replace("/", ".").removesuffix(".__init__")
+    assert pathlib.Path(importlib.import_module(name).__file__).resolve() == path
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

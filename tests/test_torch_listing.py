@@ -5,8 +5,10 @@ x max-keys, list_objects on one set and across two pools, DeleteObjects,
 DeleteBucket, ListBuckets, metacache blocks rendered by one package and
 served by the other, and the streamed-walk parse counts of
 tests/test_streamed_listing.py run against the port. Object names, sizes
-and the grid come from fixed seeds. The JAX side runs with both batch
-planes off. Tolerance: exact (names, etags, sizes, mod times, markers)."""
+and the grid come from fixed seeds. Every interop test on drives runs
+twice, with both packages' group-commit metadata plane at its default
+(on) and with MTPU_METAPLANE=0 (tests/torch_planes.py); the batched data
+plane is off. Tolerance: exact (names, etags, sizes, mod times, markers)."""
 
 import io
 import os
@@ -32,6 +34,7 @@ from minio_tpu_torch.storage import xlmeta as torch_xlm
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
 from minio_tpu_torch.utils import msgpack
 from minio_tpu_torch.utils.synthbucket import make_synthetic_bucket as torch_synth
+from tests.torch_planes import planes  # noqa: F401 - the fixture
 
 BS = 64 << 10
 BUCKET = "lst"
@@ -56,18 +59,17 @@ def _payload(size, seed):
     return np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8).tobytes()
 
 
-@pytest.fixture
-def planes_off(monkeypatch):
-    monkeypatch.setenv("MTPU_METAPLANE", "0")
-    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
+def _objects(paths):
+    """(JAX builder, port builder) of an object layer over paths."""
+    return (lambda: JaxObjects([JaxDrive(p) for p in paths], parity=2, block_size=BS,
+                               bitrot_algorithm="mxsum256"),
+            lambda: TorchObjects([TorchDrive(p) for p in paths], parity=2,
+                                 block_size=BS, device="cpu"))
 
 
-def _set_layers(root, n=4):
+def _set_layers(planes, root, n=4):
     paths = [str(root / f"d{i}") for i in range(n)]
-    jl = JaxObjects([JaxDrive(p) for p in paths], parity=2, block_size=BS,
-                    bitrot_algorithm="mxsum256")
-    tl = TorchObjects([TorchDrive(p) for p in paths], parity=2, block_size=BS,
-                      device="cpu")
+    jl, tl = planes.layers(paths, *_objects(paths))
     return paths, jl, tl
 
 
@@ -102,22 +104,24 @@ GRID_MARKERS = ["", "a", "a/", "a.b", "b/x", "docs/r2/", "docs/r2/x", "c/a"]
 # -- walk_dir --
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_walk_dir_order_equals_jax(tmp_path, planes_off, writer):
-    paths, jl, tl = _set_layers(tmp_path)
+def test_walk_dir_order_equals_jax(tmp_path, planes, writer):
+    paths, jl, tl = _set_layers(planes, tmp_path)
     w = jl if writer == "jax" else tl
     w.make_bucket(BUCKET)
     keys = _keys(1, 30)
     _fill(w, keys)
+    grid = [(prefix, start_after) for prefix in GRID_PREFIXES
+            for start_after in GRID_MARKERS + ["a/" + "\U0010ffff" * 1025]]
     for p in paths[:2]:
-        jd, td = JaxDrive(p), TorchDrive(p)
-        for prefix in GRID_PREFIXES:
-            for start_after in GRID_MARKERS + ["a/" + "\U0010ffff" * 1025]:
-                want = [(e.name, e.meta) for e in jd.walk_dir(BUCKET, prefix,
-                                                               start_after)]
-                got = [(e.name, e.meta) for e in td.walk_dir(BUCKET, prefix,
-                                                             start_after)]
-                assert got == want, (prefix, start_after)
-        assert [e.name for e in td.walk_dir(BUCKET)] == keys
+        walks = {}
+        for pkg, make in (("jax", JaxDrive), ("torch", TorchDrive)):
+            with planes.drive(make, p) as d:
+                walks[pkg] = [[(e.name, e.meta) for e in d.walk_dir(BUCKET, *args)]
+                              for args in grid]
+                names = [e.name for e in d.walk_dir(BUCKET)]
+        for args, got, want in zip(grid, walks["torch"], walks["jax"]):
+            assert got == want, args
+        assert names == keys
 
 
 # -- the paginators (pure functions) --
@@ -125,12 +129,16 @@ def test_walk_dir_order_equals_jax(tmp_path, planes_off, writer):
 @pytest.fixture(scope="module")
 def journals(tmp_path_factory):
     """One set written by the JAX package, versioned keys and a delete
-    marker among them; -> (JAX journal map, port journal map)."""
+    marker among them; -> (JAX journal map, port journal map). The
+    paginators are pure functions of these maps: the metadata plane is
+    off."""
     mp = pytest.MonkeyPatch()
     mp.setenv("MTPU_METAPLANE", "0")
     mp.setenv("MTPU_BATCHED_DATAPLANE", "0")
     try:
-        _paths, jl, tl = _set_layers(tmp_path_factory.mktemp("pag"))
+        root = tmp_path_factory.mktemp("pag")
+        jl, tl = (build() for build in _objects([str(root / f"d{i}")
+                                                 for i in range(4)]))
         jl.make_bucket(BUCKET)
         keys = _keys(2, 40)
         _fill(jl, keys)
@@ -213,8 +221,8 @@ def test_version_paginator_resumes_mid_object(journals):
 # -- one set: list_objects, stream, bucket calls --
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_set_list_objects_equal_jax(tmp_path, planes_off, writer):
-    _paths, jl, tl = _set_layers(tmp_path)
+def test_set_list_objects_equal_jax(tmp_path, planes, writer):
+    _paths, jl, tl = _set_layers(planes, tmp_path)
     w = jl if writer == "jax" else tl
     w.make_bucket(BUCKET)
     keys = _keys(3, 30)
@@ -227,11 +235,10 @@ def test_set_list_objects_equal_jax(tmp_path, planes_off, writer):
                     args = (BUCKET, prefix, marker, delimiter, max_keys)
                     assert _view(tl.list_objects(*args)) == \
                         _view(jl.list_objects(*args)), args
-    jl.close()
 
 
-def test_bucket_calls_equal_jax(tmp_path, planes_off):
-    _paths, jl, tl = _set_layers(tmp_path)
+def test_bucket_calls_equal_jax(tmp_path, planes):
+    _paths, jl, tl = _set_layers(planes, tmp_path)
     for name in ("zeta", "alpha", "mid-1"):
         tl.make_bucket(name)
     jl.make_bucket("beta")
@@ -250,7 +257,6 @@ def test_bucket_calls_equal_jax(tmp_path, planes_off):
     jl.delete_bucket("mid-1")
     assert [b.name for b in tl.list_buckets()] == \
         [b.name for b in jl.list_buckets()] == ["beta", "zeta"]
-    jl.close()
 
 
 def _dview(results):
@@ -260,23 +266,17 @@ def _dview(results):
 
 
 @pytest.mark.parametrize("layer_kind", ["set", "pools"])
-def test_delete_objects_equal_jax(tmp_path, planes_off, layer_kind):
+def test_delete_objects_equal_jax(tmp_path, planes, layer_kind):
     """The same DeleteObjects (present, missing and invalid keys) on two
     copies of one bucket, one per package: equal per-key results, and the
     same keys left."""
     layers = []
     for pkg in ("jax", "torch"):
         paths = [str(tmp_path / pkg / f"d{i}") for i in range(4)]
-        if pkg == "jax":
-            layer = JaxSets([JaxDrive(p) for p in paths], parity=2, block_size=BS,
-                            bitrot_algorithm="mxsum256")
-            if layer_kind == "pools":
-                layer = JaxPools([layer])
+        if layer_kind == "pools":
+            layer = _pools(planes, tmp_path / pkg, n_pools=1)[pkg]
         else:
-            layer = TorchSets([TorchDrive(p) for p in paths], parity=2,
-                              block_size=BS, device="cpu")
-            if layer_kind == "pools":
-                layer = TorchPools([layer])
+            layer = planes.layers(paths, *_sets(paths))[0 if pkg == "jax" else 1]
         layer.make_bucket(BUCKET)
         _fill(layer, _keys(4, 10))
         layers.append(layer)
@@ -289,23 +289,27 @@ def test_delete_objects_equal_jax(tmp_path, planes_off, layer_kind):
                                               "FileAccessDenied"}
     left = [[o.name for o in layer.list_objects(BUCKET).objects] for layer in layers]
     assert left[0] == left[1] == keys[1::2]
-    for layer in layers:
-        getattr(layer, "close", lambda: None)()
 
 
 # -- pools: the k-way merge and the metacache --
 
-def _pools(root, pkg, n_pools=2, n=4):
-    out = []
-    for p in range(n_pools):
-        paths = [str(root / f"pool{p}" / f"d{i}") for i in range(n)]
-        if pkg == "jax":
-            out.append(JaxSets([JaxDrive(x) for x in paths], parity=2, block_size=BS,
-                               bitrot_algorithm="mxsum256"))
-        else:
-            out.append(TorchSets([TorchDrive(x) for x in paths], parity=2,
-                                 block_size=BS, device="cpu"))
-    return (JaxPools if pkg == "jax" else TorchPools)(out)
+def _sets(paths):
+    """(JAX builder, port builder) of a set over paths."""
+    return (lambda: JaxSets([JaxDrive(x) for x in paths], parity=2, block_size=BS,
+                            bitrot_algorithm="mxsum256"),
+            lambda: TorchSets([TorchDrive(x) for x in paths], parity=2,
+                              block_size=BS, device="cpu"))
+
+
+def _pools(planes, root, n_pools=2, n=4):
+    """{package: its pools over root's drives}."""
+    paths = [[str(root / f"pool{p}" / f"d{i}") for i in range(n)]
+             for p in range(n_pools)]
+    jl, tl = planes.layers(
+        [x for ps in paths for x in ps],
+        lambda: JaxPools([_sets(ps)[0]() for ps in paths]),
+        lambda: TorchPools([_sets(ps)[1]() for ps in paths]))
+    return {"jax": jl, "torch": tl}
 
 
 def _walk_pages(layer, max_keys, prefix="", delimiter=""):
@@ -319,8 +323,9 @@ def _walk_pages(layer, max_keys, prefix="", delimiter=""):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_two_pool_merge_equals_jax(tmp_path, planes_off, writer):
-    jp, tp = _pools(tmp_path, "jax"), _pools(tmp_path, "torch")
+def test_two_pool_merge_equals_jax(tmp_path, planes, writer):
+    pools = _pools(planes, tmp_path)
+    jp, tp = pools["jax"], pools["torch"]
     w = jp if writer == "jax" else tp
     w.make_bucket(BUCKET)
     keys = _keys(5, 24)
@@ -337,48 +342,50 @@ def test_two_pool_merge_equals_jax(tmp_path, planes_off, writer):
                 _walk_pages(jp, max_keys, "", delimiter)
     assert next(o for o in tp.list_objects(BUCKET).objects
                 if o.name == keys[3]).size == 6
-    jp.close()
-    tp.close()
 
 
 @pytest.mark.parametrize("renderer", ["jax", "torch"])
-def test_metacache_blocks_serve_the_other_package(tmp_path, planes_off, renderer):
+def test_metacache_blocks_serve_the_other_package(tmp_path, planes, renderer,
+                                                  monkeypatch):
     """Page 1 through one package renders the bucket into metacache blocks
     (the whole stream synchronously here); the other package serves every
     continuation page from those blocks, equal to the renderer's own
     walk. Both packages render the same entries."""
-    jp, tp = _pools(tmp_path, "jax", n_pools=1), _pools(tmp_path, "torch", n_pools=1)
+    pools = _pools(planes, tmp_path, n_pools=1)
+    jp, tp = pools["jax"], pools["torch"]
     r, s = (jp, tp) if renderer == "jax" else (tp, jp)
+    for cls in (JaxPools, TorchPools):
+        monkeypatch.setattr(cls, "METACACHE_MAX_ENTRIES", 1000)
     r.make_bucket(BUCKET)
     torch_synth(tp.pools[0].drives, BUCKET, 150)
     _fill(r.pools[0], ["zz/" + k for k in _keys(6, 20)])
-    r.METACACHE_MAX_ENTRIES = 1000
     want = [_view(r.pools[0].list_objects(BUCKET, "", m, "", 40))
             for m in ("", "p000/o000039", "p000/o000079", "p000/o000119",
                       "zz/a.b")]
     first = r.list_objects(BUCKET, max_keys=40)
     assert _view(first) == want[0] and r.metacache.stream_complete(BUCKET)
+    own = _walk_pages(r.pools[0], 40)
     got = _walk_pages(s, 40)
-    assert got[0] == want[0] and got == _walk_pages(r.pools[0], 40)
     assert s.metacache.hits == len(got) - 1 and s.metacache.misses == 0
+    assert got[0] == want[0] and got == own
     # The entries either package renders decode to the same documents.
     base = os.path.join(tp.pools[0].drives[0].root, ".mtpu.sys", "config",
                         tp.metacache._base(BUCKET, "", "o"))
+    planes.settle()
     first_doc = msgpack.unpackb(open(os.path.join(base, "blk0"), "rb").read())
     s.metacache.drop(BUCKET)
-    fresh = _pools(tmp_path, "torch" if renderer == "jax" else "jax", n_pools=1)
-    fresh.METACACHE_MAX_ENTRIES = 1000
+    planes.release()   # the other package's layer mounts afresh
+    fresh = pools["torch" if renderer == "jax" else "jax"]
     fresh.list_objects(BUCKET, max_keys=40)
+    planes.settle()
     second_doc = msgpack.unpackb(open(os.path.join(base, "blk0"), "rb").read())
     assert second_doc["entries"] == first_doc["entries"]
     assert len(first_doc["entries"]) == 150 + len(_keys(6, 20))
-    for layer in (jp, tp, fresh):
-        layer.close()
 
 
 @pytest.mark.parametrize("mutation", ["put", "delete", "complete"])
-def test_mutation_retires_the_rendered_stream(tmp_path, planes_off, mutation):
-    tp = _pools(tmp_path, "torch", n_pools=1)
+def test_mutation_retires_the_rendered_stream(tmp_path, planes, mutation):
+    tp = _pools(planes, tmp_path, n_pools=1)["torch"]
     tp.make_bucket(BUCKET)
     torch_synth(tp.pools[0].drives, BUCKET, 120)
     tp.METACACHE_MAX_ENTRIES = 1000
@@ -400,32 +407,31 @@ def test_mutation_retires_the_rendered_stream(tmp_path, planes_off, mutation):
     names = [o.name for o in page.objects]
     assert ("p000/o000077x" in names) == (mutation != "delete")
     assert ("p000/o000077" in names) == (mutation != "delete")
-    tp.close()
 
 
-def test_jax_mutation_retires_a_port_rendered_stream(tmp_path, planes_off):
+def test_jax_mutation_retires_a_port_rendered_stream(tmp_path, planes, monkeypatch):
     """A stream the port rendered is not served by the JAX package once
     the JAX package has mutated the bucket (each package's mutations
     retire the streams it would serve; across packages, as across the JAX
     package's nodes, only the TTL bounds staleness otherwise)."""
-    jp, tp = _pools(tmp_path, "jax", n_pools=1), _pools(tmp_path, "torch", n_pools=1)
+    pools = _pools(planes, tmp_path, n_pools=1)
+    jp, tp = pools["jax"], pools["torch"]
+    for cls in (JaxPools, TorchPools):
+        monkeypatch.setattr(cls, "METACACHE_MAX_ENTRIES", 1000)
     tp.make_bucket(BUCKET)
     torch_synth(tp.pools[0].drives, BUCKET, 60)
-    tp.METACACHE_MAX_ENTRIES = jp.METACACHE_MAX_ENTRIES = 1000
     first = tp.list_objects(BUCKET, max_keys=25)
     jp.put_object(BUCKET, "p000/o000030x", io.BytesIO(b"n"), 1)
     page = jp.list_objects(BUCKET, marker=first.next_marker, max_keys=25)
     assert "p000/o000030x" in [o.name for o in page.objects]
     assert jp.metacache.hits == 0
-    jp.close()
-    tp.close()
 
 
-def test_sys_config_store_equals_jax(tmp_path, planes_off):
+def test_sys_config_store_equals_jax(tmp_path, planes):
     """Mirrored system documents: what either package writes the other
     reads (majority election, read-repair of a diverged copy), lists and
     deletes."""
-    paths, jl, tl = _set_layers(tmp_path)
+    paths, jl, tl = _set_layers(planes, tmp_path)
     docs = {f"buckets/b{i}/metacache/o-{i}/blk{j}": _payload(50 + i * j, i * 7 + j)
             for i in range(3) for j in range(2)}
     for i, (path, data) in enumerate(docs.items()):
@@ -435,16 +441,17 @@ def test_sys_config_store_equals_jax(tmp_path, planes_off):
     assert tl.list_sys_config("buckets/b1") == jl.list_sys_config("buckets/b1") == \
         sorted(p for p in docs if p.startswith("buckets/b1/"))
     stale = os.path.join(paths[1], ".mtpu.sys", "config", next(iter(docs)))
+    planes.settle()
     with open(stale, "wb") as f:
         f.write(b"stale")
     assert tl.read_sys_config(next(iter(docs))) == docs[next(iter(docs))]
+    planes.settle()
     assert open(stale, "rb").read() == docs[next(iter(docs))]   # repaired
     tl.delete_sys_config(next(iter(docs)))
     for layer in (jl, tl):
         with pytest.raises(Exception) as ei:
             layer.read_sys_config(next(iter(docs)))
         assert type(ei.value).__name__ == "FileNotFound"
-    jl.close()
 
 
 def test_synthetic_bucket_equals_jax(tmp_path):
@@ -592,13 +599,12 @@ def test_corrupt_copy_is_outvoted_and_a_hung_drive_left_behind(tmp_path, monkeyp
     import threading
     import time
 
-    from minio_tpu_torch.erasure import objects as torch_objects
-
     drives = [TorchDrive(str(tmp_path / f"d{i}")) for i in range(4)]
     es = TorchObjects(drives, parity=1, block_size=1 << 16, device="cpu")
     es.make_bucket("cor")
     for k in ("k1", "k2", "k3"):
         es.put_object("cor", k, io.BytesIO(b"v"), 1)
+    drives[1]._wal.flush()   # the journal on disk, then damaged out of band
     with open(os.path.join(drives[1].root, "cor", "k2", "meta.mp"), "r+b") as f:
         f.seek(20)
         f.write(b"\xff\xff")
@@ -611,7 +617,7 @@ def test_corrupt_copy_is_outvoted_and_a_hung_drive_left_behind(tmp_path, monkeyp
         yield from orig(volume, prefix, start_after)
 
     monkeypatch.setattr(drives[2], "walk_dir", hung)
-    monkeypatch.setattr(torch_objects, "WALK_DEADLINE", 0.3)
+    monkeypatch.setattr(es, "_walk_deadline", lambda: 0.3)
     t0 = time.perf_counter()
     assert [o.name for o in es.list_objects("cor").objects] == ["k1", "k2", "k3"]
     assert time.perf_counter() - t0 < 5
@@ -667,14 +673,13 @@ def test_a_hung_drive_costs_a_long_walk_one_wait(tmp_path, monkeypatch):
     wait per batch: the other drives' producers stop taking turns once
     the hung one keeps the walk's baton, and the walk lists every name
     at quorum from the rest."""
-    from minio_tpu_torch.erasure import objects as torch_objects
     from minio_tpu_torch.utils.synthbucket import synthetic_key
 
     drives, es = _synthetic_set(tmp_path, "big", HANG_OBJECTS)
     want = [synthetic_key(i) for i in range(HANG_OBJECTS)]
     names, base = _timed_walk(es, "big")
     assert names == want
-    monkeypatch.setattr(torch_objects, "WALK_DEADLINE", HANG_DEADLINE)
+    monkeypatch.setattr(es, "_walk_deadline", lambda: HANG_DEADLINE)
     release, _entered = _hang_walk(monkeypatch, drives[2], after=300)
     try:
         names, hung = _timed_walk(es, "big")
@@ -690,11 +695,10 @@ def test_a_hung_walk_leaves_other_walks_alone(tmp_path, monkeypatch):
     """While one walk's producer is stuck on a hung drive holding that
     walk's baton, a walk of another set in the process runs at its own
     speed: the baton belongs to one walk."""
-    from minio_tpu_torch.erasure import objects as torch_objects
-
-    monkeypatch.setattr(torch_objects, "WALK_DEADLINE", HANG_DEADLINE)
     hung_drives, hung_es = _synthetic_set(tmp_path / "a", "hung", 300)
     _drives, es = _synthetic_set(tmp_path / "b", "free", HANG_OBJECTS)
+    for s in (hung_es, es):
+        monkeypatch.setattr(s, "_walk_deadline", lambda: HANG_DEADLINE)
     names, base = _timed_walk(es, "free")
     release, entered = _hang_walk(monkeypatch, hung_drives[0], after=0)
     stuck = hung_es.stream_journals("hung")

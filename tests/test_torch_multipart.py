@@ -2,12 +2,12 @@
 against the JAX package's on one 16-drive set at EC 12+4 with 1 MiB blocks
 (87,382-byte shard chunks) and 5 MiB parts.
 
-The JAX side runs with both batch planes off (MTPU_METAPLANE=0,
-MTPU_BATCHED_DATAPLANE=0: session journals and shards are on disk when a
-call returns) and bitrot_algorithm="mxsum256", the checksum the port
-writes. Both packages run on the same drive directories, so a session
-begun by one is continued, completed and read by the other. Tolerance:
-exact bytes."""
+Every test runs twice, with both packages' group-commit metadata plane at
+its default (on) and with MTPU_METAPLANE=0 (tests/torch_planes.py); the
+batched data plane is off, and the JAX side writes
+bitrot_algorithm="mxsum256", the checksum the port writes. Both packages
+run on the same drive directories, so a session begun by one is
+continued, completed and read by the other. Tolerance: exact bytes."""
 
 import glob
 import hashlib
@@ -30,6 +30,7 @@ from minio_tpu_torch.erasure.objects import ErasureObjects as TorchObjects
 from minio_tpu_torch.erasure.types import CompletePart as TorchPart
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
 from minio_tpu_torch.utils import errors as torch_se
+from tests.torch_planes import planes  # noqa: F401 - the fixture
 
 N, PARITY = 16, 4
 BUCKET = "mpu"
@@ -41,17 +42,14 @@ def _payload(size, seed):
     return np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8).tobytes()
 
 
-@pytest.fixture
-def planes_off(monkeypatch):
-    monkeypatch.setenv("MTPU_METAPLANE", "0")
-    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
-
-
-def _layers(root):
+def _layers(planes, root):
     paths = [str(root / f"d{i}") for i in range(N)]
-    jl = JaxObjects([JaxDrive(p) for p in paths], parity=PARITY,
-                    bitrot_algorithm="mxsum256")
-    tl = TorchObjects([TorchDrive(p) for p in paths], parity=PARITY, device="cpu")
+    jl, tl = planes.layers(
+        paths,
+        lambda: JaxObjects([JaxDrive(p) for p in paths], parity=PARITY,
+                           bitrot_algorithm="mxsum256"),
+        lambda: TorchObjects([TorchDrive(p) for p in paths], parity=PARITY,
+                             device="cpu"))
     return paths, jl, tl
 
 
@@ -60,7 +58,7 @@ def _pick(name, jl, tl):
 
 
 def _cp(layer, number, etag):
-    return (JaxPart if isinstance(layer, JaxObjects) else TorchPart)(number, etag)
+    return (JaxPart if layer.pkg == "jax" else TorchPart)(number, etag)
 
 
 def _upload(layer, key, parts, part_layers=None):
@@ -101,10 +99,10 @@ def _parts(seed=0):
 
 @pytest.mark.parametrize("begin,complete", [("jax", "torch"), ("torch", "jax"),
                                             ("torch", "torch")])
-def test_roundtrip_across_packages(tmp_path, planes_off, begin, complete):
+def test_roundtrip_across_packages(tmp_path, planes, begin, complete):
     """Begun by one package, parts put by both in turn, completed by either:
     both read the object whole, by range and by info."""
-    paths, jl, tl = _layers(tmp_path)
+    paths, jl, tl = _layers(planes, tmp_path)
     tl.make_bucket(BUCKET)
     parts = _parts()
     b, c = _pick(begin, jl, tl), _pick(complete, jl, tl)
@@ -118,11 +116,12 @@ def test_roundtrip_across_packages(tmp_path, planes_off, begin, complete):
         assert _get(reader, "obj") == data
         got = reader.get_object_info(BUCKET, "obj")
         assert (got.etag, got.size) == (want_etag, len(data))
+    planes.settle()
     assert not any(glob.glob(os.path.join(p, ".mtpu.sys", "multipart", "*", uid))
                    for p in paths)
 
 
-def test_part_files_and_session_bytes_equal(tmp_path, planes_off, monkeypatch):
+def test_part_files_and_session_bytes_equal(tmp_path, planes, monkeypatch):
     """The same upload (same id and clock) on two drive sets, one per
     package: upload.json, part.N.json and every shard file are the same
     bytes, before and after Complete."""
@@ -132,13 +131,14 @@ def test_part_files_and_session_bytes_equal(tmp_path, planes_off, monkeypatch):
     for mod in (jax_mp, torch_mp):
         monkeypatch.setattr(mod, "time", clock)
         monkeypatch.setattr(mod, "uuid", ids)
-    jpaths, jl, _ = _layers(tmp_path / "a")
-    tpaths, _, tl = _layers(tmp_path / "b")
+    jpaths, jl, _ = _layers(planes, tmp_path / "a")
+    tpaths, _, tl = _layers(planes, tmp_path / "b")
     parts = _parts(3)
     trees = []
     for layer, paths in ((jl, jpaths), (tl, tpaths)):
         layer.make_bucket(BUCKET)
         uid, _ = _upload(layer, "obj", parts)
+        planes.settle()
         session = {}
         for i, p in enumerate(paths):
             for f in glob.glob(os.path.join(p, ".mtpu.sys", "multipart", "*", uid, "*")):
@@ -153,13 +153,14 @@ def test_part_files_and_session_bytes_equal(tmp_path, planes_off, monkeypatch):
         layer.complete_multipart_upload(
             BUCKET, "obj", "0123456789abcdef0123456789abcdef",
             [_cp(layer, i + 1, hashlib.md5(p).hexdigest()) for i, p in enumerate(parts)])
+    planes.settle()
     jf, tf = _part_files(jpaths, "obj"), _part_files(tpaths, "obj")
     assert len(jf) == N * len(parts) and jf == tf
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_range_across_part_boundaries(tmp_path, planes_off, writer):
-    paths, jl, tl = _layers(tmp_path)
+def test_range_across_part_boundaries(tmp_path, planes, writer):
+    paths, jl, tl = _layers(planes, tmp_path)
     w = _pick(writer, jl, tl)
     w.make_bucket(BUCKET)
     parts = _parts(5)
@@ -174,8 +175,8 @@ def test_range_across_part_boundaries(tmp_path, planes_off, writer):
             assert _get(reader, "obj", off, ln) == data[off:off + ln], (off, ln)
 
 
-def test_part_overwrite_keeps_the_last_upload(tmp_path, planes_off):
-    paths, jl, tl = _layers(tmp_path)
+def test_part_overwrite_keeps_the_last_upload(tmp_path, planes):
+    paths, jl, tl = _layers(planes, tmp_path)
     tl.make_bucket(BUCKET)
     first, second, tail = _payload(5 * MIB, 10), _payload(5 * MIB, 11), _payload(999, 12)
     uid, _ = _upload(tl, "obj", [first, tail])
@@ -191,6 +192,7 @@ def test_part_overwrite_keeps_the_last_upload(tmp_path, planes_off):
     jl.complete_multipart_upload(BUCKET, "obj", uid, [
         JaxPart(1, e1), JaxPart(2, hashlib.md5(tail).hexdigest())])
     assert _get(tl, "obj") == second + tail
+    planes.settle()
     assert not any(glob.glob(os.path.join(p, ".mtpu.sys", "multipart", "*", uid, "tmp-*"))
                    for p in paths)
 
@@ -208,12 +210,12 @@ def _validation_cases(small, big, tail):
 
 
 @pytest.mark.parametrize("case", list(_validation_cases(b"", b"", b"")))
-def test_complete_validation_errors_match(tmp_path, planes_off, case):
+def test_complete_validation_errors_match(tmp_path, planes, case):
     small, big, tail = _payload(MIB, 20), _payload(5 * MIB, 21), _payload(100, 22)
     uploads, named = _validation_cases(small, big, tail)[case]
     errs = []
     for name in ("jax", "torch"):
-        paths, jl, tl = _layers(tmp_path / name)
+        paths, jl, tl = _layers(planes, tmp_path / name)
         layer = _pick(name, jl, tl)
         layer.make_bucket(BUCKET)
         uid, _ = _upload(layer, "obj", uploads)
@@ -230,11 +232,12 @@ def test_complete_validation_errors_match(tmp_path, planes_off, case):
     assert errs[1] == ("PartTooSmall" if case == "too small" else "InvalidPart")
 
 
-def test_abort_removes_the_session(tmp_path, planes_off):
-    paths, jl, tl = _layers(tmp_path)
+def test_abort_removes_the_session(tmp_path, planes):
+    paths, jl, tl = _layers(planes, tmp_path)
     tl.make_bucket(BUCKET)
     uid, _ = _upload(jl, "obj", [_payload(5 * MIB, 30)])
     tl.abort_multipart_upload(BUCKET, "obj", uid)
+    planes.settle()
     assert not glob.glob(os.path.join(paths[0], ".mtpu.sys", "multipart", "*", uid))
     for layer in (jl, tl):
         with pytest.raises(Exception) as ei:
@@ -244,8 +247,8 @@ def test_abort_removes_the_session(tmp_path, planes_off):
 
 @pytest.mark.parametrize("call", ["put_part", "list_parts", "complete", "abort",
                                   "wrong_key"])
-def test_unknown_upload_matches(tmp_path, planes_off, call):
-    paths, jl, tl = _layers(tmp_path)
+def test_unknown_upload_matches(tmp_path, planes, call):
+    paths, jl, tl = _layers(planes, tmp_path)
     tl.make_bucket(BUCKET)
     uid = tl.new_multipart_upload(BUCKET, "obj")
     names = []
@@ -266,14 +269,15 @@ def test_unknown_upload_matches(tmp_path, planes_off, call):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_read_after_losing_m_drives(tmp_path, planes_off, writer):
-    paths, jl, tl = _layers(tmp_path)
+def test_read_after_losing_m_drives(tmp_path, planes, writer):
+    paths, jl, tl = _layers(planes, tmp_path)
     w = _pick(writer, jl, tl)
     w.make_bucket(BUCKET)
     parts = _parts(40)
     uid, etags = _upload(w, "obj", parts)
     w.complete_multipart_upload(BUCKET, "obj", uid,
                                 [_cp(w, i + 1, e) for i, e in enumerate(etags)])
+    planes.settle()
     _drop_shards(paths, "obj", [0, 5, 9, 15])
     data = b"".join(parts)
     for reader in (jl, tl):
@@ -283,20 +287,21 @@ def test_read_after_losing_m_drives(tmp_path, planes_off, writer):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_heal_rebuilds_every_part_as_the_jax_heal_does(tmp_path, planes_off, writer):
+def test_heal_rebuilds_every_part_as_the_jax_heal_does(tmp_path, planes, writer):
     """One multipart object on two copies of the same drives, the same 4
     drives' shards lost in both: the JAX heal of one copy and the port's
     heal of the other rebuild every part file, byte-equal to each other and
     to the originals; then a deep scan finds a flipped byte."""
-    a, jla, tla = _layers(tmp_path / "a")
+    a, jla, tla = _layers(planes, tmp_path / "a")
     w = _pick(writer, jla, tla)
     w.make_bucket(BUCKET)
     parts = _parts(50)
     uid, etags = _upload(w, "obj", parts)
     w.complete_multipart_upload(BUCKET, "obj", uid,
                                 [_cp(w, i + 1, e) for i, e in enumerate(etags)])
+    planes.release()   # every journal on disk, no WAL left to copy
     shutil.copytree(tmp_path / "a", tmp_path / "b")
-    b, jlb, tlb = _layers(tmp_path / "b")
+    b, jlb, tlb = _layers(planes, tmp_path / "b")
     original = _part_files(a, "obj")
     lost = [1, 2, 8, 11]
     _drop_shards(a, "obj", lost)
@@ -305,18 +310,20 @@ def test_heal_rebuilds_every_part_as_the_jax_heal_does(tmp_path, planes_off, wri
     rt = tlb.heal_object(BUCKET, "obj")
     assert rj.healed_count == rt.healed_count == 4
     assert [s.state for s in rt.before] == [s.state for s in rj.before]
+    planes.settle()
     assert _part_files(a, "obj") == _part_files(b, "obj") == original
     f = glob.glob(os.path.join(b[6], BUCKET, "obj", "*", "part.2"))[0]
     raw = bytearray(open(f, "rb").read())
     raw[32 + 70000] ^= 0x40
     open(f, "wb").write(bytes(raw))
     assert tlb.heal_object(BUCKET, "obj", scan_deep=True).healed_count == 1
+    planes.settle()
     assert _part_files(b, "obj") == original
     assert _get(jlb, "obj") == b"".join(parts)
 
 
-def test_list_parts_and_uploads_equal(tmp_path, planes_off):
-    paths, jl, tl = _layers(tmp_path)
+def test_list_parts_and_uploads_equal(tmp_path, planes):
+    paths, jl, tl = _layers(planes, tmp_path)
     tl.make_bucket(BUCKET)
     ups = {}
     for i, (layer, key) in enumerate(((jl, "docs/a"), (tl, "docs/b"), (tl, "img/c"),
@@ -341,12 +348,12 @@ def test_list_parts_and_uploads_equal(tmp_path, planes_off):
 
 
 @pytest.mark.parametrize("name", ["jax", "torch"])
-def test_below_quorum_complete_rolls_back(tmp_path, planes_off, name):
+def test_below_quorum_complete_rolls_back(tmp_path, planes, name):
     """Complete over an existing object with 5 of 16 drives failing the
     commit (write quorum 12): both packages refuse it, keep the old object
     readable (reclaim capsules undone), keep the parts in the session, and
     complete on a retry once the drives are back."""
-    paths, jl, tl = _layers(tmp_path)
+    paths, jl, tl = _layers(planes, tmp_path)
     layer = _pick(name, jl, tl)
     layer.make_bucket(BUCKET)
     old = _payload(300 << 10, 80)
@@ -361,17 +368,22 @@ def test_below_quorum_complete_rolls_back(tmp_path, planes_off, name):
     def fail(*_a, **_kw):
         raise faulty("injected")
 
+    commits = ("rename_data", "write_metadata", "write_metadata_single",
+               "journal_commit_async")
     for d in broken:
-        d.rename_data = fail
+        for m in commits:
+            setattr(d, m, fail)
     with pytest.raises(Exception) as ei:
         layer.complete_multipart_upload(BUCKET, "obj", uid, done)
     assert type(ei.value).__name__ == "InsufficientWriteQuorum"
     for reader in (jl, tl):
         assert _get(reader, "obj") == old
     assert [p.etag for p in tl.list_parts(BUCKET, "obj", uid)] == etags
+    planes.settle()
     assert not any(glob.glob(os.path.join(p, ".mtpu.sys", "tmp", "*")) for p in paths)
     for d in broken:
-        del d.rename_data
+        for m in commits:
+            delattr(d, m)
     layer.complete_multipart_upload(BUCKET, "obj", uid, done)
     for reader in (jl, tl):
         assert _get(reader, "obj") == b"".join(parts)

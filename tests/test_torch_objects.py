@@ -1,11 +1,15 @@
 """Two-way interop of the port's object layer (minio_tpu_torch, plain
 PyTorch on the CPU) with the JAX package's on 12 tmp drives at EC 8+4.
 
-The JAX side runs as its own per-request oracle: both batch planes off
-(MTPU_METAPLANE=0, MTPU_BATCHED_DATAPLANE=0, so every journal is on disk
-when the PUT returns) and bitrot_algorithm="mxsum256", the device checksum
-the port writes. block_size is cut to 64 KiB to keep the CPU run short;
-the shapes are the EC 8+4 set's. Tolerance: exact bytes."""
+Every test runs twice: with both packages' group-commit metadata plane
+at its default (on) and with MTPU_METAPLANE=0, the per-request oracle
+that has every journal on disk when a PUT returns (tests/torch_planes.py:
+with the plane on, a drive's WAL has one owner at a time, and a test that
+damages journals out of band settles it first). The batched data plane
+is off, and the JAX side writes bitrot_algorithm="mxsum256", the device
+checksum the port writes.
+block_size is cut to 64 KiB to keep the CPU run short; the shapes are
+the EC 8+4 set's. Tolerance: exact bytes."""
 
 import glob
 import io
@@ -21,6 +25,7 @@ from minio_tpu.utils import errors as jax_se
 from minio_tpu_torch.erasure.objects import ErasureObjects as TorchObjects
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
 from minio_tpu_torch.utils import errors as torch_se
+from tests.torch_planes import planes  # noqa: F401 - the fixture
 
 BS = 64 << 10
 SIZES = {"small.bin": 1 << 10, "mid.bin": 300 << 10, "big.bin": (1 << 20) + 12345}
@@ -31,19 +36,15 @@ def _payload(size, seed):
     return np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8).tobytes()
 
 
-@pytest.fixture
-def planes_off(monkeypatch):
-    monkeypatch.setenv("MTPU_METAPLANE", "0")
-    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
-
-
-def _layers(root):
+def _layers(root, planes, jax_algorithm="mxsum256"):
     paths = [str(root / f"d{i}") for i in range(12)]
-    jax_layer = JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
-                           bitrot_algorithm="mxsum256")
-    torch_layer = TorchObjects([TorchDrive(p) for p in paths], parity=4,
-                               block_size=BS, device="cpu")
-    return paths, jax_layer, torch_layer
+    jl, tl = planes.layers(
+        paths,
+        lambda: JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
+                           bitrot_algorithm=jax_algorithm),
+        lambda: TorchObjects([TorchDrive(p) for p in paths], parity=4, block_size=BS,
+                             device="cpu"))
+    return paths, jl, tl
 
 
 def _get(layer, key, offset=0, length=-1):
@@ -68,8 +69,8 @@ def _drop_shards(paths, key, drives):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_written_by_one_read_by_the_other(tmp_path, planes_off, writer):
-    paths, jl, tl = _layers(tmp_path)
+def test_written_by_one_read_by_the_other(tmp_path, planes, writer):
+    paths, jl, tl = _layers(tmp_path, planes)
     w, r = (jl, tl) if writer == "jax" else (tl, jl)
     w.make_bucket(BUCKET)
     for seed, (key, size) in enumerate(SIZES.items()):
@@ -80,9 +81,9 @@ def test_written_by_one_read_by_the_other(tmp_path, planes_off, writer):
         assert _get(r, key, size // 3, size // 2) == data[size // 3:size // 3 + size // 2]
 
 
-def test_part_files_byte_equal(tmp_path, planes_off):
-    jpaths, jl, _ = _layers(tmp_path / "a")
-    tpaths, _, tl = _layers(tmp_path / "b")
+def test_part_files_byte_equal(tmp_path, planes):
+    jpaths, jl, _ = _layers(tmp_path / "a", planes)
+    tpaths, _, tl = _layers(tmp_path / "b", planes)
     jl.make_bucket(BUCKET)
     tl.make_bucket(BUCKET)
     for seed, (key, size) in enumerate(SIZES.items()):
@@ -97,8 +98,8 @@ def test_part_files_byte_equal(tmp_path, planes_off):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_degraded_and_bitrot_reads_in_both(tmp_path, planes_off, writer):
-    paths, jl, tl = _layers(tmp_path)
+def test_degraded_and_bitrot_reads_in_both(tmp_path, planes, writer):
+    paths, jl, tl = _layers(tmp_path, planes)
     w = jl if writer == "jax" else tl
     w.make_bucket(BUCKET)
     data = _payload(SIZES["big.bin"], 9)
@@ -119,8 +120,8 @@ def test_degraded_and_bitrot_reads_in_both(tmp_path, planes_off, writer):
 
 @pytest.mark.parametrize("writer,healer", [("jax", "torch"), ("torch", "jax"),
                                            ("torch", "torch")])
-def test_heal_rebuilds_original_files(tmp_path, planes_off, writer, healer):
-    paths, jl, tl = _layers(tmp_path)
+def test_heal_rebuilds_original_files(tmp_path, planes, writer, healer):
+    paths, jl, tl = _layers(tmp_path, planes)
     w, h = (jl if writer == "jax" else tl), (jl if healer == "jax" else tl)
     w.make_bucket(BUCKET)
     key, data = "mid.bin", _payload(SIZES["mid.bin"], 5)
@@ -138,8 +139,8 @@ def test_heal_rebuilds_original_files(tmp_path, planes_off, writer, healer):
         assert _get(reader, key) == data
 
 
-def test_deep_heal_rewrites_a_flipped_byte(tmp_path, planes_off):
-    paths, _, tl = _layers(tmp_path)
+def test_deep_heal_rewrites_a_flipped_byte(tmp_path, planes):
+    paths, _, tl = _layers(tmp_path, planes)
     tl.make_bucket(BUCKET)
     key, data = "mid.bin", _payload(SIZES["mid.bin"], 6)
     tl.put_object(BUCKET, key, io.BytesIO(data), len(data))
@@ -153,14 +154,16 @@ def test_deep_heal_rewrites_a_flipped_byte(tmp_path, planes_off):
     assert _part_files(paths, key) == before
 
 
-def test_inline_heal_and_delete(tmp_path, planes_off):
-    paths, jl, tl = _layers(tmp_path)
+def test_inline_heal_and_delete(tmp_path, planes):
+    paths, jl, tl = _layers(tmp_path, planes)
     tl.make_bucket(BUCKET)
     data = _payload(1000, 1)
     tl.put_object(BUCKET, "tiny", io.BytesIO(data), len(data))
+    planes.settle()
     for i in (0, 5):
         os.remove(os.path.join(paths[i], BUCKET, "tiny", "meta.mp"))
     assert tl.heal_object(BUCKET, "tiny").healed_count == 2
+    planes.settle()
     assert all(os.path.exists(os.path.join(p, BUCKET, "tiny", "meta.mp"))
                for p in paths)
     tl.delete_object(BUCKET, "tiny")
@@ -170,14 +173,10 @@ def test_inline_heal_and_delete(tmp_path, planes_off):
         assert type(ei.value).__name__ == "ObjectNotFound"
 
 
-def test_port_reads_and_heals_blake2b_objects(tmp_path, planes_off):
+def test_port_reads_and_heals_blake2b_objects(tmp_path, planes):
     """Objects the JAX package wrote with the host blake2b256 checksum are
     read (verified host-side per chunk) and healed by the port."""
-    paths = [str(tmp_path / f"d{i}") for i in range(12)]
-    jl = JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
-                    bitrot_algorithm="blake2b256")
-    tl = TorchObjects([TorchDrive(p) for p in paths], parity=4, block_size=BS,
-                      device="cpu")
+    paths, jl, tl = _layers(tmp_path, planes, jax_algorithm="blake2b256")
     jl.make_bucket(BUCKET)
     data = _payload(SIZES["mid.bin"], 8)
     jl.put_object(BUCKET, "b2", io.BytesIO(data), len(data))
@@ -196,13 +195,13 @@ def test_port_reads_and_heals_blake2b_objects(tmp_path, planes_off):
 
 @pytest.mark.parametrize("size", [2_000_000, 1000], ids=["streamed", "inline"])
 @pytest.mark.parametrize("name", ["jax", "torch"])
-def test_below_quorum_overwrite_keeps_the_old_object(tmp_path, planes_off, name,
+def test_below_quorum_overwrite_keeps_the_old_object(tmp_path, planes, name,
                                                      size):
     """An overwrite PUT whose commit fails on 5 of 12 drives (EC 8+4, write
     quorum 8) answers InsufficientWriteQuorum in both packages, and both
     then GET the previous object: the drives that did commit put back what
     the overwrite displaced. A retry once the drives are back commits."""
-    paths, jl, tl = _layers(tmp_path)
+    paths, jl, tl = _layers(tmp_path, planes)
     layer = jl if name == "jax" else tl
     layer.make_bucket(BUCKET)
     old, new = _payload(size, 90), _payload(size, 91)
@@ -213,7 +212,8 @@ def test_below_quorum_overwrite_keeps_the_old_object(tmp_path, planes_off, name,
         raise faulty("injected")
 
     broken = layer.drives[3:8]
-    commits = ("rename_data", "write_metadata", "write_metadata_single")
+    commits = ("rename_data", "write_metadata", "write_metadata_single",
+               "journal_commit_async")
     for d in broken:
         for m in commits:
             setattr(d, m, fail)

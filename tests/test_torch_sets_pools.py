@@ -114,6 +114,9 @@ def test_32_drive_format_loads_in_the_other(tmp_path, writer, reader):
     wdrives = [drive_w(p) for p in paths]
     fmt_w = init_w(wdrives, 8)
     assert len(fmt_w.sets) == 4 and all(len(s) == 8 for s in fmt_w.sets)
+    # A drive's WAL has one owner at a time: the writer's let go first.
+    for d in wdrives:
+        d.close_wal()
     shuffled = list(paths)
     random.Random(1).shuffle(shuffled)
     rdrives = [drive_r(p) for p in shuffled]
@@ -123,6 +126,8 @@ def test_32_drive_format_loads_in_the_other(tmp_path, writer, reader):
     assert [d.root for d in rdrives] == [d.root for d in wdrives] == paths
     docs = [json.loads(d) for d in _format_docs(paths)]
     assert [d["erasure"]["this"] for d in docs] == [u for s in fmt_w.sets for u in s]
+    for d in rdrives:
+        d.close_wal()
 
 
 def _mutate(paths, case):

@@ -4,10 +4,12 @@ documents, multi-version journals written by one package and continued by
 the other, delete markers and deletes by version, ListObjectVersions pages
 (through the pools' metacache too), DeleteObjects with versions, tags,
 versioned Complete, heal of a noncurrent version and the hot tier's
-bypass of versioned reads. The JAX side runs with both batch planes off
-and bitrot_algorithm="mxsum256" (the only algorithm of the two that the
-port reads); block_size is cut to 64 KiB to keep the CPU run short.
-Tolerance: exact bytes."""
+bypass of versioned reads. Every test on drives runs twice, with both
+packages' group-commit metadata plane at its default (on) and with
+MTPU_METAPLANE=0 (tests/torch_planes.py); the batched data plane is off,
+and the JAX side writes bitrot_algorithm="mxsum256" (the only algorithm
+of the two that the port reads); block_size is cut to 64 KiB to keep the
+CPU run short. Tolerance: exact bytes."""
 
 import glob
 import hashlib
@@ -44,6 +46,7 @@ from minio_tpu_torch.erasure.types import CompletePart as TorchPart
 from minio_tpu_torch.erasure.types import ObjectOptions as TorchOpts
 from minio_tpu_torch.erasure.types import ObjectToDelete as TorchDel
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
+from tests.torch_planes import planes  # noqa: F401 - the fixture
 
 BS = 64 << 10
 BUCKET = "vers"
@@ -54,17 +57,14 @@ def _payload(size, seed):
     return np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8).tobytes()
 
 
-@pytest.fixture
-def planes_off(monkeypatch):
-    monkeypatch.setenv("MTPU_METAPLANE", "0")
-    monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
-
-
-def _layers(paths):
-    return {"jax": JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
-                              bitrot_algorithm="mxsum256"),
-            "torch": TorchObjects([TorchDrive(p) for p in paths], parity=4,
-                                  block_size=BS, device="cpu")}
+def _layers(planes, paths):
+    jl, tl = planes.layers(
+        paths,
+        lambda: JaxObjects([JaxDrive(p) for p in paths], parity=4, block_size=BS,
+                           bitrot_algorithm="mxsum256"),
+        lambda: TorchObjects([TorchDrive(p) for p in paths], parity=4,
+                             block_size=BS, device="cpu"))
+    return {"jax": jl, "torch": tl}
 
 
 def _paths(root, n=12):
@@ -122,7 +122,7 @@ def test_bucket_metadata_serializes_as_jax(seed):
     assert TorchBucketMetadata.parse(raw).serialize() == raw
 
 
-def test_bucket_metadata_cache_rereads_only_a_rewritten_doc(tmp_path, planes_off,
+def test_bucket_metadata_cache_rereads_only_a_rewritten_doc(tmp_path, planes,
                                                            monkeypatch):
     """The port's BucketMetadataSys reads a bucket's document once while
     no drive's copy changes, and again after the JAX package rewrites it
@@ -131,16 +131,21 @@ def test_bucket_metadata_cache_rereads_only_a_rewritten_doc(tmp_path, planes_off
     from minio_tpu_torch.bucket import meta as meta_mod
 
     paths = _paths(tmp_path)
-    layers = _layers(paths)
+    layers = _layers(planes, paths)
     es = layers["torch"]
     es.make_bucket(BUCKET)
     reads = []
-    real = es.read_sys_config
-    monkeypatch.setattr(es, "read_sys_config", lambda p: reads.append(p) or real(p))
+    real = TorchObjects.read_sys_config   # every port layer the test mounts
+    monkeypatch.setattr(TorchObjects, "read_sys_config",
+                        lambda self, p: reads.append(p) or real(self, p))
     port = TorchBucketMetadataSys(es)
     # "Just written" for as long as this part of the test takes.
     monkeypatch.setattr(meta_mod.BucketMetadataSys, "_RACY_STAT_NS", 10**12)
     port.update(BUCKET, versioning_status="Suspended")
+    # The rule under test is a file's racy stat: the document on disk. (A
+    # pending WAL copy answers an exact signature instead, which
+    # test_torch_metaplane.py holds.)
+    planes.settle()
     assert port.get(BUCKET).versioning_status == "Suspended"
     assert port.get(BUCKET).versioning_status == "Suspended"
     assert len(reads) == 3                 # update's get, then twice: just written
@@ -158,12 +163,12 @@ def test_bucket_metadata_cache_rereads_only_a_rewritten_doc(tmp_path, planes_off
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_bucket_metadata_doc_on_the_drives_both_ways(tmp_path, planes_off, writer):
+def test_bucket_metadata_doc_on_the_drives_both_ways(tmp_path, planes, writer):
     """A document one package's BucketMetadataSys stored is read by the
     other's, which writes back byte-equal documents and keeps every field
     it does not serve."""
     paths = _paths(tmp_path)
-    layers = _layers(paths)
+    layers = _layers(planes, paths)
     sys_cls = {"jax": JaxBucketMetadataSys, "torch": TorchBucketMetadataSys}
     reader = "torch" if writer == "jax" else "jax"
     fields = _bucket_fields(7)
@@ -175,6 +180,7 @@ def test_bucket_metadata_doc_on_the_drives_both_ways(tmp_path, planes_off, write
     sys_cls[writer](layers[writer]).update("b1", **fields)
 
     def docs():
+        planes.settle()
         return [open(os.path.join(p, ".mtpu.sys", "config", "buckets", "b1",
                                   "metadata.mp"), "rb").read() for p in paths]
 
@@ -190,6 +196,7 @@ def test_bucket_metadata_doc_on_the_drives_both_ways(tmp_path, planes_off, write
         name="b1", **{**fields, "versioning_status": "Enabled"}).serialize()
     assert sys_cls[writer](layers[writer]).get("b1").versioning_enabled
     other.drop_bucket("b1")
+    planes.settle()
     assert not any(os.path.exists(os.path.join(p, ".mtpu.sys", "config", "buckets",
                                                "b1", "metadata.mp")) for p in paths)
 
@@ -251,7 +258,7 @@ def _phase_two(layer, pkg, clock, vids):
     return dm.version_id
 
 
-def test_multi_version_journals_byte_equal_both_ways(tmp_path, planes_off, monkeypatch):
+def test_multi_version_journals_byte_equal_both_ways(tmp_path, planes, monkeypatch):
     """The same versioned operations (null and versioned PUTs, inline and
     streamed, an overwrite of the null version, tags on a noncurrent
     version) leave byte-equal journals and part files on two drive sets,
@@ -259,7 +266,7 @@ def test_multi_version_journals_byte_equal_both_ways(tmp_path, planes_off, monke
     drives (a delete marker, deletes by id and of the null version, more
     versions) and the sets are still byte-equal."""
     a, b = _paths(tmp_path / "a"), _paths(tmp_path / "b")
-    ja, tb = _layers(a)["jax"], _layers(b)["torch"]
+    ja, tb = _layers(planes, a)["jax"], _layers(planes, b)["torch"]
     jclock, tclock = [0.0], [0.0]
     _pin(monkeypatch, jax_objects_mod, jax_fileinfo_mod, jclock)
     _pin(monkeypatch, torch_objects_mod, torch_fileinfo_mod, tclock)
@@ -268,14 +275,16 @@ def test_multi_version_journals_byte_equal_both_ways(tmp_path, planes_off, monke
     jv = _phase_one(ja, "jax", jclock)
     tv = _phase_one(tb, "torch", tclock)
     assert jv == tv and len(set(jv.values())) == 4     # 3 ids and the null ""
+    planes.settle()
     first = _tree(a)
     assert any(k[1].endswith("part.1") for k in first)
     assert _tree(b) == first
     # Swap: each package continues the other's drives.
-    tb_on_a, ja_on_b = _layers(a)["torch"], _layers(b)["jax"]
+    tb_on_a, ja_on_b = _layers(planes, a)["torch"], _layers(planes, b)["jax"]
     dm_a = _phase_two(tb_on_a, "torch", tclock, jv)
     dm_b = _phase_two(ja_on_b, "jax", jclock, tv)
     assert dm_a == dm_b
+    planes.settle()
     assert _tree(a) == _tree(b)
     for layer, pkg in ((ja, "jax"), (tb_on_a, "torch")):
         got = _versions(layer)
@@ -289,10 +298,10 @@ def test_multi_version_journals_byte_equal_both_ways(tmp_path, planes_off, monke
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_versioned_put_and_delete_marker(tmp_path, planes_off, writer):
+def test_versioned_put_and_delete_marker(tmp_path, planes, writer):
     """tests/test_erasure_objects.py:193, written by one package and read
     by the other."""
-    layers = _layers(_paths(tmp_path))
+    layers = _layers(planes, _paths(tmp_path))
     reader = "torch" if writer == "jax" else "jax"
     w, r = layers[writer], layers[reader]
     v = OPTS[writer](versioned=True)
@@ -323,9 +332,9 @@ def test_versioned_put_and_delete_marker(tmp_path, planes_off, writer):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_version_id_null_names_the_null_version(tmp_path, planes_off, writer):
+def test_version_id_null_names_the_null_version(tmp_path, planes, writer):
     """tests/test_erasure_objects.py:349 across packages."""
-    layers = _layers(_paths(tmp_path))
+    layers = _layers(planes, _paths(tmp_path))
     reader = "torch" if writer == "jax" else "jax"
     w, r = layers[writer], layers[reader]
     w.make_bucket(BUCKET)
@@ -344,11 +353,11 @@ def test_version_id_null_names_the_null_version(tmp_path, planes_off, writer):
         assert type(ei.value).__name__ == "VersionNotFound"
 
 
-def test_version_pages_equal_jax(tmp_path, planes_off):
+def test_version_pages_equal_jax(tmp_path, planes):
     """tests/test_erasure_objects.py:297: every page of the port's
     ListObjectVersions over versions, markers and prefixes equals the JAX
     package's on the same drives, and no version repeats."""
-    layers = _layers(_paths(tmp_path))
+    layers = _layers(planes, _paths(tmp_path))
     jl, tl = layers["jax"], layers["torch"]
     tl.make_bucket(BUCKET)
     for i in range(5):
@@ -382,10 +391,10 @@ def test_version_pages_equal_jax(tmp_path, planes_off):
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_object_tags_across_packages(tmp_path, planes_off, writer):
+def test_object_tags_across_packages(tmp_path, planes, writer):
     """tests/test_erasure_objects.py:338, tags set by one package on a
     noncurrent version and read by the other; the data stays intact."""
-    layers = _layers(_paths(tmp_path))
+    layers = _layers(planes, _paths(tmp_path))
     reader = "torch" if writer == "jax" else "jax"
     w, r = layers[writer], layers[reader]
     w.make_bucket(BUCKET)
@@ -406,7 +415,7 @@ def test_object_tags_across_packages(tmp_path, planes_off, writer):
 
 
 @pytest.mark.parametrize("layer_kind", ["set", "pools"])
-def test_delete_objects_with_versions_equal_jax(tmp_path, planes_off, layer_kind):
+def test_delete_objects_with_versions_equal_jax(tmp_path, planes, layer_kind):
     """DeleteObjects naming VersionIds, markers among them, and keys
     without one on a versioned bucket: the port's per-key results equal
     the JAX package's on twin drive sets."""
@@ -414,9 +423,9 @@ def test_delete_objects_with_versions_equal_jax(tmp_path, planes_off, layer_kind
     for pkg in ("jax", "torch"):
         root = tmp_path / pkg
         if layer_kind == "set":
-            layer = _layers(_paths(root))[pkg]
+            layer = _layers(planes, _paths(root))[pkg]
         else:
-            layer = _pools(root, pkg)
+            layer = _pools(planes, root)[pkg]
         o = OPTS[pkg]
         layer.make_bucket(BUCKET)
         vids = {}
@@ -454,23 +463,27 @@ def test_delete_objects_with_versions_equal_jax(tmp_path, planes_off, layer_kind
 
 # -- sets and pools --
 
-def _pools(root, pkg, n_pools=2, n=4):
-    out = []
-    for p in range(n_pools):
-        paths = [str(root / f"pool{p}" / f"d{i}") for i in range(n)]
+def _pools(planes, root, n_pools=2, n=4):
+    """{package: its pools over root's drives}."""
+    paths = [[str(root / f"pool{p}" / f"d{i}") for i in range(n)]
+             for p in range(n_pools)]
+
+    def build(pkg):
         if pkg == "jax":
-            out.append(JaxSets([JaxDrive(x) for x in paths], parity=2, block_size=BS,
-                               bitrot_algorithm="mxsum256"))
-        else:
-            out.append(TorchSets([TorchDrive(x) for x in paths], parity=2,
-                                 block_size=BS, device="cpu"))
-    return (JaxPools if pkg == "jax" else TorchPools)(out)
+            return JaxPools([JaxSets([JaxDrive(x) for x in ps], parity=2, block_size=BS,
+                                     bitrot_algorithm="mxsum256") for ps in paths])
+        return TorchPools([TorchSets([TorchDrive(x) for x in ps], parity=2,
+                                     block_size=BS, device="cpu") for ps in paths])
+
+    jl, tl = planes.layers([x for ps in paths for x in ps],
+                           lambda: build("jax"), lambda: build("torch"))
+    return {"jax": jl, "torch": tl}
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_pools_versioned_delete_marker(tmp_path, planes_off, writer):
+def test_pools_versioned_delete_marker(tmp_path, planes, writer):
     """tests/test_sets_pools.py:259, the marker landing in the owner pool."""
-    pools = {"jax": _pools(tmp_path, "jax"), "torch": _pools(tmp_path, "torch")}
+    pools = _pools(planes, tmp_path)
     w = pools[writer]
     w.make_bucket(BUCKET)
     body = b"versioned body"
@@ -485,10 +498,11 @@ def test_pools_versioned_delete_marker(tmp_path, planes_off, writer):
         layer.close()
 
 
-def test_pools_versioned_reput_stays_in_owner_pool(tmp_path, planes_off, monkeypatch):
+def test_pools_versioned_reput_stays_in_owner_pool(tmp_path, planes, monkeypatch):
     """tests/test_sets_pools.py:342 on the port, read back by the JAX
     package: one pool holds the whole history."""
-    tp, jp = _pools(tmp_path, "torch"), _pools(tmp_path, "jax")
+    pools = _pools(planes, tmp_path)
+    tp, jp = pools["torch"], pools["jax"]
     tp.make_bucket(BUCKET)
     tp.put_object(BUCKET, "vv", io.BytesIO(b"one"), 3, TorchOpts(versioned=True))
     owner = tp._get_pool_idx_existing(BUCKET, "vv")
@@ -508,7 +522,7 @@ def test_pools_versioned_reput_stays_in_owner_pool(tmp_path, planes_off, monkeyp
         layer.close()
 
 
-def test_sets_version_listing_counts_prefixes_against_max_keys(tmp_path, planes_off):
+def test_sets_version_listing_counts_prefixes_against_max_keys(tmp_path, planes):
     """tests/test_sets_pools.py:366 on the port's ErasureSets."""
     sets = TorchSets([TorchDrive(p) for p in _paths(tmp_path, 8)], set_drive_count=4,
                      parity=2, block_size=BS, device="cpu")
@@ -523,11 +537,12 @@ def test_sets_version_listing_counts_prefixes_against_max_keys(tmp_path, planes_
 
 
 @pytest.mark.parametrize("renderer", ["jax", "torch"])
-def test_version_pages_through_the_metacache(tmp_path, planes_off, renderer):
+def test_version_pages_through_the_metacache(tmp_path, planes, renderer):
     """Page 1 of ListObjectVersions through one package's pools renders a
     kind "v" block stream; the other package serves every continuation
     page from it, equal to a walk."""
-    jp, tp = _pools(tmp_path, "jax"), _pools(tmp_path, "torch")
+    pools = _pools(planes, tmp_path)
+    jp, tp = pools["jax"], pools["torch"]
     r, s = (jp, tp) if renderer == "jax" else (tp, jp)
     r.make_bucket(BUCKET)
     for i in range(30):
@@ -566,10 +581,10 @@ def test_version_pages_through_the_metacache(tmp_path, planes_off, renderer):
 # -- multipart, heal, the hot tier --
 
 @pytest.mark.parametrize("completer", ["jax", "torch"])
-def test_versioned_complete_adds_a_version(tmp_path, planes_off, completer):
+def test_versioned_complete_adds_a_version(tmp_path, planes, completer):
     """tests/test_multipart.py versioned Complete: the upload becomes a new
     version beside the null one, readable by both packages."""
-    layers = _layers(_paths(tmp_path))
+    layers = _layers(planes, _paths(tmp_path))
     jl, tl = layers["jax"], layers["torch"]
     tl.make_bucket(BUCKET)
     null_body = _payload(50 << 10, 9)
@@ -595,7 +610,7 @@ def test_versioned_complete_adds_a_version(tmp_path, planes_off, completer):
 
 
 @pytest.mark.parametrize("inline", [False, True])
-def test_heal_of_a_noncurrent_version(tmp_path, planes_off, inline):
+def test_heal_of_a_noncurrent_version(tmp_path, planes, inline):
     """The port heals a noncurrent version (not the latest) lost on 4
     drives: the rebuilt shard files equal the originals, the other
     versions are untouched, the healed tree is the JAX package's heal of
@@ -603,7 +618,7 @@ def test_heal_of_a_noncurrent_version(tmp_path, planes_off, inline):
     version. (An inline version's healed journals carry shard index
     pos + 1, as the JAX heal writes them, where its PUT wrote 0.)"""
     paths = _paths(tmp_path)
-    layers = _layers(paths)
+    layers = _layers(planes, paths)
     jl, tl = layers["jax"], layers["torch"]
     jl.make_bucket(BUCKET)
     size = 3 << 10 if inline else (1 << 20) + 777
@@ -611,24 +626,27 @@ def test_heal_of_a_noncurrent_version(tmp_path, planes_off, inline):
     i_old = jl.put_object(BUCKET, "h", io.BytesIO(old), size, JaxOpts(versioned=True))
     new = _payload(200 << 10, 22)
     i_new = jl.put_object(BUCKET, "h", io.BytesIO(new), len(new), JaxOpts(versioned=True))
+    planes.settle()
     before = _tree(paths)
     fi = tl.latest_fileinfo(BUCKET, "h", i_old.version_id)
     lost = [i for i, shard in enumerate(fi.erasure.distribution) if shard <= 4]
     for i in lost:
-        d = TorchDrive(paths[i])
-        if fi.data_dir:
-            shutil.rmtree(os.path.join(paths[i], BUCKET, "h", fi.data_dir))
-        # The drive forgets the version too (its journal keeps the newer one).
-        meta = d._load_meta(BUCKET, "h")
-        meta.delete_version(i_old.version_id, BUCKET, "h")
-        d._store_meta(BUCKET, "h", meta)
+        with planes.drive(TorchDrive, paths[i]) as d:
+            if fi.data_dir:
+                shutil.rmtree(os.path.join(paths[i], BUCKET, "h", fi.data_dir))
+            # The drive forgets the version too (its journal keeps the newer
+            # one).
+            meta = d._load_meta(BUCKET, "h")
+            meta.delete_version(i_old.version_id, BUCKET, "h")
+            d._store_meta(BUCKET, "h", meta)
     jax_paths = _paths(tmp_path / "jax-heal")
     for src, dst in zip(paths, jax_paths):
         shutil.copytree(src, dst)
     res = tl.heal_object(BUCKET, "h", i_old.version_id)
     assert res.version_id == i_old.version_id and res.healed_count == 4
-    jres = _layers(jax_paths)["jax"].heal_object(BUCKET, "h", i_old.version_id)
+    jres = _layers(planes, jax_paths)["jax"].heal_object(BUCKET, "h", i_old.version_id)
     assert jres.healed_count == 4
+    planes.settle()
     assert _tree(paths) == _tree(jax_paths)
     if inline:
         changed = {key for key, raw in _tree(paths).items() if before[key] != raw}
@@ -906,16 +924,17 @@ def test_a_write_takes_no_version_id(torch_server):
 
 # -- the journal read cache of LocalDrive.read_version --
 
-def test_read_version_cache_parses_once_and_hands_out_copies(tmp_path, planes_off,
+def test_read_version_cache_parses_once_and_hands_out_copies(tmp_path, planes,
                                                              monkeypatch):
     """Reads of an unchanged journal parse it once; every read gets its
     own FileInfo, so a caller's mutation never reaches the next reader."""
     from minio_tpu_torch.storage import local as local_mod
 
-    es = _layers(_paths(tmp_path))["torch"]
+    es = _layers(planes, _paths(tmp_path))["torch"]
     es.make_bucket(BUCKET)
     body = _payload(200 << 10, 1)
     es.put_object(BUCKET, "k", io.BytesIO(body), len(body))
+    planes.settle()   # the cache under test is of journals on disk
     d = es.drives[0]
     monkeypatch.setattr(local_mod.LocalDrive, "_RACY_STAT_NS", -1)
     parses = []
@@ -937,7 +956,7 @@ def test_read_version_cache_parses_once_and_hands_out_copies(tmp_path, planes_of
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_read_version_cache_sees_every_rewrite(tmp_path, planes_off, monkeypatch,
+def test_read_version_cache_sees_every_rewrite(tmp_path, planes, monkeypatch,
                                               writer):
     """A journal rewritten after it was cached (a new version by either
     package, a delete, a file replaced out of band) is read anew."""
@@ -945,7 +964,7 @@ def test_read_version_cache_sees_every_rewrite(tmp_path, planes_off, monkeypatch
 
     monkeypatch.setattr(local_mod.LocalDrive, "_RACY_STAT_NS", -1)
     paths = _paths(tmp_path)
-    layers = _layers(paths)
+    layers = _layers(planes, paths)
     tl, w = layers["torch"], layers[writer]
     tl.make_bucket(BUCKET)
     tl.put_object(BUCKET, "k", io.BytesIO(b"first"), 5)
@@ -959,6 +978,7 @@ def test_read_version_cache_sees_every_rewrite(tmp_path, planes_off, monkeypatch
     # Out of band: drive 0's journal replaced by another drive's copy of a
     # different object's journal.
     tl.put_object(BUCKET, "other", io.BytesIO(b"other"), 5)
+    planes.settle()
     src = os.path.join(paths[1], BUCKET, "other", "meta.mp")
     dst = os.path.join(paths[0], BUCKET, "k", "meta.mp")
     shutil.copyfile(src, dst + ".new")
@@ -967,7 +987,7 @@ def test_read_version_cache_sees_every_rewrite(tmp_path, planes_off, monkeypatch
         hashlib.md5(b"other").hexdigest()
 
 
-def test_read_version_cache_skips_a_journal_written_just_now(tmp_path, planes_off,
+def test_read_version_cache_skips_a_journal_written_just_now(tmp_path, planes,
                                                             monkeypatch):
     """A journal whose mtime is within the racy window of its read is not
     cached: a second write in the same mtime tick could keep its
@@ -975,9 +995,10 @@ def test_read_version_cache_skips_a_journal_written_just_now(tmp_path, planes_of
     from minio_tpu_torch.storage import local as local_mod
 
     monkeypatch.setattr(local_mod.LocalDrive, "_RACY_STAT_NS", 3600 * 10**9)
-    es = _layers(_paths(tmp_path))["torch"]
+    es = _layers(planes, _paths(tmp_path))["torch"]
     es.make_bucket(BUCKET)
     es.put_object(BUCKET, "k", io.BytesIO(b"x"), 1)
+    planes.settle()
     d = es.drives[0]
     d.read_version(BUCKET, "k")
     assert not d._meta_cache
