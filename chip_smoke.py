@@ -183,12 +183,33 @@ package beside it. Phases, each raising on failure:
    shard it missed, equal to a copy of the same shard of an object of the
    same bytes taken before the hang.
 
+13. data at rest and the config plane (atrest_phase, run after phase 12):
+   config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB blocks) behind
+   the server at build_server's defaults with MRF off, LocalKMS over a key
+   file in the phase's directory. The AEAD provider in use is printed
+   (AES-GCM from `cryptography`, else the stdlib fallback). (a) config-kv
+   PUT of `storageclass standard=EC:2`, a 64 MiB PUT stored at 10+2 (its
+   journal says so; K1 at [16, 10, 104858] is held and timed in phase 2),
+   EC:4 restored, the server restarted over the same drives: the config
+   reads back, sealed with argon2id on the drives, and one derivation's ms
+   is printed; (b) one 256 MiB object under each of SSE-S3, SSE-C and
+   SSE-KMS: PUT, GET and three Range GETs across 64 KiB DARE chunks and
+   1 MiB blocks, each byte-equal; the SSE-KMS object read with 4 of 12
+   drives' shard files removed and deep-healed, the rebuilt files equal
+   to copies taken before; a 64 MiB PUT under the bucket's ?encryption
+   AES256 default; (c) a 64 MiB SSE-KMS multipart upload of 4 parts of
+   16 MiB, a Range GET across a part boundary, and CopyObject of the
+   SSE-C object to SSE-S3; (d) `compression enable=on` and a 256 MiB
+   access log: its stored/plain ratio, GET and a 1 MiB Range GET (which
+   decompresses from the start). Each step's GiB/s is printed with its
+   K1/K2 launches.
+
 Depth cut to make room for phase 11 under SMOKE_BUDGET_S, no width
 changed: phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
 halve down to 25,000 objects instead of 50,000.
 
-The launch count of each kernel is reset just before each of phases 3-12
+The launch count of each kernel is reset just before each of phases 3-13
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -224,6 +245,7 @@ HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
 MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
 MP_INFLIGHT = 4                 # part uploads in flight
 K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
+K10, M10, S10 = 10, 2, 104858   # storageclass EC:2 on 12 drives: S = ceil(1 MiB / 10)
 VER_SIZE, VER_VERSIONS = 256 << 20, 4   # versioning phase: 4 versions of 256 MiB
 VER_KEYS = 64                   # ... and 64 small keys of 4 versions, 1-512 KiB
 VER_DELETE = 250                # ... of which one DeleteObjects removes 250
@@ -238,6 +260,9 @@ BITROT_ALGOS = (("mxhash256", BITROT_BIG), ("sip256", BITROT_BIG),
                 ("highwayhash256", BITROT_SMALL), ("sha256", BITROT_SMALL),
                 ("xxh64", BITROT_SMALL), ("blake2b256", BITROT_SMALL))
 META_BIG = 256 << 20            # phase 12: the objects PUT and GET with a drive hung,
+ATREST_BIG = 256 << 20          # phase 13: each SSE object and the compressed .log,
+ATREST_SMALL = 64 << 20         # ... the EC:2 object, the bucket-default and multipart ones,
+ATREST_PART = 16 << 20          # ... the multipart object's parts (4 of them)
 META_CRASH_S = 8.0              # ... and the seconds of traffic before the SIGKILL
 OBS_SIZE = 256 << 20            # obs phase: the object PUT, GET and healed
 OBS_PROFILE_SIZE = 32 << 20     # ... the object PUT and GET under the profilers
@@ -699,6 +724,7 @@ def kernel_phase(seed: int) -> list[dict]:
 
     lane_shapes(rng, dev, flush, check, records)
     ec12_shapes(rng, dev, flush, check, records)
+    ec2_shapes(rng, dev, flush, check, records)
     mxhash_shapes(rng, dev, flush, check, records)
     for r in records:
         r["max_abs_err"] = errs[r["kernel"]]
@@ -855,6 +881,30 @@ def ec12_shapes(rng, dev, flush, check, records) -> None:
     _time_k2(records, "PUT 12+4", "multipart", put_rows, put_lens, flush)
     _time_k2(records, "GET verify 12+4, 64 rows empty", "multipart", get_rows,
              get_lens, flush, bound_rows=B * K12)
+
+
+def ec2_shapes(rng, dev, flush, check, records) -> None:
+    """K1 at the shape `storageclass standard=EC:2` gives config 1's 12
+    drives (phase 13): EC 10+2 with 1 MiB blocks, one 16-block batch. The
+    104,858-byte chunks are not a multiple of 16 bytes (K1's byte path on
+    every block), and a 1 MiB block leaves the last chunk 2 bytes short."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import gf, rs
+
+    print(f"  EC {K10}+{M10} shapes (storageclass EC:2 on 12 drives, 1 MiB blocks, "
+          f"S={S10}):")
+    x_np = rng.integers(0, 256, (B, K10, S10), dtype=np.uint8)
+    x_np[:, -1, -2:] = 0                   # the block's zero padding
+    x = torch.from_numpy(x_np).to(dev)
+    w_enc = rs.device_encode_weights(K10, M10, dev)
+    parity = rs.gf2_matmul(x, w_enc, M10)
+    check("gf2_matmul", "K1 encode 10+2", parity, rs.gf2_matmul_plain(x, w_enc, M10))
+    if not np.array_equal(parity[0].cpu().numpy(), gf.encode_ref(x_np[0], M10)):
+        raise AssertionError("K1 encode 10+2 disagrees with gf.encode_ref")
+    _time_k1(records, f"encode 10+2 [16,10,{S10}]->2", "atrest", (x, w_enc, M10),
+             _gf2_bound_ms(B, K10, M10, S10), flush)
 
 
 def _host_ms(fn, runs: int = 20) -> float:
@@ -3467,6 +3517,247 @@ def late_profile_check(seed: int, card: str, size: int = OBS_PROFILE_SIZE,
     return "captured"
 
 
+_SSE_DEFAULT_DOC = (b"<ServerSideEncryptionConfiguration><Rule>"
+                    b"<ApplyServerSideEncryptionByDefault><SSEAlgorithm>AES256"
+                    b"</SSEAlgorithm></ApplyServerSideEncryptionByDefault></Rule>"
+                    b"</ServerSideEncryptionConfiguration>")
+
+
+def _ssec_headers(key: bytes, copy_source: bool = False) -> dict:
+    """The SSE-C headers of a request (or of a copy's source) under `key`."""
+    import base64
+
+    prefix = ("x-amz-copy-source-server-side-encryption-customer" if copy_source
+              else "x-amz-server-side-encryption-customer")
+    return {f"{prefix}-algorithm": "AES256",
+            f"{prefix}-key": base64.b64encode(key).decode(),
+            f"{prefix}-key-MD5": base64.b64encode(hashlib.md5(key).digest()).decode()}
+
+
+def _log_payload(seed: int, size: int) -> bytes:
+    """`size` bytes of access-log lines (compressible, S2's use case): a
+    4 MiB block of lines with random fields, repeated."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    n = 0
+    while n < 4 << 20:
+        line = (f"2026-10-18T12:{int(rng.integers(0, 60)):02d}:{int(rng.integers(0, 60)):02d}Z "
+                f"10.0.{int(rng.integers(0, 255))}.{int(rng.integers(0, 255))} "
+                f"{'GET' if rng.random() < 0.7 else 'PUT'} /bucket/obj-{int(rng.integers(0, 10**6))} "
+                f"{int(rng.choice([200, 200, 200, 206, 404, 503]))} "
+                f"{int(rng.integers(0, 1 << 24))} {rng.random():.6f}\n").encode()
+        lines.append(line)
+        n += len(line)
+    block = b"".join(lines)
+    return (block * (size // len(block) + 1))[:size]
+
+
+def _shard_files(paths, bucket, key):
+    return {i: glob.glob(os.path.join(p, bucket, key, "*", "part.1"))[0]
+            for i, p in enumerate(paths)}
+
+
+def atrest_phase(seed: int, card: str, records: list[dict] | None, device: str = "cuda",
+                 big_size: int = ATREST_BIG, small_size: int = ATREST_SMALL,
+                 part_size: int = ATREST_PART) -> None:
+    """Phase 13 (see the module's docstring): data at rest on config 1's
+    set. Launch counts go into `records` unless it is None."""
+    import numpy as np
+
+    from minio_tpu_torch.crypto import aead, configcrypt
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    rng = np.random.default_rng(seed + 13)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-atrest-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    old_key_file = os.environ.get("MTPU_KMS_KEY_FILE")
+    os.environ["MTPU_KMS_KEY_FILE"] = os.path.join(work, "kms-keys")
+    print(f"  AEAD provider: {aead.PROVIDER}")
+    st = _Stages()
+    srv = cl = None
+    rates = []
+
+    def rate(name, size):
+        sec, d = st.delta(name)
+        rates.append(f"{name} {size / (1 << 30) / sec:.6f} GiB/s ({sec:.6f} s; K1/K2 "
+                     f"{d['gf2_matmul']}/{d['mxsum_digest']})")
+
+    def start():
+        nonlocal srv, cl
+        srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+        cl = _Client(srv.url)
+
+    def stop():
+        cl.close()
+        _close_server(srv)
+
+    def get_ok(key, want, headers=None, rng_=None):
+        h = dict(headers or {})
+        if rng_ is not None:
+            h["Range"] = f"bytes={rng_[0]}-{rng_[1] - 1}"
+        r, got = cl.request("GET", f"/atrest/{key}", headers=h)
+        exp = want if rng_ is None else want[rng_[0]:rng_[1]]
+        if got != exp:
+            raise AssertionError(f"GET {key} {rng_}: bytes differ")
+        return r
+
+    def config(doc):
+        r, body = cl.request("PUT", "/minio/admin/v3/config-kv", json.dumps(doc).encode())
+        return json.loads(body)
+
+    try:
+        kernels.reset_launches()
+        st.mark("start")
+        start()
+        es = srv.obj.pools[0].sets[0]
+        cl.request("PUT", "/atrest")
+        # (a) the sealed config: EC:2 for the next PUT, then EC:4 again,
+        # read back through argon2id after a restart.
+        config({"storageclass": {"standard": "EC:2"}})
+        small = rng.bytes(small_size)
+        st.mark("config")
+        cl.request("PUT", "/atrest/ec2", small)
+        st.mark("EC:2 PUT")
+        st.need("EC:2 PUT")
+        rate("EC:2 PUT", small_size)
+        fi = es.latest_fileinfo("atrest", "ec2")
+        if (fi.erasure.data_blocks, fi.erasure.parity_blocks) != (K10, M10):
+            raise AssertionError(f"EC:2 PUT stored at {fi.erasure.data_blocks}+"
+                                 f"{fi.erasure.parity_blocks}")
+        get_ok("ec2", small)
+        config({"storageclass": {"standard": "EC:4"}})
+        stop()
+        start()
+        es = srv.obj.pools[0].sets[0]
+        if srv.config.get("storageclass", "standard") != "EC:4":
+            raise AssertionError("the restarted server lost its storage class")
+        sealed = [open(f, "rb").read() for f in glob.glob(
+            os.path.join(paths[0], ".mtpu.sys", "config", "config", "config.json"))]
+        if len(sealed) != 1 or not sealed[0].startswith(configcrypt.MAGIC) \
+                or sealed[0][len(configcrypt.MAGIC)] != configcrypt.KDF_ARGON2ID:
+            raise AssertionError("the config is not sealed with argon2id on the drives")
+        t0 = time.perf_counter()
+        configcrypt._derive(configcrypt.KDF_ARGON2ID, SECRET, os.urandom(16),
+                            configcrypt.ARGON_T, configcrypt.ARGON_M_KIB,
+                            configcrypt.ARGON_LANES)
+        kdf_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  (a) storageclass EC:2: {small_size} B stored at {K10}+{M10}, K1 at "
+              f"[16,{K10},{S10}]; config sealed with argon2id (t=1, 64 MiB, 4 lanes): "
+              f"one derivation {kdf_ms:.3f} ms on the host; EC:4 read back after a restart")
+        # (b) SSE-S3, SSE-C and SSE-KMS, 256 MiB each.
+        cl.request("POST", "/minio/admin/v3/kms/key/create", query={"key-id": "smoke-key"})
+        big = rng.bytes(big_size)
+        ssec_key = rng.bytes(32)
+        cases = {"sse-s3": {"x-amz-server-side-encryption": "AES256"},
+                 "sse-c": _ssec_headers(ssec_key),
+                 "sse-kms": {"x-amz-server-side-encryption": "aws:kms",
+                             "x-amz-server-side-encryption-aws-kms-key-id": "smoke-key"}}
+        ranges = [(65530, 65560), (1048000, 1049600),
+                  (big_size - (3 << 20) - 77, big_size - (2 << 20) + 77)]
+        for name, h in cases.items():
+            key_h = h if name == "sse-c" else {}
+            st.mark(f"{name} start")
+            cl.request("PUT", f"/atrest/{name}", big, headers=h)
+            st.mark(f"{name} PUT")
+            st.need(f"{name} PUT")
+            rate(f"{name} PUT", big_size)
+            get_ok(name, big, key_h)
+            st.mark(f"{name} GET")
+            rate(f"{name} GET", big_size)
+            for rg in ranges:
+                r = get_ok(name, big, key_h, rg)
+                if r.status != 206:
+                    raise AssertionError(f"{name} range {rg}: {r.status}")
+        _settle(es.drives)
+        files = _shard_files(paths, "atrest", "sse-kms")
+        originals = {i: open(f, "rb").read() for i, f in files.items()}
+        for i in (0, 1, 2, 3):
+            shutil.rmtree(os.path.dirname(files[i]))
+        st.mark("degraded start")
+        get_ok("sse-kms", big)
+        st.mark("SSE-KMS degraded GET")
+        st.need("SSE-KMS degraded GET")
+        rate("SSE-KMS degraded GET", big_size)
+        res = es.heal_object("atrest", "sse-kms", scan_deep=True)
+        st.mark("SSE-KMS heal")
+        if res.healed_count != 4 or any(open(files[i], "rb").read() != originals[i]
+                                        for i in (0, 1, 2, 3)):
+            raise AssertionError(f"SSE-KMS heal: {res.healed_count} healed, or files "
+                                 "differ from their copies")
+        rate("SSE-KMS heal", big_size)
+        cl.request("PUT", "/atrest-dflt")
+        cl.request("PUT", "/atrest-dflt", _SSE_DEFAULT_DOC, query={"encryption": ""})
+        st.mark("default start")
+        cl.request("PUT", "/atrest-dflt/obj", small)
+        st.mark("bucket-default PUT")
+        rate("bucket-default PUT", small_size)
+        r, got = cl.request("GET", "/atrest-dflt/obj")
+        if got != small or r.getheader("x-amz-server-side-encryption") != "AES256":
+            raise AssertionError("bucket default: not SSE-S3, or bytes differ")
+        # (c) multipart SSE-KMS, and a copy from SSE-C to SSE-S3.
+        r, body = cl.request("POST", "/atrest/mp", query={"uploads": ""},
+                             headers=cases["sse-kms"])
+        uid = _upload_id(body)
+        n_parts = small_size // part_size
+        parts = [big[i * part_size:(i + 1) * part_size] for i in range(n_parts)]
+        st.mark("mp start")
+        etags = []
+        for n, part in enumerate(parts, 1):
+            r, _ = cl.request("PUT", "/atrest/mp", part,
+                              query={"partNumber": str(n), "uploadId": uid})
+            etags.append(r.getheader("ETag").strip('"'))
+        cl.request("POST", "/atrest/mp", _complete_doc(etags), query={"uploadId": uid})
+        st.mark("SSE-KMS multipart PUT")
+        rate("SSE-KMS multipart PUT", small_size)
+        mp_data = b"".join(parts)
+        get_ok("mp", mp_data, rng_=(part_size - 1000, part_size + 1000))
+        get_ok("mp", mp_data)
+        st.mark("copy start")
+        cl.request("PUT", "/atrest/copy", headers={
+            "x-amz-copy-source": "/atrest/sse-c", "x-amz-server-side-encryption": "AES256",
+            **_ssec_headers(ssec_key, copy_source=True)})
+        st.mark("CopyObject SSE-C to SSE-S3")
+        rate("CopyObject SSE-C to SSE-S3", big_size)
+        r = get_ok("copy", big)
+        if r.getheader("x-amz-server-side-encryption") != "AES256":
+            raise AssertionError("the copy is not SSE-S3")
+        # (d) compression.
+        config({"compression": {"enable": "on"}})
+        log = _log_payload(seed, big_size)
+        st.mark("log start")
+        cl.request("PUT", "/atrest/access.log", log)
+        st.mark("S2 PUT")
+        rate("S2 PUT", big_size)
+        stored = es.latest_fileinfo("atrest", "access.log").size
+        get_ok("access.log", log)
+        st.mark("S2 GET")
+        rate("S2 GET", big_size)
+        get_ok("access.log", log, rng_=(big_size // 2, big_size // 2 + (1 << 20)))
+        st.mark("S2 Range GET")
+        rate("S2 Range GET", 1 << 20)
+        print(f"  (d) S2: {big_size} B of access log stored as {stored} B, ratio "
+              f"{stored / big_size:.6f}; a 1 MiB Range GET decompresses from offset 0")
+        st.mark("end")
+    finally:
+        if srv is not None:
+            stop()
+        shutil.rmtree(work, ignore_errors=True)
+        if old_key_file is None:
+            os.environ.pop("MTPU_KMS_KEY_FILE", None)
+        else:
+            os.environ["MTPU_KMS_KEY_FILE"] = old_key_file
+    for line in rates:
+        print(f"  {line} on {card}, AEAD {aead.PROVIDER}")
+    total = {k: st.at[-1][1][k] - st.at[0][1][k] for k in st.at[0][1]}
+    print(f"  launches in the phase: {total}")
+    if records is not None:
+        _fill_launches(records, "atrest", total)
+
+
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
@@ -3792,6 +4083,10 @@ def main() -> int:
               f"drives on /dev/shm; the metadata plane, MRF and the auto-healer on; "
               f"begun at {time.perf_counter() - t_start:.1f} s):")
         meta_phase(args.seed, card, records)
+        print(f"data at rest phase (EC 8+4 and, by storageclass, 10+2, 1 MiB blocks, "
+              f"drives on /dev/shm; sealed config, SSE-S3, SSE-C, SSE-KMS, S2; begun at "
+              f"{time.perf_counter() - t_start:.1f} s):")
+        atrest_phase(args.seed, card, records)
         print(f"late device profile (the admin route on an old process; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         late_profile_check(args.seed, card)

@@ -18,11 +18,19 @@ Routes served, under /minio/admin/v3/:
     GET  profiling/download            the profiles, zipped (InternalError
                                        where the device capture lost
                                        events of kernels that ran)
+    GET  config-kv[?subsys=]           the config (admin/configkv.py), as
+                                       {subsys: {key: value}}
+    PUT  config-kv                     set keys (body {subsys: {key: value}});
+                                       answers {"restart": [subsystems that
+                                       apply only at the next start]}
+    GET  kms/status, kms/key-status    the KMS's status
+    POST kms/key/create?key-id=        a new master key
 
-The port has the root credential only: a signed root request is allowed
-and an anonymous one answers AccessDenied. The JAX package's other admin
-ops (IAM, config-kv, KMS, consolelog, obd, data usage, locks, service...)
-answer NotImplemented until their planes land in the port (ROADMAP.md);
+`config` is another name of `config-kv`, as in the JAX server. The port
+has the root credential only: a signed root request is allowed and an
+anonymous one answers AccessDenied. The JAX package's other admin ops
+(IAM, consolelog, obd, data usage, locks, service...) answer
+NotImplemented until their planes land in the port (ROADMAP.md);
 an op neither package has answers MethodNotAllowed, as the JAX server's
 does.
 """
@@ -33,8 +41,10 @@ import json
 import time
 
 from minio_tpu_torch import obs
+from minio_tpu_torch.admin.configkv import ConfigError
 from minio_tpu_torch.admin.metrics import PROM_CONTENT_TYPE, maybe_gzip
 from minio_tpu_torch.admin.profiling import IncompleteDeviceTrace, zip_profiles
+from minio_tpu_torch.crypto.kms import KMSError
 from minio_tpu_torch.erasure.metadata import parallel_map
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.s3.errors import S3Error
@@ -44,14 +54,14 @@ from minio_tpu_torch.utils import errors as se
 VERSION = "minio_tpu/1.0"
 ADMIN_PREFIX = "/minio/admin/v3/"
 
-_SERVED = frozenset({"info", "metrics", "heal", "top", "trace", "perf", "profiling"})
+_SERVED = frozenset({"info", "metrics", "heal", "top", "trace", "perf", "profiling",
+                     "config-kv", "config", "kms"})
 
 # Admin ops of the JAX package whose planes the port does not have yet.
 _NOT_YET = frozenset({
-    "datausageinfo", "slo", "force-unlock", "config-kv", "config",
-    "consolelog", "set-remote-target", "list-remote-targets",
+    "datausageinfo", "slo", "force-unlock", "consolelog", "set-remote-target", "list-remote-targets",
     "remove-remote-target", "replication-status", "replication-resync",
-    "cache", "bandwidth", "faults", "service", "update", "tier", "kms",
+    "cache", "bandwidth", "faults", "service", "update", "tier",
     "obdinfo", "healthinfo", "add-user", "remove-user", "list-users",
     "set-user-status", "add-canned-policy", "remove-canned-policy",
     "list-canned-policies", "set-user-or-group-policy",
@@ -112,6 +122,16 @@ class AdminAPI:
                 raise S3Error("InternalError", str(e)) from None
             return 200, {"Content-Type": "application/zip"}, zip_profiles(
                 {"local": files})
+        if op in ("config-kv", "config"):
+            return self._config_kv(method, path, q, read_body)
+        if op == "kms" and method == "GET" and rest in ("status", "key-status"):
+            return _json(self.s.kms.status())
+        if op == "kms" and method == "POST" and rest == "key/create":
+            try:
+                self.s.kms.create_key(q.get("key-id", "") or "default")
+            except KMSError as e:
+                raise S3Error("InvalidRequest", str(e)) from None
+            return _json({})
         if op in _NOT_YET or (op == "top" and rest == "locks"):
             raise S3Error("NotImplemented",
                           f"admin {path} is not served by this server yet")
@@ -190,6 +210,34 @@ class AdminAPI:
         except se.BucketNotFound:
             raise S3Error("NoSuchBucket", resource=f"/{bucket}") from None
         return _json({"items": [heal_item(i) for i in items]})
+
+    def _config_kv(self, method: str, path: str, q: dict, read_body):
+        """config-kv GET and PUT (handlers.py:592-620). A PUT of
+        `storageclass` re-stamps every set's parity at once; the subsystems
+        of planes the port lacks are stored and applied by nothing."""
+        cfg = self.s.config
+        if method == "GET":
+            try:
+                return _json(cfg.dump(q.get("subsys", "")))
+            except ConfigError as e:
+                raise S3Error("InvalidRequest", str(e)) from None
+        if method == "PUT":
+            try:
+                doc = json.loads(read_body())
+                if not isinstance(doc, dict):
+                    raise ValueError(doc)
+            except ValueError:
+                raise S3Error("InvalidArgument",
+                              "config body must be {subsys: {key: value}}") from None
+            for subsys, kv in doc.items():
+                try:
+                    cfg.set_kv(subsys, kv)
+                except (ConfigError, AttributeError) as e:
+                    raise S3Error("InvalidArgument", str(e)) from None
+            if "storageclass" in doc:
+                self.s.apply_storage_class_config()
+            return _json({"restart": [s for s in doc if not cfg.is_dynamic(s)]})
+        raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + path)
 
     def _perf_timelines(self, q: dict) -> dict:
         try:

@@ -287,10 +287,21 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
     def parity_for_class(self, sc: str) -> int:
         """Parity for a storage class (reference GetParityForSC,
-        cmd/config/storageclass/storage-class.go:234): STANDARD uses the
-        set's parity, REDUCED_REDUNDANCY two below it (at least 1)."""
+        cmd/config/storageclass/storage-class.go:234), as the JAX
+        package's: the `storageclass` config ("EC:N"), stamped on the set
+        as sc_parity by the server, overrides per class, clamped to
+        drives/2 (reference validateParity: beyond it a sub-majority write
+        could claim quorum); otherwise STANDARD uses the set's parity and
+        REDUCED_REDUNDANCY two below it (at least 1)."""
+        sc_map = getattr(self, "sc_parity", None) or {}
         if sc == "REDUCED_REDUNDANCY":
+            m = sc_map.get("RRS")
+            if m is not None:
+                return max(0, min(int(m), self.n // 2))
             return max(1, self.parity - 2) if self.n >= 4 else self.parity
+        m = sc_map.get("STANDARD")
+        if m is not None:
+            return max(0, min(int(m), self.n // 2))
         return self.parity
 
     def _write_quorum_meta(self) -> int:

@@ -1,10 +1,12 @@
-"""Build, load and call the host hash library (csrc/host_hash.cc).
+"""Build, load and call the host library (csrc/host_hash.cc and
+csrc/host_codec.cc).
 
 The library holds the host bitrot hashes, sip256, HighwayHash-256 and
-XXH64, behind a plain C interface. It is compiled with the host C++
-compiler (`$CXX`, else `g++`: the compiler nvcc itself uses) as
+XXH64, and the host codecs of data at rest, the snappy block codec,
+Argon2id and CRC-32C, behind a plain C interface. It is compiled with the
+host C++ compiler (`$CXX`, else `g++`: the compiler nvcc itself uses) as
 `-O3 -shared -fPIC` on first use into build/host/ under the checkout
-(listed in .gitignore), named by a hash of the source and flags, so a
+(listed in .gitignore), named by a hash of the sources and flags, so a
 changed source never loads a stale build. Nothing is built at import time.
 
 ctypes releases the interpreter lock for each call, so the shard writer
@@ -28,13 +30,14 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host_hash.cc"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (_CSRC / "host_hash.cc", _CSRC / "host_codec.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
 class HostLibraryError(RuntimeError):
-    """The host compiler is missing or refused csrc/host_hash.cc."""
+    """The host compiler is missing or refused the library's sources."""
 
 
 _lib: ctypes.CDLL | None = None
@@ -46,14 +49,15 @@ def _cxx() -> str:
     found = shutil.which(cxx)
     if found is None:
         raise HostLibraryError(
-            f"host C++ compiler {cxx!r} not found; the host hash library "
+            f"host C++ compiler {cxx!r} not found; the host library "
             "cannot be built")
     return found
 
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -62,18 +66,19 @@ def _build(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}-{threading.get_ident()}.tmp")
     try:
-        out = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+        out = subprocess.run([cxx, *CXX_FLAGS, *map(str, SOURCES), "-o", str(tmp)],
                              capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
         raise HostLibraryError(f"{cxx} failed to run: {e}") from e
     if out.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise HostLibraryError(f"{cxx} refused {SOURCE.name}:\n{out.stdout}{out.stderr}")
+        names = ", ".join(s.name for s in SOURCES)
+        raise HostLibraryError(f"{cxx} refused {names}:\n{out.stdout}{out.stderr}")
     os.replace(tmp, target)
 
 
 def library() -> ctypes.CDLL:
-    """The loaded host hash library, built on first use."""
+    """The loaded host library, built on first use."""
     global _lib
     if _lib is not None:
         return _lib
@@ -94,6 +99,21 @@ def library() -> ctypes.CDLL:
             fn.restype = None
         lib.mtpu_torch_xxh64.argtypes = [p, u64, u64]
         lib.mtpu_torch_xxh64.restype = u64
+        i64, u32 = ctypes.c_int64, ctypes.c_uint32
+        lib.mtpu_torch_snappy_max_compressed.argtypes = [u64]
+        lib.mtpu_torch_snappy_max_compressed.restype = u64
+        lib.mtpu_torch_snappy_compress.argtypes = [p, u64, p]
+        lib.mtpu_torch_snappy_compress.restype = i64
+        lib.mtpu_torch_snappy_uncompressed_len.argtypes = [p, u64]
+        lib.mtpu_torch_snappy_uncompressed_len.restype = i64
+        lib.mtpu_torch_snappy_uncompress.argtypes = [p, u64, p, u64]
+        lib.mtpu_torch_snappy_uncompress.restype = i64
+        lib.mtpu_torch_crc32c.argtypes = [p, u64]
+        lib.mtpu_torch_crc32c.restype = u32
+        lib.mtpu_torch_argon2id.argtypes = [ctypes.c_char_p, u64, ctypes.c_char_p, u64,
+                                            ctypes.c_char_p, u64, ctypes.c_char_p, u64,
+                                            u32, u32, u32, p, u32]
+        lib.mtpu_torch_argon2id.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -131,3 +151,57 @@ def xxh64(data, seed: int) -> int:
     h = lib.mtpu_torch_xxh64(addr, n, seed)
     del owner
     return h
+
+
+def crc32c(data) -> int:
+    """CRC-32C (Castagnoli) of `data`, as the JAX package's mtpu_crc32c."""
+    lib = library()
+    addr, n, owner = _address(data)
+    crc = lib.mtpu_torch_crc32c(addr, n)
+    del owner
+    return crc
+
+
+def snappy_compress(data) -> bytes:
+    """One snappy block of `data`, by the JAX package's greedy matcher."""
+    lib = library()
+    addr, n, owner = _address(data)
+    out = ctypes.create_string_buffer(lib.mtpu_torch_snappy_max_compressed(n))
+    m = lib.mtpu_torch_snappy_compress(addr, n, out)
+    del owner
+    if m < 0:
+        raise ValueError("snappy compress failed")
+    return out.raw[:m]
+
+
+def snappy_uncompress(data, max_len: int = 1 << 26) -> bytes:
+    """Decode one snappy block; ValueError on a malformed one. `max_len`
+    bounds the length its header claims before anything is allocated:
+    that header is read from disk, so a bit-rotted block must not ask for
+    gigabytes (S2 frames pass 64 KiB)."""
+    lib = library()
+    addr, n, owner = _address(data)
+    ulen = lib.mtpu_torch_snappy_uncompressed_len(addr, n)
+    if ulen < 0 or ulen > max_len:
+        raise ValueError("corrupt snappy block (bad length header)")
+    out = ctypes.create_string_buffer(max(ulen, 1))
+    got = lib.mtpu_torch_snappy_uncompress(addr, n, out, ulen)
+    del owner
+    if got != ulen:
+        raise ValueError("corrupt snappy block")
+    return out.raw[:ulen]
+
+
+def argon2id(password: bytes, salt: bytes, *, t: int = 1, m_kib: int = 65536,
+             lanes: int = 4, outlen: int = 32, secret: bytes = b"",
+             ad: bytes = b"") -> bytes:
+    """Argon2id (RFC 9106, version 0x13) of `password`; ValueError on
+    parameters the kernel refuses."""
+    lib = library()
+    out = ctypes.create_string_buffer(outlen)
+    rc = lib.mtpu_torch_argon2id(password, len(password), salt, len(salt),
+                                 secret, len(secret), ad, len(ad),
+                                 t, m_kib, lanes, out, outlen)
+    if rc != 0:
+        raise ValueError("argon2id refused its parameters")
+    return out.raw

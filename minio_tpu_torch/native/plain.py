@@ -1,4 +1,5 @@
-"""Plain pure-Python versions of the host hashes in csrc/host_hash.cc.
+"""Plain pure-Python versions of the host library's functions
+(csrc/host_hash.cc and csrc/host_codec.cc).
 
 The tests hold the host library against these; no serving path calls
 them. `sip256_py` is a copy of the JAX package's `_sip256_py`
@@ -6,10 +7,16 @@ them. `sip256_py` is a copy of the JAX package's `_sip256_py`
 `highwayhash256_py` (minio_tpu/native/hh_py.py, written from Google's
 published portable reference; the byte placements in its length padding
 are part of the HighwayHash definition). `xxh64_py` is written from the
-published xxHash specification (XXH64).
+published xxHash specification (XXH64). `snappy_compress_py` is the
+host library's greedy matcher step for step (so its blocks are the same
+bytes), `snappy_uncompress_py` a copy of the JAX package's
+`_snappy_uncompress_py`, and `argon2id_py` is written from RFC 9106 over
+hashlib's BLAKE2b; the CRC-32C's plain version is utils/crc32c.py.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 from minio_tpu_torch.utils.siphash import _round
 
@@ -249,3 +256,293 @@ def xxh64_py(data: bytes, seed: int) -> int:
     h = (h * _P3) & _M64
     h ^= h >> 32
     return h
+
+
+# --- snappy block codec -----------------------------------------------------
+
+_SNAP_HASH_BITS = 14
+
+
+def _snap_varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _emit_literal(out: bytearray, lit) -> None:
+    n = len(lit) - 1
+    if n < 60:
+        out.append(n << 2)
+    else:
+        nb = (n.bit_length() + 7) // 8
+        out.append((59 + nb) << 2)
+        out += n.to_bytes(nb, "little")
+    out += lit
+
+
+def _emit_copy(out: bytearray, offset: int, length: int) -> None:
+    while length >= 68:
+        out += bytes(((63 << 2) | 2, offset & 0xFF, offset >> 8))
+        length -= 64
+    if length > 64:
+        out += bytes(((59 << 2) | 2, offset & 0xFF, offset >> 8))
+        length -= 60
+    if length >= 12 or offset >= 2048:
+        out += bytes((((length - 1) << 2) | 2, offset & 0xFF, offset >> 8))
+    else:
+        out += bytes((((offset >> 8) << 5) | ((length - 4) << 2) | 1, offset & 0xFF))
+
+
+def _compress_fragment(src: bytes, out: bytearray) -> None:
+    n = len(src)
+    table = [0] * (1 << _SNAP_HASH_BITS)
+
+    def h(i):
+        v = int.from_bytes(src[i:i + 4], "little")
+        return ((v * 0x1E35A7BD) & 0xFFFFFFFF) >> (32 - _SNAP_HASH_BITS)
+
+    ip = lit = 0
+    if n >= 16:
+        limit = n - 15
+        while ip < limit:
+            hv = h(ip)
+            cand = table[hv]
+            table[hv] = ip
+            if cand < ip and src[cand:cand + 4] == src[ip:ip + 4]:
+                m, c = ip + 4, cand + 4
+                while m < n and src[m] == src[c]:
+                    m += 1
+                    c += 1
+                if lit < ip:
+                    _emit_literal(out, src[lit:ip])
+                _emit_copy(out, ip - cand, m - ip)
+                ip = lit = m
+                if ip < limit:
+                    table[h(ip - 1)] = ip - 1
+            else:
+                ip += 1
+    if lit < n:
+        _emit_literal(out, src[lit:])
+
+
+def snappy_compress_py(data) -> bytes:
+    """One snappy block: the varint length, then the greedy matcher over
+    each 64 KiB fragment (a fresh hash table per fragment)."""
+    data = bytes(data)
+    out = bytearray(_snap_varint(len(data)))
+    for pos in range(0, len(data), 1 << 16):
+        _compress_fragment(data[pos:pos + (1 << 16)], out)
+    return bytes(out)
+
+
+def snappy_uncompress_py(data, max_len: int = 1 << 26) -> bytes:
+    """Decode one snappy block; ValueError on a malformed one."""
+    data = bytes(data)
+    i = ulen = shift = 0
+    while True:
+        if i >= len(data) or shift >= 35:
+            raise ValueError("corrupt snappy block (bad length header)")
+        b = data[i]
+        i += 1
+        ulen |= (b & 0x7F) << shift
+        if not b & 0x80:
+            break
+        shift += 7
+    if ulen > max_len:
+        raise ValueError("corrupt snappy block (bad length header)")
+    out = bytearray()
+    n = len(data)
+    while i < n:
+        tag = data[i]
+        i += 1
+        kind = tag & 3
+        if kind == 0:
+            l6 = tag >> 2
+            if l6 < 60:
+                length = l6 + 1
+            else:
+                nb = l6 - 59
+                if i + nb > n:
+                    raise ValueError("corrupt snappy literal")
+                length = int.from_bytes(data[i:i + nb], "little") + 1
+                i += nb
+            if i + length > n or len(out) + length > ulen:
+                raise ValueError("corrupt snappy literal")
+            out += data[i:i + length]
+            i += length
+            continue
+        if kind == 1:
+            if i >= n:
+                raise ValueError("corrupt snappy copy")
+            length = 4 + ((tag >> 2) & 7)
+            offset = ((tag >> 5) << 8) | data[i]
+            i += 1
+        elif kind == 2:
+            if i + 2 > n:
+                raise ValueError("corrupt snappy copy")
+            length = (tag >> 2) + 1
+            offset = int.from_bytes(data[i:i + 2], "little")
+            i += 2
+        else:
+            if i + 4 > n:
+                raise ValueError("corrupt snappy copy")
+            length = (tag >> 2) + 1
+            offset = int.from_bytes(data[i:i + 4], "little")
+            i += 4
+        if offset == 0 or offset > len(out) or len(out) + length > ulen:
+            raise ValueError("corrupt snappy copy")
+        if offset >= length:
+            start = len(out) - offset
+            out += out[start:start + length]
+        else:
+            for _ in range(length):
+                out.append(out[-offset])
+    if len(out) != ulen:
+        raise ValueError("snappy length mismatch")
+    return bytes(out)
+
+
+# --- Argon2id (RFC 9106) -----------------------------------------------------
+
+
+def _b2b(data: bytes, outlen: int) -> bytes:
+    return hashlib.blake2b(data, digest_size=outlen).digest()
+
+
+def _hprime(data: bytes, outlen: int) -> bytes:
+    """H' (RFC 9106 3.3), the variable-length hash."""
+    pre = outlen.to_bytes(4, "little") + data
+    if outlen <= 64:
+        return _b2b(pre, outlen)
+    r = (outlen + 31) // 32 - 2
+    v = _b2b(pre, 64)
+    out = bytearray(v[:32])
+    for _ in range(1, r):
+        v = _b2b(v, 64)
+        out += v[:32]
+    out += _b2b(v, outlen - 32 * r)
+    return bytes(out)
+
+
+def _gb(v, a, b, c, d):
+    def f(x, y):
+        return (x + y + 2 * (x & _M32) * (y & _M32)) & _M64
+
+    def rotr(x, n):
+        return ((x >> n) | (x << (64 - n))) & _M64
+
+    v[a] = f(v[a], v[b])
+    v[d] = rotr(v[d] ^ v[a], 32)
+    v[c] = f(v[c], v[d])
+    v[b] = rotr(v[b] ^ v[c], 24)
+    v[a] = f(v[a], v[b])
+    v[d] = rotr(v[d] ^ v[a], 16)
+    v[c] = f(v[c], v[d])
+    v[b] = rotr(v[b] ^ v[c], 63)
+
+
+def _p_round(v, idx) -> None:
+    """The permutation P over the 16 words v[idx[0..15]]."""
+    _gb(v, idx[0], idx[4], idx[8], idx[12])
+    _gb(v, idx[1], idx[5], idx[9], idx[13])
+    _gb(v, idx[2], idx[6], idx[10], idx[14])
+    _gb(v, idx[3], idx[7], idx[11], idx[15])
+    _gb(v, idx[0], idx[5], idx[10], idx[15])
+    _gb(v, idx[1], idx[6], idx[11], idx[12])
+    _gb(v, idx[2], idx[7], idx[8], idx[13])
+    _gb(v, idx[3], idx[4], idx[9], idx[14])
+
+
+_ROWS = [list(range(16 * i, 16 * i + 16)) for i in range(8)]
+_COLS = [[2 * i + 16 * r + j for r in range(8) for j in (0, 1)] for i in range(8)]
+
+
+def _compress_g(x: list[int], y: list[int]) -> list[int]:
+    """G(X, Y) = P(X ^ Y) ^ (X ^ Y), P over the rows, then the columns."""
+    r = [a ^ b for a, b in zip(x, y)]
+    z = list(r)
+    for idx in _ROWS:
+        _p_round(z, idx)
+    for idx in _COLS:
+        _p_round(z, idx)
+    return [a ^ b for a, b in zip(r, z)]
+
+
+def _words(raw: bytes) -> list[int]:
+    return [int.from_bytes(raw[8 * i:8 * i + 8], "little") for i in range(128)]
+
+
+def argon2id_py(password: bytes, salt: bytes, *, t: int = 1, m_kib: int = 65536,
+                lanes: int = 4, outlen: int = 32, secret: bytes = b"",
+                ad: bytes = b"") -> bytes:
+    """Argon2id, version 0x13, as RFC 9106 defines it."""
+    m = max(m_kib, 8 * lanes)
+    q = (m // (4 * lanes)) * 4
+    seg = q // 4
+    mp = q * lanes
+
+    def le(n):
+        return n.to_bytes(4, "little")
+
+    h0 = _b2b(le(lanes) + le(outlen) + le(m_kib) + le(t) + le(0x13) + le(2)
+              + le(len(password)) + password + le(len(salt)) + salt
+              + le(len(secret)) + secret + le(len(ad)) + ad, 64)
+    blocks: list[list[int] | None] = [None] * mp
+    for lane in range(lanes):
+        for i in range(2):
+            blocks[lane * q + i] = _words(_hprime(h0 + le(i) + le(lane), 1024))
+    zero = [0] * 128
+    for ps in range(t):
+        for sl in range(4):
+            for lane in range(lanes):
+                data_independent = ps == 0 and sl < 2
+                addresses: list[int] = []
+                counter = 0
+
+                def next_addresses():
+                    nonlocal counter
+                    counter += 1
+                    inp = [ps, lane, sl, mp, t, 2, counter] + [0] * 121
+                    return _compress_g(zero, _compress_g(zero, inp))
+
+                start = 2 if ps == 0 and sl == 0 else 0
+                for i in range(start, seg):
+                    col = sl * seg + i
+                    cur = lane * q + col
+                    prev = lane * q + q - 1 if col == 0 else cur - 1
+                    if data_independent:
+                        if i % 128 == 0 or not addresses:
+                            addresses = next_addresses()
+                        rand = addresses[i % 128]
+                    else:
+                        rand = blocks[prev][0]
+                    j1 = rand & _M32
+                    ref_lane = lane if ps == 0 and sl == 0 else (rand >> 32) % lanes
+                    same = ref_lane == lane
+                    if ps == 0:
+                        if sl == 0:
+                            area = i - 1
+                        elif same:
+                            area = sl * seg + i - 1
+                        else:
+                            area = sl * seg - (1 if i == 0 else 0)
+                    elif same:
+                        area = q - seg + i - 1
+                    else:
+                        area = q - seg - (1 if i == 0 else 0)
+                    x = (j1 * j1) >> 32
+                    y = (area * x) >> 32
+                    rel = area - 1 - y
+                    start_pos = 0 if ps == 0 else ((sl + 1) % 4) * seg
+                    ref = ref_lane * q + (start_pos + rel) % q
+                    new = _compress_g(blocks[prev], blocks[ref])
+                    if ps > 0:
+                        new = [a ^ b for a, b in zip(new, blocks[cur])]
+                    blocks[cur] = new
+    final = blocks[q - 1]
+    for lane in range(1, lanes):
+        final = [a ^ b for a, b in zip(final, blocks[lane * q + q - 1])]
+    return _hprime(b"".join(w.to_bytes(8, "little") for w in final), outlen)

@@ -32,6 +32,7 @@ ERRORS = {e.code: e for e in [
     APIError("InvalidBucketState", "The request is not valid with the current state of the bucket.", 409),
     APIError("InvalidPart", "One or more of the specified parts could not be found.", 400),
     APIError("InvalidRange", "The requested range is not satisfiable", 416),
+    APIError("InvalidRequest", "Invalid Request", 400),
     APIError("MalformedXML", "The XML you provided was not well-formed or did not validate against our published schema.", 400),
     APIError("MethodNotAllowed", "The specified method is not allowed against this resource.", 405),
     APIError("MissingContentLength", "You must provide the Content-Length HTTP header.", 411),
@@ -42,6 +43,8 @@ ERRORS = {e.code: e for e in [
     APIError("NotImplemented", "A header you provided implies functionality that is not implemented", 501),
     APIError("PreconditionFailed", "At least one of the pre-conditions you specified did not hold", 412),
     APIError("RequestTimeTooSkewed", "The difference between the request time and the server's time is too large.", 403),
+    APIError("ServerSideEncryptionConfigurationNotFoundError",
+             "The server side encryption configuration was not found", 404),
     APIError("SignatureDoesNotMatch", "The request signature we calculated does not match the signature you provided. Check your key and signing method.", 403),
     APIError("SlowDown", "Resource requested is unreadable, please reduce your request rate", 503),
     APIError("XAmzContentSHA256Mismatch", "The provided 'x-amz-content-sha256' header does not match what was computed.", 400),

@@ -16,6 +16,7 @@ headers and error documents:
                                              version-id-marker)
     PUT|GET /bucket?versioning               PutBucketVersioning,
                                              GetBucketVersioning
+    PUT|GET|DELETE /bucket?encryption        the bucket's default SSE
     PUT /bucket/key      PutObject           GET /bucket/key     GetObject (Range)
     HEAD /bucket/key     HeadObject          DELETE /bucket/key  DeleteObject
     PUT /bucket/key + x-amz-copy-source      CopyObject (x-amz-metadata-directive)
@@ -34,20 +35,31 @@ headers and error documents:
                                              on Accept), signed
     /minio/admin/v3/...                      the admin plane (admin/handlers.py:
                                              info, metrics, heal, top/api,
-                                             trace, perf/timeline, profiling)
+                                             trace, perf/timeline, profiling,
+                                             config-kv, kms)
 
 Object calls take ?versionId (the literal "null" names the null version);
 GET and HEAD take If-Match and If-None-Match (412, or 304). A bucket's
 versioning lives in its metadata document (bucket/meta.py), the JAX
 package's, so both servers on the same drives keep the same versions.
 
+Objects are stored as the JAX server stores them at rest (s3/atrest.py):
+SSE-C, SSE-S3 and SSE-KMS (x-amz-server-side-encryption*, or the bucket's
+?encryption default; the KMS is LocalKMS or a KES server, from config
+`kms`), or S2-compressed (config `compression`), and every object call
+serves such a version's client bytes, whichever package stored it.
+
+The server's config (admin/configkv.py) lives in the sys store sealed
+under the root secret (crypto/configcrypt.py), as the JAX server keeps
+it, and is read at start: `storageclass` sets the parity of the next PUT
+on every set, `heal` paces the auto-healer.
+
 Every request but the health probes must carry SigV4 header auth (signed
 payload or UNSIGNED-PAYLOAD); anything else answers NotImplemented or
 AccessDenied, as does any other query string. Any other /minio/ path
 answers as the JAX server answers it, never as bucket "minio". Object
-lock, SSE, the other bucket subresources, presigned URLs, aws-chunked
-bodies, IAM and the admin plane's other ops come in later slices
-(ROADMAP.md).
+lock, the other bucket subresources, presigned URLs, aws-chunked bodies,
+IAM and the admin plane's other ops come in later slices (ROADMAP.md).
 
 Every request is in flight in HTTPStats (admin/stats.py) from its first
 byte until just before the last byte of its answer is written, so a
@@ -63,9 +75,9 @@ ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
 the JAX package's build_server does, with each set's MRF healer on
 (enable_mrf=False turns it off). start_auto_heal starts one AutoHealer per
 pool, which claims a wiped or replaced drive and rebuilds it; main() calls
-it, as the JAX server's main does. The admin heal route
-(POST /minio/admin/v3/heal/<bucket>) heals on demand; heal pacing waits
-for the config plane (ROADMAP.md).
+it, as the JAX server's main does, paced by config `heal` (max_sleep,
+max_io). The admin heal route (POST /minio/admin/v3/heal/<bucket>) heals
+on demand.
 
 Run: python -m minio_tpu_torch.s3.server --address 127.0.0.1:9000
 [--set-drive-count N] <drive dirs> (credentials from MTPU_ROOT_USER /
@@ -84,9 +96,11 @@ import threading
 import time
 import urllib.parse
 import uuid
+import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from minio_tpu_torch import obs
+from minio_tpu_torch.admin.configkv import ConfigSys
 from minio_tpu_torch.admin.handlers import ADMIN_PREFIX, AdminAPI
 from minio_tpu_torch.admin.metrics import (OPENMETRICS_CONTENT_TYPE,
                                            PROM_CONTENT_TYPE,
@@ -96,6 +110,9 @@ from minio_tpu_torch.admin.metrics import (OPENMETRICS_CONTENT_TYPE,
 from minio_tpu_torch.admin.profiling import Profiler
 from minio_tpu_torch.admin.stats import HTTPStats
 from minio_tpu_torch.bucket.meta import BucketMetadataSys
+from minio_tpu_torch.crypto import sse
+from minio_tpu_torch.crypto.configcrypt import SealedSysStore
+from minio_tpu_torch.crypto.kes import kms_from_config
 from minio_tpu_torch.erasure.autoheal import AutoHealer
 from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
@@ -104,6 +121,7 @@ from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.s3 import sigv4, xmlutil
 from minio_tpu_torch.s3.actions import action_for
+from minio_tpu_torch.s3.atrest import AtRest, copy_metadata
 from minio_tpu_torch.s3.errors import S3Error, from_exception
 from minio_tpu_torch.storage.local import LocalDrive
 
@@ -239,6 +257,12 @@ class S3Server:
         # bucket's own metadata document decides.
         self.versioned_buckets = versioned_buckets
         self.bucket_meta = BucketMetadataSys(obj)
+        # Config is sealed at rest under the root secret; bucket metadata
+        # stays plain, as in the JAX server (minio_tpu/s3/server.py:166-196).
+        self.config = ConfigSys(SealedSysStore(obj, creds.secret_key))
+        self.kms = kms_from_config(self.config)
+        self.atrest = AtRest(obj, creds, self.config, self.kms, self.bucket_meta)
+        self.apply_storage_class_config()
         host, _, port = address.rpartition(":")
         self.httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)), _Handler)
         self.httpd.daemon_threads = True
@@ -258,13 +282,32 @@ class S3Server:
     def cluster_scrape(self, openmetrics: bool = False) -> bytes:
         return collect_metrics(self.obj, self.stats, openmetrics=openmetrics)
 
+    def apply_storage_class_config(self) -> None:
+        """Parse storageclass.standard / rrs ("EC:N") and stamp the parity
+        map on every erasure set as sc_parity, which parity_for_class reads
+        (the JAX server's, minio_tpu/s3/server.py:372-410; applied again
+        by every config-kv PUT of `storageclass`)."""
+        sc_map = {}
+        for key, name in (("standard", "STANDARD"), ("rrs", "RRS")):
+            value = (self.config.get("storageclass", key) or "").strip().upper()
+            if value.startswith("EC:") and value[3:].isdigit():
+                sc_map[name] = int(value[3:])
+        stack = [self.obj]
+        while stack:
+            node = stack.pop()
+            for attr in ("pools", "sets"):
+                stack.extend(getattr(node, attr, None) or [])
+            if hasattr(node, "parity_for_class"):
+                node.sc_parity = dict(sc_map)
+
     def start_auto_heal(self, interval: float = 10.0) -> None:
         """Start the background drive healer (reference initAutoHeal,
         cmd/background-newdisks-heal-ops.go:241): one AutoHealer per pool,
         each pass claiming blank drives live and rebuilding every drive that
-        carries a healing tracker. No config plane yet, so no pacing."""
+        carries a healing tracker, paced by config heal.max_sleep and
+        heal.max_io against the requests in flight."""
         pools = getattr(self.obj, "pools", None) or [self.obj]
-        self.auto_healer = [AutoHealer(p, interval=interval, config=None,
+        self.auto_healer = [AutoHealer(p, interval=interval, config=self.config,
                                        load_fn=lambda: self.current_requests)
                             for p in pools]
         for h in self.auto_healer:
@@ -355,6 +398,9 @@ class S3Server:
                 return self._delete_objects(bucket, headers, body, payload_hash, hdr)
             if method == "GET" and q.keys() <= _LIST_PARAMS:
                 return self._list_objects(bucket, q, hdr)
+            if "encryption" in q:
+                return self._bucket_encryption(method, bucket, headers, body,
+                                               payload_hash, hdr)
             if q:
                 raise S3Error("NotImplemented")
             if method == "PUT":
@@ -398,14 +444,15 @@ class S3Server:
             return self._get_object(bucket, key, opts, headers, hdr)
         if method == "HEAD":
             info = self.obj.get_object_info(bucket, key, opts)
-            _refuse_transformed(info)
             if info.delete_marker:
                 raise S3Error("MethodNotAllowed", resource=path,
                               headers={"x-amz-delete-marker": "true",
                                        "x-amz-version-id": info.version_id})
+            self.atrest.check_key(headers, bucket, key, info)
             if _check_conditional(method, headers, info):
                 return _Response(304, {**hdr, "ETag": f'"{info.etag}"'}, b"", 0)
-            return _Response(200, {**hdr, **_object_headers(info)}, b"", info.size)
+            return _Response(200, {**hdr, **_object_headers(info)}, b"",
+                             AtRest.visible_size(info))
         if method == "DELETE":
             info = self.obj.delete_object(bucket, key, opts)
             extra = {}
@@ -509,10 +556,16 @@ class S3Server:
     def _multipart(self, method, bucket, key, q, headers, body: _Body,
                    payload_hash, hdr, opts: ObjectOptions) -> _Response:
         """The six object-level multipart calls (the JAX server's routes,
-        minio_tpu/s3/server.py:1530-1600)."""
+        minio_tpu/s3/server.py:1530-1611). An encrypted upload seals its
+        object key at create; each part is encrypted on its own, ListParts
+        reports plaintext sizes and Complete checks the 5 MiB minimum on
+        them."""
         if method == "POST" and "uploads" in q:
-            opts = ObjectOptions(user_defined=_metadata_headers(headers))
-            upload_id = self.obj.new_multipart_upload(bucket, key, opts)
+            user_defined = _metadata_headers(headers)
+            self.atrest.sse_setup(headers, bucket, key, user_defined)
+            upload_id = self.obj.new_multipart_upload(
+                bucket, key, ObjectOptions(user_defined=user_defined))
+            self.atrest.remember_upload(upload_id, user_defined)
             return _xml(hdr, xmlutil.initiate_multipart_xml(bucket, key, upload_id))
         if "uploadId" not in q:
             raise S3Error("NotImplemented")
@@ -523,17 +576,24 @@ class S3Server:
             if src:
                 return self._upload_part_copy(bucket, key, upload_id, part_number,
                                               src, headers, hdr)
-            res = _with_body(headers, body, payload_hash, lambda data, size:
-                             self.obj.put_object_part(bucket, key, upload_id,
-                                                      part_number, data, size))
+
+            def put_part(data, size):
+                reader, stored = self.atrest.encrypt_part(headers, bucket, key,
+                                                          upload_id, data, size)
+                return self.obj.put_object_part(bucket, key, upload_id, part_number,
+                                                reader, stored)
+
+            res = _with_body(headers, body, payload_hash, put_part)
             return _Response(200, {**hdr, "ETag": f'"{res.etag}"'})
         if method == "GET":
             parts = self.obj.list_parts(bucket, key, upload_id,
                                         _int_q(q, "part-number-marker", 0),
                                         _int_q(q, "max-parts", 1000))
+            parts = self.atrest.plain_parts(bucket, key, upload_id, parts)
             return _xml(hdr, xmlutil.list_parts_xml(bucket, key, upload_id, parts))
         if method == "DELETE":
             self.obj.abort_multipart_upload(bucket, key, upload_id)
+            self.atrest.forget_upload(upload_id)
             return _Response(204, hdr)
         if method == "POST":
             raw = _with_body(headers, body, payload_hash,
@@ -541,8 +601,10 @@ class S3Server:
             pairs = xmlutil.parse_complete_multipart_xml(raw)
             if not pairs:
                 raise S3Error("MalformedXML")
+            self.atrest.check_part_sizes(bucket, key, upload_id, [n for n, _ in pairs])
             info = self.obj.complete_multipart_upload(
                 bucket, key, upload_id, [CompletePart(n, e) for n, e in pairs], opts)
+            self.atrest.forget_upload(upload_id)
             extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
             return _xml({**hdr, **extra}, xmlutil.complete_multipart_xml(
                 f"/{bucket}/{key}", bucket, key, info.etag))
@@ -597,32 +659,71 @@ class S3Server:
             guessed, _ = mimetypes.guess_type(key)
             user_defined["content-type"] = guessed or "application/octet-stream"
         opts.user_defined = user_defined
-        info = _with_body(headers, body, payload_hash, lambda data, size:
-                          self.obj.put_object(bucket, key, data, size, opts))
+
+        def put(data, size):
+            # Compressed or encrypted (s3/atrest.py), in the JAX server's
+            # order (:2486-2489); the ETag is the stored stream's md5.
+            reader, stored = self.atrest.put_stream(headers, bucket, key,
+                                                    user_defined, data, size)
+            return self.obj.put_object(bucket, key, reader, stored, opts)
+
+        info = _with_body(headers, body, payload_hash, put)
         extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
         return _Response(200, {**hdr, "ETag": f'"{info.etag}"', **extra})
 
+    def _bucket_encryption(self, method, bucket, headers, body: _Body, payload_hash,
+                           hdr) -> _Response:
+        """The bucket's default SSE document (?encryption), stored verbatim
+        in its metadata as the JAX server stores it
+        (minio_tpu/s3/server.py:1727-1740, 1877-1893): PUT validates the
+        XML, GET answers it or 404, DELETE clears it."""
+        self.obj.get_bucket_info(bucket)
+        if method == "PUT":
+            raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+            try:
+                ET.fromstring(raw)
+            except ET.ParseError:
+                raise S3Error("MalformedXML") from None
+            self.bucket_meta.update(bucket, sse_xml=raw)
+            return _Response(200, hdr)
+        if method == "GET":
+            raw = self.bucket_meta.get(bucket).sse_xml
+            if not raw:
+                raise S3Error("ServerSideEncryptionConfigurationNotFoundError",
+                              resource=f"/{bucket}")
+            return _xml(hdr, raw)
+        if method == "DELETE":
+            self.bucket_meta.update(bucket, sse_xml=b"")
+            return _Response(204, hdr)
+        raise S3Error("NotImplemented")
+
     def _copy_object(self, bucket, key, src, opts, headers, hdr) -> _Response:
-        """CopyObject (:2558-2595): the source version streamed from its
-        set through the GET path (K2 verify) into a PUT (K1 and K2). The
-        metadata directive COPY keeps the source's metadata, REPLACE takes
-        the request's x-amz-meta-* and Content-Type."""
+        """CopyObject (:2558-2600): the source version's client bytes (the
+        GET path: K2 verify, then its decryption, with the
+        x-amz-copy-source-server-side-encryption-customer-* key for an
+        SSE-C source, or decompression) streamed into a PUT (K1 and K2),
+        encrypted under the request's SSE headers or the bucket default.
+        The metadata directive COPY keeps the source's metadata less its
+        transform's keys, REPLACE takes the request's x-amz-meta-* and
+        Content-Type."""
         src_bucket, src_key, src_opts = _parse_copy_source(src)
         info, open_range = self.obj.get_object_reader(src_bucket, src_key, src_opts)
-        _refuse_transformed(info)
+        size, open_plain = self.atrest.plan_read(headers, src_bucket, src_key, info,
+                                                 open_range, copy_source=True)
         if headers.get("x-amz-metadata-directive", "COPY") == "REPLACE":
             user_defined = {k: v for k, v in _metadata_headers(headers).items()
                             if k.startswith("x-amz-meta-")}
             if headers.get("Content-Type"):
                 user_defined["content-type"] = headers["Content-Type"]
         else:
-            user_defined = dict(info.user_defined)
+            user_defined = copy_metadata(info.user_defined)
             user_defined["content-type"] = info.content_type
         opts.user_defined = user_defined
-        stream = open_range(0, info.size)
+        stream = open_plain()
         try:
-            new_info = self.obj.put_object(bucket, key, _IterReader(stream),
-                                           info.size, opts)
+            reader, stored = self.atrest.encrypt_put(headers, bucket, key, user_defined,
+                                                     _IterReader(stream), size)
+            new_info = self.obj.put_object(bucket, key, reader, stored, opts)
         finally:
             _close(stream)
         return _xml(hdr, xmlutil.copy_object_xml(new_info.etag, new_info.mod_time))
@@ -630,37 +731,45 @@ class S3Server:
     def _upload_part_copy(self, bucket, key, upload_id, part_number, src, headers,
                           hdr) -> _Response:
         """UploadPartCopy (:2526-2556): the source range
-        (x-amz-copy-source-range, else the whole version) streamed into
-        one part."""
+        (x-amz-copy-source-range, else the whole version) of its client
+        bytes, streamed into one part, encrypted when the upload is."""
         src_bucket, src_key, src_opts = _parse_copy_source(src)
         info, open_range = self.obj.get_object_reader(src_bucket, src_key, src_opts)
-        _refuse_transformed(info)
-        offset, length = 0, info.size
+        offset, length = 0, AtRest.visible_size(info)
         rng = headers.get("x-amz-copy-source-range")
         if rng:
-            offset, length = _parse_range(rng, info.size)
-        stream = open_range(offset, length)
+            offset, length = _parse_range(rng, length)
+        _size, open_plain = self.atrest.plan_read(headers, src_bucket, src_key, info,
+                                                  open_range, offset, length,
+                                                  copy_source=True)
+        stream = open_plain()
         try:
+            reader, stored = self.atrest.encrypt_part(headers, bucket, key, upload_id,
+                                                      _IterReader(stream), length)
             res = self.obj.put_object_part(bucket, key, upload_id, part_number,
-                                           _IterReader(stream), length)
+                                           reader, stored)
         finally:
             _close(stream)
         return _xml(hdr, xmlutil.copy_object_xml(res.etag, res.last_modified))
 
     def _get_object(self, bucket, key, opts, headers, hdr):
+        """GetObject: Range on the client bytes (the plaintext of an
+        encrypted or compressed version); the key is unsealed before the
+        conditionals, as in the JAX server (:2291-2343)."""
         rng = headers.get("Range")
         info, open_range = self.obj.get_object_reader(bucket, key, opts)
-        _refuse_transformed(info)
-        status, offset, length = 200, 0, info.size
+        status, offset, length = 200, 0, AtRest.visible_size(info)
         if rng:
-            offset, length = _parse_range(rng, info.size)
+            offset, length = _parse_range(rng, length)
             status = 206
+        size, open_plain = self.atrest.plan_read(headers, bucket, key, info, open_range,
+                                                 offset, length)
         if _check_conditional("GET", headers, info):
             return _Response(304, {**hdr, "ETag": f'"{info.etag}"'}, b"", 0)
-        stream = open_range(offset, length)
+        stream = open_plain()
         out = {**hdr, **_object_headers(info), "Content-Length": str(length)}
         if status == 206:
-            out["Content-Range"] = f"bytes {offset}-{offset + length - 1}/{info.size}"
+            out["Content-Range"] = f"bytes {offset}-{offset + length - 1}/{size}"
         # Pull the first chunk before the headers go out, so a read that
         # fails (quorum lost) still answers with an error status.
         first = next(stream, None)
@@ -813,10 +922,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self.send_header(k, v)
         if chunked:
             self.send_header("Transfer-Encoding", "chunked")
-        elif resp.status not in (204, 304) and (method != "HEAD" or resp.length):
+        elif resp.status not in (204, 304) and (method != "HEAD" or resp.length
+                                                 or "Content-Length" in resp.headers):
             # No length on a 204 or 304, and a HEAD answer states one only
-            # where there is one (an object's size, an error document's),
-            # as the JAX server does.
+            # where there is one (an object's size, 0 included, an error
+            # document's), as the JAX server does.
             self.send_header("Content-Length", str(resp.length))
         streamed = not isinstance(resp.body, (bytes, bytearray))
         if method == "HEAD" or not streamed:
@@ -881,8 +991,9 @@ def _object_headers(info) -> dict:
         "Last-Modified": email.utils.formatdate(info.mod_time, usegmt=True),
         "Content-Type": info.content_type or "binary/octet-stream",
         "Accept-Ranges": "bytes",
-        "Content-Length": str(info.size),
+        "Content-Length": str(AtRest.visible_size(info)),
     }
+    h.update(sse.sse_headers_for(info.user_defined))
     if info.version_id:
         h["x-amz-version-id"] = info.version_id
     for k, v in info.user_defined.items():
@@ -892,22 +1003,6 @@ def _object_headers(info) -> dict:
     if tags:
         h["x-amz-tagging-count"] = str(len(urllib.parse.parse_qsl(tags)))
     return h
-
-
-# The JAX server's at-rest transforms leave these keys in a version's
-# metadata (minio_tpu/crypto/sse.py:34-39, compress.py:27-28): its stored
-# bytes are then ciphertext or compressed, and the port can neither
-# decrypt nor decompress them.
-_TRANSFORM_KEYS = ("x-mtpu-internal-sse", "x-mtpu-internal-compression")
-
-
-def _refuse_transformed(info) -> None:
-    """NotImplemented for an encrypted or compressed version: serving or
-    copying its stored bytes would hand out, or store as plain data,
-    bytes that are not the object's."""
-    if any(k.startswith(_TRANSFORM_KEYS) for k in info.user_defined):
-        raise S3Error("NotImplemented",
-                      "encrypted and compressed objects are not served yet")
 
 
 def _parse_copy_source(src: str):

@@ -8,7 +8,6 @@ tests/test_torch_versioning.py). Tolerance: exact for the scrape's
 item JSON and rebuilt bytes, the info keys, top/api, the health probes
 and the trace record types."""
 
-import asyncio
 import importlib
 import io
 import json
@@ -23,9 +22,10 @@ import numpy as np
 import pytest
 import requests
 
-from tests.conftest import S3_ACCESS, S3_SECRET, free_port
+from tests.conftest import S3_ACCESS, S3_SECRET
 from tests.s3client import SigV4Client
 from tests.test_observability import parse_exposition
+from tests.torch_atrest import JaxServer as _JaxServer
 
 BUCKET = "adm"
 
@@ -81,52 +81,6 @@ def _roadmap_item(family: str) -> int | None:
 
 def _payload(size, seed):
     return np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8).tobytes()
-
-
-class _JaxServer:
-    """The JAX S3Server over its own drives, served by aiohttp on a thread."""
-
-    def __init__(self, paths, parity=None):
-        from aiohttp import web
-
-        from minio_tpu.erasure.pools import ErasureServerPools
-        from minio_tpu.erasure.sets import ErasureSets
-        from minio_tpu.s3 import sigv4
-        from minio_tpu.s3.server import S3Server
-        from minio_tpu.storage.local import LocalDrive
-
-        sets = ErasureSets([LocalDrive(p) for p in paths], parity=parity,
-                           bitrot_algorithm="mxsum256")
-        self.srv = S3Server(ErasureServerPools([sets]),
-                            sigv4.Credentials(S3_ACCESS, S3_SECRET))
-        port = free_port()
-        self.loop = asyncio.new_event_loop()
-        started = threading.Event()
-
-        def run():
-            asyncio.set_event_loop(self.loop)
-
-            async def start():
-                self.runner = web.AppRunner(self.srv.app)
-                await self.runner.setup()
-                await web.TCPSite(self.runner, "127.0.0.1", port).start()
-                started.set()
-
-            self.loop.run_until_complete(start())
-            self.loop.run_forever()
-
-        self.thread = threading.Thread(target=run, daemon=True)
-        self.thread.start()
-        assert started.wait(30)
-        self.url = f"http://127.0.0.1:{port}"
-
-    def close(self):
-        asyncio.run_coroutine_threadsafe(self.runner.cleanup(), self.loop).result(30)
-        self.loop.call_soon_threadsafe(self.loop.stop)
-        self.thread.join(30)
-        close = getattr(self.srv.obj, "close", None)
-        if close is not None:
-            close()
 
 
 @pytest.fixture(scope="module")
@@ -543,7 +497,7 @@ def test_device_capture_that_lost_the_kernels_is_refused(pair, monkeypatch, capt
 
 def test_admin_ops_of_other_planes_answer_not_implemented(pair):
     cls = _clients(pair)
-    for op in ("config-kv", "list-users", "datausageinfo", "top/locks"):
+    for op in ("consolelog", "list-users", "datausageinfo", "top/locks"):
         assert cls["torch"].get(f"/minio/admin/v3/{op}").status_code == 501, op
 
 

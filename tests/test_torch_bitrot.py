@@ -46,6 +46,12 @@ from minio_tpu_torch.native import lib, plain
 from minio_tpu_torch.ops import bitrot
 from minio_tpu_torch.storage.local import LocalDrive as TorchDrive
 from minio_tpu_torch.utils import errors as se
+from tests.torch_native import jax_native_library
+
+# Before anything of this module asks for it: load the JAX package's C++
+# library from a whole build, as its loader can lose a build race between
+# test workers for good (tests/torch_native.py).
+jax_native_library()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ALGOS = ["mxsum256", "mxhash256", "sip256", "highwayhash256", "sha256", "xxh64",
@@ -85,6 +91,7 @@ HOST_CASES = {
 def test_jax_native_library_is_built_here():
     """The comparisons below are against the JAX package's C++ library,
     not its Python fallbacks."""
+    assert jax_native_library()
     assert jlib.available()
 
 

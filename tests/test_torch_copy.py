@@ -276,10 +276,11 @@ def _jax_transformed_put(jp, bucket, key, plain, transform):
 
 @pytest.mark.parametrize("transform", ["sse-s3", "compressed"])
 def test_port_refuses_what_it_cannot_decode(tmp_path, monkeypatch, transform):
-    """An object the JAX server stored encrypted (SSE-S3) or compressed:
-    the port can neither decrypt nor decompress its stored bytes, so its
-    GET, HEAD, CopyObject (COPY and REPLACE) and UploadPartCopy answer 501
-    NotImplemented and write nothing; the source stays as it was."""
+    """An object the JAX server stored encrypted (SSE-S3) or compressed
+    (zlib): the port decrypts or decompresses its stored bytes, so its
+    GET, HEAD, CopyObject (COPY and REPLACE) and UploadPartCopy serve the
+    object's plain bytes, and the source stays as it was. (Before the
+    data-at-rest slice these answered 501 NotImplemented.)"""
     from minio_tpu.erasure.pools import ErasureServerPools
     from minio_tpu.erasure.sets import ErasureSets
     from minio_tpu.storage.local import LocalDrive
@@ -287,6 +288,7 @@ def test_port_refuses_what_it_cannot_decode(tmp_path, monkeypatch, transform):
 
     monkeypatch.setenv("MTPU_METAPLANE", "0")
     monkeypatch.setenv("MTPU_BATCHED_DATAPLANE", "0")
+    monkeypatch.delenv("MTPU_KMS_SECRET_KEY", raising=False)
     paths = [str(tmp_path / f"d{i:02d}") for i in range(12)]
     jp = ErasureServerPools([ErasureSets([LocalDrive(p) for p in paths],
                                          set_drive_count=12, parity=4,
@@ -298,26 +300,30 @@ def test_port_refuses_what_it_cannot_decode(tmp_path, monkeypatch, transform):
     srv = build_server(paths, S3_ACCESS, S3_SECRET, device="cpu").start()
     try:
         cl = SigV4Client(srv.url, S3_ACCESS, S3_SECRET)
-        answers = [cl.get(f"/{bucket}/src"), cl.head(f"/{bucket}/src")]
+        r = cl.get(f"/{bucket}/src")
+        assert r.status_code == 200 and r.content == plain
+        assert r.headers["ETag"] == f'"{src.etag}"'
+        r = cl.head(f"/{bucket}/src")
+        assert r.status_code == 200 and r.headers["Content-Length"] == str(len(plain))
         for directive in ("COPY", "REPLACE"):
-            answers.append(cl.put(f"/{bucket}/dst", headers={
+            r = cl.put(f"/{bucket}/dst-{directive}", headers={
                 "x-amz-copy-source": f"/{bucket}/src",
-                "x-amz-metadata-directive": directive}))
+                "x-amz-metadata-directive": directive})
+            assert r.status_code == 200, r.text
+            assert cl.get(f"/{bucket}/dst-{directive}").content == plain
         uid = ET.fromstring(cl.post(f"/{bucket}/mp", query={"uploads": ""}).content
                             ).findtext(f"{S3}UploadId")
-        answers.append(cl.put(f"/{bucket}/mp", query={"uploadId": uid, "partNumber": "1"},
-                              headers={"x-amz-copy-source": f"/{bucket}/src",
-                                       "x-amz-copy-source-range": "bytes=0-99"}))
-        assert [r.status_code for r in answers] == [501] * 5
-        assert all(b"<Code>NotImplemented</Code>" in r.content
-                   for r in answers if r.request.method != "HEAD")
+        r = cl.put(f"/{bucket}/mp", query={"uploadId": uid, "partNumber": "1"},
+                   headers={"x-amz-copy-source": f"/{bucket}/src",
+                            "x-amz-copy-source-range": "bytes=0-99"})
+        assert r.status_code == 200, r.text
         r = cl.get(f"/{bucket}/mp", query={"uploadId": uid})
-        assert r.status_code == 200 and b"<Part>" not in r.content
+        assert r.status_code == 200 and b"<Size>100</Size>" in r.content
     finally:
         srv.close()
-    with pytest.raises(Exception) as ei:
-        jp.get_object_info(bucket, "dst")
-    assert type(ei.value).__name__ == "ObjectNotFound"
     info = jp.get_object_info(bucket, "src")
     assert (info.etag, info.size, info.mod_time) == (src.etag, src.size, src.mod_time)
+    # The copy is plain data: the source's transform keys stayed behind.
+    assert not any(k.startswith("x-mtpu-internal")
+                   for k in jp.get_object_info(bucket, "dst-COPY").user_defined)
     jp.close()

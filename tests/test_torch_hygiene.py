@@ -2,6 +2,8 @@
 
 - no module imports jax or the JAX package, nor a library the card's
   machine lacks (aiohttp, msgpack, requests, xxhash), checked on the AST;
+- only crypto/aead.py imports `cryptography`, inside its try / except
+  ImportError gate, so the port runs where the package is missing;
 - every entry point raises without CUDA unless given device="cpu";
 - a tensor that is not on the CPU never falls back to a plain version:
   with no kernel library it raises.
@@ -16,12 +18,16 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xxhash"}
 
-# Modules of the metadata plane and drive-resilience slice, each its own
-# copy of the JAX module it ports: they must be in the scan.
+# Modules of the metadata plane and drive-resilience slice and of the
+# data-at-rest slice, each its own copy of the JAX module it ports: they
+# must be in the scan.
 SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "metaplane/groupcommit.py", "metaplane/setcache.py",
                  "storage/idcheck.py", "storage/healthcheck.py",
-                 "utils/dyntimeout.py", "utils/bufpool.py")
+                 "utils/dyntimeout.py", "utils/bufpool.py",
+                 "crypto/__init__.py", "crypto/aead.py", "crypto/sse.py",
+                 "crypto/compress.py", "crypto/configcrypt.py", "crypto/kms.py",
+                 "crypto/kes.py", "admin/configkv.py", "s3/atrest.py")
 
 
 def _port_files():
@@ -52,6 +58,47 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     assert len(_port_files()) > 20
+
+
+def _imports_of(tree, top: str):
+    """(import node, its enclosing nodes) for every import of `top`."""
+    found = []
+
+    def walk(node, stack):
+        if isinstance(node, ast.Import) and any(a.name.split(".")[0] == top
+                                                for a in node.names):
+            found.append((node, stack))
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and (node.module or "").split(".")[0] == top):
+            found.append((node, stack))
+        for child in ast.iter_child_nodes(node):
+            walk(child, stack + [node])
+
+    walk(tree, [])
+    return found
+
+
+def _catches_import_error(try_node) -> bool:
+    for h in try_node.handlers:
+        names = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+        if any(isinstance(n, ast.Name) and n.id in ("ImportError", "ModuleNotFoundError")
+               for n in names):
+            return True
+    return False
+
+
+def test_only_the_aead_gate_imports_cryptography():
+    gate = ROOT / "minio_tpu_torch" / "crypto" / "aead.py"
+    seen = []
+    for f in _port_files():
+        for node, stack in _imports_of(ast.parse(f.read_text(), str(f)), "cryptography"):
+            seen.append(f)
+            assert f == gate, f"{f.relative_to(ROOT)}:{node.lineno} imports cryptography"
+            tries = [t for t in stack if isinstance(t, ast.Try) and node in ast.walk(t)
+                     and any(node in ast.walk(b) for b in t.body)]
+            assert tries and _catches_import_error(tries[-1]), \
+                f"aead.py:{node.lineno} imports cryptography outside its ImportError gate"
+    assert seen == [gate]
 
 
 @pytest.fixture

@@ -374,10 +374,25 @@ def test_set_cache_hits_and_invalidates_on_overwrite_and_delete(tmp_path, armed)
 
 def test_full_wal_queue_sheds_slowdown(tmp_path, monkeypatch):
     """A full submission queue sheds the commit as AdmissionShed (503
-    SlowDown), counted in minio_tpu_admission_shed_total."""
+    SlowDown), counted in minio_tpu_admission_shed_total. Each batch's
+    fsync is held 0.2 s, as the JAX package's MTPU_WAL_TEST_HOLD_FSYNC_S
+    holds it (the port has no such hook): with a fast fsync the 8 writers
+    may not overlap and nothing is shed."""
+    import types
+
+    from minio_tpu_torch.metaplane import groupcommit
+
     monkeypatch.setenv("MTPU_WAL_QUEUE", "2")
     monkeypatch.setenv("MTPU_WAL_MAX_BATCH", "1")
-    monkeypatch.setenv("MTPU_WAL_TEST_HOLD_FSYNC_S", "0.2")
+
+    def held_fsync(fd):
+        time.sleep(0.2)
+        os.fsync(fd)
+
+    held_os = types.SimpleNamespace(**{k: getattr(os, k) for k in dir(os)
+                                       if not k.startswith("__")})
+    held_os.fsync = held_fsync
+    monkeypatch.setattr(groupcommit, "os", held_os)
     d = TorchDrive(str(tmp_path / "d0"))
     d.make_vol("bkt")
     errors = []
