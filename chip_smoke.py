@@ -204,12 +204,35 @@ package beside it. Phases, each raising on failure:
    decompresses from the start). Each step's GiB/s is printed with its
    K1/K2 launches.
 
+14. identity and access (iam_phase, run after phase 13): config 1's set
+   (12 drives on /dev/shm, EC 8+4, 1 MiB blocks) behind the server at
+   build_server's defaults with MRF off; the IAM store sealed on the
+   drives, its load timed by a fresh IAMSys. Through the front door, as a
+   non-root IAM user whose policy allows s3:* on one bucket: (a) a 256 MiB
+   aws-chunked PUT in 64 KiB signed chunks (the port's signer,
+   sigv4.sign_chunked, before the clock starts), then the same bytes
+   header-signed: both timed, their K1/K2 launches equal, both ETags the
+   payload's md5, the first chunk of every shard of each read from the
+   drives with its digest equal to K2's plain version and the parity
+   chunks equal to K1's plain version over the data chunks, each object
+   read back byte-equal; (b) a presigned SigV4 GET and a SigV2 presigned
+   GET, byte-equal and timed; (c) STS AssumeRole, a 16 MiB PUT and GET with
+   the session token, and the GET without it answering InvalidToken; (d)
+   a user-policy Deny and a bucket-policy Deny (binding the root) each
+   answering AccessDenied to a 1 MiB PUT with no K1 or K2 launch, and an
+   anonymous GET the bucket policy allows, byte-equal; (e) on a bucket
+   with object lock, a COMPLIANCE version's DELETE by id answering
+   AccessDenied (bypass header or not) and the version reading back, a
+   GOVERNANCE version's refused without the bypass header and deleted
+   with it; (f) a byte flipped in the middle chunk of an aws-chunked
+   overwrite answering SignatureDoesNotMatch, the key reading as before.
+
 Depth cut to make room for phase 11 under SMOKE_BUDGET_S, no width
 changed: phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
 halve down to 25,000 objects instead of 50,000.
 
-The launch count of each kernel is reset just before each of phases 3-13
+The launch count of each kernel is reset just before each of phases 3-14
 (each run of phase 4) and read after it; the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -263,6 +286,8 @@ META_BIG = 256 << 20            # phase 12: the objects PUT and GET with a drive
 ATREST_BIG = 256 << 20          # phase 13: each SSE object and the compressed .log,
 ATREST_SMALL = 64 << 20         # ... the EC:2 object, the bucket-default and multipart ones,
 ATREST_PART = 16 << 20          # ... the multipart object's parts (4 of them)
+IAM_BIG = 256 << 20             # phase 14: the aws-chunked and header-signed PUTs,
+IAM_CHUNK = 64 << 10            # ... in aws-chunked chunks of minio-go's 64 KiB
 META_CRASH_S = 8.0              # ... and the seconds of traffic before the SIGKILL
 OBS_SIZE = 256 << 20            # obs phase: the object PUT, GET and healed
 OBS_PROFILE_SIZE = 32 << 20     # ... the object PUT and GET under the profilers
@@ -924,13 +949,16 @@ def _host_ms(fn, runs: int = 20) -> float:
 
 
 class _Client:
-    """S3 over http.client, signed with the port's SigV4 code."""
+    """S3 over http.client, signed with the port's SigV4 code (as the root,
+    or as another identity; a temporary one adds its session token)."""
 
-    def __init__(self, url: str):
+    def __init__(self, url: str, access: str = ACCESS, secret: str = SECRET,
+                 token: str = ""):
         from minio_tpu_torch.s3.sigv4 import Credentials
 
         self.host = urllib.parse.urlparse(url).netloc
-        self.creds = Credentials(ACCESS, SECRET)
+        self.creds = Credentials(access, secret)
+        self.token = token
         self.conn = http.client.HTTPConnection(self.host, timeout=600)
 
     def send(self, method: str, path: str, body: bytes = b"",
@@ -941,7 +969,10 @@ class _Client:
         from minio_tpu_torch.s3.sigv4 import UNSIGNED_PAYLOAD, sign_request
 
         query = query or {}
-        signed = sign_request(method, path, query, headers or {}, self.host,
+        headers = dict(headers or {})
+        if self.token:
+            headers["x-amz-security-token"] = self.token
+        signed = sign_request(method, path, query, headers, self.host,
                               self.creds, UNSIGNED_PAYLOAD)
         url = urllib.parse.quote(path)
         if query:
@@ -956,6 +987,13 @@ class _Client:
                 headers: dict | None = None, query: dict | None = None,
                 check: bool = True):
         r = self.send(method, path, body, headers, query, check)
+        return r, r.read()
+
+    def raw(self, method: str, url: str, body=b"", headers: dict | None = None):
+        """A request signed by the caller (presigned, aws-chunked, or none);
+        -> (response, body)."""
+        self.conn.request(method, url, body=body, headers=headers or {})
+        r = self.conn.getresponse()
         return r, r.read()
 
     def close(self):
@@ -3758,6 +3796,266 @@ def atrest_phase(seed: int, card: str, records: list[dict] | None, device: str =
         _fill_launches(records, "atrest", total)
 
 
+IAM_POLICY = json.dumps({"Version": "2012-10-17", "Statement": [
+    {"Effect": "Allow", "Action": ["s3:*"],
+     "Resource": ["arn:aws:s3:::iamb", "arn:aws:s3:::iamb/*"]}]})
+IAM_DENY_PUT = json.dumps({"Version": "2012-10-17", "Statement": [
+    {"Effect": "Allow", "Action": ["s3:*"], "Resource": ["arn:aws:s3:::iamb/*"]},
+    {"Effect": "Deny", "Action": ["s3:PutObject"], "Resource": ["arn:aws:s3:::iamb/*"]}]})
+IAM_BUCKET_POLICY = json.dumps({"Version": "2012-10-17", "Statement": [
+    {"Effect": "Deny", "Principal": "*", "Action": ["s3:PutObject"],
+     "Resource": ["arn:aws:s3:::iamb/frozen/*"]},
+    {"Effect": "Allow", "Principal": {"AWS": ["*"]}, "Action": ["s3:GetObject"],
+     "Resource": ["arn:aws:s3:::iamb/public/*"]}]})
+
+
+def _error_code(body: bytes) -> str:
+    import xml.etree.ElementTree as ET
+
+    return ET.fromstring(body).findtext("Code") if body else ""
+
+
+def _sts_creds(doc: bytes) -> tuple[str, str, str]:
+    import xml.etree.ElementTree as ET
+
+    ns = "{https://sts.amazonaws.com/doc/2011-06-15/}"
+    c = ET.fromstring(doc).find(f"{ns}AssumeRoleResult/{ns}Credentials")
+    return tuple(c.findtext(ns + k) for k in ("AccessKeyId", "SecretAccessKey", "SessionToken"))
+
+
+def _check_sampled_digests(paths, es, bucket, key, device) -> None:
+    """The first block's chunk of every shard of `key`, read from the
+    drives: each digest equal to K2's plain version over its chunk, and the
+    4 parity chunks equal to K1's plain version over the 8 data chunks."""
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.ops import bitrot, rs
+
+    fi = es.latest_fileinfo(bucket, key)
+    shard_data = fi.erasure.shard_file_size(fi.size)
+    chunks = {}
+    for i, path in _shard_files(paths, bucket, key).items():
+        with open(path, "rb") as f:
+            digest, chunk = bitrot.BitrotReader(f, shard_data, fi.erasure.shard_size(),
+                                                "mxsum256").read_record(0)
+        if digest != _plain_digest("mxsum256", chunk, device):
+            raise AssertionError(f"{key}: drive {i}'s first digest differs from K2's "
+                                 "plain version")
+        chunks[fi.erasure.distribution[i]] = chunk
+    k, m = fi.erasure.data_blocks, fi.erasure.parity_blocks
+    x = torch.from_numpy(np.stack([np.frombuffer(chunks[j + 1], dtype=np.uint8)
+                                   for j in range(k)]))[None].to(device)
+    w_enc = rs.device_encode_weights(k, m, torch.device(device))
+    parity = rs.gf2_matmul_plain(x, w_enc, m)[0].cpu()
+    for j in range(m):
+        if parity[j].numpy().tobytes() != chunks[k + j + 1]:
+            raise AssertionError(f"{key}: parity shard {k + j + 1} differs from K1's "
+                                 "plain version")
+
+
+def iam_phase(seed: int, card: str, device: str = "cuda", size: int = IAM_BIG,
+              chunk: int = IAM_CHUNK) -> None:
+    """Phase 14 (see the module's docstring): identity and access on config
+    1's set, through the front door, as a non-root IAM user."""
+    import numpy as np
+
+    from minio_tpu_torch.crypto.configcrypt import SealedSysStore
+    from minio_tpu_torch.iam.sys import IAMSys
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3 import sigv2, sigv4
+    from minio_tpu_torch.s3.server import build_server
+
+    rng = np.random.default_rng(seed + 14)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-iam-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    st = _Stages()
+    lines = []
+    srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+    root = _Client(srv.url)
+    clients = [root]
+
+    def rate(name, nbytes):
+        sec, d = st.delta(name)
+        lines.append(f"{name} {sec:.6f} s ({nbytes / (1 << 30) / sec:.6f} GiB/s; K1/K2 "
+                     f"{d['gf2_matmul']}/{d['mxsum_digest']})")
+        return d
+
+    def expect(what, r, body, status, code=""):
+        if r.status != status or (code and _error_code(body) != code):
+            raise AssertionError(f"{what}: {r.status} {body[:300]!r}, want {status} {code}")
+
+    def refused(what, cl, path, code="AccessDenied", **kw):
+        """A refused PUT of 1 MiB: the error, and no kernel launched."""
+        st.mark(f"{what} start")
+        r, body = cl.request("PUT", path, rng.bytes(1 << 20), check=False, **kw)
+        st.mark(what)
+        expect(what, r, body, 403, code)
+        _s, d = st.delta(what)
+        if d["gf2_matmul"] or d["mxsum_digest"]:
+            raise AssertionError(f"{what}: a refused request launched {d}")
+
+    try:
+        kernels.reset_launches()
+        st.mark("start")
+        es = srv.obj.pools[0].sets[0]
+        root.request("PUT", "/iamb")
+        root.request("PUT", "/minio/admin/v3/add-canned-policy", IAM_POLICY.encode(),
+                     query={"name": "iamb-readwrite"})
+        for ak, sk, pol in (("smokeuser", "smokeuser-secret", "iamb-readwrite"),
+                            ("denieduser", "denieduser-secret", "iamb-deny-put")):
+            if pol == "iamb-deny-put":
+                root.request("PUT", "/minio/admin/v3/add-canned-policy",
+                             IAM_DENY_PUT.encode(), query={"name": pol})
+            root.request("PUT", "/minio/admin/v3/add-user", json.dumps(
+                {"secretKey": sk}).encode(), query={"accessKey": ak})
+            root.request("POST", "/minio/admin/v3/set-user-or-group-policy",
+                         query={"userOrGroup": ak, "policyName": pol})
+        t0 = time.perf_counter()
+        fresh = IAMSys(ACCESS, SECRET, store=SealedSysStore(srv.obj, SECRET))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if set(fresh.users) != {"smokeuser", "denieduser"}:
+            raise AssertionError(f"the IAM store reloaded {sorted(fresh.users)}")
+        user = _Client(srv.url, "smokeuser", "smokeuser-secret")
+        clients.append(user)
+        creds = sigv4.Credentials("smokeuser", "smokeuser-secret")
+        # (a) a 256 MiB aws-chunked PUT in 64 KiB signed chunks, then the
+        # same object header-signed; both sampled against the plain kernels.
+        data = rng.bytes(size)
+        etag = _md5_etag(data)
+        hdrs, body = sigv4.sign_chunked("PUT", "/iamb/chunked", {}, {}, user.host, creds,
+                                        data, chunk)
+        st.mark("chunked start")
+        r, out = user.raw("PUT", "/iamb/chunked", body, hdrs)
+        st.mark("aws-chunked PUT")
+        expect("aws-chunked PUT", r, out, 200)
+        del body
+        if r.getheader("ETag") != etag:
+            raise AssertionError("aws-chunked PUT: ETag is not the md5 of the payload")
+        chunked = rate("aws-chunked PUT", size)
+        r, _ = user.request("PUT", "/iamb/signed", data)
+        st.mark("header-signed PUT")
+        signed = rate("header-signed PUT", size)
+        if r.getheader("ETag") != etag:
+            raise AssertionError("header-signed PUT: ETag")
+        st.need("aws-chunked PUT")
+        if chunked != signed:
+            raise AssertionError(f"K1/K2 launches differ: aws-chunked {chunked}, "
+                                 f"header-signed {signed}")
+        _settle(es.drives)
+        for key in ("chunked", "signed"):
+            _check_sampled_digests(paths, es, "iamb", key, device)
+            if user.request("GET", f"/iamb/{key}")[1] != data:
+                raise AssertionError(f"GET {key}: bytes differ")
+        st.mark("gets")
+        # (b) a presigned SigV4 GET and a SigV2 presigned GET.
+        r, got = user.raw("GET", sigv4.presign_url("GET", "/iamb/chunked", user.host, creds))
+        st.mark("presigned SigV4 GET")
+        expect("presigned SigV4 GET", r, b"", 200)
+        if got != data:
+            raise AssertionError("presigned SigV4 GET: bytes differ")
+        rate("presigned SigV4 GET", size)
+        r, got = user.raw("GET", sigv2.presign_url("GET", "/iamb/chunked", "smokeuser",
+                                                   "smokeuser-secret", int(time.time()) + 600))
+        st.mark("presigned SigV2 GET")
+        expect("presigned SigV2 GET", r, b"", 200)
+        if got != data:
+            raise AssertionError("presigned SigV2 GET: bytes differ")
+        rate("presigned SigV2 GET", size)
+        # (c) STS AssumeRole, then a PUT and a GET with the session token;
+        # without it, InvalidToken.
+        r, doc = user.request("POST", "/", b"Action=AssumeRole&DurationSeconds=900"
+                              b"&Version=2011-06-15")
+        ak, sk, token = _sts_creds(doc)
+        sts = _Client(srv.url, ak, sk, token)
+        clients.append(sts)
+        small = rng.bytes(16 << 20)
+        st.mark("sts start")
+        sts.request("PUT", "/iamb/sts", small)
+        st.mark("STS PUT")
+        rate("STS PUT", len(small))
+        if sts.request("GET", "/iamb/sts")[1] != small:
+            raise AssertionError("STS GET: bytes differ")
+        st.mark("STS GET")
+        rate("STS GET", len(small))
+        bare = _Client(srv.url, ak, sk)
+        clients.append(bare)
+        r, out = bare.request("GET", "/iamb/sts", check=False)
+        expect("GET without the session token", r, out, 400, "InvalidToken")
+        # (d) a user-policy Deny and a bucket-policy Deny refuse before any
+        # kernel; an anonymous GET the bucket policy allows.
+        denied = _Client(srv.url, "denieduser", "denieduser-secret")
+        clients.append(denied)
+        refused("user-policy Deny", denied, "/iamb/x")
+        public = rng.bytes(1 << 20)
+        root.request("PUT", "/iamb/public/obj", public)
+        root.request("PUT", "/iamb", IAM_BUCKET_POLICY.encode(), query={"policy": ""})
+        refused("bucket-policy Deny (root)", root, "/iamb/frozen/x")
+        r, got = root.raw("GET", "/iamb/public/obj")
+        expect("anonymous GET", r, b"", 200)
+        if got != public:
+            raise AssertionError("anonymous GET: bytes differ")
+        r, out = root.raw("GET", "/iamb/signed")
+        expect("anonymous GET outside the policy", r, out, 403, "AccessDenied")
+        # (e) object lock: a COMPLIANCE version outlives its DELETE by id; a
+        # GOVERNANCE one deletes with the bypass header.
+        until = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(time.time() + 86400))
+        root.request("PUT", "/iamlock", headers={"x-amz-bucket-object-lock-enabled": "true"})
+        locked = rng.bytes(4 << 20)
+        vids = {}
+        for mode in ("COMPLIANCE", "GOVERNANCE"):
+            r, _ = root.request("PUT", f"/iamlock/{mode.lower()}", locked, headers={
+                "x-amz-object-lock-mode": mode,
+                "x-amz-object-lock-retain-until-date": until})
+            vids[mode] = r.getheader("x-amz-version-id")
+        r, out = root.request("DELETE", "/iamlock/compliance", check=False,
+                              query={"versionId": vids["COMPLIANCE"]},
+                              headers={"x-amz-bypass-governance-retention": "true"})
+        expect("DELETE of the COMPLIANCE version", r, out, 403, "AccessDenied")
+        if root.request("GET", "/iamlock/compliance",
+                        query={"versionId": vids["COMPLIANCE"]})[1] != locked:
+            raise AssertionError("the COMPLIANCE version does not read back")
+        r, out = root.request("DELETE", "/iamlock/governance", check=False,
+                              query={"versionId": vids["GOVERNANCE"]})
+        expect("DELETE of the GOVERNANCE version", r, out, 403, "AccessDenied")
+        root.request("DELETE", "/iamlock/governance", query={"versionId": vids["GOVERNANCE"]},
+                     headers={"x-amz-bypass-governance-retention": "true"})
+        r, out = root.request("GET", "/iamlock/governance", check=False,
+                              query={"versionId": vids["GOVERNANCE"]})
+        expect("GET of the deleted GOVERNANCE version", r, out, 404)
+        # (f) a tampered chunk in the middle of an aws-chunked overwrite.
+        hdrs, body = sigv4.sign_chunked("PUT", "/iamb/chunked", {}, {}, user.host, creds,
+                                        rng.bytes(1 << 20), chunk)
+        body = bytearray(body)
+        mid = body.index(b"\r\n", (1 << 20) // 2) + 100
+        body[mid] ^= 1
+        st.mark("tamper start")
+        r, out = user.raw("PUT", "/iamb/chunked", bytes(body), hdrs)
+        st.mark("tampered PUT")
+        expect("tampered aws-chunked PUT", r, out, 403, "SignatureDoesNotMatch")
+        r, got = user.request("GET", "/iamb/chunked")
+        if got != data or r.getheader("ETag") != etag:
+            raise AssertionError("the key changed after a tampered aws-chunked PUT")
+        st.mark("end")
+    finally:
+        for cl in clients:
+            cl.close()
+        _close_server(srv)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  IAM store load ({len(fresh.users)} users, {len(fresh.policies)} policies; "
+          f"one argon2id derivation): {load_ms:.3f} ms on the host")
+    for line in lines:
+        print(f"  {line} on {card}")
+    print("  (c) STS session token enforced (InvalidToken without it); (d) user-policy "
+          "and bucket-policy Deny refused with K1/K2 launches 0, anonymous GET allowed "
+          "by the bucket policy byte-equal; (e) COMPLIANCE version kept, GOVERNANCE "
+          "deleted with the bypass header; (f) tampered chunk: SignatureDoesNotMatch, "
+          "key unchanged")
+    total = {k: st.at[-1][1][k] - st.at[0][1][k] for k in st.at[0][1]}
+    print(f"  launches in the phase: {total}")
+
+
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
@@ -4087,6 +4385,10 @@ def main() -> int:
               f"drives on /dev/shm; sealed config, SSE-S3, SSE-C, SSE-KMS, S2; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         atrest_phase(args.seed, card, records)
+        print(f"identity and access phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; "
+              f"an IAM user, aws-chunked, presigned, SigV2, STS, policies, object lock; "
+              f"begun at {time.perf_counter() - t_start:.1f} s):")
+        iam_phase(args.seed, card)
         print(f"late device profile (the admin route on an old process; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         late_profile_check(args.seed, card)

@@ -26,13 +26,29 @@ Routes served, under /minio/admin/v3/:
     GET  kms/status, kms/key-status    the KMS's status
     POST kms/key/create?key-id=        a new master key
 
-`config` is another name of `config-kv`, as in the JAX server. The port
-has the root credential only: a signed root request is allowed and an
-anonymous one answers AccessDenied. The JAX package's other admin ops
-(IAM, consolelog, obd, data usage, locks, service...) answer
-NotImplemented until their planes land in the port (ROADMAP.md);
-an op neither package has answers MethodNotAllowed, as the JAX server's
-does.
+    PUT  add-user?accessKey=           a user (body {secretKey, status})
+    POST remove-user?accessKey=        and its service accounts
+    GET  list-users                    {user: {status, policyName}}
+    POST set-user-status?accessKey=&status=
+    PUT  add-canned-policy?name=       body: the policy JSON
+    POST remove-canned-policy?name=
+    GET  list-canned-policies          {name: policy}
+    POST set-user-or-group-policy?userOrGroup=&policyName=a,b[&isGroup=true]
+    POST update-group-members          body {group, members, isRemove}
+    PUT  add-service-account           body {parent, policy, accessKey,
+                                       secretKey}
+    POST delete-service-account?accessKey=
+
+The IAM ops (iam/sys.py) answer InvalidRequest for an IAM error (no such
+user, policy or group, a policy that does not validate, ...).
+`config` is another name of `config-kv`, as in the JAX server. Every op
+is authorized as the JAX server authorizes it (handlers.py:38-47): an
+anonymous request answers AccessDenied, any other is allowed where IAM
+allows its admin:* action under the request's condition context (the
+root always; the IAM ops need admin:*). The JAX package's other admin ops
+(consolelog, obd, data usage, locks, service...) answer NotImplemented
+until their planes land in the port (ROADMAP.md); an op neither package
+has answers MethodNotAllowed, as the JAX server's does.
 """
 
 from __future__ import annotations
@@ -46,6 +62,8 @@ from minio_tpu_torch.admin.metrics import PROM_CONTENT_TYPE, maybe_gzip
 from minio_tpu_torch.admin.profiling import IncompleteDeviceTrace, zip_profiles
 from minio_tpu_torch.crypto.kms import KMSError
 from minio_tpu_torch.erasure.metadata import parallel_map
+from minio_tpu_torch.iam import reqctx
+from minio_tpu_torch.iam.policy import PolicyArgs
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.s3.errors import S3Error
 from minio_tpu_torch.storage.healthcheck import fleet_deadlines
@@ -62,10 +80,14 @@ _NOT_YET = frozenset({
     "datausageinfo", "slo", "force-unlock", "consolelog", "set-remote-target", "list-remote-targets",
     "remove-remote-target", "replication-status", "replication-resync",
     "cache", "bandwidth", "faults", "service", "update", "tier",
-    "obdinfo", "healthinfo", "add-user", "remove-user", "list-users",
-    "set-user-status", "add-canned-policy", "remove-canned-policy",
-    "list-canned-policies", "set-user-or-group-policy",
-    "update-group-members", "add-service-account", "delete-service-account"})
+    "obdinfo", "healthinfo"})
+
+# The action each served op is authorized as (the JAX handlers').
+_ACTIONS = {"info": "admin:ServerInfo", "metrics": "admin:Prometheus",
+            "heal": "admin:Heal", "top": "admin:ServerInfo",
+            "trace": "admin:ServerTrace", "perf": "admin:ServerInfo",
+            "profiling": "admin:Profiling", "config-kv": "admin:ConfigUpdate",
+            "config": "admin:ConfigUpdate"}
 
 TRACE_HEARTBEAT_S = 0.5   # an idle trace stream writes a newline this often
 
@@ -76,17 +98,37 @@ class AdminAPI:
         self.s = server
         self.started = time.time()
 
+    def authorize(self, identity, action: str) -> None:
+        """AccessDenied unless IAM allows `action` to `identity` under the
+        request's condition context (iam/reqctx.py, set at dispatch)."""
+        if identity.kind == "anonymous":
+            raise S3Error("AccessDenied", "admin API requires credentials")
+        if not self.s.iam.is_allowed(identity, PolicyArgs(
+                action=action, conditions=reqctx.get_condition_context())):
+            raise S3Error("AccessDenied", f"{action} not allowed")
+
     def handle(self, method: str, path: str, q: dict, headers,
-               read_body, anonymous: bool):
+               read_body, identity):
         """Dispatch /minio/admin/v3/<op>; `path` excludes the prefix,
         read_body() returns the (verified) request body. -> (status,
         headers, body), body bytes or, for the trace stream, an iterator
         of chunks."""
         op, _, rest = path.partition("/")
-        if op not in _SERVED and op not in _NOT_YET:
+        if op not in _SERVED and op not in _NOT_YET and op not in _IAM_OPS:
             raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + path)
-        if anonymous:
-            raise S3Error("AccessDenied", "admin API requires credentials")
+        if op == "kms":
+            self.authorize(identity, "admin:KMSCreateKey" if method == "POST"
+                           else "admin:KMSKeyStatus")
+        elif op in _IAM_OPS:
+            self.authorize(identity, "admin:*")
+            try:
+                return _IAM_OPS[op](self.s.iam, q, read_body)
+            except se.IAMError as e:
+                raise S3Error("InvalidRequest", str(e)) from None
+            except (KeyError, ValueError) as e:
+                raise S3Error("InvalidArgument", f"bad {op} request: {e}") from None
+        else:
+            self.authorize(identity, _ACTIONS.get(op, "admin:*"))
         if op == "info" and method == "GET":
             return _json(self._server_info())
         if op == "metrics" and method == "GET":
@@ -270,6 +312,74 @@ class AdminAPI:
                 yield json.dumps(item).encode() + b"\n"
         finally:
             sub.close()
+
+
+# -- the IAM ops (handlers.py:721-777; reference
+# cmd/admin-handlers-users.go): (iam, query, read_body) -> (status,
+# headers, body) --
+
+
+def _body_json(read_body) -> dict:
+    return json.loads(read_body() or b"{}")
+
+
+def _add_user(iam, q, read_body):
+    body = _body_json(read_body)
+    iam.set_user(q["accessKey"], body.get("secretKey", ""), body.get("status", "on"))
+    return _json({})
+
+
+def _list_users(iam, q, read_body):
+    return _json({ak: {"status": u.status, "policyName": u.policies}
+                  for ak, u in iam.list_users().items()})
+
+
+def _set_policy_mapping(iam, q, read_body):
+    iam.attach_policy(q["userOrGroup"], [p for p in q.get("policyName", "").split(",")
+                                         if p], q.get("isGroup") == "true")
+    return _json({})
+
+
+def _update_group(iam, q, read_body):
+    body = _body_json(read_body)
+    change = iam.remove_group_members if body.get("isRemove") else iam.add_group_members
+    change(body.get("group", ""), body.get("members", []))
+    return _json({})
+
+
+def _add_service_account(iam, q, read_body):
+    body = _body_json(read_body)
+    tc = iam.add_service_account(body.get("parent") or iam.root_access_key,
+                                 body.get("policy", ""), body.get("accessKey", ""),
+                                 body.get("secretKey", ""))
+    return _json({"credentials": {"accessKey": tc.access_key, "secretKey": tc.secret_key}})
+
+
+def _done(fn):
+    """An op that answers {} once fn(iam, q, read_body) returns."""
+    def op(iam, q, read_body):
+        fn(iam, q, read_body)
+        return _json({})
+    return op
+
+
+_IAM_OPS = {
+    "add-user": _add_user,
+    "remove-user": _done(lambda iam, q, rb: iam.delete_user(q["accessKey"])),
+    "list-users": _list_users,
+    "set-user-status": _done(lambda iam, q, rb: iam.set_user_status(q["accessKey"],
+                                                                      q["status"])),
+    "add-canned-policy": _done(lambda iam, q, rb: iam.set_policy(q["name"],
+                                                                   rb().decode())),
+    "remove-canned-policy": _done(lambda iam, q, rb: iam.delete_policy(q["name"])),
+    "list-canned-policies": lambda iam, q, rb: _json(
+        {name: json.loads(doc) for name, doc in iam.policies.items()}),
+    "set-user-or-group-policy": _set_policy_mapping,
+    "update-group-members": _update_group,
+    "add-service-account": _add_service_account,
+    "delete-service-account": _done(lambda iam, q, rb: iam.delete_service_account(
+        q["accessKey"])),
+}
 
 
 def _scan_deep(sm) -> bool:

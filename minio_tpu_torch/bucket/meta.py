@@ -4,10 +4,11 @@ cmd/bucket-metadata-sys.go:41, cmd/bucket-metadata.go).
 
 The document lives in the mirrored sys store at buckets/<bucket>/metadata.mp,
 msgpacked with the JAX package's keys, so either package reads and writes
-the other's: the bytes are equal in both directions. The port serves only
-`versioning_status`; every other field (policy, lifecycle, tagging, SSE,
-object lock, quota, notification, replication) is read and written back
-verbatim, never interpreted.
+the other's: the bytes are equal in both directions. The port serves
+`versioning_status`, the bucket policy, the object-lock configuration and
+the SSE default; every other field (lifecycle, tagging, quota,
+notification, replication) is read and written back verbatim, never
+interpreted.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import threading
 import time
 from dataclasses import dataclass
 
+from minio_tpu_torch.iam.policy import Policy
 from minio_tpu_torch.utils import errors as se
 from minio_tpu_torch.utils import msgpack
 
@@ -121,7 +123,12 @@ class BucketMetadataSys:
 
     def update(self, bucket: str, **changes) -> BucketMetadata:
         """Read-modify-write of one or more fields, persisted; the next
-        get() reads it back."""
+        get() reads it back. A bucket policy is validated here, on every
+        write path, as in the JAX package (minio_tpu/bucket/meta.py:114-120):
+        one whose conditions cannot be evaluated raises MalformedPolicy
+        rather than being stored and failing open on a Deny."""
+        if changes.get("policy_json"):
+            Policy.parse(changes["policy_json"]).validate()
         meta = dataclasses.replace(self.get(bucket), **changes)
         self._store.write_sys_config(self._path(bucket), meta.serialize())
         with self._mu:

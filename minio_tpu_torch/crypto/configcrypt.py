@@ -147,10 +147,16 @@ class SealedSysStore:
                                key_cache=self._keys))
 
     def read_sys_config(self, path: str) -> bytes:
+        return self.read_sys_config2(path)[0]
+
+    def read_sys_config2(self, path: str) -> tuple[bytes, bool]:
+        """-> (payload, was_sealed). IAMSys.load counts the sealed entries
+        that decrypt, to tell a wrong credential (every sealed entry
+        fails) from one bit-rotted entry."""
         raw = self._inner.read_sys_config(path)
         if is_encrypted(raw):
-            return decrypt_data(self._secret, raw, key_cache=self._keys)
-        return raw
+            return decrypt_data(self._secret, raw, key_cache=self._keys), True
+        return raw, False
 
     def delete_sys_config(self, path: str) -> None:
         self._inner.delete_sys_config(path)

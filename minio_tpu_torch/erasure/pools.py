@@ -175,6 +175,12 @@ class ErasureServerPools:
         return self._owning_pool(bucket, obj, opts.version_id).put_object_tags(
             bucket, obj, tags, opts)
 
+    def put_object_metadata(self, bucket: str, obj: str, updates,
+                            opts: ObjectOptions | None = None) -> ObjectInfo:
+        opts = opts or ObjectOptions()
+        return self._owning_pool(bucket, obj, opts.version_id).put_object_metadata(
+            bucket, obj, updates, opts)
+
     def get_object_tags(self, bucket: str, obj: str,
                         opts: ObjectOptions | None = None) -> str:
         opts = opts or ObjectOptions()

@@ -129,6 +129,10 @@ class ErasureSets:
                         opts: ObjectOptions | None = None) -> ObjectInfo:
         return self.get_hashed_set(obj).put_object_tags(bucket, obj, tags, opts)
 
+    def put_object_metadata(self, bucket: str, obj: str, updates,
+                            opts: ObjectOptions | None = None) -> ObjectInfo:
+        return self.get_hashed_set(obj).put_object_metadata(bucket, obj, updates, opts)
+
     def get_object_tags(self, bucket: str, obj: str,
                         opts: ObjectOptions | None = None) -> str:
         return self.get_hashed_set(obj).get_object_tags(bucket, obj, opts)

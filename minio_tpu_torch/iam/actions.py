@@ -1,9 +1,9 @@
-"""Map an S3 HTTP request to its API name (counterpart of
+"""Map an S3 HTTP request to its IAM action name (the port's copy of
 minio_tpu/iam/actions.py).
 
-The port has one root credential and no policies, so the action decides
-nothing here: its name after "s3:" is the `api` label of the request
-families, the JAX server's label for the same request.
+The action is what the server authorizes (identity policies and the
+bucket policy), and its name after "s3:" is the `api` label of the
+request families, the JAX server's label for the same request.
 """
 
 from __future__ import annotations

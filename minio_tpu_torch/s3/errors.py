@@ -22,25 +22,32 @@ ERRORS = {e.code: e for e in [
     APIError("AuthorizationHeaderMalformed", "The authorization header is malformed.", 400),
     APIError("BucketNotEmpty", "The bucket you tried to delete is not empty.", 409),
     APIError("BucketAlreadyOwnedByYou", "Your previous request to create the named bucket succeeded and you already own it.", 409),
+    APIError("BucketAlreadyExists", "The requested bucket name is not available.", 409),
     APIError("EntityTooLarge", "Your proposed upload exceeds the maximum allowed object size.", 400),
     APIError("EntityTooSmall", "Your proposed upload is smaller than the minimum allowed object size.", 400),
     APIError("IncompleteBody", "You did not provide the number of bytes specified by the Content-Length HTTP header.", 400),
+    APIError("ExpiredToken", "The provided token has expired.", 400),
     APIError("InternalError", "We encountered an internal error, please try again.", 500),
     APIError("InvalidAccessKeyId", "The Access Key Id you provided does not exist in our records.", 403),
     APIError("InvalidArgument", "Invalid Argument", 400),
+    APIError("InvalidToken", "The provided token is malformed or otherwise invalid.", 400),
     APIError("InvalidBucketName", "The specified bucket is not valid.", 400),
     APIError("InvalidBucketState", "The request is not valid with the current state of the bucket.", 409),
     APIError("InvalidPart", "One or more of the specified parts could not be found.", 400),
     APIError("InvalidRange", "The requested range is not satisfiable", 416),
     APIError("InvalidRequest", "Invalid Request", 400),
+    APIError("MalformedPolicy", "Policy has invalid resource.", 400),
     APIError("MalformedXML", "The XML you provided was not well-formed or did not validate against our published schema.", 400),
     APIError("MethodNotAllowed", "The specified method is not allowed against this resource.", 405),
     APIError("MissingContentLength", "You must provide the Content-Length HTTP header.", 411),
     APIError("NoSuchBucket", "The specified bucket does not exist", 404),
+    APIError("NoSuchBucketPolicy", "The bucket policy does not exist", 404),
     APIError("NoSuchKey", "The specified key does not exist.", 404),
     APIError("NoSuchUpload", "The specified multipart upload does not exist. The upload ID may be invalid, or the upload may have been aborted or completed.", 404),
     APIError("NoSuchVersion", "The specified version does not exist.", 404),
     APIError("NotImplemented", "A header you provided implies functionality that is not implemented", 501),
+    APIError("ObjectLockConfigurationNotFoundError",
+             "Object Lock configuration does not exist for this bucket", 404),
     APIError("PreconditionFailed", "At least one of the pre-conditions you specified did not hold", 412),
     APIError("RequestTimeTooSkewed", "The difference between the request time and the server's time is too large.", 403),
     APIError("ServerSideEncryptionConfigurationNotFoundError",
@@ -49,6 +56,11 @@ ERRORS = {e.code: e for e in [
     APIError("SlowDown", "Resource requested is unreadable, please reduce your request rate", 503),
     APIError("XAmzContentSHA256Mismatch", "The provided 'x-amz-content-sha256' header does not match what was computed.", 400),
 ]}
+# The STS codes answer under S3's names (minio_tpu/s3/errors.py:74-75).
+ERRORS["STSMissingParameter"] = APIError("MissingParameter",
+                                         "A required parameter is missing.", 400)
+ERRORS["STSNotImplemented"] = APIError("NotImplemented",
+                                       "The requested STS action is not implemented.", 501)
 
 
 class S3Error(Exception):
@@ -81,6 +93,9 @@ _EXC_MAP: list[tuple[type, str]] = [
     (se.OperationTimedOut, "SlowDown"),
     (se.FileNotFound, "NoSuchKey"),
     (se.StorageError, "InternalError"),
+    (se.MalformedPolicy, "MalformedPolicy"),
+    (se.InvalidAccessKey, "InvalidAccessKeyId"),
+    (se.IAMError, "InvalidRequest"),
 ]
 
 

@@ -17,10 +17,21 @@ headers and error documents:
     PUT|GET /bucket?versioning               PutBucketVersioning,
                                              GetBucketVersioning
     PUT|GET|DELETE /bucket?encryption        the bucket's default SSE
+    PUT|GET|DELETE /bucket?policy            the bucket policy (JSON)
+    PUT|GET /bucket?object-lock              the object-lock configuration;
+                                             x-amz-bucket-object-lock-enabled
+                                             on CreateBucket
+    POST /bucket (multipart/form-data)       browser POST policy upload
+    POST /  Action=AssumeRole...             STS: AssumeRole, AssumeRoleWith
+                                             WebIdentity / ClientGrants /
+                                             LDAPIdentity
     PUT /bucket/key      PutObject           GET /bucket/key     GetObject (Range)
     HEAD /bucket/key     HeadObject          DELETE /bucket/key  DeleteObject
     PUT /bucket/key + x-amz-copy-source      CopyObject (x-amz-metadata-directive)
     PUT|GET|DELETE /bucket/key?tagging       Put/Get/DeleteObjectTagging
+    PUT|GET /bucket/key?retention            a version's retention; ?legal-hold
+                                             its legal hold; x-amz-object-lock-*
+                                             on PUT, else the bucket's default
     POST /bucket/key?uploads                 CreateMultipartUpload
     PUT /bucket/key?partNumber=N&uploadId=U  UploadPart; with x-amz-copy-source
                                              (and -range), UploadPartCopy
@@ -54,12 +65,25 @@ under the root secret (crypto/configcrypt.py), as the JAX server keeps
 it, and is read at start: `storageclass` sets the parity of the next PUT
 on every set, `heal` paces the auto-healer.
 
-Every request but the health probes must carry SigV4 header auth (signed
-payload or UNSIGNED-PAYLOAD); anything else answers NotImplemented or
-AccessDenied, as does any other query string. Any other /minio/ path
-answers as the JAX server answers it, never as bucket "minio". Object
-lock, the other bucket subresources, presigned URLs, aws-chunked bodies,
-IAM and the admin plane's other ops come in later slices (ROADMAP.md).
+A request proves who it is as the JAX server's do (minio_tpu/s3/server.py:
+1082-1149): a presigned SigV4 URL (with a pinned X-Amz-Content-Sha256,
+the body must match it), SigV4 header auth (a signed payload,
+UNSIGNED-PAYLOAD, or an aws-chunked body whose every chunk's signature
+is checked before a byte commits), SigV2 header or presigned auth, or
+none (anonymous). Its access key is any identity of IAM (iam/sys.py: the
+root, users, service accounts, temporary credentials, the last with their
+session token); IAM lives in the sys store sealed under the root secret,
+in the JAX package's layout. Every request is authorized as the JAX
+server's _check_access decides: a bucket-policy Deny beats every
+identity, the root included; then a bucket-policy Allow (anonymous
+too); then the identity's policies, under the request's condition
+context. A version under legal hold or an unexpired retention is not
+destroyed, by DELETE ?versionId or by DeleteObjects (GOVERNANCE yields to
+x-amz-bypass-governance-retention). Any other query string answers
+NotImplemented. Any other /minio/ path answers as the JAX server answers
+it, never as bucket "minio". The other bucket subresources (lifecycle,
+tagging, notification, replication...), the web console and the admin
+plane's other ops come in later slices (ROADMAP.md).
 
 Every request is in flight in HTTPStats (admin/stats.py) from its first
 byte until just before the last byte of its answer is written, so a
@@ -87,8 +111,10 @@ MTPU_ROOT_PASSWORD, default minioadmin).
 from __future__ import annotations
 
 import argparse
+import datetime
 import email.utils
 import hashlib
+import io
 import mimetypes
 import os
 import tempfile
@@ -109,6 +135,7 @@ from minio_tpu_torch.admin.metrics import (OPENMETRICS_CONTENT_TYPE,
                                            wants_openmetrics)
 from minio_tpu_torch.admin.profiling import Profiler
 from minio_tpu_torch.admin.stats import HTTPStats
+from minio_tpu_torch.bucket import objectlock as olock
 from minio_tpu_torch.bucket.meta import BucketMetadataSys
 from minio_tpu_torch.crypto import sse
 from minio_tpu_torch.crypto.configcrypt import SealedSysStore
@@ -118,12 +145,19 @@ from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
 from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
                                            ObjectOptions, ObjectToDelete)
+from minio_tpu_torch.iam import reqctx
+from minio_tpu_torch.iam.actions import action_for
+from minio_tpu_torch.iam.condition import NormalizedContext, normalize_values, scalar_str
+from minio_tpu_torch.iam.ldap import LDAPError, LDAPValidator
+from minio_tpu_torch.iam.oidc import OIDCError, OpenIDValidator
+from minio_tpu_torch.iam.policy import Policy, PolicyArgs
+from minio_tpu_torch.iam.sys import ANONYMOUS, IAMSys
 from minio_tpu_torch.obs import flight
-from minio_tpu_torch.s3 import sigv4, xmlutil
-from minio_tpu_torch.s3.actions import action_for
+from minio_tpu_torch.s3 import sigv2, sigv4, xmlutil
 from minio_tpu_torch.s3.atrest import AtRest, copy_metadata
 from minio_tpu_torch.s3.errors import S3Error, from_exception
 from minio_tpu_torch.storage.local import LocalDrive
+from minio_tpu_torch.utils import errors as se
 
 XML_TYPE = "application/xml"
 MAX_OBJECT_SIZE = 5 * (1 << 40)
@@ -159,6 +193,44 @@ _REQ_TTFB = obs.histogram(
 # /minio/ paths of the JAX server's web console, which the port lacks.
 _WEB_PATHS = ("/minio/browser", "/minio/webrpc", "/minio/upload/",
               "/minio/download/")
+
+
+# The request headers the condition context carries, under their keys
+# (minio_tpu/s3/server.py:743-758).
+_CONDITION_HEADERS = (
+    ("x-amz-object-lock-mode", "s3:object-lock-mode"),
+    ("x-amz-object-lock-retain-until-date", "s3:object-lock-retain-until-date"),
+    ("x-amz-object-lock-legal-hold", "s3:object-lock-legal-hold"),
+    ("x-amz-acl", "s3:x-amz-acl"),
+    ("x-amz-copy-source", "s3:x-amz-copy-source"),
+    ("x-amz-storage-class", "s3:x-amz-storage-class"),
+    ("x-amz-metadata-directive", "s3:x-amz-metadata-directive"),
+    ("x-amz-server-side-encryption", "s3:x-amz-server-side-encryption"),
+    ("x-amz-server-side-encryption-aws-kms-key-id",
+     "s3:x-amz-server-side-encryption-aws-kms-key-id"),
+    ("x-amz-content-sha256", "s3:x-amz-content-sha256"),
+)
+_V2_PRESIGNED = ("REST-QUERY-STRING", "AWS")
+_V2_QUERY_PARAMS = frozenset({"AWSAccessKeyId", "Expires", "Signature"})
+_OBJECT_LOCK_ENABLED = (b'<ObjectLockConfiguration xmlns="http://s3.amazonaws.com/doc/'
+                        b'2006-03-01/"><ObjectLockEnabled>Enabled</ObjectLockEnabled>'
+                        b'</ObjectLockConfiguration>')
+
+
+class _Auth:
+    """How a request proved who it is: its identity, the payload hash its
+    signature covers, its auth type (s3:authtype, s3:signatureversion;
+    None when anonymous) and, for SigV4 header auth, the parsed header and
+    the requester's credentials, which key an aws-chunked body's chain."""
+
+    __slots__ = ("identity", "payload_hash", "type", "sig", "creds")
+
+    def __init__(self, identity, payload_hash: str, auth_type, sig=None, creds=None):
+        self.identity = identity
+        self.payload_hash = payload_hash
+        self.type = auth_type
+        self.sig = sig
+        self.creds = creds
 
 
 class _Body:
@@ -257,9 +329,13 @@ class S3Server:
         # bucket's own metadata document decides.
         self.versioned_buckets = versioned_buckets
         self.bucket_meta = BucketMetadataSys(obj)
-        # Config is sealed at rest under the root secret; bucket metadata
-        # stays plain, as in the JAX server (minio_tpu/s3/server.py:166-196).
+        # Config and IAM are sealed at rest under the root secret; bucket
+        # metadata stays plain, as in the JAX server
+        # (minio_tpu/s3/server.py:166-203). IAM refuses to load when every
+        # sealed entry fails to decrypt (a wrong root secret).
         self.config = ConfigSys(SealedSysStore(obj, creds.secret_key))
+        self.iam = IAMSys(creds.access_key, creds.secret_key,
+                          store=SealedSysStore(obj, creds.secret_key))
         self.kms = kms_from_config(self.config)
         self.atrest = AtRest(obj, creds, self.config, self.kms, self.bucket_meta)
         self.apply_storage_class_config()
@@ -340,13 +416,135 @@ class S3Server:
             close()   # the metacache renderer and the MRF threads
 
     def _lookup(self, access_key: str):
-        return self.creds if access_key == self.creds.access_key else None
+        """The credentials of any identity IAM knows (the root, a user, a
+        service account, a temporary credential), or None."""
+        try:
+            return sigv4.Credentials(access_key, self.iam.get_secret(access_key))
+        except se.InvalidAccessKey:
+            return None
 
-    def _bucket_versioned(self, bucket: str) -> bool:
-        return (self.versioned_buckets
-                or self.bucket_meta.get(bucket).versioning_enabled)
+    def _versioned(self, meta) -> bool:
+        """Whether a bucket with metadata document `meta` is versioned: by
+        the server-wide default, else by its own document."""
+        return self.versioned_buckets or meta.versioning_enabled
 
     # ------------------------------------------------------------------
+
+    def _authenticate(self, method, path, query_items, q, headers) -> "_Auth":
+        """Classify and verify the request's signature in the JAX server's
+        order (minio_tpu/s3/server.py:1082-1117; reference
+        cmd/auth-handler.go:102): presigned SigV4, SigV4 header, SigV2
+        header, presigned SigV2, else anonymous. Raises on a bad one."""
+        if "X-Amz-Signature" in q:
+            creds = sigv4.verify_presigned(method, path, query_items, headers,
+                                           self._lookup)
+            # A content binding the signer pinned in the signed query, else
+            # anyone holding the URL could upload any bytes.
+            return _Auth(self.iam.identify(creds.access_key),
+                         q.get("X-Amz-Content-Sha256", sigv4.UNSIGNED_PAYLOAD),
+                         ("REST-QUERY-STRING", "AWS4-HMAC-SHA256"))
+        if headers.get("Authorization", "").startswith(sigv4.ALGORITHM):
+            creds, payload_hash = sigv4.verify_header_auth(method, path, query_items,
+                                                           headers, self._lookup)
+            return _Auth(self.iam.identify(creds.access_key), payload_hash,
+                         ("REST-HEADER", "AWS4-HMAC-SHA256"),
+                         sigv4.parse_auth_header(headers["Authorization"]), creds)
+        if sigv2.is_v2_header(headers):
+            creds = sigv2.verify_header_auth(method, path, query_items, headers,
+                                             self._lookup)
+            return _Auth(self.iam.identify(creds.access_key), sigv4.UNSIGNED_PAYLOAD,
+                         ("REST-HEADER", "AWS"))
+        if sigv2.is_v2_presigned(q):
+            creds = sigv2.verify_presigned(method, path, query_items, headers,
+                                           self._lookup)
+            return _Auth(self.iam.identify(creds.access_key), sigv4.UNSIGNED_PAYLOAD,
+                         _V2_PRESIGNED)
+        return _Auth(ANONYMOUS, sigv4.UNSIGNED_PAYLOAD, None)
+
+    def _condition_context(self, identity, headers, q: dict | None, remote: str,
+                           auth_type) -> dict:
+        """The request's condition values (the JAX server's
+        _condition_context, minio_tpu/s3/server.py:673-762; reference
+        getConditionValues, cmd/bucket-policy.go:65-110): every authorized
+        request carries a populated context, so a conditioned Deny
+        evaluates against real values. Keys lowercase, values string
+        lists. The port serves plain HTTP: aws:SecureTransport is true only
+        behind a trusted proxy that says https."""
+        now = time.time()
+        trust = (self.config.get("api", "trust_proxy_headers") or "") in ("on", "1", "true")
+        secure = False
+        source_ip = remote
+        if trust:
+            fwd_proto = headers.get("X-Forwarded-Proto", "")
+            if fwd_proto:
+                secure = fwd_proto.split(",")[0].strip().lower() == "https"
+            fwd = headers.get("X-Forwarded-For", "")
+            real = headers.get("X-Real-IP", "")
+            if fwd:
+                source_ip = fwd.split(",")[0].strip()
+            elif real:
+                source_ip = real.strip()
+        ctx: dict[str, list[str]] = {
+            "aws:sourceip": [source_ip],
+            "aws:securetransport": ["true" if secure else "false"],
+            "aws:currenttime": [time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(now))],
+            "aws:epochtime": [str(int(now))],
+        }
+        for hk, ck in (("User-Agent", "aws:useragent"), ("Referer", "aws:referer")):
+            if headers.get(hk, ""):
+                ctx[ck] = [headers[hk]]
+        if identity.kind == "anonymous":
+            ctx["aws:principaltype"] = ["Anonymous"]
+        else:
+            ctx["aws:principaltype"] = [{"root": "Account",
+                                         "sts": "AssumedRole"}.get(identity.kind, "User")]
+            # Usernames are access keys; temporary and service credentials
+            # report their owning user (cmd/iam.go policy variables).
+            ctx["aws:username"] = [identity.parent or identity.access_key]
+            ctx["aws:userid"] = [identity.access_key]
+        if auth_type:
+            ctx["s3:authtype"] = [auth_type[0]]
+            ctx["s3:signatureversion"] = [auth_type[1]]
+        for ck, cv in identity.claims.items():
+            lk = str(ck).lower()
+            if lk.startswith(("jwt:", "ldap:")):
+                ctx[lk] = [str(cv)]
+        if q:
+            if q.get("versionId"):
+                ctx["s3:versionid"] = [q["versionId"]]
+            # Listing scope keys only when the client sent them.
+            for qk, ck in (("prefix", "s3:prefix"), ("delimiter", "s3:delimiter"),
+                           ("max-keys", "s3:max-keys")):
+                if qk in q:
+                    ctx[ck] = [q[qk]]
+        for hk, ck in _CONDITION_HEADERS:
+            hv = headers.get(hk, "")
+            if hv:
+                ctx[ck] = [hv]
+        return normalize_values(ctx)
+
+    def _check_access(self, identity, action: str, bucket: str, key: str,
+                      conditions: dict, policy_json: bytes) -> None:
+        """Authorize (the JAX server's _check_access,
+        minio_tpu/s3/server.py:764-790; reference cmd/auth-handler.go:274):
+        a Deny of the bucket policy `policy_json` (the bucket's document,
+        read once by the caller) beats every identity, the root included;
+        then an Allow of the bucket policy (the anonymous principal too);
+        then the identity's own policies."""
+        if policy_json:
+            bp = Policy.parse_cached(policy_json)
+            bargs = PolicyArgs(action=action, bucket=bucket, object=key,
+                               conditions=conditions,
+                               account=identity.access_key or "*")
+            for st in bp.statements:
+                if st.effect == "Deny" and st.applies(bargs):
+                    raise S3Error("AccessDenied", resource=f"/{bucket}/{key}")
+            if bp.is_allowed(bargs):
+                return
+        if self.iam.is_allowed(identity, PolicyArgs(action=action, bucket=bucket,
+                                                    object=key, conditions=conditions)):
+            return
+        raise S3Error("AccessDenied", resource=f"/{bucket}/{key}")
 
     def dispatch(self, method: str, path: str, query_items, headers,
                  body: _Body, req: _Request) -> _Response:
@@ -355,75 +553,62 @@ class S3Server:
         if path.startswith("/minio/health/"):
             req.api = "healthcheck"
             return self._health(path, q)
-        if "X-Amz-Signature" in q:
-            raise S3Error("NotImplemented", "presigned URLs are not served yet")
-        anonymous = not headers.get("Authorization", "").startswith(sigv4.ALGORITHM)
-        payload_hash = sigv4.UNSIGNED_PAYLOAD
-        if not anonymous:
-            _, payload_hash = sigv4.verify_header_auth(method, path, query_items,
-                                                       headers, self._lookup)
-        if payload_hash == sigv4.STREAMING_PAYLOAD:
-            raise S3Error("NotImplemented", "aws-chunked bodies are not served yet")
+        auth = self._authenticate(method, path, query_items, q, headers)
+        identity = auth.identity
         flight.mark("auth")
+        # Temporary credentials present their session token too
+        # (cmd/auth-handler.go getSessionToken).
+        if identity.kind == "sts" and not self.iam.verify_session_token(
+                identity.access_key, headers.get("x-amz-security-token", "")
+                or q.get("X-Amz-Security-Token", "")):
+            raise S3Error("InvalidToken")
+        # The auth parameters of a presigned URL are no subresource.
+        q = {k: v for k, v in q.items() if not k.startswith("X-Amz-")
+             and not (auth.type == _V2_PRESIGNED and k in _V2_QUERY_PARAMS)}
         if path.startswith("/minio/"):
-            return self._minio_plane(method, path, q, headers, body, payload_hash,
-                                     anonymous, req)
+            reqctx.set_condition_context(self._condition_context(
+                identity, headers, None, req.remote, auth.type))
+            return self._minio_plane(method, path, q, headers, body, auth, req)
         bucket, _, key = path.lstrip("/").partition("/")
-        req.api = action_for(method, {k for k in q if not k.startswith("X-Amz-")},
-                             bucket, key, headers).split(":", 1)[-1]
-        if anonymous:
-            raise S3Error("AccessDenied")
         if not bucket:
+            req.api = "ListAllMyBuckets"
+            if method == "POST":   # STS rides the root path (sts-handlers.go)
+                return self._sts(headers, body, auth, hdr)
             if method == "GET":
-                return _xml(hdr, xmlutil.list_buckets_xml(self.obj.list_buckets()))
-            if method == "POST":
-                raise S3Error("NotImplemented", "STS is not served yet")
+                if identity.kind == "anonymous":
+                    raise S3Error("AccessDenied", resource=path)
+                buckets = self.obj.list_buckets()
+                if not identity.is_owner:
+                    cond = self._condition_context(identity, headers, q, req.remote,
+                                                   auth.type)
+                    buckets = [b for b in buckets if self.iam.is_allowed(
+                        identity, PolicyArgs(action="s3:ListBucket", bucket=b.name,
+                                             conditions=cond))]
+                return _xml(hdr, xmlutil.list_buckets_xml(buckets))
             raise S3Error("MethodNotAllowed", resource=path)
+        post_form = (method == "POST" and not key and headers.get(
+            "Content-Type", "").startswith("multipart/form-data"))
+        action = action_for(method, set(q), bucket, key, headers)
+        req.api = "PostPolicy" if post_form else action.split(":", 1)[-1]
+        bulk_delete = method == "POST" and not key and "delete" in q
+        cond = self._condition_context(identity, headers, q, req.remote, auth.type)
+        meta = self.bucket_meta.get(bucket)
+        if not post_form and not bulk_delete:
+            # A browser POST authenticates by its signed policy document and
+            # a bulk delete authorizes each key: both check in the handler.
+            self._check_access(identity, action, bucket, key, cond, meta.policy_json)
         if not key:
-            if "versioning" in q:
-                return self._versioning(method, bucket, headers, body, payload_hash,
-                                        hdr)
-            if method == "GET" and "versions" in q and q.keys() <= _VERSIONS_PARAMS:
-                res = self.obj.list_object_versions(
-                    bucket, q.get("prefix", ""), q.get("key-marker", ""),
-                    q.get("version-id-marker", ""), q.get("delimiter", ""),
-                    _int_q(q, "max-keys", 1000))
-                return _xml(hdr, xmlutil.list_versions_xml(bucket, q.get("prefix", ""),
-                                                           res))
-            if method == "GET" and "uploads" in q:
-                uploads = self.obj.list_multipart_uploads(
-                    bucket, q.get("prefix", ""), _int_q(q, "max-uploads", 1000))
-                return _xml(hdr, xmlutil.list_uploads_xml(bucket, uploads))
-            if method == "POST" and "delete" in q:
-                return self._delete_objects(bucket, headers, body, payload_hash, hdr)
-            if method == "GET" and q.keys() <= _LIST_PARAMS:
-                return self._list_objects(bucket, q, hdr)
-            if "encryption" in q:
-                return self._bucket_encryption(method, bucket, headers, body,
-                                               payload_hash, hdr)
-            if q:
-                raise S3Error("NotImplemented")
-            if method == "PUT":
-                if headers.get("x-amz-bucket-object-lock-enabled", "").lower() == "true":
-                    raise S3Error("NotImplemented", "object lock is not served yet")
-                self.obj.make_bucket(bucket)
-                self.bucket_meta.update(bucket, created=time.time())
-                return _Response(200, {**hdr, "Location": f"/{bucket}"})
-            if method == "HEAD":
-                self.obj.get_bucket_info(bucket)
-                return _Response(200, hdr)
-            if method == "DELETE":
-                self.obj.delete_bucket(bucket)
-                self.bucket_meta.drop_bucket(bucket)
-                return _Response(204, hdr)
-            raise S3Error("NotImplemented")
+            return self._bucket_call(method, path, bucket, q, headers, body, auth,
+                                     hdr, cond, post_form, req.remote, meta)
         # S3's literal versionId "null" names the null version; it goes
         # down verbatim, so it never means "latest".
         opts = ObjectOptions(version_id=q.get("versionId", ""),
-                             versioned=self._bucket_versioned(bucket))
+                             versioned=self._versioned(meta))
         if "tagging" in q:
-            return self._tagging(method, bucket, key, opts, headers, body,
-                                 payload_hash, hdr)
+            return self._tagging(method, bucket, key, opts, headers, body, auth, hdr)
+        if "retention" in q or "legal-hold" in q:
+            return self._object_lock(method, bucket, key, q, opts, headers, body,
+                                     auth, hdr)
         if "versionId" in q and method in ("PUT", "POST"):
             # Versions are immutable: no write names the version it makes
             # (the JAX server would give the new version the client's id,
@@ -431,15 +616,14 @@ class S3Server:
             raise S3Error("InvalidArgument", "a write takes no versionId")
         if "uploads" in q or "uploadId" in q:
             return self._multipart(method, bucket, key, q, headers, body,
-                                   payload_hash, hdr, opts)
+                                   auth, hdr, opts)
         if q.keys() - {"versionId"}:
             raise S3Error("NotImplemented")
         if method == "PUT":
             src = headers.get("x-amz-copy-source")
             if src:
                 return self._copy_object(bucket, key, src, opts, headers, hdr)
-            return self._put_object(bucket, key, opts, headers, body, payload_hash,
-                                    hdr)
+            return self._put_object(bucket, key, opts, headers, body, auth, hdr)
         if method == "GET":
             return self._get_object(bucket, key, opts, headers, hdr)
         if method == "HEAD":
@@ -454,6 +638,10 @@ class S3Server:
             return _Response(200, {**hdr, **_object_headers(info)}, b"",
                              AtRest.visible_size(info))
         if method == "DELETE":
+            if opts.version_id:
+                # Destroying a version: the WORM check first
+                # (cmd/bucket-object-lock.go enforceRetentionForDeletion).
+                self._check_worm(bucket, key, opts, headers)
             info = self.obj.delete_object(bucket, key, opts)
             extra = {}
             if info.delete_marker:
@@ -462,6 +650,72 @@ class S3Server:
                 extra["x-amz-version-id"] = info.version_id
             return _Response(204, {**hdr, **extra})
         raise S3Error("MethodNotAllowed", resource=path)
+
+    def _check_worm(self, bucket, key, opts, headers, missing_ok: bool = True) -> None:
+        """AccessDenied when the version is under legal hold or an
+        unexpired retention (GOVERNANCE yields to
+        x-amz-bypass-governance-retention: true). With `missing_ok` a
+        version that cannot be read passes: the delete that follows
+        answers for it."""
+        try:
+            info = self.obj.get_object_info(bucket, key, opts)
+        except Exception:  # noqa: BLE001 - the delete reports a missing version
+            if not missing_ok:
+                raise
+            return
+        try:
+            olock.check_worm(info.user_defined, bypass_governance=headers.get(
+                "x-amz-bypass-governance-retention", "").lower() == "true")
+        except olock.WORMProtected as e:
+            raise S3Error("AccessDenied", str(e)) from None
+
+    def _bucket_call(self, method, path, bucket, q, headers, body: _Body, auth,
+                     hdr, cond, post_form: bool, remote: str, meta) -> _Response:
+        """The calls on a bucket, its subresources and the browser POST
+        (`meta`: the bucket's metadata document as dispatch read it)."""
+        if "versioning" in q:
+            return self._versioning(method, bucket, headers, body, auth, hdr)
+        if "policy" in q:
+            return self._bucket_policy(method, bucket, headers, body, auth, hdr)
+        if "object-lock" in q:
+            return self._bucket_object_lock(method, bucket, headers, body, auth, hdr)
+        if method == "GET" and "versions" in q and q.keys() <= _VERSIONS_PARAMS:
+            res = self.obj.list_object_versions(
+                bucket, q.get("prefix", ""), q.get("key-marker", ""),
+                q.get("version-id-marker", ""), q.get("delimiter", ""),
+                _int_q(q, "max-keys", 1000))
+            return _xml(hdr, xmlutil.list_versions_xml(bucket, q.get("prefix", ""), res))
+        if method == "GET" and "uploads" in q:
+            uploads = self.obj.list_multipart_uploads(
+                bucket, q.get("prefix", ""), _int_q(q, "max-uploads", 1000))
+            return _xml(hdr, xmlutil.list_uploads_xml(bucket, uploads))
+        if method == "POST" and "delete" in q:
+            return self._delete_objects(bucket, headers, body, auth, hdr, cond, meta)
+        if post_form and not q:
+            return self._post_policy_upload(bucket, headers, body, hdr, remote)
+        if method == "GET" and q.keys() <= _LIST_PARAMS:
+            return self._list_objects(bucket, q, hdr)
+        if "encryption" in q:
+            return self._bucket_encryption(method, bucket, headers, body, auth, hdr)
+        if q:
+            raise S3Error("NotImplemented")
+        if method == "PUT":
+            self.obj.make_bucket(bucket)
+            changes = {"created": time.time()}
+            if headers.get("x-amz-bucket-object-lock-enabled", "").lower() == "true":
+                # Object lock requires versioning (S3 semantics).
+                changes.update(versioning_status="Enabled",
+                               object_lock_xml=_OBJECT_LOCK_ENABLED)
+            self.bucket_meta.update(bucket, **changes)
+            return _Response(200, {**hdr, "Location": f"/{bucket}"})
+        if method == "HEAD":
+            self.obj.get_bucket_info(bucket)
+            return _Response(200, hdr)
+        if method == "DELETE":
+            self.obj.delete_bucket(bucket)
+            self.bucket_meta.drop_bucket(bucket)
+            return _Response(204, hdr)
+        raise S3Error("NotImplemented")
 
     def _health(self, path: str, q: dict) -> _Response:
         """The unsigned probes (the JAX server's, minio_tpu/s3/server.py:
@@ -487,25 +741,24 @@ class S3Server:
             headers["X-Minio-Server-Status"] = "online" if healthy else "degraded"
         return _Response(200 if healthy else 503, headers)
 
-    def _minio_plane(self, method, path, q, headers, body: _Body, payload_hash,
-                     anonymous: bool, req: _Request) -> _Response:
-        """The /minio/ namespace: the admin plane and the scrapes (signed
-        root requests only); never a bucket named minio."""
+    def _minio_plane(self, method, path, q, headers, body: _Body, auth,
+                     req: _Request) -> _Response:
+        """The /minio/ namespace: the admin plane and the scrapes, each
+        authorized by its admin:* action (admin/handlers.py); never a
+        bucket named minio."""
         if path.startswith(ADMIN_PREFIX):
             rest = path[len(ADMIN_PREFIX):]
             req.api = "admin." + rest.split("/", 1)[0]
             status, hdr, out = self.admin.handle(
                 method, rest, q, headers,
-                lambda: _with_body(headers, body, payload_hash,
-                                   lambda data, size: data.read()),
-                anonymous)
+                lambda: _with_body(headers, body, auth, lambda data, size: data.read()),
+                auth.identity)
             return _Response(status, {"x-amz-request-id": req.id, **hdr}, out)
         if path.startswith(_WEB_PATHS):
             raise S3Error("NotImplemented", "the web console is not served")
         if path in ("/minio/v2/metrics/cluster", "/minio/v2/metrics/node"):
             req.api = "metrics"
-            if anonymous:
-                raise S3Error("AccessDenied", "admin API requires credentials")
+            self.admin.authorize(auth.identity, "admin:Prometheus")
             om = wants_openmetrics(headers.get("Accept"))
             out = (self.cluster_scrape(om) if path.endswith("/cluster")
                    else collect_node_metrics(self.stats, openmetrics=om))
@@ -516,13 +769,94 @@ class S3Server:
             return _Response(200, {"x-amz-request-id": req.id, **hdr}, out)
         raise S3Error("MethodNotAllowed", resource=path)
 
-    def _versioning(self, method, bucket, headers, body: _Body, payload_hash,
+    def _bucket_policy(self, method, bucket, headers, body: _Body, auth,
+                       hdr) -> _Response:
+        """?policy PUT, GET and DELETE (minio_tpu/s3/server.py:1797-1815):
+        the JSON document stored verbatim in the bucket's metadata once it
+        validates and every statement names a Principal."""
+        self.obj.get_bucket_info(bucket)
+        if method == "PUT":
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
+            if any(st.principals is None for st in Policy.parse(raw).statements):
+                raise S3Error("MalformedPolicy", "bucket policy requires Principal")
+            self.bucket_meta.update(bucket, policy_json=raw)   # validates
+            return _Response(204, hdr)
+        if method == "GET":
+            raw = self.bucket_meta.get(bucket).policy_json
+            if not raw:
+                raise S3Error("NoSuchBucketPolicy", resource=f"/{bucket}")
+            return _Response(200, {**hdr, "Content-Type": "application/json"}, raw)
+        if method == "DELETE":
+            self.bucket_meta.update(bucket, policy_json=b"")
+            return _Response(204, hdr)
+        raise S3Error("NotImplemented")
+
+    def _bucket_object_lock(self, method, bucket, headers, body: _Body, auth,
+                            hdr) -> _Response:
+        """?object-lock PUT and GET (:1838-1852): the configuration stored
+        verbatim; a PUT needs versioning enabled."""
+        self.obj.get_bucket_info(bucket)
+        if method == "PUT":
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
+            if not self.bucket_meta.get(bucket).versioning_enabled:
+                raise S3Error("InvalidBucketState", "object lock requires versioning")
+            self.bucket_meta.update(bucket, object_lock_xml=raw)
+            return _Response(200, hdr)
+        if method == "GET":
+            raw = self.bucket_meta.get(bucket).object_lock_xml
+            if not raw:
+                raise S3Error("ObjectLockConfigurationNotFoundError",
+                              resource=f"/{bucket}")
+            return _xml(hdr, raw)
+        raise S3Error("NotImplemented")
+
+    def _object_lock(self, method, bucket, key, q, opts, headers, body: _Body,
+                     auth, hdr) -> _Response:
+        """A version's ?retention and ?legal-hold (:1425-1472): kept in its
+        metadata under the x-amz-object-lock-* keys. A retention PUT passes
+        the WORM check of the retention it replaces."""
+        if method not in ("PUT", "GET", "HEAD"):
+            raise S3Error("NotImplemented")
+        if "retention" in q:
+            if method == "PUT":
+                raw = _with_body(headers, body, auth, lambda data, size: data.read())
+                try:
+                    mode, until = olock.parse_retention_xml(raw)
+                except ValueError:
+                    raise S3Error("MalformedXML") from None
+                self._check_worm(bucket, key, opts, headers, missing_ok=False)
+                self.obj.put_object_metadata(bucket, key, {
+                    olock.KEY_MODE: mode, olock.KEY_UNTIL: olock.to_iso(until)}, opts)
+                return _Response(200, hdr)
+            info = self.obj.get_object_info(bucket, key, opts)
+            mode = info.user_defined.get(olock.KEY_MODE, "")
+            if not mode:
+                raise S3Error("ObjectLockConfigurationNotFoundError",
+                              resource=f"/{bucket}/{key}")
+            return _xml(hdr, olock.retention_xml(mode, olock.parse_iso(
+                info.user_defined.get(olock.KEY_UNTIL, ""))))
+        if method == "PUT":
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
+            try:
+                status = olock.parse_legal_hold_xml(raw)
+            except ValueError:
+                raise S3Error("MalformedXML") from None
+            self.obj.put_object_metadata(bucket, key, {olock.KEY_HOLD: status}, opts)
+            return _Response(200, hdr)
+        status = self.obj.get_object_info(bucket, key, opts).user_defined.get(
+            olock.KEY_HOLD, "")
+        if not status:
+            raise S3Error("ObjectLockConfigurationNotFoundError",
+                          resource=f"/{bucket}/{key}")
+        return _xml(hdr, olock.legal_hold_xml(status))
+
+    def _versioning(self, method, bucket, headers, body: _Body, auth,
                     hdr) -> _Response:
         """PutBucketVersioning and GetBucketVersioning (the JAX server's
         route, minio_tpu/s3/server.py:1817-1835)."""
         self.obj.get_bucket_info(bucket)
         if method == "PUT":
-            raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
             try:
                 status = xmlutil.parse_versioning_xml(raw)
             except ValueError:
@@ -539,13 +873,13 @@ class S3Server:
         raise S3Error("NotImplemented")
 
     def _tagging(self, method, bucket, key, opts, headers, body: _Body,
-                 payload_hash, hdr) -> _Response:
+                 auth, hdr) -> _Response:
         """Get/Put/DeleteObjectTagging on a version (:1397-1408)."""
         if method in ("GET", "HEAD"):
             return _xml(hdr, xmlutil.tagging_xml(
                 self.obj.get_object_tags(bucket, key, opts)))
         if method == "PUT":
-            raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
             self.obj.put_object_tags(bucket, key, xmlutil.parse_tagging_xml(raw), opts)
             return _Response(200, hdr)
         if method == "DELETE":
@@ -554,7 +888,7 @@ class S3Server:
         raise S3Error("NotImplemented")
 
     def _multipart(self, method, bucket, key, q, headers, body: _Body,
-                   payload_hash, hdr, opts: ObjectOptions) -> _Response:
+                   auth, hdr, opts: ObjectOptions) -> _Response:
         """The six object-level multipart calls (the JAX server's routes,
         minio_tpu/s3/server.py:1530-1611). An encrypted upload seals its
         object key at create; each part is encrypted on its own, ListParts
@@ -583,7 +917,7 @@ class S3Server:
                 return self.obj.put_object_part(bucket, key, upload_id, part_number,
                                                 reader, stored)
 
-            res = _with_body(headers, body, payload_hash, put_part)
+            res = _with_body(headers, body, auth, put_part)
             return _Response(200, {**hdr, "ETag": f'"{res.etag}"'})
         if method == "GET":
             parts = self.obj.list_parts(bucket, key, upload_id,
@@ -596,7 +930,7 @@ class S3Server:
             self.atrest.forget_upload(upload_id)
             return _Response(204, hdr)
         if method == "POST":
-            raw = _with_body(headers, body, payload_hash,
+            raw = _with_body(headers, body, auth,
                              lambda data, size: data.read())
             pairs = xmlutil.parse_complete_multipart_xml(raw)
             if not pairs:
@@ -627,21 +961,39 @@ class S3Server:
         return _xml(hdr, xmlutil.list_objects_v1_xml(bucket, prefix, marker,
                                                      delimiter, max_keys, res))
 
-    def _delete_objects(self, bucket, headers, body: _Body, payload_hash,
-                        hdr) -> _Response:
+    def _delete_objects(self, bucket, headers, body: _Body, auth, hdr, cond,
+                        meta) -> _Response:
         """DeleteObjects (the JAX server's _delete_objects,
-        minio_tpu/s3/server.py:2696, less its per-key policy check: the
-        port has one root credential). A missing key counts as deleted. A
-        key without a VersionId gets a delete marker when the bucket is
-        versioned, by the server-wide default or by its own document (the
-        JAX server consults the default only)."""
-        raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+        minio_tpu/s3/server.py:2696): each key authorized on its own
+        (DeleteObjectVersion with its s3:versionid where it names one); a
+        key naming a VersionId also passes the WORM check, which the JAX
+        server skips, so a bulk delete cannot destroy a locked version. A
+        refused key answers AccessDenied in the <Error> list; a missing one
+        counts as deleted. A key without a VersionId gets a delete marker
+        when the bucket is versioned, by the server-wide default or by its
+        own document (the JAX server consults the default only)."""
+        raw = _with_body(headers, body, auth, lambda data, size: data.read())
         objects, quiet = xmlutil.parse_delete_xml(raw)
+        allowed, errors = [], []
+        for k, v in objects:
+            ctx = cond
+            if v:   # the key's version scope (s3:versionid conditions)
+                ctx = NormalizedContext(cond)
+                ctx["s3:versionid"] = [v]
+            try:
+                self._check_access(auth.identity, "s3:DeleteObjectVersion" if v
+                                   else "s3:DeleteObject", bucket, k, ctx,
+                                   meta.policy_json)
+                if v:
+                    self._check_worm(bucket, k, ObjectOptions(version_id=v), headers)
+                allowed.append((k, v))
+            except S3Error:
+                errors.append((k, "AccessDenied", "Access Denied."))
         results = self.obj.delete_objects(
-            bucket, [ObjectToDelete(k, v) for k, v in objects],
-            ObjectOptions(versioned=self._bucket_versioned(bucket)))
-        deleted, errors = [], []
-        for (k, v), r in zip(objects, results):
+            bucket, [ObjectToDelete(k, v) for k, v in allowed],
+            ObjectOptions(versioned=self._versioned(meta)))
+        deleted = []
+        for (k, v), r in zip(allowed, results):
             if isinstance(r, Exception):
                 err = from_exception(r, k)
                 if err.api.code != "NoSuchKey":
@@ -652,12 +1004,12 @@ class S3Server:
                 deleted.append(r)
         return _xml(hdr, xmlutil.delete_result_xml(deleted, errors))
 
-    def _put_object(self, bucket, key, opts, headers, body: _Body, payload_hash,
-                    hdr):
+    def _put_object(self, bucket, key, opts, headers, body: _Body, auth, hdr):
         user_defined = _metadata_headers(headers)
         if "content-type" not in user_defined:
             guessed, _ = mimetypes.guess_type(key)
             user_defined["content-type"] = guessed or "application/octet-stream"
+        self._apply_object_lock(headers, bucket, user_defined)
         opts.user_defined = user_defined
 
         def put(data, size):
@@ -667,11 +1019,144 @@ class S3Server:
                                                     user_defined, data, size)
             return self.obj.put_object(bucket, key, reader, stored, opts)
 
-        info = _with_body(headers, body, payload_hash, put)
+        info = _with_body(headers, body, auth, put)
         extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
         return _Response(200, {**hdr, "ETag": f'"{info.etag}"', **extra})
 
-    def _bucket_encryption(self, method, bucket, headers, body: _Body, payload_hash,
+    def _apply_object_lock(self, headers, bucket: str, user_defined: dict) -> None:
+        """Retention and legal hold from the PUT's headers, else the
+        bucket's default retention (:2351-2372; reference
+        cmd/bucket-object-lock.go getObjectRetentionMeta)."""
+        mode = headers.get("x-amz-object-lock-mode", "").upper()
+        until = headers.get("x-amz-object-lock-retain-until-date", "")
+        hold = headers.get("x-amz-object-lock-legal-hold", "").upper()
+        if mode and until:
+            user_defined[olock.KEY_MODE] = mode
+            user_defined[olock.KEY_UNTIL] = until
+        else:
+            default = olock.parse_default_retention(
+                self.bucket_meta.get(bucket).object_lock_xml)
+            if default is not None:
+                user_defined[olock.KEY_MODE] = default[0]
+                user_defined[olock.KEY_UNTIL] = olock.to_iso(time.time() + default[1])
+        if hold:
+            user_defined[olock.KEY_HOLD] = hold
+
+    def _sts(self, headers, body: _Body, auth, hdr) -> _Response:
+        """STS on the root path (the JAX server's _sts_handler,
+        minio_tpu/s3/server.py:1898-1990; reference cmd/sts-handlers.go):
+        AssumeRole for a signed user, AssumeRoleWithWebIdentity and
+        AssumeRoleWithClientGrants for an IdP's JWT (iam/oidc.py),
+        AssumeRoleWithLDAPIdentity by a simple bind (iam/ldap.py)."""
+        identity = auth.identity
+        form = urllib.parse.parse_qs(_with_body(
+            headers, body, auth, lambda data, size: data.read()).decode())
+        action = form.get("Action", [""])[0]
+        duration = int(form.get("DurationSeconds", ["3600"])[0])
+        session_policy = form.get("Policy", [""])[0]
+        subject = ""
+        if action == "AssumeRole":
+            if identity.kind == "anonymous":
+                raise S3Error("AccessDenied", "STS requires signed credentials")
+            if identity.kind in ("sts", "svc"):
+                raise S3Error("AccessDenied", "temporary credentials cannot assume roles")
+            tc = self.iam.assume_role(identity.access_key, duration, session_policy)
+        elif action in ("AssumeRoleWithWebIdentity", "AssumeRoleWithClientGrants"):
+            # The IdP-signed token is the credential (sts-handlers.go:49-102).
+            token = form.get("WebIdentityToken" if action.endswith("WebIdentity")
+                             else "Token", [""])[0]
+            if not token:
+                raise S3Error("InvalidRequest", "missing identity token")
+            try:
+                validator = OpenIDValidator.from_config(self.config)
+                if validator is None:
+                    raise S3Error("STSNotImplemented", "identity_openid is not configured")
+                claims = validator.validate(token)
+                policies = validator.policies_from(claims)
+            except OIDCError as e:
+                raise S3Error("AccessDenied", str(e)) from None
+            if not policies:
+                raise S3Error("AccessDenied",
+                              f"token carries no {validator.claim_name!r} claim")
+            subject = str(claims.get("sub", ""))
+            # The credentials never outlive the identity token.
+            remaining = int(float(claims["exp"]) - time.time())
+            if remaining <= 0:
+                raise S3Error("AccessDenied", "identity token expired")
+            tc = self.iam.assume_role_with_claims(
+                subject, policies, min(max(900, duration), remaining), session_policy,
+                claims={f"jwt:{k}": scalar_str(v) for k, v in claims.items()
+                        if isinstance(v, (str, int, float, bool))})
+        elif action == "AssumeRoleWithLDAPIdentity":
+            username = form.get("LDAPUsername", [""])[0]
+            password = form.get("LDAPPassword", [""])[0]
+            if not username or not password:
+                raise S3Error("InvalidRequest", "LDAPUsername and LDAPPassword required")
+            try:
+                ldap = LDAPValidator.from_config(self.config)
+            except LDAPError as e:   # enabled but misconfigured: say so
+                raise S3Error("InvalidRequest", str(e)) from None
+            if ldap is None:
+                raise S3Error("STSNotImplemented", "identity_ldap is not configured")
+            if not ldap.policies:
+                # Before binding: a setup that always denies must not
+                # hammer the directory with real authentications.
+                raise S3Error("AccessDenied",
+                              "no sts_policy configured for LDAP identities")
+            try:
+                subject = ldap.authenticate(username, password)
+            except LDAPError as e:
+                raise S3Error("AccessDenied", str(e)) from None
+            tc = self.iam.assume_role_with_claims(
+                subject, ldap.policies, max(900, duration), session_policy,
+                claims={"ldap:username": username, "ldap:user": subject})
+        else:
+            raise S3Error("STSNotImplemented")
+        expiry = datetime.datetime.fromtimestamp(
+            tc.expiry, datetime.timezone.utc).strftime("%Y-%m-%dT%H:%M:%SZ")
+        return _xml(hdr, xmlutil.sts_assume_role_xml(
+            tc.access_key, tc.secret_key, tc.session_token, expiry,
+            hdr["x-amz-request-id"], action=action, subject=subject))
+
+    def _post_policy_upload(self, bucket, headers, body: _Body, hdr,
+                            remote: str) -> _Response:
+        """A browser form upload (:1658-1720; reference
+        PostPolicyBucketHandler, cmd/postpolicyform.go): the signed policy
+        document is the auth, its conditions are checked against the
+        submitted fields, then the object is PUT as the signer."""
+        form, file_bytes, filename = _parse_form(headers.get("Content-Type", ""),
+                                                 body.read())
+        creds = sigv4.verify_post_policy(form, self._lookup)
+        # The "bucket" condition matches the request's target, not a field.
+        form.setdefault("bucket", bucket)
+        sigv4.check_post_policy_conditions(form.get("policy", ""), form, len(file_bytes))
+        key = form.get("key", "")
+        if not key:
+            raise S3Error("InvalidArgument", "POST form requires key")
+        key = key.replace("${filename}", filename)
+        identity = self.iam.identify(creds.access_key)
+        meta = self.bucket_meta.get(bucket)
+        self._check_access(identity, "s3:PutObject", bucket, key, self._condition_context(
+            identity, headers, None, remote, ("POST", sigv4.ALGORITHM)), meta.policy_json)
+        opts = ObjectOptions(versioned=self._versioned(meta))
+        if "content-type" in form:
+            opts.user_defined["content-type"] = form["content-type"]
+        for k, v in form.items():
+            if k.startswith("x-amz-meta-") and "mtpu" not in k:
+                opts.user_defined[k] = v
+        info = self.obj.put_object(bucket, key, io.BytesIO(file_bytes),
+                                   len(file_bytes), opts)
+        status = int(form.get("success_action_status", "204"))
+        if status == 201:
+            doc = (f'<?xml version="1.0" encoding="UTF-8"?>'
+                   f'<PostResponse><Location>/{bucket}/{key}</Location>'
+                   f'<Bucket>{bucket}</Bucket><Key>{key}</Key>'
+                   f'<ETag>"{info.etag}"</ETag></PostResponse>').encode()
+            return _Response(201, {**hdr, "Content-Type": XML_TYPE}, doc)
+        return _Response(status if status in (200, 204) else 204,
+                         {**hdr, "ETag": f'"{info.etag}"'})
+
+    def _bucket_encryption(self, method, bucket, headers, body: _Body, auth,
                            hdr) -> _Response:
         """The bucket's default SSE document (?encryption), stored verbatim
         in its metadata as the JAX server stores it
@@ -679,7 +1164,7 @@ class S3Server:
         XML, GET answers it or 404, DELETE clears it."""
         self.obj.get_bucket_info(bucket)
         if method == "PUT":
-            raw = _with_body(headers, body, payload_hash, lambda data, size: data.read())
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
             try:
                 ET.fromstring(raw)
             except ET.ParseError:
@@ -781,26 +1266,90 @@ def _xml(hdr: dict, doc: bytes) -> _Response:
     return _Response(200, {**hdr, "Content-Type": XML_TYPE}, doc)
 
 
-def _with_body(headers, body: _Body, payload_hash: str, consume):
+def _with_body(headers, body: _Body, auth: _Auth, consume):
     """consume(reader, size) over the request body. An unsigned payload
     streams straight through; a signed one is spooled and its sha256
-    checked before consume sees a byte, so nothing commits unverified."""
+    checked, and an aws-chunked one (STREAMING-AWS4-HMAC-SHA256-PAYLOAD)
+    spooled as each chunk's signature verifies, before consume sees a
+    byte, so nothing commits unverified. The aws-chunked rules are the JAX
+    server's _spool_body (minio_tpu/s3/server.py:2403-2460): the decoded
+    length is x-amz-decoded-content-length, required; a presigned request
+    may not stream; the chunk key derives from the requester's secret; a
+    body that ends before its final chunk, or decodes to another length,
+    answers IncompleteBody."""
     if headers.get("Content-Length") is None:
         raise S3Error("MissingContentLength")
     size = body.remaining
+    streaming = auth.payload_hash == sigv4.STREAMING_PAYLOAD
+    if streaming:
+        if auth.sig is None:
+            # The chunk chain starts at a header signature's seed; a
+            # presigned URL has none.
+            raise S3Error("InvalidArgument",
+                          "streaming payload requires header authorization")
+        decoded = headers.get("x-amz-decoded-content-length")
+        if decoded is None:
+            raise S3Error("MissingContentLength")
+        try:
+            size = int(decoded)
+        except ValueError:
+            raise S3Error("InvalidArgument",
+                          "malformed x-amz-decoded-content-length") from None
     if size > MAX_OBJECT_SIZE:
         raise S3Error("EntityTooLarge")
-    if payload_hash == sigv4.UNSIGNED_PAYLOAD:
+    if auth.payload_hash == sigv4.UNSIGNED_PAYLOAD:
         return consume(body, size)
     with tempfile.SpooledTemporaryFile(max_size=SPOOL_LIMIT) as spool:
-        sha = hashlib.sha256()
-        while chunk := body.read(_COPY):
-            sha.update(chunk)
-            spool.write(chunk)
-        if sha.hexdigest() != payload_hash:
-            raise S3Error("XAmzContentSHA256Mismatch")
+        if streaming:
+            sig = auth.sig
+            chunks = sigv4.ChunkedSigV4Reader(auth.creds, sig.signature,
+                                              headers.get("x-amz-date", ""),
+                                              sig.scope_date, sig.region, sig.service)
+            while data := body.read(_COPY):
+                for piece in chunks.feed(data):
+                    spool.write(piece)
+            if not chunks.done or spool.tell() != size:
+                raise S3Error("IncompleteBody")
+        else:
+            sha = hashlib.sha256()
+            while chunk := body.read(_COPY):
+                sha.update(chunk)
+                spool.write(chunk)
+            if sha.hexdigest() != auth.payload_hash:
+                raise S3Error("XAmzContentSHA256Mismatch")
         spool.seek(0)
         return consume(spool, size)
+
+
+def _parse_form(content_type: str, raw: bytes) -> tuple[dict, bytes, str]:
+    """A multipart/form-data body -> ({lowercase field: value}, the file's
+    bytes, its filename). Fields after the file are ignored, as S3 does."""
+    boundary = ""
+    for param in content_type.split(";")[1:]:
+        k, _, v = param.strip().partition("=")
+        if k.lower() == "boundary":
+            boundary = v.strip('"')
+    if not boundary:
+        raise S3Error("InvalidArgument",
+                      "multipart/form-data without a boundary")
+    form: dict[str, str] = {}
+    for part in raw.split(b"--" + boundary.encode())[1:]:
+        if part.startswith(b"--"):
+            break
+        head, _, data = part.removeprefix(b"\r\n").partition(b"\r\n\r\n")
+        data = data.removesuffix(b"\r\n")
+        disposition = ""
+        for line in head.decode("utf-8", "replace").split("\r\n"):
+            name, _, value = line.partition(":")
+            if name.strip().lower() == "content-disposition":
+                disposition = value
+        params = dict((k.strip().lower(), v.strip().strip('"')) for k, _, v in
+                      (p.partition("=") for p in disposition.split(";")[1:]))
+        name = params.get("name", "").lower()
+        if name == "file":
+            return form, data, params.get("filename", "")
+        form[name] = data.decode("utf-8", "replace")
+    return form, b"", ""
 
 
 def _prepend(first, rest):

@@ -1,7 +1,7 @@
 """S3 XML documents (the subset of minio_tpu/s3/xmlutil.py the port sends:
 the error document, the listing, version-listing and bucket documents,
-the multipart, copy, tagging and versioning documents, byte for byte the
-JAX package's; reference cmd/api-response.go)."""
+the multipart, copy, tagging and versioning documents and the STS answer,
+byte for byte the JAX package's; reference cmd/api-response.go)."""
 
 from __future__ import annotations
 
@@ -307,4 +307,22 @@ def list_uploads_xml(bucket, uploads) -> bytes:
         _el(e, "Key", u.object)
         _el(e, "UploadId", u.upload_id)
         _el(e, "Initiated", _iso(u.initiated))
+    return render(root)
+
+
+def sts_assume_role_xml(access_key: str, secret_key: str, session_token: str,
+                        expiry_iso: str, request_id: str, action: str = "AssumeRole",
+                        subject: str = "") -> bytes:
+    """The STS answer of AssumeRole and its federated variants
+    (cmd/sts-handlers.go response types)."""
+    root = ET.Element(f"{action}Response", xmlns="https://sts.amazonaws.com/doc/2011-06-15/")
+    result = _el(root, f"{action}Result")
+    creds = _el(result, "Credentials")
+    _el(creds, "AccessKeyId", access_key)
+    _el(creds, "SecretAccessKey", secret_key)
+    _el(creds, "SessionToken", session_token)
+    _el(creds, "Expiration", expiry_iso)
+    if subject and action == "AssumeRoleWithWebIdentity":
+        _el(result, "SubjectFromWebIdentityToken", subject)
+    _el(_el(root, "ResponseMetadata"), "RequestId", request_id)
     return render(root)

@@ -159,3 +159,39 @@ class AdmissionShed(OperationTimedOut):
     request was shed by policy (a full queue or a closed plane), not lost
     to a sick drive. As an OperationTimedOut it answers 503 SlowDown."""
 
+
+
+# --- IAM and policy errors (minio_tpu/utils/errors.py:176-205; reference
+# cmd/iam-errors.go, pkg/iam/policy) ---
+
+
+class IAMError(Exception):
+    pass
+
+
+class MalformedPolicy(IAMError):
+    pass
+
+
+class NoSuchPolicy(IAMError):
+    pass
+
+
+class NoSuchUser(IAMError):
+    pass
+
+
+class NoSuchGroup(IAMError):
+    pass
+
+
+class NoSuchServiceAccount(IAMError):
+    pass
+
+
+class InvalidAccessKey(IAMError):
+    pass
+
+
+class IAMActionNotAllowed(IAMError):
+    pass

@@ -497,7 +497,7 @@ def test_device_capture_that_lost_the_kernels_is_refused(pair, monkeypatch, capt
 
 def test_admin_ops_of_other_planes_answer_not_implemented(pair):
     cls = _clients(pair)
-    for op in ("consolelog", "list-users", "datausageinfo", "top/locks"):
+    for op in ("consolelog", "obdinfo", "datausageinfo", "top/locks"):
         assert cls["torch"].get(f"/minio/admin/v3/{op}").status_code == 501, op
 
 

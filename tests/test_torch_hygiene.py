@@ -2,8 +2,11 @@
 
 - no module imports jax or the JAX package, nor a library the card's
   machine lacks (aiohttp, msgpack, requests, xxhash), checked on the AST;
-- only crypto/aead.py imports `cryptography`, inside its try / except
-  ImportError gate, so the port runs where the package is missing;
+- only crypto/aead.py and iam/oidc.py import `cryptography`, each inside
+  a try / except ImportError gate, so the port runs where the package is
+  missing;
+- an IAM store whose every sealed entry fails to decrypt (a wrong root
+  secret) refuses to load, never serving an IAM that is silently empty;
 - every entry point raises without CUDA unless given device="cpu";
 - a tensor that is not on the CPU never falls back to a plain version:
   with no kernel library it raises.
@@ -18,16 +21,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xxhash"}
 
-# Modules of the metadata plane and drive-resilience slice and of the
-# data-at-rest slice, each its own copy of the JAX module it ports: they
-# must be in the scan.
+# Modules of the metadata plane and drive-resilience slice, of the
+# data-at-rest slice and of the identity-and-access slice, each its own
+# copy of the JAX module it ports: they must be in the scan.
 SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "metaplane/groupcommit.py", "metaplane/setcache.py",
                  "storage/idcheck.py", "storage/healthcheck.py",
                  "utils/dyntimeout.py", "utils/bufpool.py",
                  "crypto/__init__.py", "crypto/aead.py", "crypto/sse.py",
                  "crypto/compress.py", "crypto/configcrypt.py", "crypto/kms.py",
-                 "crypto/kes.py", "admin/configkv.py", "s3/atrest.py")
+                 "crypto/kes.py", "admin/configkv.py", "s3/atrest.py",
+                 "iam/__init__.py", "iam/actions.py", "iam/condition.py",
+                 "iam/policy.py", "iam/reqctx.py", "iam/sys.py", "iam/oidc.py",
+                 "iam/ldap.py", "bucket/objectlock.py", "s3/sigv2.py")
 
 
 def _port_files():
@@ -88,17 +94,20 @@ def _catches_import_error(try_node) -> bool:
 
 
 def test_only_the_aead_gate_imports_cryptography():
-    gate = ROOT / "minio_tpu_torch" / "crypto" / "aead.py"
-    seen = []
+    """The AEAD gate, and the OIDC validator's RS* check (which refuses an
+    RS* token without the package), are the only importers."""
+    gates = {ROOT / "minio_tpu_torch" / "crypto" / "aead.py",
+             ROOT / "minio_tpu_torch" / "iam" / "oidc.py"}
+    seen = set()
     for f in _port_files():
         for node, stack in _imports_of(ast.parse(f.read_text(), str(f)), "cryptography"):
-            seen.append(f)
-            assert f == gate, f"{f.relative_to(ROOT)}:{node.lineno} imports cryptography"
+            seen.add(f)
+            assert f in gates, f"{f.relative_to(ROOT)}:{node.lineno} imports cryptography"
             tries = [t for t in stack if isinstance(t, ast.Try) and node in ast.walk(t)
                      and any(node in ast.walk(b) for b in t.body)]
             assert tries and _catches_import_error(tries[-1]), \
-                f"aead.py:{node.lineno} imports cryptography outside its ImportError gate"
-    assert seen == [gate]
+                f"{f.name}:{node.lineno} imports cryptography outside its ImportError gate"
+    assert seen == gates
 
 
 @pytest.fixture
@@ -189,3 +198,43 @@ def test_sets_and_pools_raise_without_cuda(no_cuda, tmp_path):
     pools = ErasureServerPools([sets])
     assert sets.set_count == 2 and pools.device == torch.device("cpu")
     assert all(s.device == torch.device("cpu") for s in sets.sets)
+
+
+class _MemStore:
+    def __init__(self):
+        self.docs = {}
+
+    def read_sys_config(self, path):
+        from minio_tpu_torch.utils import errors as se
+
+        if path not in self.docs:
+            raise se.FileNotFound(path)
+        return self.docs[path]
+
+    def write_sys_config(self, path, data):
+        self.docs[path] = data
+
+    def delete_sys_config(self, path):
+        self.docs.pop(path)
+
+    def list_sys_config(self, prefix=""):
+        return sorted(k for k in self.docs if k.startswith(prefix))
+
+
+def test_iam_store_sealed_under_another_secret_refuses_to_load():
+    """Every sealed entry failing to decrypt means a wrong root secret:
+    IAMSys raises rather than boot with no users; one bad entry among good
+    ones is skipped."""
+    from minio_tpu_torch.crypto.configcrypt import ConfigCryptError, SealedSysStore
+    from minio_tpu_torch.iam.sys import IAMSys
+
+    store = _MemStore()
+    iam = IAMSys("root", "root-secret-1", store=SealedSysStore(store, "root-secret-1"))
+    iam.set_user("alice", "alice-secret-1")
+    iam.set_user("bob", "bob-secret-12")
+    with pytest.raises(ConfigCryptError):
+        IAMSys("root", "other-secret", store=SealedSysStore(store, "other-secret"))
+    sealed = store.docs["iam/users/bob"]
+    store.docs["iam/users/bob"] = sealed[:-1] + bytes([sealed[-1] ^ 1])
+    again = IAMSys("root", "root-secret-1", store=SealedSysStore(store, "root-secret-1"))
+    assert set(again.users) == {"alice"}
