@@ -70,8 +70,8 @@ package beside it. Phases, each raising on failure:
 6. multipart over erasure sets and pools (BASELINE.json configs 5 and 4):
    64 tmp drives as 4 pools of 16, each pool ErasureSets(set_drive_count=
    16) at EC 12+4, 1 MiB blocks, behind the port's S3 server over HTTP with
-   SigV4. One object of MP_PARTS parts of 16 MiB (5 GiB; minio-go's part
-   size for it) with 4 part uploads in flight (minio-go's default), its
+   SigV4. One object of MP_PARTS parts of 16 MiB (2.5 GiB; minio-go's
+   part size) with 4 part uploads in flight (minio-go's default), its
    bytes made from --seed part by part and never held whole; a streamed GET
    compared by SHA-256, a Range GET across a part boundary, HEAD with the
    "-N" ETag, ListParts and Abort of a second upload; then 4 of the 16
@@ -92,7 +92,7 @@ package beside it. Phases, each raising on failure:
    part by part, into a versioned bucket;
 8. heal (heal_phase): on 12 drives in /dev/shm at EC 8+4, the server at
    build_server's defaults (MRF on) and the auto-healer started as main()
-   starts it, with a 1 s interval. 8 objects of 256 MiB, 512 warp-mix
+   starts it, with a 1 s interval. 4 objects of 256 MiB, 512 warp-mix
    objects PUT by 64 clients, a multipart object of 16 parts of 16 MiB,
    64 versioned keys x 3 versions with 16 delete markers; 64 PUTs while
    2 drives refuse every call, drained by the MRF queue once they are
@@ -107,14 +107,14 @@ package beside it. Phases, each raising on failure:
    earlier runs recorded in PERF.md;
 9. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
    at EC 8+4 behind the S3 server, a bucket of LIST_OBJECTS synthetic
-   objects (halved down to 25,000 to fit the 1,000 s budget, and below only
+   objects (halved down to 12,500 to fit the 1,000 s budget, and below only
    to keep the script under 1,100 s) plus 1,000 real
    ones PUT through the server; ListObjectsV2 over the whole bucket in
    pages of 1,000 (every name once, in order; the real objects' ETag and
    Size), a delimiter listing, a v1 marker resume, ListBuckets, GETs of
    every 50th real object, one DeleteObjects of the 1,000, DeleteBucket
    refused on the full bucket and done on an emptied one, then one
-   ListObjectsV2 on phase 6's 4 pools naming the 5 GiB object once;
+   ListObjectsV2 on phase 6's 4 pools naming the multipart object once;
 10. bitrot (bitrot_phase, run before phase 9): every algorithm of the
    JAX registry on config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB
    blocks), each through the port's S3Server over
@@ -227,13 +227,44 @@ package beside it. Phases, each raising on failure:
    with it; (f) a byte flipped in the middle chunk of an aws-chunked
    overwrite answering SignatureDoesNotMatch, the key reading as before.
 
-Depth cut to make room for phase 11 under SMOKE_BUDGET_S, no width
-changed: phase 4 runs twice (on, off) instead of four times, phase 7
+15. the multi-process front door and the QoS plane (frontdoor_phase, run
+   before phase 9): config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB
+   blocks) behind a supervisor (frontdoor/supervisor.py, the router
+   shard) and W = min(4, CPUs) workers, the metaplane and the dataplane
+   at their defaults, shared lanes on, MTPU_QOS=1 with the root's two
+   buckets fd-a and fd-b weighted 3:1, MTPU_HOTTIER=1 with a 64 MiB
+   budget in worker 0. (a) 64 clients PUT then GET 512 warp-mix objects
+   (1-512 KiB) over both buckets through the pool, then the same through
+   one server process (python -m minio_tpu_torch.s3.server) on fresh
+   drives: objects/s and GiB/s of each, requests per worker from
+   X-Mtpu-Worker, and per worker, from its own scrape (a connection the
+   router pinned to it), K1/K2 launches by label and the ring's submits,
+   served and fallbacks by reason; every worker must serve, worker 0 must
+   serve ring encodes and launch K1 and K2; (b) one 256 MiB PUT and GET
+   through the pool (its 1 MiB blocks do not fit a slot: the worker that
+   takes it launches K1 in its own CUDA context); (c) a 16 MiB object read
+   whole twice by worker 0 (admitted to its tier), whole once by a
+   sibling (too large for a slot: an oversize fallback), then 5 Range
+   GETs of 200 KiB by the siblings, which must hit over OP_HOTGET; (d)
+   worker 1 SIGKILLed with 64 small PUTs in flight (clients retry a cut
+   PUT): every acknowledged PUT reads back byte-equal, the pool returns
+   to W workers, respawns_total reads 1; (e) SIGTERM drain: every worker
+   exits 0, every drive holds journal.w<i>.wal for each worker, each
+   worker's exact launch counts come from its drain log line, and one
+   server mounted on the drives reads every key back byte-equal, with
+   sampled shard digests and parity equal to the plain versions.
+
+Depth cut to make room under SMOKE_BUDGET_S, no width changed: for
+phase 11, phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
-halve down to 25,000 objects instead of 50,000.
+halve down to 25,000 objects instead of 50,000; for phase 15, phase 6's
+object is 160 parts (2.5 GiB) instead of 320, phase 8 PUTs 4 objects of
+256 MiB instead of 8, and the listing phase may halve down to 12,500
+objects.
 
 The launch count of each kernel is reset just before each of phases 3-14
-(each run of phase 4) and read after it; the JSON line carries phase 4's
+(each run of phase 4) and read after it (phase 15's workers count in
+their own processes: their scrapes and drain logs); the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -265,7 +296,7 @@ INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
 PLANE_OBJECTS = 512             # plane phase: small objects PUT by 64 clients, per run
 PLANE_RUNS = (True, False)      # the plane on, then off
 HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
-MP_PARTS, MP_PART_SIZE = 320, 16 << 20    # multipart phase: 5 GiB in 16 MiB parts
+MP_PARTS, MP_PART_SIZE = 160, 16 << 20    # multipart phase: 2.5 GiB in 16 MiB parts
 MP_INFLIGHT = 4                 # part uploads in flight
 K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
 K10, M10, S10 = 10, 2, 104858   # storageclass EC:2 on 12 drives: S = ceil(1 MiB / 10)
@@ -273,7 +304,7 @@ VER_SIZE, VER_VERSIONS = 256 << 20, 4   # versioning phase: 4 versions of 256 Mi
 VER_KEYS = 64                   # ... and 64 small keys of 4 versions, 1-512 KiB
 VER_DELETE = 250                # ... of which one DeleteObjects removes 250
 VER_COPY_PARTS = 32             # ... and UploadPartCopy of phase 6's first 32 parts
-HEAL_BIG, HEAL_BIG_SIZE = 8, 256 << 20   # heal phase: 8 objects of 256 MiB,
+HEAL_BIG, HEAL_BIG_SIZE = 4, 256 << 20   # heal phase: 4 objects of 256 MiB,
 HEAL_SMALL = 512                # ... 512 warp-mix objects,
 HEAL_MP_PARTS = 16              # ... a multipart object of 16 parts of 16 MiB,
 HEAL_VER_KEYS = 64              # ... 64 versioned keys x 3 versions,
@@ -293,7 +324,7 @@ OBS_SIZE = 256 << 20            # obs phase: the object PUT, GET and healed
 OBS_PROFILE_SIZE = 32 << 20     # ... the object PUT and GET under the profilers
 OBS_RUNS = 3                    # ... PUT+GET of OBS_SIZE per observing mode
 LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
-LIST_MIN_OBJECTS = 25_000       # ... never cut below this to meet SMOKE_BUDGET_S
+LIST_MIN_OBJECTS = 12_500       # ... never cut below this to meet SMOKE_BUDGET_S
 LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
 LIST_PAGE = 1000                # ListObjectsV2 max-keys
 # The listing phase's cost on the card's machine (NVIDIA H100 80GB HBM3,
@@ -2696,13 +2727,21 @@ def _scrape_meta(cl: _Client, paths: list[str]) -> dict:
     return out
 
 
-def _crash_child(paths: list[str], port: int, device: str):
-    """The port's server entry point (python -m minio_tpu_torch.s3.server)
-    in a child process over `paths`; returns once it serves."""
-    env = dict(os.environ, MTPU_ROOT_USER=ACCESS, MTPU_ROOT_PASSWORD=SECRET)
+def _child_env(extra: dict | None = None) -> dict:
+    """This process's environment for a child of the port: the root
+    credentials, the checkout on PYTHONPATH, and `extra`."""
+    env = dict(os.environ, MTPU_ROOT_USER=ACCESS, MTPU_ROOT_PASSWORD=SECRET,
+               **(extra or {}))
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__))]
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def _crash_child(paths: list[str], port: int, device: str, extra_env: dict | None = None):
+    """The port's server entry point (python -m minio_tpu_torch.s3.server)
+    in a child process over `paths`; returns once it serves."""
+    env = _child_env(extra_env)
     proc = subprocess.Popen(
         [sys.executable, "-m", "minio_tpu_torch.s3.server", *paths,
          "--address", f"127.0.0.1:{port}", "--device", device],
@@ -4056,6 +4095,419 @@ def iam_phase(seed: int, card: str, device: str = "cuda", size: int = IAM_BIG,
     print(f"  launches in the phase: {total}")
 
 
+FD_OBJECTS = 512                # phase 15: warp-mix objects through the pool and one server
+FD_BIG = 256 << 20              # ... the big object through the pool
+FD_HOT = 16 << 20               # ... the hot object, fetched FD_HOT_GETS times
+FD_HOT_GETS = 8
+FD_KILL_PUTS = 64               # ... small PUTs in flight across the SIGKILL of worker 1
+
+
+def _fd_view(samples, backend: str) -> dict:
+    """One worker's scrape, reduced to what phase 15 reads: its requests,
+    K1 and K2 launches (labels as OBS_K1 / OBS_K2), ring submits and
+    served by op, ring fallbacks by reason."""
+    k = _by_label(samples, "minio_tpu_kernel_launches_total", "kernel", backend=backend)
+    return {"requests": sum(_by_label(samples, "minio_tpu_frontdoor_requests_total",
+                                      "worker").values()),
+            "k1": sum(k.get(lbl, 0) for lbl in OBS_K1),
+            "k2": sum(k.get(lbl, 0) for lbl in OBS_K2),
+            "submits": _by_label(samples, "minio_tpu_frontdoor_ring_submits_total", "op"),
+            "served": _by_label(samples, "minio_tpu_frontdoor_ring_served_total", "op"),
+            "fallbacks": _by_label(samples, "minio_tpu_frontdoor_ring_fallbacks_total",
+                                   "reason")}
+
+
+def _fd_delta(a: dict, b: dict) -> dict:
+    out = {}
+    for key, v in b.items():
+        if isinstance(v, dict):
+            d = {k: int(x - a[key].get(k, 0)) for k, x in v.items()
+                 if x - a[key].get(k, 0)}
+            out[key] = d
+        else:
+            out[key] = int(v - a[key])
+    return out
+
+
+class _Workers:
+    """One keep-alive connection pinned to each worker of a pool (the
+    router passes each new connection to the next worker), for its scrape
+    and for requests that must reach a given worker."""
+
+    def __init__(self, url: str, n: int, backend: str):
+        self.backend = backend
+        self.cl: dict[str, _Client] = {}
+        for _ in range(8 * n):
+            cl = _Client(url)
+            r, _body = cl.request("GET", "/minio/health/live")
+            w = r.getheader("X-Mtpu-Worker")
+            if w in self.cl:
+                cl.close()
+            else:
+                self.cl[w] = cl
+            if len(self.cl) == n:
+                break
+        if len(self.cl) != n:
+            raise AssertionError(f"front door: reached workers {sorted(self.cl)} of {n}")
+
+    def views(self) -> dict:
+        out = {}
+        for w, cl in self.cl.items():
+            _r, body = cl.request("GET", "/minio/v2/metrics/node")
+            out[w] = _fd_view(parse_exposition(body.decode())[1], self.backend)
+        return out
+
+    def close(self) -> None:
+        for cl in self.cl.values():
+            cl.close()
+
+
+def _fd_run(url: str, objects: dict, n_clients: int, verb: str) -> tuple[float, dict]:
+    """PUT or GET (checked byte-equal with its ETag) every object through
+    `n_clients` client threads; -> (seconds, answers per worker)."""
+    pool = _Pool(url, n_clients)
+    per: dict = {}
+
+    def one(cl, kv):
+        key, body = kv
+        if verb == "PUT":
+            r, _d = cl.request("PUT", key, body)
+            if r.getheader("ETag") != _md5_etag(body):
+                raise AssertionError(f"front door PUT {key}: ETag differs")
+        else:
+            r, data = cl.request("GET", key)
+            if data != body or r.getheader("ETag") != _md5_etag(body):
+                raise AssertionError(f"front door GET {key}: bytes or ETag differ")
+        return r.getheader("X-Mtpu-Worker")
+
+    try:
+        t0 = time.perf_counter()
+        for w in pool.run(one, objects.items()):
+            per[w] = per.get(w, 0) + 1
+        return time.perf_counter() - t0, per
+    finally:
+        pool.close()
+
+
+def _drain_launch_logs(log_dir: str, n: int) -> dict:
+    """Each worker's exact kernel launch counts (ops/kernels.py) over its
+    life, from the line its drain logs; a worker killed before draining
+    logs none."""
+    import ast
+
+    out = {}
+    for i in range(n):
+        try:
+            text = open(os.path.join(log_dir, f"worker{i}.log"), encoding="utf-8").read()
+        except OSError:
+            continue
+        for line in text.splitlines():
+            if "drained; kernel launches" in line:
+                out[i] = ast.literal_eval(line.split("kernel launches ", 1)[1])
+    return out
+
+
+def frontdoor_phase(seed: int, card: str, device: str = "cuda",
+                    n_objects: int = FD_OBJECTS, n_clients: int = 64,
+                    big_size: int = FD_BIG, hot_size: int = FD_HOT,
+                    kill_puts: int = FD_KILL_PUTS, workers: int | None = None) -> dict:
+    """Phase 15 (see the module's docstring): the multi-process front door
+    and the QoS plane on config 1; -> the numbers it printed."""
+    import signal
+
+    import numpy as np
+
+    from minio_tpu_torch.frontdoor.supervisor import Supervisor
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    n_workers = workers or min(4, os.cpu_count() or 1)
+    backend = "gpu" if device == "cuda" else "cpu"
+    rng = np.random.default_rng(seed + 15)
+    sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10),
+                               n_objects)).astype(np.int64)
+    objects = {f"/fd-{'ab'[i % 2]}/w{i:04d}": rng.bytes(int(n))
+               for i, n in enumerate(sizes)}
+    total = int(sizes.sum())
+    gib = total / (1 << 30)
+    env = {"MTPU_QOS": "1", "MTPU_QOS_WEIGHTS": f"{ACCESS}/fd-a=3,{ACCESS}/fd-b=1",
+           "MTPU_HOTTIER": "1", "MTPU_HOTTIER_BYTES": str(64 << 20),
+           "MTPU_HOTTIER_MAX_OBJECT": str(32 << 20), "MTPU_FRONTDOOR_DRAIN_S": "30"}
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-fd-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    spaths = [os.path.join(work, f"s{i:02d}") for i in range(12)]
+    logs = tempfile.mkdtemp(prefix="mtpu-torch-fd-logs-")
+    out: dict = {"workers": n_workers}
+    print(f"  {n_workers} workers on {os.cpu_count()} CPUs; {n_objects} objects, {total} B "
+          f"({total / (1 << 20):.1f} MiB), {n_clients} client threads, buckets fd-a and "
+          f"fd-b (tenants {ACCESS}/fd-a and /fd-b, weights 3:1), MTPU_QOS=1")
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    sup = Supervisor(paths, f"127.0.0.1:{port}", n_workers, shared_lanes=True,
+                     device=device, log_dir=logs, env=_child_env(env))
+    pin = None
+    from concurrent.futures import ThreadPoolExecutor
+
+    # The one-process server of (a) boots beside the pool (it idles until
+    # the pool's runs are done).
+    sport = _free_port()
+    boot = ThreadPoolExecutor(max_workers=1)
+    child_f = boot.submit(_crash_child, spaths, sport, device, env)
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        sup.wait_workers()
+        out["boot_s"] = time.perf_counter() - t0
+        print(f"  pool up in {out['boot_s']:.3f} s (worker 0 first, then the rest)")
+        root = _Client(url)
+        for b in ("/fd-a", "/fd-b"):
+            root.request("PUT", b)
+        pin = _Workers(url, n_workers, backend)
+
+        # (a) the warp mix through the pool, then through one server.
+        v0 = pin.views()
+        put_s, put_w = _fd_run(url, objects, n_clients, "PUT")
+        get_s, get_w = _fd_run(url, objects, n_clients, "GET")
+        v1 = pin.views()
+        da = {w: _fd_delta(v0[w], v1[w]) for w in v0}
+        per_worker = {w: put_w.get(w, 0) + get_w.get(w, 0) for w in pin.cl}
+        out["pool"] = {"put": n_objects / put_s, "get": n_objects / get_s}
+        print(f"  (a) pool of {n_workers} on {card}: PUT {n_objects / put_s:.3f} objects/s, "
+              f"{gib / put_s:.6f} GiB/s ({put_s:.6f} s); GET {n_objects / get_s:.3f} "
+              f"objects/s, {gib / get_s:.6f} GiB/s ({get_s:.6f} s); requests per worker "
+              f"(X-Mtpu-Worker) {dict(sorted(per_worker.items()))}")
+        for w in sorted(da):
+            print(f"      worker {w}: K1 {da[w]['k1']}, K2 {da[w]['k2']} (scrape labels); "
+                  f"ring submits {da[w]['submits']}, served {da[w]['served']}, "
+                  f"fallbacks {da[w]['fallbacks']}")
+        served = sum(da["0"]["served"].values())
+        submits = sum(sum(d["submits"].values()) for d in da.values())
+        fallbacks = sum(sum(d["fallbacks"].values()) for d in da.values())
+        out["ring"] = {"submits": submits, "served": served, "fallbacks": fallbacks}
+        print(f"      ring: {submits} submits, {served} served by worker 0, {fallbacks} "
+              f"fallbacks; served / (served + fallbacks) "
+              f"{served / max(1, served + fallbacks):.3f}")
+        if any(per_worker[w] == 0 for w in per_worker):
+            raise AssertionError(f"front door: a worker served no request {per_worker}")
+        if served <= 0:
+            raise AssertionError("front door: the ring served nothing in (a)")
+        if da["0"]["k1"] <= 0 or da["0"]["k2"] <= 0 or da["0"]["served"].get("encode", 0) <= 0:
+            raise AssertionError(f"front door: worker 0 launched no K1/K2 for ring work {da['0']}")
+
+        child = child_f.result()
+        surl = f"http://127.0.0.1:{sport}"
+        scl = _Client(surl)
+        for b in ("/fd-a", "/fd-b"):
+            scl.request("PUT", b)
+        s0 = _fd_view(parse_exposition(scl.request(
+            "GET", "/minio/v2/metrics/node")[1].decode())[1], backend)
+        sput_s, _w = _fd_run(surl, objects, n_clients, "PUT")
+        sget_s, _w = _fd_run(surl, objects, n_clients, "GET")
+        s1 = _fd_view(parse_exposition(scl.request(
+            "GET", "/minio/v2/metrics/node")[1].decode())[1], backend)
+        scl.close()
+        child.kill()
+        child.wait(timeout=30)
+        for p in spaths:
+            shutil.rmtree(p, ignore_errors=True)
+        ds = _fd_delta(s0, s1)
+        out["single"] = {"put": n_objects / sput_s, "get": n_objects / sget_s}
+        print(f"  (a) one server process on {card}: PUT {n_objects / sput_s:.3f} objects/s, "
+              f"{gib / sput_s:.6f} GiB/s ({sput_s:.6f} s); GET {n_objects / sget_s:.3f} "
+              f"objects/s, {gib / sget_s:.6f} GiB/s ({sget_s:.6f} s); K1 {ds['k1']}, K2 "
+              f"{ds['k2']}; pool/one PUT {sput_s / put_s:.3f}x, GET {sget_s / get_s:.3f}x")
+
+        # (b) one big object through the pool: its 1 MiB blocks do not fit
+        # a slot, so the worker that takes it encodes in its own context.
+        big = rng.bytes(big_size)
+        v0 = pin.views()
+        t0 = time.perf_counter()
+        r, _d = root.request("PUT", "/fd-a/big", big)
+        bput = time.perf_counter() - t0
+        bw = r.getheader("X-Mtpu-Worker")
+        t0 = time.perf_counter()
+        r, data = root.request("GET", "/fd-a/big")
+        bget = time.perf_counter() - t0
+        if data != big or r.getheader("ETag") != _md5_etag(big):
+            raise AssertionError("front door: the big GET differs")
+        v1 = pin.views()
+        db = {w: _fd_delta(v0[w], v1[w]) for w in v0}
+        out["big"] = {"put_s": bput, "get_s": bget}
+        print(f"  (b) {big_size >> 20} MiB through worker {bw}: PUT {bput:.6f} s "
+              f"({big_size / (1 << 30) / bput:.6f} GiB/s), GET {bget:.6f} s "
+              f"({big_size / (1 << 30) / bget:.6f} GiB/s); K1/K2 by worker "
+              f"{ {w: (d['k1'], d['k2']) for w, d in sorted(db.items())} }")
+        if db[bw]["k1"] <= 0:
+            raise AssertionError(f"front door: worker {bw} encoded the big object without K1")
+        objects["/fd-a/big"] = big
+
+        # (c) the hot tier lives in worker 0; siblings probe it over
+        # OP_HOTGET, whose answer must fit a slot's response area (256 KiB
+        # of a 1 MiB slot): a sibling's full GET of the object falls back
+        # as oversize, its Range GETs ride the ring.
+        hot = rng.bytes(hot_size)
+        root.request("PUT", "/fd-b/hot", hot)
+        objects["/fd-b/hot"] = hot
+        sibs = [w for w in sorted(pin.cl) if w != "0"] or ["0"]
+        span = 200 << 10
+        fetches = [("0", None), ("0", None), (sibs[0], None)] + [
+            (sibs[i % len(sibs)], (i * (hot_size - span) // (FD_HOT_GETS - 4), span))
+            for i in range(FD_HOT_GETS - 3)]
+        v0 = pin.views()
+        t0 = time.perf_counter()
+        for i, (w, rg) in enumerate(fetches):
+            hdr = {} if rg is None else {"Range": f"bytes={rg[0]}-{rg[0] + rg[1] - 1}"}
+            r, data = pin.cl[w].request("GET", "/fd-b/hot", headers=hdr)
+            want = hot if rg is None else hot[rg[0]:rg[0] + rg[1]]
+            if data != want or r.getheader("ETag") != _md5_etag(hot):
+                raise AssertionError(f"front door: hot GET {i} differs")
+            if i == 1:
+                # Worker 0's two GETs made the key hot: wait for its admission.
+                deadline = time.perf_counter() + 20
+                while time.perf_counter() < deadline:
+                    _r, body = pin.cl["0"].request("GET", "/minio/v2/metrics/node")
+                    fams = parse_exposition(body.decode())[1]
+                    if sum(_by_label(fams, "minio_tpu_hottier_admits_total", "").values()):
+                        break
+                    time.sleep(0.05)
+        hot_s = time.perf_counter() - t0
+        v1 = pin.views()
+        dc = {w: _fd_delta(v0[w], v1[w]) for w in v0}
+        hits = dc["0"]["served"].get("hotget", 0)
+        out["hot_hits"] = hits
+        print(f"  (c) {hot_size >> 20} MiB fetched {FD_HOT_GETS} times in {hot_s:.6f} s: by "
+              f"worker 0 whole twice, by worker {sibs[0]} whole, then {FD_HOT_GETS - 3} "
+              f"Range GETs of {span >> 10} KiB by workers {[w for w, rg in fetches if rg]}; "
+              f"OP_HOTGET served {hits}, fallbacks "
+              f"{ {w: d['fallbacks'] for w, d in sorted(dc.items()) if d['fallbacks']} }")
+        if hits < 1:
+            raise AssertionError("front door: no OP_HOTGET hit served a sibling")
+        ring_end = pin.views()
+        pin.close()
+        pin = None
+        root.close()
+
+        # (d) SIGKILL of worker 1 with small PUTs in flight.
+        from minio_tpu_torch.frontdoor import supervisor as fd_sup
+
+        respawns = fd_sup._RESPAWNS.labels(worker="1").value
+        old_pid = sup.pid(1)
+        ksizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10),
+                                    kill_puts)).astype(np.int64)
+        kobjs = {f"/fd-b/k{i:03d}": rng.bytes(int(n)) for i, n in enumerate(ksizes)}
+        acked: dict = {}
+        import threading
+
+        mu = threading.Lock()
+        started = threading.Semaphore(0)
+
+        def put(item):
+            key, body = item
+            for _ in range(5):   # a PUT cut by the kill is retried, as clients do
+                cl = _Client(url)
+                try:
+                    started.release()
+                    r, _d = cl.request("PUT", key, body, check=False)
+                    if r.status == 200:
+                        with mu:
+                            acked[key] = body
+                        return
+                except (OSError, http.client.HTTPException):
+                    pass
+                finally:
+                    cl.close()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=kill_puts) as ex:
+            futs = [ex.submit(put, kv) for kv in kobjs.items()]
+            for _ in range(kill_puts // 2):
+                started.acquire()
+            sup.kill_worker(1, signal.SIGKILL)
+            for f in futs:
+                f.result()
+        deadline = time.perf_counter() + 120
+        while (sup.pid(1) in (None, old_pid) or len(sup.alive()) < n_workers
+               or len(sup.router.workers_connected()) < n_workers):
+            if time.perf_counter() > deadline:
+                raise AssertionError("front door: the pool never returned to "
+                                     f"{n_workers} workers")
+            time.sleep(0.1)
+        back_s = time.perf_counter() - t0
+        got = fd_sup._RESPAWNS.labels(worker="1").value - respawns
+        lost = [k for k, b in acked.items() if _fd_get(url, k) != b]
+        out["kill"] = {"acked": len(acked), "lost": len(lost), "respawns": got,
+                       "back_s": back_s}
+        print(f"  (d) worker 1 SIGKILLed with {kill_puts} PUTs in flight: {len(acked)} "
+              f"acknowledged, {len(lost)} of them lost; respawns_total {got:.0f}; "
+              f"{n_workers} workers again {back_s:.3f} s after the first PUT")
+        if lost or got != 1 or len(acked) < kill_puts // 2:
+            raise AssertionError(f"front door: lost {lost}, respawns {got}, acked "
+                                 f"{len(acked)} of {kill_puts}")
+        objects.update(acked)
+
+        # (e) SIGTERM drain, then one server over the drives.
+        t0 = time.perf_counter()
+        sup.drain(timeout=30)
+        drain_s = time.perf_counter() - t0
+        rcs = {i: p.returncode for i, p in sup.procs.items()}
+        segs = {os.path.basename(p): sorted(n for n in os.listdir(
+            os.path.join(p, ".mtpu.sys", "wal")) if n.endswith(".wal")) for p in paths}
+        exact = _drain_launch_logs(logs, n_workers)
+        print(f"  (e) drained in {drain_s:.3f} s, exit codes {rcs}; WAL segments on "
+              f"d00: {segs['d00']}; exact launches at drain by worker {exact}")
+        want = [f"journal.w{i}.wal" for i in range(n_workers)]
+        if any(rc != 0 for rc in rcs.values()):
+            raise AssertionError(f"front door: a worker did not drain cleanly {rcs}")
+        if any(not set(want) <= set(v) for v in segs.values()):
+            raise AssertionError(f"front door: WAL segments {segs}")
+        if device == "cuda" and (0 not in exact or exact[0]["gf2_matmul"] <= 0
+                                 or exact[0]["mxsum_digest"] <= 0):
+            raise AssertionError(f"front door: worker 0's K1/K2 launches {exact}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+        try:
+            read_s, _w = _fd_run(srv.url, objects, n_clients, "GET")
+            es = srv.obj.pools[0].sets[0]
+            for key in ("/fd-a/big", "/fd-b/hot",
+                        max((k for k in objects if k.startswith("/fd-b/k")),
+                            key=lambda k: len(objects[k]))):
+                _b, bucket, name = key.split("/", 2)
+                _check_sampled_digests(paths, es, bucket, name, device)
+        finally:
+            _close_server(srv)
+        counts = kernels.launches()
+        print(f"  (e) one server read all {len(objects)} keys back in "
+              f"{time.perf_counter() - t0:.3f} s ({read_s:.3f} s of GETs; K2 "
+              f"{counts['mxsum_digest']}); sampled shard digests and parity equal the "
+              f"plain versions")
+        if counts["mxsum_digest"] <= 0:
+            raise AssertionError("front door: the read-back launched no K2")
+        out["ring_end"] = {w: v["fallbacks"] for w, v in ring_end.items()}
+        return out
+    finally:
+        if pin is not None:
+            pin.close()
+        boot.shutdown(wait=True)   # the child has booted, or failed to
+        if child_f.exception() is None and child_f.result().poll() is None:
+            child_f.result().kill()
+            child_f.result().wait(timeout=30)
+        if sup.alive():
+            sup.drain(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def _fd_get(url: str, key: str) -> bytes | None:
+    cl = _Client(url)
+    try:
+        r, data = cl.request("GET", key, check=False)
+        return data if r.status == 200 else None
+    finally:
+        cl.close()
+
+
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
     """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
@@ -4120,7 +4572,7 @@ def listing_phase(seed: int, card: str, mp: _Kept | None, elapsed_s: float,
     their prefix then empty; DeleteBucket on the big bucket answers
     BucketNotEmpty; a small bucket emptied and deleted, then absent from
     ListBuckets; and on phase 6's pools (`mp`), one ListObjectsV2 naming
-    the 5 GiB object once across the 4 pools. The server runs with
+    the multipart object once across the 4 pools. The server runs with
     enable_mrf=False, as every phase's but the heal phase's does."""
     import numpy as np
 
@@ -4392,6 +4844,10 @@ def main() -> int:
         print(f"late device profile (the admin route on an old process; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         late_profile_check(args.seed, card)
+        print(f"front door phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; a pool of "
+              f"workers, shared lanes, the QoS plane; begun at "
+              f"{time.perf_counter() - t_start:.1f} s):")
+        frontdoor_phase(args.seed, card)
         print(f"listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)

@@ -13,7 +13,8 @@ Routes served, under /minio/admin/v3/:
                                        until the client goes (?type=,
                                        ?traceid=, ?plane=)
     GET  perf/timeline                 flight-recorder timelines (?traceid=,
-                                       ?api=, ?worst=)
+                                       ?api=, ?worst=, ?tenant=), this
+                                       worker's and its siblings'
     POST profiling/start               ?profilerType=cpu,device
     GET  profiling/download            the profiles, zipped (InternalError
                                        where the device capture lost
@@ -286,9 +287,10 @@ class AdminAPI:
             worst = int(q.get("worst") or 0)
         except (TypeError, ValueError):
             worst = 0
+        # This worker's recorder and its front-door siblings' spools.
         return {"node": obs.current_node(),
-                "timelines": flight.snapshot(q.get("traceid", ""), q.get("api", ""),
-                                             worst)}
+                "timelines": flight.collect(q.get("traceid", ""), q.get("api", ""),
+                                            worst, q.get("tenant", ""))}
 
     def _bus_stream(self, type_filter: str, traceid: str, plane_filter: str):
         """The process trace bus as JSON lines (handlers.py:638 for one

@@ -42,17 +42,19 @@ class HTTPStats:
         return time.monotonic() - self._started_mono
 
     def begin(self, request_id: str = "", api_hint: str = "",
-              remote: str = "", api_get=None) -> float:
+              remote: str = "", api_get=None, tenant_get=None) -> float:
         """api_get: optional zero-arg callable resolving the request's
         API once dispatch has classified it (the hint is the HTTP method
-        until then)."""
+        until then). tenant_get: same lazy contract for the tenant key
+        (bound by dispatch after auth)."""
         t0 = time.perf_counter()
         with self._mu:
             self.current_requests += 1
             if request_id:
                 self._inflight[request_id] = {
                     "t0": t0, "api": api_hint or "unknown",
-                    "remote": remote, "api_get": api_get}
+                    "remote": remote, "api_get": api_get,
+                    "tenant_get": tenant_get}
         return t0
 
     def _resolve_api(self, entry: dict) -> str:
@@ -66,16 +68,30 @@ class HTTPStats:
                 pass
         return entry["api"]
 
+    @staticmethod
+    def _resolve_tenant(entry: dict) -> str:
+        get = entry.get("tenant_get")
+        if get is not None:
+            try:
+                tenant = get()
+                if tenant:
+                    return tenant
+            # The callback reads state of the handler thread; a race there
+            # degrades one cell of the admin view to "-", never the view.
+            except Exception:  # noqa: BLE001
+                pass
+        return "-"
+
     def inflight(self) -> list[dict]:
         """Snapshot of active requests, oldest first. trace_id == the
         request id (the shared identifier across trace/audit records);
-        the port has no tenants yet (the QoS plane), hence "-"."""
+        tenant is the key dispatch bound after auth, "-" before it."""
         now = time.perf_counter()
         with self._mu:
             items = list(self._inflight.items())
         out = [{"trace_id": rid,
                 "api": self._resolve_api(e),
-                "tenant": "-",
+                "tenant": self._resolve_tenant(e),
                 "ageMs": round((now - e["t0"]) * 1000, 3),
                 "remote": e["remote"]}
                for rid, e in items]

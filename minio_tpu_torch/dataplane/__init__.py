@@ -11,8 +11,9 @@ and restores the per-object codec path, which also serves every block
 above the width gates and every submit the plane sheds. The process-wide
 plane of a device is created on first use and lives for the process (its
 threads are daemons named `mtpu-dataplane-*`); tests that build their own
-planes close() them. The JAX package's front-door plane router has no
-counterpart: `frontdoor/` is not ported.
+planes close() them. A worker of the multi-process front door installs a
+router (`set_router`) whose LaneClient sends lane work over the shm ring
+to worker 0's plane (frontdoor/laneserver.py).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ ENABLE_ENV = "MTPU_BATCHED_DATAPLANE"
 
 _global_mu = threading.Lock()
 _global_planes: dict[torch.device, BatchPlane] = {}
+# Optional plane router, consulted by maybe_plane before the process's own
+# plane: fn() -> a plane-shaped object, or None for the local plane.
+_router = None
 
 
 def enabled() -> bool:
@@ -47,11 +51,23 @@ def get_plane(device: "torch.device | str" = "cuda") -> BatchPlane:
         return plane
 
 
+def set_router(fn) -> None:
+    """Install (or clear, with None) the plane router maybe_plane consults
+    first."""
+    global _router
+    _router = fn
+
+
 def maybe_plane(device: torch.device) -> BatchPlane | None:
     """The plane of `device` when the gate is on, else None (per-object
-    codec path). The serving integration points call this per batch."""
+    codec path): the router's when one is installed and answers, else the
+    process's own. The serving integration points call this per batch."""
     if not enabled():
         return None
+    if _router is not None:
+        plane = _router()
+        if plane is not None:
+            return plane
     return get_plane(device)
 
 

@@ -15,7 +15,9 @@ Batching policy (env-tunable, the JAX package's names and defaults):
 
 Backpressure: the submission queue is bounded (MTPU_DP_QUEUE requests);
 a full queue rejects the submit with AdmissionShed, an OperationTimedOut
-that the S3 layer answers as 503 SlowDown.
+that the S3 layer answers as 503 SlowDown. Under MTPU_QOS=1 it is the
+tenant-fair `qos.FairQueue` (each request carries the tenant that
+submitted it), whose token buckets shed as "tenant_quota".
 
 Device side (the codec's dispatch, erasure/codec.py, per plane): the
 dispatcher stages a batch into a recycled pinned ring slot, then queues
@@ -48,7 +50,7 @@ from concurrent.futures import Future, InvalidStateError
 import numpy as np
 import torch
 
-from minio_tpu_torch import obs
+from minio_tpu_torch import obs, qos
 from minio_tpu_torch.dataplane import ring
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.obs import kernel as obs_kernel
@@ -92,7 +94,7 @@ class CodecRequest:
     completion thread, and the future the request thread waits on."""
 
     __slots__ = ("base", "rows", "stage", "finish", "future", "t_submit",
-                 "trace_id", "tl")
+                 "trace_id", "tl", "tenant")
 
     def __init__(self, base: _BaseKey, rows: int, stage, finish):
         self.base = base
@@ -105,6 +107,10 @@ class CodecRequest:
         # into the dispatcher thread, which has no request context.
         self.trace_id = obs.trace_id()
         self.tl = flight.current()
+        # Whose lane slots this work takes: captured like the trace id, so
+        # worker 0's lanes schedule ring work by the tenant its slot header
+        # carried.
+        self.tenant = qos.current_key()
 
 
 class _OpenBatch:
@@ -228,9 +234,13 @@ class BatchPlane:
         depth = ring_depth if ring_depth is not None else int(
             env("MTPU_DP_RING_DEPTH", str(DEFAULT_RING_DEPTH)))
         cuda = self.device.type == "cuda"
-        # The JAX package's disarmed QoS queue is this plain bounded queue;
-        # the tenant-fair FairQueue waits for the port's qos/.
-        self._q: queue.Queue = queue.Queue(maxsize=cap)
+        # Admission: a plain bounded queue, or under MTPU_QOS=1 a
+        # tenant-fair DRR queue whose byte cost is rows x block width.
+        self._q = qos.plane_queue(
+            "dataplane", cap,
+            tenant_of=lambda r: r.tenant,
+            cost_of=lambda r: r.rows * max(1, r.base[3]),
+            is_control=lambda it: it is _CLOSE)
         self._done_q: queue.Queue = queue.Queue()
         self._rings = ring.RingPool(depth=depth, pinned=cuda)
         self._stream = torch.cuda.Stream(self.device) if cuda else None
@@ -499,10 +509,14 @@ class BatchPlane:
                 msg=f"batched dataplane failed: {self._broken}")
         try:
             self._q.put_nowait(req)
-        except queue.Full:
+        except queue.Full as e:
             with self._close_mu:  # rejected count: cross-thread writes
                 self._stats["rejected"] += 1
             obs_kernel.dataplane_rejected(req.base.op)
+            if isinstance(e, qos.QuotaFull):
+                raise admission.shed(
+                    "dataplane", "tenant_quota",
+                    "tenant over dataplane rate quota") from None
             raise admission.shed(
                 "dataplane", "lane_full",
                 "batched dataplane saturated (bounded queue full)") from None

@@ -9,9 +9,11 @@ path is the fallback on every miss and the byte-exactness oracle. A hit
 requires the freshly elected FileInfo to match the resident entry's
 identity, so a stale entry can only miss, never serve.
 
-The process-wide tier of a device is created on first use. The JAX
-package's front-door router has no counterpart: `frontdoor/` is not
-ported.
+The process-wide tier of a device is created on first use. Under the
+multi-process front door the tier lives in worker 0 beside its
+LaneServer; sibling workers install a router (`set_router`) whose client
+probes it over the shm ring (OP_HOTGET), so every worker's hot GETs share
+one residence and its launches (frontdoor/laneserver.py).
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ ENABLE_ENV = "MTPU_HOTTIER"
 
 _global_mu = threading.Lock()
 _global_tiers: dict = {}
+# Optional tier router, consulted by maybe_tier before the process's own
+# tier (a sibling front-door worker's HotRingClient).
+_router = None
 # Optional process-wide admit reader: fn(bucket, obj) -> (info, byte
 # iterator), used when a miss note carries no reader of its own.
 _reader = None
@@ -49,6 +54,13 @@ def get_tier(device: "torch.device | str" = "cuda"):
         return tier
 
 
+def set_router(fn) -> None:
+    """Install (or clear, with None) the tier router maybe_tier consults
+    first."""
+    global _router
+    _router = fn
+
+
 def set_reader(fn) -> None:
     """Register the process-wide admit reader (or clear it with None)."""
     global _reader
@@ -64,6 +76,10 @@ def maybe_tier(device: torch.device):
     The GET integration point calls this per request."""
     if not enabled():
         return None
+    if _router is not None:
+        tier = _router()
+        if tier is not None:
+            return tier
     return get_tier(device)
 
 

@@ -18,8 +18,9 @@ On by default, as in the JAX package: MTPU_METAPLANE=0 (or false, off)
 restores the per-request write + fsync + rename of every journal. A WAL
 left on a drive is replayed at mount whatever the gate says. The knobs
 are the JAX package's environment variables with its defaults; the port
-adds none. The port has no multi-process front door yet, so it is always
-the only writer of its drives' journals (`single_owner()`).
+adds none. Under the multi-process front door (`frontdoor/`) every
+worker journals into its own segment (`wal_segment()`), and the
+cross-process rules of `single_owner()` apply.
 """
 
 from __future__ import annotations
@@ -64,15 +65,29 @@ def lazy_materialize() -> bool:
     return os.environ.get("MTPU_WAL_LAZY_MATERIALIZE", "") == "1"
 
 
+def wal_segment() -> str:
+    """Journal segment suffix of this process (`journal.<seg>.wal`); empty
+    for the single-owner `journal.wal`. The front-door supervisor stamps
+    MTPU_WAL_SEGMENT=w<id> into every worker, so each segment file has one
+    writer process."""
+    return os.environ.get("MTPU_WAL_SEGMENT", "")
+
+
 def single_owner() -> bool:
-    """True when this process is its drives' only journal writer. The
-    port has no multi-worker front door, so it always is."""
-    return True
+    """True when this process is its drives' only journal writer. False in
+    a worker of a multi-worker front door: journals then materialize inside
+    the ack (still no per-file fsync), the set cache validates by stat
+    instead of sequence numbers, and a fresh volume proves no key absent
+    (a sibling may have journaled it)."""
+    from minio_tpu_torch import frontdoor
+
+    return not frontdoor.multiworker()
 
 
 def eager_materialize() -> bool:
-    """Materialize each batch before its futures resolve (MTPU_WAL_EAGER=1;
-    forced under a multi-worker front door in the JAX package)."""
+    """Materialize each batch before its futures resolve: forced under a
+    multi-worker front door (read-your-write across processes flows
+    through the filesystem), opt-in with MTPU_WAL_EAGER=1 otherwise."""
     return not single_owner() or os.environ.get("MTPU_WAL_EAGER", "") == "1"
 
 

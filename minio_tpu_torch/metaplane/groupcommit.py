@@ -25,10 +25,20 @@ fail with FaultyDisk (the quorum counts the drive as failed) and later
 submits fail at once. A materialization failure leaves the entry pending
 (still served from memory, still in the WAL) and blocks truncation.
 
-Differences from the JAX package: the submission queue is a plain
-bounded queue (no tenant-fair scheduling until the QoS plane is ported),
-and there is one segment per drive (the port has no multi-process front
-door), though replay folds every segment a JAX front door left.
+The submission queue is `qos.plane_queue`: a plain bounded queue, or
+under MTPU_QOS=1 a tenant-fair DRR queue whose flush and close are
+control items (released only after everything enqueued before them) and
+whose tombstones (remove, remove_prefix, blob_remove) are ordering
+fences, so file order equals submit order wherever replay depends on it.
+Each record's tenant rides its future (`mtpu_tenant`) into the batch
+record.
+
+Under a multi-worker front door each worker writes its own segment,
+`journal.<MTPU_WAL_SEGMENT>.wal` (`journal.w<id>.wal`), holding its flock
+for its whole life; a mount folds only the segments no live process
+holds. Batches then materialize before their acks (siblings read through
+the filesystem) and `key_sig` answers None (a sibling's commits move
+state this process's sequence numbers never see).
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ import weakref
 from collections import OrderedDict
 from concurrent.futures import Future
 
-from minio_tpu_torch import metaplane, obs
+from minio_tpu_torch import metaplane, obs, qos
 from minio_tpu_torch.metaplane import wal as walfmt
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.utils import admission
@@ -78,6 +88,20 @@ _live_by_path: dict = {}
 # Numbers every DriveWAL of the process once: with a record's lsn, which
 # restarts at each mount, it names a pending write uniquely.
 _GENERATIONS = itertools.count(1)
+
+
+def _wal_cost(item) -> int:
+    """Byte cost of one submit for QoS byte quotas: its serialized payload
+    (index 3 of every record shape; "single" nests it at payload[1])."""
+    raw = item[3]
+    if isinstance(raw, tuple):
+        raw = raw[1] if len(raw) > 1 else None
+    if raw is None:
+        return 0
+    try:
+        return len(raw)
+    except TypeError:
+        return 0
 
 
 def _next_seq() -> int:
@@ -247,13 +271,16 @@ class DriveWAL:
         self.drive = drive
         self.generation = next(_GENERATIONS)
         self._dir = os.path.join(drive.root, drive.sys_volume(), "wal")
-        self.path = os.path.join(self._dir, "journal.wal")
+        seg = metaplane.wal_segment()
+        self.path = os.path.join(self._dir,
+                                 f"journal.{seg}.wal" if seg else "journal.wal")
         os.makedirs(self._dir, exist_ok=True)
         self._max_bytes = metaplane.wal_max_bytes()
         self._max_pending = metaplane.wal_max_pending()
         self._max_batch = metaplane.wal_max_batch()
         self._lazy = metaplane.lazy_materialize()
         self._eager = metaplane.eager_materialize()
+        self._multi = not metaplane.single_owner()
 
         with _live_mu:
             prior = _live_by_path.pop(self.path, None)
@@ -284,7 +311,13 @@ class DriveWAL:
             os.fsync(self._fd)
         self._bytes = os.fstat(self._fd).st_size
 
-        self._q: queue.Queue = queue.Queue(maxsize=metaplane.wal_queue_depth())
+        self._q = qos.plane_queue(
+            "metaplane", metaplane.wal_queue_depth(),
+            tenant_of=lambda it: getattr(it[-1], "mtpu_tenant", None),
+            cost_of=_wal_cost,
+            is_control=lambda it: it[0] in ("flush", "close"),
+            is_barrier=lambda it: it[0] in ("remove_prefix", "remove",
+                                            "blob_remove"))
         self._mu = threading.Lock()  # pending overlay + per-key lsn map
         self._pending: OrderedDict[tuple[str, str], Entry] = OrderedDict()
         self._key_lsn: OrderedDict[tuple[str, str], int] = OrderedDict()
@@ -355,9 +388,15 @@ class DriveWAL:
         tl = flight.current()
         if tid is not None or tl is not None:
             item[-1].mtpu_fctx = (tid, tl, time.perf_counter())
+        tenant = qos.current_key()
+        if tenant != qos.UNATTRIBUTED:
+            item[-1].mtpu_tenant = tenant
         try:
             self._q.put_nowait(item)
-        except queue.Full:
+        except queue.Full as e:
+            if isinstance(e, qos.QuotaFull):
+                raise admission.shed("metaplane", "tenant_quota",
+                                     "tenant over wal rate quota") from None
             raise admission.shed("metaplane", "wal_full",
                                  "wal commit queue full (backpressure)") from None
         return item[-1]
@@ -494,7 +533,10 @@ class DriveWAL:
 
     def key_sig(self, volume: str, path: str):
         """("w", lsn) of the key's journal: every mutation bumps it at
-        submit. None once the key left the LRU (callers stat instead)."""
+        submit. None once the key left the LRU, and always under a
+        multi-worker front door (callers stat instead)."""
+        if self._multi:
+            return None
         with self._mu:
             lsn = self._key_lsn.get((volume, path))
         return None if lsn is None else ("w", lsn)
@@ -601,7 +643,11 @@ class DriveWAL:
         # with its submit-to-fsync wait and link the group in one record.
         t_ack = time.perf_counter()
         members = []
+        tenants = set()
         for rec in staged:
+            ten = getattr(rec[7], "mtpu_tenant", None)
+            if ten:
+                tenants.add(ten)
             fctx = getattr(rec[7], "mtpu_fctx", None)
             if fctx is None:
                 continue
@@ -613,7 +659,7 @@ class DriveWAL:
         if obs.has_subscribers():
             obs.publish({"type": "batch", "plane": "metaplane",
                          "records": len(staged), "members": members,
-                         "tenants": [], "time": time.time()})
+                         "tenants": sorted(tenants), "time": time.time()})
         # Publish the overlay before resolving: the instant an ack fires,
         # a read sees the new state. A newer published lsn is never
         # downgraded.

@@ -20,8 +20,9 @@ journal holding a record it cannot apply).
 A record counts once the fsync covering it returned: `scan` stops at the
 first short or corrupt frame, so a torn tail (a kill between append and
 fsync) drops only writes that were never acknowledged. Within a file,
-file order is commit order; across the segments a multi-worker JAX front
-door leaves (`journal.<seg>.wal`), the newest `mt` wins per key.
+file order is commit order; across the segments a multi-worker front
+door leaves (`journal.<seg>.wal`, either package's), the newest `mt` wins
+per key.
 """
 
 from __future__ import annotations
@@ -156,7 +157,7 @@ def fold(path: str) -> dict[tuple[str, str], Record]:
 
 def segment_paths(wal_dir: str) -> list[str]:
     """Every journal segment under a drive's wal dir, sorted: the classic
-    `journal.wal` and the JAX front door's `journal.w<id>.wal`."""
+    `journal.wal` and a front-door worker's `journal.w<id>.wal`."""
     try:
         names = os.listdir(wal_dir)
     except OSError:

@@ -42,6 +42,7 @@ from minio_tpu_torch.obs.span import (  # noqa: F401
     has_subscribers,
     publish,
     reset_trace_context,
+    set_default_node,
     set_trace_context,
     span,
     timed_op,

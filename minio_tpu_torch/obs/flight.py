@@ -2,8 +2,9 @@
 (counterpart of minio_tpu/obs/flight.py, same stage names).
 
 Aggregate histograms say *that* a PUT took 4 ms; they cannot say where
-the 4 ms went once the request crossed into the batch planes. The flight
-recorder keeps the critical-path decomposition per request:
+the 4 ms went once the request crossed into the batch planes (dataplane
+lanes, group-commit WAL, shm ring, hot tier). The flight recorder keeps
+the critical-path decomposition per request:
 
 - a `Timeline` rides the request's contextvars (the same channel the
   trace id uses, crossing thread hops via `obs.ctx_wrap`) and records
@@ -15,21 +16,22 @@ recorder keeps the critical-path decomposition per request:
     e2e latency;
   * detail **stamps** — `stamp("dp_queue_wait", dt, plane="dataplane")`
     attaches a plane-measured duration that overlaps a sequential
-    segment. Stamps attribute, marks account.
+    segment (queue wait inside `encode`, fsync wait inside `commit`).
+    Stamps attribute, marks account.
 
 - completed timelines land in a per-process bounded ring (last N
   requests) plus a slowest-N-per-API board, both queryable through
-  `GET /minio/admin/v3/perf/timeline?traceid=|api=|worst=`;
+  `GET /minio/admin/v3/perf/timeline?traceid=|api=|worst=|tenant=` —
+  federated across front-door workers (shm spool, frontdoor/shm.py
+  FlightSpool);
 - every stage feeds the `minio_tpu_stage_seconds{api,stage,plane}`
   histogram family.
 
-The port's front door is one process, so the JAX package's worker spool
-fan-in (attach_sink, set_sibling_reader) is not carried.
-
-Zero-overhead contract: disarmed (`MTPU_FLIGHT=0`), `begin()` never binds
-a Timeline, so every `mark()`/`stamp()`/`current()` on the hot path is
-one contextvar read returning None. `Timeline.allocated` counts
-constructions.
+Zero-overhead contract (mirrors the trace bus): disarmed
+(`MTPU_FLIGHT=0`), `begin()` never binds a Timeline, so every
+`mark()`/`stamp()`/`current()` on the hot path is one contextvar read
+returning None. `Timeline.allocated` counts constructions so tests can
+assert the disarmed path allocates nothing.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ _tl: contextvars.ContextVar = contextvars.ContextVar(
 _mu = threading.Lock()
 _ring: deque = deque(maxlen=_RING_N)        # completed snapshots, FIFO
 _worst: dict[str, list] = {}                # api -> [(e2e_ns, snap)] desc
-_WORKER = -1    # the JAX package's front-door worker id; -1: one process
+_sink = None                                # worker shm spool writer
+_sibling_reader = None                      # reads other workers' spools
+_worker = -1                                # front-door worker id, -1 solo
 
 
 class Timeline:
@@ -72,13 +76,14 @@ class Timeline:
 
     allocated = 0  # class-level construction count (zero-overhead guard)
 
-    __slots__ = ("trace_id", "api", "_t0", "_cursor", "_stages",
+    __slots__ = ("trace_id", "api", "tenant", "_t0", "_cursor", "_stages",
                  "_done", "_lock")
 
     def __init__(self, trace_id: str, api: str = ""):
         Timeline.allocated += 1
         self.trace_id = trace_id
         self.api = api
+        self.tenant = ""
         now = time.perf_counter()
         self._t0 = now
         self._cursor = now
@@ -117,8 +122,9 @@ class Timeline:
         return {
             "trace_id": self.trace_id,
             "api": api,
+            "tenant": self.tenant,
             "node": _current_node(),
-            "worker": _WORKER,
+            "worker": _worker,
             "time": time.time(),
             "status": status,
             "e2e_ns": int((now - self._t0) * 1e9),
@@ -151,6 +157,12 @@ def set_api(api: str) -> None:
         tl.api = api
 
 
+def set_tenant(tenant: str) -> None:
+    tl = _tl.get()
+    if tl is not None:
+        tl.tenant = tenant
+
+
 def mark(stage: str, plane: str = "s3") -> None:
     tl = _tl.get()
     if tl is not None:
@@ -174,6 +186,14 @@ def end(status: int = 200, final_stage: str | None = "resp_drain") -> None:
     finish(tl, status=status, final_stage=final_stage)
 
 
+def detached(trace_id: str, api: str) -> Timeline | None:
+    """A Timeline NOT bound to the context — for server-side work whose
+    originating request lives in another process (ring lane serves)."""
+    if not _ARMED:
+        return None
+    return Timeline(trace_id, api)
+
+
 def finish(tl: Timeline, status: int = 200,
            final_stage: str | None = None) -> dict:
     snap = tl.finalize(status, final_stage)
@@ -183,10 +203,23 @@ def finish(tl: Timeline, status: int = 200,
         board.append((snap["e2e_ns"], snap))
         board.sort(key=lambda t: -t[0])
         del board[_WORST_N:]
+    sink = _sink
+    if sink is not None:
+        try:
+            sink(snap)
+        # the spool is a best-effort cross-worker
+        # mirror; the local ring above already holds the snapshot, and a
+        # recorder failure must never fail the request being recorded.
+        except Exception:  # noqa: BLE001
+            pass
     return snap
 
 
-# --- switches ---------------------------------------------------------------
+# --- wiring (worker fan-in) --------------------------------------------------
+
+
+def armed() -> bool:
+    return _ARMED
 
 
 def set_armed(on: bool) -> None:
@@ -195,29 +228,53 @@ def set_armed(on: bool) -> None:
     _ARMED = bool(on)
 
 
+def set_worker(worker: int) -> None:
+    global _worker
+    _worker = worker
+
+
+def attach_sink(fn) -> None:
+    """Every finished snapshot is also handed to `fn(snap)` — the
+    front-door worker wires its shm FlightSpool writer here so the
+    admin endpoint can read all workers' recorders from any worker."""
+    global _sink
+    _sink = fn
+
+
+def set_sibling_reader(fn) -> None:
+    """`fn() -> list[snap]` reading the OTHER workers' spools."""
+    global _sibling_reader
+    _sibling_reader = fn
+
+
 def reset() -> None:
     """Drop recorded state (tests)."""
+    global _sink, _sibling_reader
     with _mu:
         _ring.clear()
         _worst.clear()
+    _sink = None
+    _sibling_reader = None
 
 
 # --- query -------------------------------------------------------------------
 
 
-def _matches(snap: dict, traceid: str, api: str) -> bool:
+def _matches(snap: dict, traceid: str, api: str, tenant: str = "") -> bool:
     if traceid and snap.get("trace_id") != traceid:
         return False
     if api and snap.get("api") != api:
+        return False
+    if tenant and snap.get("tenant") != tenant:
         return False
     return True
 
 
 def query(snaps, traceid: str = "", api: str = "",
-          worst: int = 0) -> list[dict]:
-    """Filter + order an iterable of snapshots: trace-id/api exact
-    match; `worst` keeps the N slowest, else newest first."""
-    out = [s for s in snaps if _matches(s, traceid, api)]
+          worst: int = 0, tenant: str = "") -> list[dict]:
+    """Filter + order an iterable of snapshots: trace-id/api/tenant
+    exact match; `worst` keeps the N slowest, else newest first."""
+    out = [s for s in snaps if _matches(s, traceid, api, tenant)]
     if worst > 0:
         out.sort(key=lambda s: -s.get("e2e_ns", 0))
         return out[:worst]
@@ -226,7 +283,7 @@ def query(snaps, traceid: str = "", api: str = "",
 
 
 def snapshot(traceid: str = "", api: str = "",
-             worst: int = 0) -> list[dict]:
+             worst: int = 0, tenant: str = "") -> list[dict]:
     """This process's recorder contents, filtered."""
     with _mu:
         if worst > 0:
@@ -235,4 +292,22 @@ def snapshot(traceid: str = "", api: str = "",
             snaps = [s for board in boards for _, s in board]
         else:
             snaps = list(_ring)
-    return query(snaps, traceid, api, worst)
+    return query(snaps, traceid, api, worst, tenant)
+
+
+def collect(traceid: str = "", api: str = "",
+            worst: int = 0, tenant: str = "") -> list[dict]:
+    """Local recorder + sibling front-door workers' spools, filtered.
+    Peer federation happens a layer up (admin/handlers.py), the same
+    split /metrics/cluster uses."""
+    snaps = snapshot(traceid, api, worst, tenant)
+    reader = _sibling_reader
+    if reader is not None:
+        try:
+            snaps = query(snaps + reader(), traceid, api, worst, tenant)
+        # a sibling worker mid-respawn (its spool
+        # gone or half-built) degrades the answer to local-only; the
+        # query must still serve what this worker has.
+        except Exception:  # noqa: BLE001
+            pass
+    return snaps

@@ -61,6 +61,14 @@ _node_ctx: contextvars.ContextVar = contextvars.ContextVar(
 _NODE_DEFAULT = socket.gethostname()
 
 
+def set_default_node(name: str) -> None:
+    """Process-wide fallback node identity (a front-door worker names
+    itself `<addr>#w<id>`)."""
+    global _NODE_DEFAULT
+    if name:
+        _NODE_DEFAULT = name
+
+
 def set_trace_context(trace_id: str | None = None, node: str | None = None):
     """Bind trace id and/or node identity to the current context. Returns
     an opaque token for reset_trace_context (pass through unchanged)."""

@@ -128,18 +128,26 @@ def _build(target: Path) -> str:
     return log
 
 
+def build() -> Path:
+    """Build the kernel library unless this checkout already has it; its
+    path. Loads nothing and touches no device (the front door's supervisor
+    builds once here before its workers start)."""
+    global build_log
+    target = BUILD_DIR / f"libmtpu_torch_kernels-{_digest()}.so"
+    if not target.exists():
+        build_log = _build(target)
+    return target
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
     with _lib_mu:
         if _lib is not None:
             return _lib
-        target = BUILD_DIR / f"libmtpu_torch_kernels-{_digest()}.so"
-        if not target.exists():
-            build_log = _build(target)
-        lib = ctypes.CDLL(str(target))
+        lib = ctypes.CDLL(str(build()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mtpu_gf2_matmul.argtypes = [p, p, p, i, i, i, ll, ll, p]
         lib.mtpu_gf2_matmul.restype = i

@@ -94,6 +94,19 @@ answer's headers flush), its flight-recorder timeline and, while someone
 traces, an `http` record take it, the body's send included.
 The request id is the trace id of every record the request causes.
 
+Each request's tenant (qos/: access key and bucket) is bound right after
+authentication, in the same context as the trace id: every batch-plane
+submit, WAL record, shm ring slot and admission shed downstream is
+charged to it, the minio_tpu_tenant_* families count it, and admin
+top/api and perf/timeline show it. The /minio/ planes stay on the
+unattributed "-" lane.
+
+A server binds its address in the constructor, or with listen=False binds
+nothing: the front door's workers (frontdoor/worker.py) then hand it
+connections the supervisor accepted (`adopt`) or a listening socket the
+worker opened (`serve_socket`). Every answer passes the `on_response`
+hooks, which may add headers (the front door's X-Mtpu-Worker).
+
 The object layer is any of the port's: build_server assembles drives ->
 ErasureSets (sets of --set-drive-count drives) -> ErasureServerPools, as
 the JAX package's build_server does, with each set's MRF healer on
@@ -125,7 +138,7 @@ import uuid
 import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from minio_tpu_torch import obs
+from minio_tpu_torch import obs, qos
 from minio_tpu_torch.admin.configkv import ConfigSys
 from minio_tpu_torch.admin.handlers import ADMIN_PREFIX, AdminAPI
 from minio_tpu_torch.admin.metrics import (OPENMETRICS_CONTENT_TYPE,
@@ -189,6 +202,14 @@ _REQ_LATENCY = obs.histogram(
 _REQ_TTFB = obs.histogram(
     "minio_tpu_s3_ttfb_seconds",
     "Time to first response byte by API", ("api",))
+# Per-tenant families (the QoS plane): tenant = the "access_key/bucket"
+# key bound in dispatch, folded by qos.metric_key past its label cap.
+_TENANT_LATENCY = obs.histogram(
+    "minio_tpu_tenant_request_seconds",
+    "End-to-end request latency by tenant", ("tenant",))
+_TENANT_REQS = obs.counter(
+    "minio_tpu_tenant_requests_total",
+    "Requests by tenant and status class", ("tenant", "code"))
 
 # /minio/ paths of the JAX server's web console, which the port lacks.
 _WEB_PATHS = ("/minio/browser", "/minio/webrpc", "/minio/upload/",
@@ -289,7 +310,7 @@ class _Request:
     in-flight count, and the end of its accounting, done at most once."""
 
     __slots__ = ("id", "method", "path", "remote", "api", "t0", "ttfb", "rx",
-                 "left", "done")
+                 "left", "done", "tenant")
 
     def __init__(self, request_id: str, method: str, path: str, remote: str, rx: int):
         self.id = request_id
@@ -302,6 +323,7 @@ class _Request:
         self.rx = rx
         self.left = False
         self.done = False
+        self.tenant = ""
 
 
 def _int_q(q: dict, name: str, default: int, lo: int = 0, hi: int = 100_000) -> int:
@@ -319,10 +341,12 @@ def _int_q(q: dict, name: str, default: int, lo: int = 0, hi: int = 100_000) -> 
 
 class S3Server:
     """The S3 handlers over an object layer (ErasureServerPools,
-    ErasureSets or one ErasureObjects), bound to an address."""
+    ErasureSets or one ErasureObjects), bound to an address unless
+    `listen` is False (the front door's workers)."""
 
     def __init__(self, obj, creds: sigv4.Credentials,
-                 address: str = "127.0.0.1:0", versioned_buckets: bool = False):
+                 address: str = "127.0.0.1:0", versioned_buckets: bool = False,
+                 listen: bool = True):
         self.obj = obj
         self.creds = creds
         # Every bucket versioned (a server-wide default), else each
@@ -340,9 +364,13 @@ class S3Server:
         self.atrest = AtRest(obj, creds, self.config, self.kms, self.bucket_meta)
         self.apply_storage_class_config()
         host, _, port = address.rpartition(":")
-        self.httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)), _Handler)
+        self.httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)), _Handler,
+                                         bind_and_activate=listen)
         self.httpd.daemon_threads = True
         self.httpd.s3 = self
+        # Callables fn(headers) run on every answer's headers before they
+        # are sent (the front door stamps its worker id here).
+        self.on_response: list = []
         self._thread: threading.Thread | None = None
         self.auto_healer: list = []
         self.stats = HTTPStats()
@@ -393,6 +421,25 @@ class S3Server:
     def url(self) -> str:
         host, port = self.httpd.server_address[:2]
         return f"http://{host}:{port}"
+
+    def adopt(self, conn, addr=None) -> None:
+        """Serve one connection accepted elsewhere (the front door's
+        router passes it over a Unix socket), on a thread of its own."""
+        self.httpd.process_request(conn, addr or conn.getpeername())
+
+    def serve_socket(self, sock) -> "S3Server":
+        """Serve a listening socket opened elsewhere (the front door's
+        SO_REUSEPORT listener) in a background daemon thread."""
+        self.httpd.socket.close()
+        self.httpd.socket = sock
+        self.httpd.server_address = sock.getsockname()
+        return self.start()
+
+    def stop_accepting(self) -> None:
+        """End the listener's serve loop (no new connection); the requests
+        in flight go on in their threads."""
+        if self._thread is not None:
+            self.httpd.shutdown()
 
     def start(self) -> "S3Server":
         """Serve in a background daemon thread."""
@@ -555,6 +602,15 @@ class S3Server:
             return self._health(path, q)
         auth = self._authenticate(method, path, query_items, q, headers)
         identity = auth.identity
+        # The tenant, bound once here beside the trace id (the handler
+        # resets it when the request ends). The /minio/ planes stay on the
+        # unattributed lane: only the exact reserved segment, so a bucket
+        # merely named "minio-..." is a tenant like any other.
+        tpath = path.lstrip("/").split("/", 1)[0]
+        if tpath != "minio":
+            qos.bind(identity.access_key or "anonymous", tpath)
+            req.tenant = qos.current_key()
+            flight.set_tenant(req.tenant)
         flight.mark("auth")
         # Temporary credentials present their session token too
         # (cmd/auth-handler.go getSessionToken).
@@ -1395,16 +1451,21 @@ class _Handler(BaseHTTPRequestHandler):
         # context for the request, and carried by obs.ctx_wrap into every
         # thread that works on its behalf.
         tokens = obs.set_trace_context(request_id)
+        # The connection's thread serves its requests in turn: each starts
+        # unattributed and leaves no tenant behind.
+        qtok = qos.bind_key(qos.UNATTRIBUTED)
         flight.begin(request_id)
         req.t0 = self.server.s3.stats.begin(request_id, api_hint=method.lower(),
                                             remote=req.remote,
-                                            api_get=lambda: req.api)
+                                            api_get=lambda: req.api,
+                                            tenant_get=lambda: req.tenant)
         resp = None
         try:
             resp = self._answer(method, path, query_items, length, body, req)
         finally:
             self._account(req, resp.status if resp is not None else 500,
                           resp.length if resp is not None else 0)
+            qos.reset(qtok)
             obs.reset_trace_context(tokens)
 
     def _leave(self, req: _Request) -> None:
@@ -1431,6 +1492,10 @@ class _Handler(BaseHTTPRequestHandler):
                      left=True)
         _REQ_LATENCY.labels(api=api).observe(dt)
         _REQ_TTFB.labels(api=api).observe(dt if req.ttfb is None else req.ttfb)
+        if req.tenant:
+            mkey = qos.metric_key(req.tenant)
+            _TENANT_LATENCY.labels(tenant=mkey).observe(dt)
+            _TENANT_REQS.labels(tenant=mkey, code=f"{status // 100}xx").inc()
         if obs.has_subscribers():
             rec = {"type": "http", "time": time.time(), "api": api,
                    "method": req.method, "path": req.path, "status": status,
@@ -1464,6 +1529,8 @@ class _Handler(BaseHTTPRequestHandler):
             # Unread request body left on the connection: it cannot carry
             # another request.
             self.close_connection = True
+        for hook in self.server.s3.on_response:
+            hook(resp.headers)
         chunked = resp.length is None
         self.send_response(resp.status)
         for k, v in resp.headers.items():
@@ -1616,10 +1683,12 @@ def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                  device="cuda", address: str = "127.0.0.1:0",
                  parity: int | None = None,
                  set_drive_count: int | None = None,
-                 versioned: bool = False, enable_mrf: bool = True) -> S3Server:
+                 versioned: bool = False, enable_mrf: bool = True,
+                 listen: bool = True) -> S3Server:
     """Format (or read the format of) the drives as sets of
     `set_drive_count` (default: one set of all), put them in one pool and
-    bind its S3 server; `versioned` versions every bucket, `enable_mrf`
+    bind its S3 server (`listen=False`: bind nothing, S3Server.adopt and
+    serve_socket feed it); `versioned` versions every bucket, `enable_mrf`
     (the JAX default, on) gives each set its MRF healer. Call .start() to
     serve in the background, .start_auto_heal() for the drive healer,
     .close() to stop all of it."""
@@ -1628,7 +1697,7 @@ def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                        enable_mrf=enable_mrf, device=device)
     return S3Server(ErasureServerPools([sets]),
                     sigv4.Credentials(access_key, secret_key), address,
-                    versioned_buckets=versioned)
+                    versioned_buckets=versioned, listen=listen)
 
 
 def main(argv=None) -> None:

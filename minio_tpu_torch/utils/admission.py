@@ -4,18 +4,20 @@ minio_tpu/utils/admission.py).
 A plane whose bounded queue is full, or that is closed, rejects the
 submit with AdmissionShed, an OperationTimedOut that the S3 error map
 answers as 503 SlowDown. Each shed is counted by (plane, cause), with the
-JAX package's slugs ("dataplane"; "lane_full", "closed"), in the family
-minio_tpu_admission_shed_total{plane,cause,tenant}; the port has no
-tenants yet (the QoS plane), so `tenant` is "-", the JAX package's label
-for unattributed work. `stats()` returns this process's counts by
-(plane, cause).
+JAX package's slugs (planes "dataplane", "metaplane"; causes "lane_full",
+"wal_full", "wal_flush_full", "closed", and "tenant_quota" when a QoS
+token bucket refused the op), in the family
+minio_tpu_admission_shed_total{plane,cause,tenant}. The tenant label is
+the request's (qos.metric_key(): "-" for unattributed work, "~other"
+past the label cardinality cap). `stats()` returns this process's counts
+by (plane, cause).
 """
 
 from __future__ import annotations
 
 import threading
 
-from minio_tpu_torch import obs
+from minio_tpu_torch import obs, qos
 from minio_tpu_torch.utils import errors as se
 
 _SHED = obs.counter(
@@ -30,7 +32,7 @@ _sheds: dict[tuple[str, str], int] = {}
 
 def shed(plane: str, cause: str, msg: str) -> se.AdmissionShed:
     """Count one shed and build the typed rejection; the caller raises it."""
-    _SHED.labels(plane=plane, cause=cause, tenant="-").inc()
+    _SHED.labels(plane=plane, cause=cause, tenant=qos.metric_key()).inc()
     with _mu:
         _sheds[(plane, cause)] = _sheds.get((plane, cause), 0) + 1
     return se.AdmissionShed(msg=msg)

@@ -35,7 +35,9 @@ BUCKET = "adm"
 FAMILY_MODULES = ("obs.kernel", "obs.flight", "hottier.tier", "dataplane.batcher",
                   "utils.admission", "erasure.healing", "erasure.objects",
                   "erasure.metadata", "storage.local", "storage.healthcheck",
-                  "metaplane.groupcommit", "metaplane.setcache", "s3.server")
+                  "metaplane.groupcommit", "metaplane.setcache", "s3.server",
+                  "frontdoor.laneserver", "frontdoor.worker",
+                  "frontdoor.supervisor")
 for _m in FAMILY_MODULES:
     importlib.import_module(f"minio_tpu.{_m}")
     importlib.import_module(f"minio_tpu_torch.{_m}")
@@ -45,9 +47,6 @@ for _m in FAMILY_MODULES:
 # shows and the port's does not must be defined in one of these.
 JAX_ONLY_MODULES = {
     "minio_tpu/storage/local.py": 3,         # directory fsync errors
-    "minio_tpu/frontdoor/": 6,               # the multi-process front door
-    "minio_tpu/qos/": 6,
-    "minio_tpu/s3/server.py": 6,             # per-tenant families (qos)
     "minio_tpu/dist/": 7,                    # peers, RPC fabric, dsync
     "minio_tpu/replication/": 7,
     "minio_tpu/scanner/": 7,

@@ -22,8 +22,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xxhash"}
 
 # Modules of the metadata plane and drive-resilience slice, of the
-# data-at-rest slice and of the identity-and-access slice, each its own
-# copy of the JAX module it ports: they must be in the scan.
+# data-at-rest slice, of the identity-and-access slice and of the front
+# door and QoS slice, each its own copy of the JAX module it ports: they
+# must be in the scan.
 SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "metaplane/groupcommit.py", "metaplane/setcache.py",
                  "storage/idcheck.py", "storage/healthcheck.py",
@@ -33,7 +34,12 @@ SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "crypto/kes.py", "admin/configkv.py", "s3/atrest.py",
                  "iam/__init__.py", "iam/actions.py", "iam/condition.py",
                  "iam/policy.py", "iam/reqctx.py", "iam/sys.py", "iam/oidc.py",
-                 "iam/ldap.py", "bucket/objectlock.py", "s3/sigv2.py")
+                 "iam/ldap.py", "bucket/objectlock.py", "s3/sigv2.py",
+                 "qos/__init__.py", "qos/scheduler.py", "frontdoor/__init__.py",
+                 "frontdoor/__main__.py", "frontdoor/shm.py",
+                 "frontdoor/laneserver.py", "frontdoor/listener.py",
+                 "frontdoor/router.py", "frontdoor/worker.py",
+                 "frontdoor/supervisor.py", "utils/sysres.py")
 
 
 def _port_files():

@@ -167,8 +167,8 @@ def test_flight_timelines_equal_under_a_fixed_clock(monkeypatch):
     for fl, sp in ((jflight, jspan), (tflight, tspan)):
         monkeypatch.setattr(fl, "time", _Clock())
         monkeypatch.setattr(fl, "_ARMED", True)
-        if fl is jflight:   # its front-door worker id, set by other tests
-            monkeypatch.setattr(fl, "_worker", -1)
+        # The front-door worker id, which other tests may have set.
+        monkeypatch.setattr(fl, "_worker", -1)
         # The node is the context's: other tests in this process may have
         # changed either package's default.
         tok = sp.set_trace_context(node="node-1")
@@ -184,9 +184,8 @@ def test_flight_timelines_equal_under_a_fixed_clock(monkeypatch):
         finally:
             sp.reset_trace_context(tok)
         snaps.append(fl.snapshot(traceid="TL1")[0])
-    # The JAX snapshot's "tenant" comes from its QoS plane, which the
-    # port does not have yet (ROADMAP.md Queue 1 item 6).
-    assert snaps[0].pop("tenant") == ""
+    # No tenant was bound: both snapshots carry the empty one.
+    assert snaps[0]["tenant"] == ""
     assert snaps[0] == snaps[1]
     assert [s["stage"] for s in snaps[1]["stages"]] == [
         "auth", "rx_drain", "dp_queue_wait", "encode", "commit", "resp_drain"]
