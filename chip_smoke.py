@@ -70,7 +70,7 @@ package beside it. Phases, each raising on failure:
 6. multipart over erasure sets and pools (BASELINE.json configs 5 and 4):
    64 tmp drives as 4 pools of 16, each pool ErasureSets(set_drive_count=
    16) at EC 12+4, 1 MiB blocks, behind the port's S3 server over HTTP with
-   SigV4. One object of MP_PARTS parts of 16 MiB (2.5 GiB; minio-go's
+   SigV4. One object of MP_PARTS parts of 16 MiB (2 GiB; minio-go's
    part size) with 4 part uploads in flight (minio-go's default), its
    bytes made from --seed part by part and never held whole; a streamed GET
    compared by SHA-256, a Range GET across a part boundary, HEAD with the
@@ -92,7 +92,7 @@ package beside it. Phases, each raising on failure:
    part by part, into a versioned bucket;
 8. heal (heal_phase): on 12 drives in /dev/shm at EC 8+4, the server at
    build_server's defaults (MRF on) and the auto-healer started as main()
-   starts it, with a 1 s interval. 4 objects of 256 MiB, 512 warp-mix
+   starts it, with a 1 s interval. 2 objects of 256 MiB, 256 warp-mix
    objects PUT by 64 clients, a multipart object of 16 parts of 16 MiB,
    64 versioned keys x 3 versions with 16 delete markers; 64 PUTs while
    2 drives refuse every call, drained by the MRF queue once they are
@@ -107,12 +107,12 @@ package beside it. Phases, each raising on failure:
    earlier runs recorded in PERF.md;
 9. listing and the bucket calls (listing_phase): 12 drives on /dev/shm
    at EC 8+4 behind the S3 server, a bucket of LIST_OBJECTS synthetic
-   objects (halved down to 12,500 to fit the 1,000 s budget, and below only
-   to keep the script under 1,100 s) plus 1,000 real
+   objects (halved down to 6,250 to fit the 1,000 s budget, and below only
+   to keep the script under 1,100 s) plus 500 real
    ones PUT through the server; ListObjectsV2 over the whole bucket in
    pages of 1,000 (every name once, in order; the real objects' ETag and
    Size), a delimiter listing, a v1 marker resume, ListBuckets, GETs of
-   every 50th real object, one DeleteObjects of the 1,000, DeleteBucket
+   every 50th real object, one DeleteObjects of the 500, DeleteBucket
    refused on the full bucket and done on an emptied one, then one
    ListObjectsV2 on phase 6's 4 pools naming the multipart object once;
 10. bitrot (bitrot_phase, run before phase 9): every algorithm of the
@@ -164,7 +164,7 @@ package beside it. Phases, each raising on failure:
    versions and timed, and the GET verify's host path (ops/fused.py
    stage_and_digest: staging into the pinned pool, the upload, K2 and the
    download) is timed at the same shape. (a) 64 clients
-   PUT 512 warp-mix objects (1-512 KiB, log-uniform) and GET them back
+   PUT 256 warp-mix objects (1-512 KiB, log-uniform) and GET them back
    byte-equal; objects/s and the node scrape's
    minio_tpu_metaplane_commits_total and _fsyncs_total deltas; (b) a child
    process runs the server's entry point (python -m
@@ -233,7 +233,7 @@ package beside it. Phases, each raising on failure:
    shard) and W = min(4, CPUs) workers, the metaplane and the dataplane
    at their defaults, shared lanes on, MTPU_QOS=1 with the root's two
    buckets fd-a and fd-b weighted 3:1, MTPU_HOTTIER=1 with a 64 MiB
-   budget in worker 0. (a) 64 clients PUT then GET 512 warp-mix objects
+   budget in worker 0. (a) 64 clients PUT then GET 128 warp-mix objects
    (1-512 KiB) over both buckets through the pool, then the same through
    one server process (python -m minio_tpu_torch.s3.server) on fresh
    drives: objects/s and GiB/s of each, requests per worker from
@@ -254,17 +254,52 @@ package beside it. Phases, each raising on failure:
    server mounted on the drives reads every key back byte-equal, with
    sampled shard digests and parity equal to the plain versions.
 
+16. the distributed cluster (cluster_phase, run before phase 9): four
+   node processes of the port (python -m minio_tpu_torch.s3.server with
+   the cluster's URL endpoints, each with its own CUDA context), 4 drives
+   each on /dev/shm, one 16-drive set at the default parity EC:4 (12+4),
+   1 MiB blocks: the upstream distributed quickstart `minio server
+   http://host{1...4}/export{1...4}` at n = m = 4. Cut: the four nodes
+   share one host and one card (each drive path names its node, and the
+   S3 and RPC ports are free ones; the RPC port is the S3 port + 1000).
+   (a) all four boot together and pass bootstrap: seconds to quorum;
+   (b) one 256 MiB object PUT through node 1 and GET through node 3,
+   byte-equal with the md5 as ETag; K1/K2 launches of every node by its
+   scrape (node 1 must launch K1 and K2, node 3 K2); all 16 drives hold a
+   shard file; the first chunk of every shard, read from the drives, with
+   its digest equal to K2's plain version and the parity chunks equal to
+   K1's plain version; (c) 256 warp-mix objects (1-512 KiB) PUT by 32
+   clients across the 4 nodes, each read back through another node,
+   objects/s both ways; (d) the script holds a dsync lock over the 4
+   nodes' lock planes: top/locks of node 2 lists it and a PUT of its key
+   waits for it; then 8 concurrent PUTs of one key through the 4 nodes
+   leave one body whole; (e) node 4 SIGKILLed and its copy of (b)'s shard
+   files removed: (b)'s object GET through node 1 byte-equal, a 16 MiB PUT
+   at quorum, node 1's cluster scrape within the peer deadline counting
+   the peer scrape error; node 4 restarted, a heal through it rebuilds its
+   shard files equal to copies taken before the kill and the object it
+   missed; (f) SIGTERM: every node exits 0 and prints its exact kernel
+   launches (node 1's exact K1 less its labeled K1 is the reconstructs of
+   its degraded GET, which must be launched).
+
 Depth cut to make room under SMOKE_BUDGET_S, no width changed: for
 phase 11, phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
 halve down to 25,000 objects instead of 50,000; for phase 15, phase 6's
 object is 160 parts (2.5 GiB) instead of 320, phase 8 PUTs 4 objects of
 256 MiB instead of 8, and the listing phase may halve down to 12,500
-objects.
+objects; for phase 16, phase 6's object is 128 parts (2 GiB) instead of
+160, phase 8 PUTs 2 objects of 256 MiB instead of 4 and 256 warp-mix
+objects instead of 512, phases 4 and 12 PUT 256 warp-mix objects a run
+instead of 512, phase 15's warp mix is 128 objects instead of 512
+(through the pool and through the one process alike), and the listing
+PUTs 500 real objects instead of 1,000 and may halve down to 6,250
+synthetic ones (12,500).
 
 The launch count of each kernel is reset just before each of phases 3-14
-(each run of phase 4) and read after it (phase 15's workers count in
-their own processes: their scrapes and drain logs); the JSON line carries phase 4's
+(each run of phase 4) and read after it (phase 15's workers and phase
+16's nodes count in their own processes: their scrapes and drain logs);
+the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -293,10 +328,10 @@ MXSUM_KERNELS = ("gf2_matmul", "mxsum_digest")   # the paths of the mxsum256 pha
 K, M, B, S = 8, 4, 16, 131072   # EC 8+4, 1 MiB blocks: S = 1 MiB / 8
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor rate
-PLANE_OBJECTS = 512             # plane phase: small objects PUT by 64 clients, per run
+PLANE_OBJECTS = 256             # plane phase: small objects PUT by 64 clients, per run
 PLANE_RUNS = (True, False)      # the plane on, then off
 HOT_WORKING_SET = 5 << 29       # hot-tier phase: 2.5 GiB of 4-32 MiB objects
-MP_PARTS, MP_PART_SIZE = 160, 16 << 20    # multipart phase: 2.5 GiB in 16 MiB parts
+MP_PARTS, MP_PART_SIZE = 128, 16 << 20    # multipart phase: 2 GiB in 16 MiB parts
 MP_INFLIGHT = 4                 # part uploads in flight
 K12, M12, S12 = 12, 4, 87382    # EC 12+4, 1 MiB blocks: S = ceil(1 MiB / 12)
 K10, M10, S10 = 10, 2, 104858   # storageclass EC:2 on 12 drives: S = ceil(1 MiB / 10)
@@ -304,8 +339,8 @@ VER_SIZE, VER_VERSIONS = 256 << 20, 4   # versioning phase: 4 versions of 256 Mi
 VER_KEYS = 64                   # ... and 64 small keys of 4 versions, 1-512 KiB
 VER_DELETE = 250                # ... of which one DeleteObjects removes 250
 VER_COPY_PARTS = 32             # ... and UploadPartCopy of phase 6's first 32 parts
-HEAL_BIG, HEAL_BIG_SIZE = 4, 256 << 20   # heal phase: 4 objects of 256 MiB,
-HEAL_SMALL = 512                # ... 512 warp-mix objects,
+HEAL_BIG, HEAL_BIG_SIZE = 2, 256 << 20   # heal phase: 2 objects of 256 MiB,
+HEAL_SMALL = 256                # ... 256 warp-mix objects,
 HEAL_MP_PARTS = 16              # ... a multipart object of 16 parts of 16 MiB,
 HEAL_VER_KEYS = 64              # ... 64 versioned keys x 3 versions,
 HEAL_MRF_PUTS = 64              # ... and 64 PUTs with 2 drives refusing
@@ -324,8 +359,8 @@ OBS_SIZE = 256 << 20            # obs phase: the object PUT, GET and healed
 OBS_PROFILE_SIZE = 32 << 20     # ... the object PUT and GET under the profilers
 OBS_RUNS = 3                    # ... PUT+GET of OBS_SIZE per observing mode
 LIST_OBJECTS = 200_000          # listing phase: synthetic objects, 200 prefixes of 1000
-LIST_MIN_OBJECTS = 12_500       # ... never cut below this to meet SMOKE_BUDGET_S
-LIST_REAL = 1000                # ... and real objects of 1-512 KiB PUT through S3
+LIST_MIN_OBJECTS = 6_250        # ... never cut below this to meet SMOKE_BUDGET_S
+LIST_REAL = 500                 # ... and real objects of 1-512 KiB PUT through S3
 LIST_PAGE = 1000                # ListObjectsV2 max-keys
 # The listing phase's cost on the card's machine (NVIDIA H100 80GB HBM3,
 # 12 drives on /dev/shm), bounded from above by this script's runs there
@@ -4095,7 +4130,7 @@ def iam_phase(seed: int, card: str, device: str = "cuda", size: int = IAM_BIG,
     print(f"  launches in the phase: {total}")
 
 
-FD_OBJECTS = 512                # phase 15: warp-mix objects through the pool and one server
+FD_OBJECTS = 128                # phase 15: warp-mix objects through the pool and one server
 FD_BIG = 256 << 20              # ... the big object through the pool
 FD_HOT = 16 << 20               # ... the hot object, fetched FD_HOT_GETS times
 FD_HOT_GETS = 8
@@ -4499,6 +4534,474 @@ def frontdoor_phase(seed: int, card: str, device: str = "cuda",
         shutil.rmtree(logs, ignore_errors=True)
 
 
+CL_NODES, CL_DRIVES = 4, 4       # phase 16: 4 node processes x 4 drives, one 16-drive set
+CL_BIG = 256 << 20              # ... the object PUT through node 1, GET through node 3
+CL_OBJECTS, CL_CLIENTS = 256, 32   # ... the warp mix across the 4 nodes
+CL_CONTEND = 8                  # ... concurrent PUTs of one key
+CL_DOWN_PUT = 16 << 20          # ... the PUT while node 4 is down
+
+
+def _free_port_pair() -> int:
+    """A port p with p and p + 1000 (its RPC fabric's default) free."""
+    import socket
+
+    for _ in range(200):
+        p = _free_port()
+        if p + 1000 > 65535:
+            continue
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", p + 1000))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        return p
+    raise AssertionError("no free port pair for a cluster node")
+
+
+class _Node:
+    """One node of phase 16: `python -m minio_tpu_torch.s3.server` over the
+    cluster's URL endpoints, its output kept (a reader thread) for its
+    "serving S3" and "drained" lines."""
+
+    def __init__(self, endpoints: list[str], port: int, device: str, env: dict):
+        import threading
+
+        self.port = port
+        self.url = f"http://127.0.0.1:{port}"
+        self.name = f"127.0.0.1:{port}"
+        self.lines: list[str] = []
+        self.serving = threading.Event()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "minio_tpu_torch.s3.server", *endpoints,
+             "--address", f"127.0.0.1:{port}", "--device", device],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                if "serving S3" in line:
+                    self.serving.set()
+
+        self._reader = threading.Thread(target=read, daemon=True, name="smoke-node-log")
+        self._reader.start()
+
+    def wait_serving(self, deadline: float) -> None:
+        while not self.serving.wait(0.1):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.proc.kill()
+                raise AssertionError(f"node {self.name} did not serve:\n"
+                                     + "\n".join(self.lines[-40:]))
+
+    def scrape(self, backend: str) -> dict:
+        """{"k1", "k2", "k1_rec"}: this node's K1/K2 launches by label."""
+        cl = _Client(self.url)
+        try:
+            _r, body = cl.request("GET", "/minio/v2/metrics/node")
+        finally:
+            cl.close()
+        k = _by_label(parse_exposition(body.decode())[1],
+                      "minio_tpu_kernel_launches_total", "kernel", backend=backend)
+        return {"k1": sum(k.get(lbl, 0) for lbl in OBS_K1),
+                "k2": sum(k.get(lbl, 0) for lbl in OBS_K2),
+                "k1_rec": sum(k.get(lbl, 0) for lbl in
+                              ("reconstruct", "reconstruct_digests", "reconstruct_weights",
+                               "dp_reconstruct"))}
+
+    def term(self) -> None:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+
+    def drain(self, timeout: float = 60.0) -> dict:
+        """After term(): -> its exact kernel launch counts (the drain line)."""
+        import ast
+
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            raise AssertionError(f"node {self.name} did not drain in {timeout} s")
+        self._reader.join(10)
+        if rc != 0:
+            raise AssertionError(f"node {self.name} exited {rc} on SIGTERM:\n"
+                                 + "\n".join(self.lines[-40:]))
+        for line in self.lines:
+            if "drained; kernel launches" in line:
+                return ast.literal_eval(line.split("kernel launches ", 1)[1])
+        raise AssertionError(f"node {self.name} logged no drain line")
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(30)
+        self._reader.join(10)
+
+
+def _cluster_diag(nodes) -> None:
+    """After a failure: each live node's fabric and drive-health counters
+    and the end of its output."""
+    fams = ("minio_tpu_rpc_errors_total", "minio_tpu_rpc_offline_total",
+            "minio_tpu_rpc_retry_shed_total", "minio_tpu_peer_breaker_transitions_total",
+            "minio_tpu_drive_state", "minio_tpu_drive_timeouts_total",
+            "minio_tpu_admission_shed_total", "minio_tpu_hung_workers_total")
+    for n in nodes:
+        print(f"  node {n.name} (exit {n.proc.poll()}):")
+        if n.proc.poll() is None:
+            try:
+                cl = _Client(n.url)
+                _r, body = cl.request("GET", "/minio/v2/metrics/node")
+                cl.close()
+                for name, lbl, v in parse_exposition(body.decode())[1]:
+                    if name in fams and v:
+                        print(f"    {name} {lbl} {v}")
+            except Exception as e:  # noqa: BLE001 - a diagnosis only
+                print(f"    scrape failed: {e}")
+        for line in n.lines[-15:]:
+            print(f"    | {line}")
+
+
+def _cluster_views(nodes, backend: str) -> list[dict]:
+    return [n.scrape(backend) for n in nodes]
+
+
+def _views_delta(a: list[dict], b: list[dict]) -> list[dict]:
+    return [{k: int(y[k] - x[k]) for k in y} for x, y in zip(a, b)]
+
+
+def _cluster_pick_key(bucket: str, prefix: str, down: range) -> str:
+    """A key whose shards on the drives of `down` (the slots of node 4)
+    include a data shard, so reading it with node 4 gone reconstructs."""
+    from minio_tpu_torch.erasure.metadata import hash_order
+
+    for i in range(1000):
+        key = f"{prefix}{i}"
+        dist = hash_order(f"{bucket}/{key}", K12 + M12)
+        if any(dist[s] <= K12 for s in down):
+            return key
+    raise AssertionError("no key with a data shard on node 4")
+
+
+def _cluster_shards(roots: list[str], bucket: str, key: str) -> dict:
+    """{slot: bytes} of every drive's part.1 of `key`."""
+    out = {}
+    for slot, root in enumerate(roots):
+        hits = glob.glob(os.path.join(root, bucket, key, "*", "part.1"))
+        if hits:
+            with open(hits[0], "rb") as f:
+                out[slot] = f.read()
+    return out
+
+
+def _cluster_check_shards(shards: dict, bucket: str, key: str, size: int,
+                          device: str) -> None:
+    """The first block's chunk of every shard: its digest equal to K2's
+    plain version, and the 4 parity chunks equal to K1's plain version
+    over the 12 data chunks (slot s holds shard hash_order(bucket/key)[s])."""
+    import io as _io
+
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.erasure.metadata import hash_order
+    from minio_tpu_torch.ops import bitrot, rs
+    from minio_tpu_torch.storage.fileinfo import ErasureInfo
+
+    ei = ErasureInfo(data_blocks=K12, parity_blocks=M12, block_size=1 << 20)
+    dist = hash_order(f"{bucket}/{key}", K12 + M12)
+    chunks = {}
+    for slot, raw in shards.items():
+        digest, chunk = bitrot.BitrotReader(_io.BytesIO(raw), ei.shard_file_size(size),
+                                            ei.shard_size(), "mxsum256").read_record(0)
+        if digest != _plain_digest("mxsum256", chunk, device):
+            raise AssertionError(f"{key}: slot {slot}'s first digest differs from "
+                                 "K2's plain version")
+        chunks[dist[slot]] = chunk
+    x = torch.from_numpy(np.stack([np.frombuffer(chunks[j + 1], dtype=np.uint8)
+                                   for j in range(K12)]))[None].to(device)
+    parity = rs.gf2_matmul_plain(x, rs.device_encode_weights(K12, M12, torch.device(device)),
+                                 M12)[0].cpu()
+    for j in range(M12):
+        if parity[j].numpy().tobytes() != chunks[K12 + j + 1]:
+            raise AssertionError(f"{key}: parity shard {K12 + j + 1} differs from K1's "
+                                 "plain version")
+
+
+def cluster_phase(seed: int, card: str, records: list[dict] | None, device: str = "cuda",
+                  big_size: int = CL_BIG, n_objects: int = CL_OBJECTS,
+                  n_clients: int = CL_CLIENTS, down_put: int = CL_DOWN_PUT) -> dict:
+    """Phase 16 (see the module's docstring): four port nodes serving one
+    16-drive set at EC 12+4; -> the numbers it printed."""
+    import threading
+
+    import numpy as np
+
+    from minio_tpu_torch.dist.dsync import DRWMutex, RemoteLocker
+    from minio_tpu_torch.dist.rpc import RestClient
+
+    backend = "gpu" if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 16)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-cl-", dir=shm)
+    ports = []
+    while len(ports) < CL_NODES:
+        p = _free_port_pair()
+        if p not in ports:
+            ports.append(p)
+    roots = [os.path.join(work, f"n{i + 1}", f"d{j + 1}")
+             for i in range(CL_NODES) for j in range(CL_DRIVES)]
+    endpoints = [f"http://127.0.0.1:{ports[i]}{work}/n{i + 1}/d{{1...{CL_DRIVES}}}"
+                 for i in range(CL_NODES)]
+    env = _child_env({"MTPU_BOOT_TIMEOUT": "120"})
+    out: dict = {}
+    nodes: list[_Node] = []
+    try:
+        # (a) boot: all four at once (the kernels are built: each node
+        # loads the library, its own CUDA context).
+        t0 = time.perf_counter()
+        nodes = [_Node(endpoints, p, device, env) for p in ports]
+        deadline = time.monotonic() + 180
+        for n in nodes:
+            n.wait_serving(deadline)
+        out["boot_s"] = time.perf_counter() - t0
+        print(f"  (a) {CL_NODES} nodes x {CL_DRIVES} drives serving one "
+              f"{K12}+{M12} set after {out['boot_s']:.3f} s (bootstrap, format, "
+              f"quorum reads), nodes {[n.name for n in nodes]}")
+        print("  " + nodes[0].lines[-1])
+        cls = [_Client(n.url) for n in nodes]
+        for b in ("cl-big", "cl-mix", "cl-lock"):
+            cls[0].request("PUT", f"/{b}")
+        # (b) one big object: PUT through node 1, GET through node 3.
+        node4_slots = range(CL_DRIVES * 3, CL_DRIVES * 4)
+        key = _cluster_pick_key("cl-big", "big", node4_slots)
+        data = rng.bytes(big_size)
+        v0 = _cluster_views(nodes, backend)
+        t0 = time.perf_counter()
+        r, _b = cls[0].request("PUT", f"/cl-big/{key}", data)
+        out["put_s"] = time.perf_counter() - t0
+        if r.getheader("ETag") != _md5_etag(data):
+            raise AssertionError("phase 16 PUT: ETag is not the md5")
+        v1 = _cluster_views(nodes, backend)
+        t0 = time.perf_counter()
+        r, got = cls[2].request("GET", f"/cl-big/{key}")
+        out["get_s"] = time.perf_counter() - t0
+        v2 = _cluster_views(nodes, backend)
+        if got != data or r.getheader("ETag") != _md5_etag(data):
+            raise AssertionError("phase 16 GET through node 3: bytes or ETag differ")
+        put_d, get_d = _views_delta(v0, v1), _views_delta(v1, v2)
+        gib = big_size / (1 << 30)
+        print(f"  (b) {big_size >> 20} MiB PUT via node 1 {out['put_s']:.6f} s "
+              f"({gib / out['put_s']:.3f} GiB/s), GET via node 3 {out['get_s']:.6f} s "
+              f"({gib / out['get_s']:.3f} GiB/s) on {card}")
+        print(f"      K1/K2 launches per node, PUT: "
+              f"{[(d['k1'], d['k2']) for d in put_d]}; GET: "
+              f"{[(d['k1'], d['k2']) for d in get_d]}")
+        if device == "cuda" and (put_d[0]["k1"] < 1 or put_d[0]["k2"] < 1
+                                 or get_d[2]["k2"] < 1):
+            raise AssertionError("phase 16: K1/K2 did not launch in the node that "
+                                 "took the request")
+        shards = _cluster_shards(roots, "cl-big", key)
+        if sorted(shards) != list(range(CL_NODES * CL_DRIVES)):
+            raise AssertionError(f"phase 16: shard files on slots {sorted(shards)}, "
+                                 "not all 16")
+        _cluster_check_shards(shards, "cl-big", key, big_size, device)
+        print("      all 16 drives hold a shard; sampled digests and parity equal "
+              "the plain versions")
+        # (c) the warp mix across the nodes, read back through another node.
+        sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10),
+                                   n_objects)).astype(np.int64)
+        objs = [(f"/cl-mix/w{i:04d}", rng.bytes(int(n))) for i, n in enumerate(sizes)]
+        local = threading.local()
+        opened: list = []
+        mu = threading.Lock()
+
+        def client(i):
+            cs = getattr(local, "cs", None)
+            if cs is None:
+                cs = local.cs = [_Client(n.url) for n in nodes]
+                with mu:
+                    opened.extend(cs)
+            return cs[i % CL_NODES]
+
+        def put(it):
+            i, (k, body) = it
+            r, _d = client(i).request("PUT", k, body)
+            if r.getheader("ETag") != _md5_etag(body):
+                raise AssertionError(f"phase 16 PUT {k}: ETag differs")
+
+        def get(it):
+            i, (k, body) = it
+            r, d = client(i + 1).request("GET", k)
+            if d != body or r.getheader("ETag") != _md5_etag(body):
+                raise AssertionError(f"phase 16 GET {k}: bytes or ETag differ")
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(n_clients, thread_name_prefix="smoke-client") as ex:
+            t0 = time.perf_counter()
+            list(ex.map(put, enumerate(objs)))
+            out["mix_put"] = n_objects / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            list(ex.map(get, enumerate(objs)))
+            out["mix_get"] = n_objects / (time.perf_counter() - t0)
+        for c in opened:
+            c.close()
+        print(f"  (c) warp mix, {n_objects} objects of 1-512 KiB "
+              f"({int(sizes.sum()) / (1 << 20):.1f} MiB), {n_clients} clients over "
+              f"{CL_NODES} nodes, each read back through another node: PUT "
+              f"{out['mix_put']:.3f} objects/s, GET {out['mix_get']:.3f} objects/s "
+              f"on {card}")
+        # (d) contention: a lock held from here over the lock plane, listed
+        # by top/locks, holds back a PUT; then 8 PUTs of one key race.
+        lock_clients = [RestClient("127.0.0.1", p + 1000, SECRET, timeout=10.0)
+                        for p in ports]
+        mx = DRWMutex(["cl-lock/hot"], [RemoteLocker(c) for c in lock_clients])
+        try:
+            if not mx.get_lock(timeout=10.0):
+                raise AssertionError("phase 16: no dsync quorum for the smoke's lock")
+            _r, doc = cls[1].request("GET", "/minio/admin/v3/top/locks")
+            if "cl-lock/hot" not in json.loads(doc)["locks"]:
+                raise AssertionError("phase 16: top/locks does not list a held lock")
+            held = {}
+
+            def blocked_put():
+                c = _Client(nodes[0].url)
+                try:
+                    t = time.perf_counter()
+                    c.request("PUT", "/cl-lock/hot", b"first")
+                    held["s"] = time.perf_counter() - t
+                finally:
+                    c.close()
+
+            th = threading.Thread(target=blocked_put, daemon=True)
+            th.start()
+            th.join(1.0)
+            if "s" in held:
+                raise AssertionError("phase 16: a PUT went through a held lock")
+        finally:
+            mx.unlock()
+            for c in lock_clients:
+                c.close()
+        th.join(60)
+        if "s" not in held:
+            raise AssertionError("phase 16: the PUT behind the lock never finished")
+        bodies = [rng.bytes(4 << 20) for _ in range(CL_CONTEND)]
+
+        def race(i):
+            c = _Client(nodes[i % CL_NODES].url)
+            try:
+                c.request("PUT", "/cl-lock/hot", bodies[i])
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CL_CONTEND) as ex:
+            list(ex.map(race, range(CL_CONTEND)))
+        race_s = time.perf_counter() - t0
+        finals = set()
+        for c in cls:
+            _r, d = c.request("GET", "/cl-lock/hot")
+            finals.add(hashlib.md5(d).hexdigest())
+        winners = {hashlib.md5(b).hexdigest() for b in bodies}
+        if len(finals) != 1 or not finals <= winners:
+            raise AssertionError("phase 16: the contended key is not one body whole")
+        print(f"  (d) top/locks on node 2 listed the smoke's dsync lock; a PUT "
+              f"waited {held['s']:.3f} s behind it; {CL_CONTEND} PUTs of one key "
+              f"through {CL_NODES} nodes in {race_s:.3f} s left one body whole")
+        # (e) node 4 lost and back.
+        before = {s: shards[s] for s in node4_slots}
+        nodes[3].kill()
+        for root in roots[CL_DRIVES * 3:]:
+            shutil.rmtree(os.path.join(root, "cl-big", key), ignore_errors=True)
+        t0 = time.perf_counter()
+        r, got = cls[0].request("GET", f"/cl-big/{key}")
+        out["degraded_get_s"] = time.perf_counter() - t0
+        if got != data:
+            raise AssertionError("phase 16: degraded GET with node 4 killed differs")
+        down_data = rng.bytes(down_put)
+        t0 = time.perf_counter()
+        r, _b = cls[0].request("PUT", "/cl-big/while-down", down_data)
+        out["down_put_s"] = time.perf_counter() - t0
+        if r.getheader("ETag") != _md5_etag(down_data):
+            raise AssertionError("phase 16: the PUT with node 4 down has the wrong ETag")
+        t0 = time.perf_counter()
+        _r, scrape = cls[0].request("GET", "/minio/v2/metrics/cluster")
+        scrape_s = time.perf_counter() - t0
+        errs = _by_label(parse_exposition(scrape.decode())[1],
+                         "minio_tpu_peer_scrape_errors_total", "peer")
+        if not errs.get(nodes[3].name) or scrape_s > 2.0 + 3.0:
+            raise AssertionError(f"phase 16: cluster scrape with node 4 down: "
+                                 f"{scrape_s:.3f} s, peer errors {errs}")
+        print(f"  (e) node 4 SIGKILLed: GET via node 1 {out['degraded_get_s']:.6f} s "
+              f"byte-equal; {down_put >> 20} MiB PUT at quorum {out['down_put_s']:.6f} s; "
+              f"node 1's cluster scrape {scrape_s:.3f} s with peer scrape errors {errs}")
+        t0 = time.perf_counter()
+        nodes[3] = _Node(endpoints, ports[3], device, env)
+        nodes[3].wait_serving(time.monotonic() + 120)
+        out["restart_s"] = time.perf_counter() - t0
+        cl4 = _Client(nodes[3].url)
+        cls[3].close()
+        cls[3] = cl4
+        t0 = time.perf_counter()
+        cl4.request("POST", "/minio/admin/v3/heal/cl-big", b"")
+        out["heal_s"] = time.perf_counter() - t0
+        after = _cluster_shards(roots, "cl-big", key)
+        if any(after.get(s) != before[s] for s in node4_slots):
+            raise AssertionError("phase 16: node 4's healed shard files differ from "
+                                 "their copies")
+        if len(_cluster_shards(roots, "cl-big", "while-down")) != CL_NODES * CL_DRIVES:
+            raise AssertionError("phase 16: heal did not bring the PUT node 4 missed")
+        _r, got = cl4.request("GET", "/cl-big/while-down")
+        if got != down_data:
+            raise AssertionError("phase 16: node 4 reads the healed object wrong")
+        print(f"  (e) node 4 restarted in {out['restart_s']:.3f} s; heal via node 4 "
+              f"{out['heal_s']:.3f} s: its shard files equal the copies taken before "
+              f"the kill, and it holds the {down_put >> 20} MiB object it missed")
+        for c in cls:
+            c.close()
+        # (f) drain. A node's scrape labels K1 by entry point, and the GET
+        # path's reconstruct (the codec's decode, in both packages) under
+        # none: node 1's exact K1 count at its drain less its labeled K1
+        # is the reconstructs of its degraded GET, the only one it served.
+        v_end = _cluster_views(nodes, backend)
+        t0 = time.perf_counter()
+        for n in nodes:
+            n.term()
+        drained = [n.drain() for n in nodes]
+        out["drain_s"] = time.perf_counter() - t0
+        totals = {k: sum(d.get(k, 0) for d in drained) for k in drained[0]}
+        out["node1_reconstruct_k1"] = drained[0]["gf2_matmul"] - int(v_end[0]["k1"])
+        print(f"  (f) SIGTERM: every node exited 0 in {out['drain_s']:.3f} s; exact "
+              f"launches per node {drained} (node 4's restarted process)")
+        if device == "cuda":
+            print(f"      node 1's labeled K1 {int(v_end[0]['k1'])}: its degraded GET "
+                  f"launched K1 reconstruct {out['node1_reconstruct_k1']} times")
+        if device == "cuda" and out["node1_reconstruct_k1"] < 1:
+            raise AssertionError("phase 16: no K1 reconstruct in node 1 with node 4 down")
+        if records is not None:
+            for r0 in [r for r in records if r["path"] == "multipart"
+                       and r["name"] in (f"gf2_matmul encode 12+4 [16,12,{S12}]->4",
+                                         f"mxsum_digest PUT 12+4 [256,{S12}]")]:
+                r1 = dict(r0, name=r0["name"] + " (phase 16 cluster)", path="cluster")
+                records.append(r1)
+            if sum(r["path"] == "cluster" for r in records) != 2:
+                raise AssertionError("phase 16: K1 and K2 records of EC 12+4 not found")
+            _fill_launches(records, "cluster", totals)
+        out["launches"] = totals
+    except BaseException:
+        _cluster_diag(nodes)
+        raise
+    finally:
+        for n in nodes:
+            if n.proc.poll() is None:
+                n.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def _fd_get(url: str, key: str) -> bytes | None:
     cl = _Client(url)
     try:
@@ -4509,13 +5012,13 @@ def _fd_get(url: str, key: str) -> bytes | None:
 
 
 def _list_objects_for(free_bytes: int, elapsed_s: float) -> tuple[int, str]:
-    """LIST_OBJECTS, halved (down to 1/16 of it) until its journals fit in
+    """LIST_OBJECTS, halved (down to 1/32 of it) until its journals fit in
     `free_bytes` and the phase's estimated time fits what is left of
     SMOKE_BUDGET_S after `elapsed_s`, but for time not below
     LIST_MIN_OBJECTS unless the estimate passes SMOKE_LIMIT_S;
     -> (count, the reason for a cut)."""
     n, why = LIST_OBJECTS, ""
-    while n > LIST_OBJECTS // 16:
+    while n > LIST_OBJECTS // 32:
         end_s = elapsed_s + LIST_FIXED_S + n * LIST_S_PER_OBJECT
         if n * LIST_BYTES_PER_OBJECT > free_bytes:
             why = f"{free_bytes} B free on the drives' filesystem"
@@ -4848,6 +5351,10 @@ def main() -> int:
               f"workers, shared lanes, the QoS plane; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         frontdoor_phase(args.seed, card)
+        print(f"cluster phase (4 node processes x 4 drives on /dev/shm, one 16-drive "
+              f"set, EC 12+4, 1 MiB blocks; bootstrap, the storage, lock and peer "
+              f"planes; begun at {time.perf_counter() - t_start:.1f} s):")
+        cluster_phase(args.seed, card, records)
         print(f"listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)

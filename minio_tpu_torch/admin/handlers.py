@@ -9,12 +9,17 @@ Routes served, under /minio/admin/v3/:
                                        JSON of each (body: madmin HealOpts,
                                        dryRun and scanMode)
     GET  top/api                       the requests in flight
+    GET  top/locks                     this node's dsync lock table
+    POST force-unlock?paths=a,b        drop stuck locks on this node's locker
     GET  trace                         the trace bus as JSON lines, chunked,
                                        until the client goes (?type=,
-                                       ?traceid=, ?plane=)
+                                       ?traceid=, ?plane=), merged with every
+                                       peer's on a cluster node (?all=false:
+                                       this node's only)
     GET  perf/timeline                 flight-recorder timelines (?traceid=,
                                        ?api=, ?worst=, ?tenant=), this
-                                       worker's and its siblings'
+                                       worker's and its siblings', and the
+                                       peers' under "peers" on a cluster node
     POST profiling/start               ?profilerType=cpu,device
     GET  profiling/download            the profiles, zipped (InternalError
                                        where the device capture lost
@@ -47,14 +52,16 @@ is authorized as the JAX server authorizes it (handlers.py:38-47): an
 anonymous request answers AccessDenied, any other is allowed where IAM
 allows its admin:* action under the request's condition context (the
 root always; the IAM ops need admin:*). The JAX package's other admin ops
-(consolelog, obd, data usage, locks, service...) answer NotImplemented
-until their planes land in the port (ROADMAP.md); an op neither package
-has answers MethodNotAllowed, as the JAX server's does.
+(consolelog, obd, data usage, faults, service...) answer NotImplemented
+until their planes land in the port (ROADMAP.md); so do force-unlock and
+top/locks on a server that is not a cluster node (no dsync locker). An op
+neither package has answers MethodNotAllowed, as the JAX server's does.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 
 from minio_tpu_torch import obs
@@ -74,11 +81,11 @@ VERSION = "minio_tpu/1.0"
 ADMIN_PREFIX = "/minio/admin/v3/"
 
 _SERVED = frozenset({"info", "metrics", "heal", "top", "trace", "perf", "profiling",
-                     "config-kv", "config", "kms"})
+                     "config-kv", "config", "kms", "force-unlock"})
 
 # Admin ops of the JAX package whose planes the port does not have yet.
 _NOT_YET = frozenset({
-    "datausageinfo", "slo", "force-unlock", "consolelog", "set-remote-target", "list-remote-targets",
+    "datausageinfo", "slo", "consolelog", "set-remote-target", "list-remote-targets",
     "remove-remote-target", "replication-status", "replication-resync",
     "cache", "bandwidth", "faults", "service", "update", "tier",
     "obdinfo", "healthinfo"})
@@ -86,6 +93,7 @@ _NOT_YET = frozenset({
 # The action each served op is authorized as (the JAX handlers').
 _ACTIONS = {"info": "admin:ServerInfo", "metrics": "admin:Prometheus",
             "heal": "admin:Heal", "top": "admin:ServerInfo",
+            "force-unlock": "admin:ForceUnlock",
             "trace": "admin:ServerTrace", "perf": "admin:ServerInfo",
             "profiling": "admin:Profiling", "config-kv": "admin:ConfigUpdate",
             "config": "admin:ConfigUpdate"}
@@ -128,6 +136,8 @@ class AdminAPI:
                 raise S3Error("InvalidRequest", str(e)) from None
             except (KeyError, ValueError) as e:
                 raise S3Error("InvalidArgument", f"bad {op} request: {e}") from None
+        elif op == "top" and rest == "locks":
+            self.authorize(identity, "admin:TopLocksInfo")
         else:
             self.authorize(identity, _ACTIONS.get(op, "admin:*"))
         if op == "info" and method == "GET":
@@ -143,11 +153,34 @@ class AdminAPI:
             return self._heal(method, rest, read_body)
         if op == "top" and rest == "api" and method == "GET":
             return _json({"requests": self.s.stats.inflight()})
+        locker = self.s.local_locker
+        if op == "top" and rest == "locks" and method == "GET" and locker is not None:
+            return _json({"locks": locker.dump()})
+        if op == "force-unlock" and method == "POST":
+            # Clears the resources on THIS node's locker (the reference
+            # ForceUnlockHandler); the admin runs it on each node that
+            # holds a stale entry (handlers.py:139-160).
+            if locker is None:
+                raise S3Error("NotImplemented", "no local locker (not a "
+                              "distributed deployment)")
+            from minio_tpu_torch.dist.dsync import LockArgs
+
+            paths = [p for p in q.get("paths", "").split(",") if p]
+            if not paths:
+                raise S3Error("InvalidArgument", "paths required")
+            locker.force_unlock(LockArgs(uid="", resources=paths, owner="admin"))
+            return _json({"unlocked": paths})
+        notif = self.s.notification if q.get("all", "true") != "false" else None
         if op == "trace" and method == "GET":
             return 200, {"Content-Type": "application/json"}, self._bus_stream(
-                q.get("type", ""), q.get("traceid", ""), q.get("plane", ""))
+                q.get("type", ""), q.get("traceid", ""), q.get("plane", ""),
+                notif)
         if op == "perf" and rest == "timeline" and method == "GET":
-            return _json(self._perf_timelines(q))
+            out = self._perf_timelines(q)
+            if notif is not None and notif.peers:
+                out["peers"] = notif.perf_all(
+                    {k: q.get(k, "") for k in ("traceid", "api", "worst", "tenant")})
+            return _json(out)
         if op == "profiling" and rest == "start" and method == "POST":
             kinds = tuple(q.get("profilerType", q.get("kinds", "cpu")).split(","))
             if "tpu" in kinds:
@@ -176,6 +209,7 @@ class AdminAPI:
                 raise S3Error("InvalidRequest", str(e)) from None
             return _json({})
         if op in _NOT_YET or (op == "top" and rest == "locks"):
+            # top/locks without a locker: not a cluster node.
             raise S3Error("NotImplemented",
                           f"admin {path} is not served by this server yet")
         raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + path)
@@ -185,7 +219,8 @@ class AdminAPI:
     def _server_info(self) -> dict:
         """The JAX package's _server_info (handlers.py:407) for one node:
         each drive with its health state and deadline hits (from its
-        HealthChecker; absent on a bare drive); no peer fabric yet."""
+        HealthChecker; absent on a bare drive), and on a cluster node each
+        peer's breaker state (peerFabric, handlers.py:436-446)."""
         drives = []
         online = offline = 0
         all_drives = self.s.obj.all_drives()
@@ -221,7 +256,8 @@ class AdminAPI:
             "drivesOffline": offline,
             "backend": {"backendType": "Erasure",
                         "pools": health.get("pools", health.get("sets", []))},
-            "peerFabric": [],
+            "peerFabric": (self.s.cluster_node.peer_fabric_info()
+                           if self.s.cluster_node is not None else []),
             "stats": self.s.stats.snapshot(),
         }
 
@@ -292,15 +328,47 @@ class AdminAPI:
                 "timelines": flight.collect(q.get("traceid", ""), q.get("api", ""),
                                             worst, q.get("tenant", ""))}
 
-    def _bus_stream(self, type_filter: str, traceid: str, plane_filter: str):
-        """The process trace bus as JSON lines (handlers.py:638 for one
-        node): a newline every TRACE_HEARTBEAT_S while idle, so a client
-        that went away is seen at the next write; the stream ends then,
-        or when the server closes, and unsubscribes."""
+    def _bus_stream(self, type_filter: str, traceid: str, plane_filter: str,
+                    notif=None):
+        """The process trace bus as JSON lines (handlers.py:638): a newline
+        every TRACE_HEARTBEAT_S while idle, so a client that went away is
+        seen at the next write; the stream ends then, or when the server
+        closes, and unsubscribes. With `notif` (a cluster node's peers),
+        one puller thread per peer feeds the peer's records into the same
+        stream; each ends with it."""
+        import queue
+
+        merged: queue.Queue = queue.Queue(maxsize=2000)
+        stop = threading.Event()
+
+        def pull(peer):
+            try:
+                # Heartbeats: the stop flag is re-checked on an idle peer.
+                for item in peer.trace_stream(heartbeats=True):
+                    if stop.is_set():
+                        return
+                    if not item.get("hb"):
+                        try:
+                            merged.put_nowait(item)
+                        except queue.Full:
+                            pass
+            except Exception:  # noqa: BLE001 - the peer went away
+                pass
+
+        for p in (notif.peers if notif is not None else ()):
+            threading.Thread(target=pull, args=(p,), daemon=True,
+                             name="trace-peer-pull").start()
         sub = obs.trace_bus().subscribe()
+
+        def next_item():
+            try:
+                return merged.get_nowait()
+            except queue.Empty:
+                return sub.get(timeout=TRACE_HEARTBEAT_S)
+
         try:
             while not self.s.closing.is_set():
-                item = sub.get(timeout=TRACE_HEARTBEAT_S)
+                item = next_item()
                 if item is None:
                     yield b"\n"
                     continue
@@ -313,6 +381,7 @@ class AdminAPI:
                     continue
                 yield json.dumps(item).encode() + b"\n"
         finally:
+            stop.set()
             sub.close()
 
 

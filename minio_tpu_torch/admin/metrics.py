@@ -2,13 +2,16 @@
 
 Role-equivalent of cmd/metrics-v2.go: cluster/node metric families
 rendered in the text format at /minio/v2/metrics/cluster and /node.
-Collectors are lazy — gathered per scrape. The port serves one node, so
-the cluster scrape is this node's collectors; the JAX package's peer
-federation (merge_expositions) and its SLO collector are not carried.
+Collectors are lazy — gathered per scrape. On a node of a cluster
+(dist/), the cluster scrape also pulls every peer's node scrape over the
+peer plane and merges them under a `server` label
+(collect_cluster_metrics, merge_expositions); the JAX package's SLO
+collector is not carried.
 """
 
 from __future__ import annotations
 
+import os
 
 from minio_tpu_torch import obs
 
@@ -21,6 +24,18 @@ PROM_CONTENT_TYPE = "text/plain; version=0.0.4"
 # Accept header asks for it.
 OPENMETRICS_CONTENT_TYPE = ("application/openmetrics-text; "
                             "version=1.0.0; charset=utf-8")
+
+
+# Per-peer budget for the federated cluster scrape: stragglers become
+# scrape errors, never a hung scrape (the whole fan-out runs under one
+# parallel_map deadline).
+PEER_SCRAPE_DEADLINE = float(os.environ.get(
+    "MTPU_METRICS_PEER_DEADLINE", "2.0"))
+
+_PEER_SCRAPE_ERRORS = obs.counter(
+    "minio_tpu_peer_scrape_errors_total",
+    "Peer node scrapes that failed or timed out during the federated "
+    "cluster scrape", ("peer",))
 
 
 def _esc(v: str) -> str:
@@ -192,3 +207,89 @@ def collect_node_metrics(stats, *, openmetrics: bool = False) -> bytes:
 
 
 # --- cluster federation ------------------------------------------------------
+
+
+def collect_cluster_metrics(object_layer, stats, *, notification=None,
+                            local_name: str = "",
+                            deadline: float | None = None,
+                            openmetrics: bool = False) -> bytes:
+    """The federated cluster scrape (minio_tpu/admin/metrics.py:223): this
+    node's cluster collectors plus every peer's node scrape (the peer
+    `metrics` route), merged with each source's samples under a `server`
+    label. The fan-out runs under one parallel_map deadline: a hung or
+    dead peer becomes a `minio_tpu_peer_scrape_errors_total{peer=}`
+    increment, and the scrape returns within the deadline. Without peers
+    the single-node exposition is returned unchanged."""
+    peers = list(notification.peers) if notification is not None else []
+    if peers:
+        from minio_tpu_torch.erasure.metadata import parallel_map
+
+        results = parallel_map(
+            [p.metrics for p in peers],
+            deadline=PEER_SCRAPE_DEADLINE if deadline is None else deadline)
+        # Counted before the local families render, so this very scrape
+        # carries them; an empty body (no metrics hook) is a failure too.
+        for p, r in zip(peers, results):
+            if isinstance(r, Exception) or not r:
+                _PEER_SCRAPE_ERRORS.labels(peer=p.name).inc()
+    # Exemplars do not survive the relabeling: the federated scrape is
+    # always 0.0.4.
+    body = collect_metrics(object_layer, stats,
+                           openmetrics=openmetrics and not peers)
+    if not peers:
+        return body
+    texts: list[tuple[str, str]] = [(local_name or "local", body.decode())]
+    for p, r in zip(peers, results):
+        if isinstance(r, Exception) or not r:
+            continue
+        texts.append((p.name, bytes(r).decode()))
+    return merge_expositions(texts)
+
+
+def merge_expositions(sources: list[tuple[str, str]]) -> bytes:
+    """Merge per-node exposition texts into one document: families keep
+    one HELP/TYPE block (first seen wins) with every source's samples
+    grouped under it, each sample relabeled with server="<node>"."""
+    order: list[str] = []                      # family emit order
+    heads: dict[str, list[str]] = {}           # family -> HELP/TYPE lines
+    rows: dict[str, list[str]] = {}            # family -> relabeled samples
+    for server, text in sources:
+        for line in text.split("\n"):
+            if not line:
+                continue
+            if line.startswith("# "):
+                parts = line.split(" ", 3)
+                if len(parts) < 3:
+                    continue
+                fam = parts[2]
+                if fam not in heads:
+                    heads[fam] = []
+                    order.append(fam)
+                    rows[fam] = []
+                if len(heads[fam]) < 2:
+                    heads[fam].append(line)
+                continue
+            name_lbl, _, value = line.rpartition(" ")
+            if not name_lbl:
+                continue
+            name = name_lbl.split("{", 1)[0]
+            fam = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and name[: -len(suffix)] in heads:
+                    fam = name[: -len(suffix)]
+                    break
+            if fam not in heads:   # sample with no TYPE: pass through
+                heads[fam] = []
+                order.append(fam)
+                rows[fam] = []
+            tag = f'server="{_esc(server)}"'
+            if name_lbl.endswith("}"):
+                relabeled = f"{name_lbl[:-1]},{tag}}} {value}"
+            else:
+                relabeled = f"{name_lbl}{{{tag}}} {value}"
+            rows[fam].append(relabeled)
+    out: list[str] = []
+    for fam in order:
+        out.extend(heads[fam])
+        out.extend(rows[fam])
+    return ("\n".join(out) + "\n").encode()

@@ -83,17 +83,22 @@ class BucketMetadataSys:
     write_sys_config, delete_sys_config and sys_config_signature (any
     layer of the port).
 
-    The JAX class is told of a change by its peers; a port server sharing
-    drives with a JAX server is not, so every get() checks the
-    document's per-drive stat signature and re-reads it when a copy was
-    rewritten. A document written within _RACY_STAT_NS of the check is
-    not cached: a coarse mtime tick could give two writes one signature.
+    Every get() checks the document's per-drive stat signature and
+    re-reads it when a copy was rewritten, so a port server sharing drives
+    with a JAX server sees the JAX server's writes. A document written
+    within _RACY_STAT_NS of the check is not cached: a coarse mtime tick
+    could give two writes one signature. A remote drive cannot give a
+    signature (dist/storage_remote.py), so in a cluster, as in the JAX
+    package, every write is also broadcast: `notify(bucket)` fans out to
+    the peers, whose invalidate() drops their entry, before the write
+    returns.
     """
 
     _RACY_STAT_NS = 20_000_000
 
-    def __init__(self, store):
+    def __init__(self, store, notify=None):
         self._store = store
+        self._notify = notify
         # bucket -> (signature, BucketMetadata)
         self._cache: dict[str, tuple[tuple, BucketMetadata]] = {}
         self._mu = threading.Lock()
@@ -131,8 +136,9 @@ class BucketMetadataSys:
             Policy.parse(changes["policy_json"]).validate()
         meta = dataclasses.replace(self.get(bucket), **changes)
         self._store.write_sys_config(self._path(bucket), meta.serialize())
-        with self._mu:
-            self._cache.pop(bucket, None)
+        self.invalidate(bucket)
+        if self._notify is not None:
+            self._notify(bucket)
         return meta
 
     def drop_bucket(self, bucket: str) -> None:
@@ -141,5 +147,12 @@ class BucketMetadataSys:
             self._store.delete_sys_config(self._path(bucket))
         except se.FileNotFound:
             pass
+        self.invalidate(bucket)
+        if self._notify is not None:
+            self._notify(bucket)
+
+    def invalidate(self, bucket: str) -> None:
+        """Drop the cache entry (the peer plane's invalidation target,
+        PeerHooks.on_bucket_metadata_invalidate)."""
         with self._mu:
             self._cache.pop(bucket, None)

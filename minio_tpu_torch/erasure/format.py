@@ -61,7 +61,8 @@ class FormatInfo:
 
 
 def init_format_erasure(drives: list[StorageAPI],
-                        set_drive_count: int | None = None) -> FormatInfo:
+                        set_drive_count: int | None = None,
+                        can_format_fresh: bool = True) -> FormatInfo:
     """Read or create the format of `set_drive_count`-drive sets (default:
     one set of all drives) over `drives`, as minio_tpu/erasure/format.py
     does (reference waitForFormatErasure): a fresh cluster is minted,
@@ -79,6 +80,10 @@ def init_format_erasure(drives: list[StorageAPI],
                            deadline=fleet_deadlines(drives)[0])
     existing = [FormatInfo.from_doc(r) for r in results if isinstance(r, dict)]
     if not existing:
+        if not can_format_fresh:
+            raise se.OperationTimedOut(
+                "", "", "fresh cluster: waiting for the first node to "
+                "write the format")
         fmt = FormatInfo(deployment_id=str(uuid.uuid4()),
                          sets=[[str(uuid.uuid4()) for _ in range(set_drive_count)]
                                for _ in range(set_count)])
@@ -99,6 +104,10 @@ def init_format_erasure(drives: list[StorageAPI],
         tally[key] = tally.get(key, 0) + 1
     (dep_id, sets_key), count = max(tally.items(), key=lambda kv: kv[1])
     if count <= len(existing) // 2:
+        if not can_format_fresh:
+            # A follower racing the leader's format writes: transient.
+            raise se.OperationTimedOut(
+                "", "", "format quorum not yet visible; waiting")
         raise se.CorruptedFormat("no format quorum across drives")
     ref = FormatInfo(deployment_id=dep_id, sets=[list(s) for s in sets_key])
     if len(ref.sets) != set_count or any(len(s) != set_drive_count

@@ -336,7 +336,7 @@ class MultipartMixin:
         # The quorum decision and any undo stay under the key lock: the
         # undo mutates the live namespace, and a PUT landing between the
         # commit and its undo must never lose its acknowledged version.
-        with self.nslock.lock(bucket, obj):
+        with self.nslock.lock(bucket, obj) as lease:
             # No fan-out deadline, as in the JAX package: a commit is
             # O(parts) renames, each bounded at the drive, and one stamped
             # timed out would race _restore_session's rollback.
@@ -350,6 +350,14 @@ class MultipartMixin:
                 self._restore_session(shuffled, outcomes, tokens, fi, parts,
                                       mp, tmp_rel, bucket, obj)
                 raise
+            if not lease.held:
+                # The dsync lock lost its refresh quorum mid-commit
+                # (minio_tpu/erasure/multipart.py:427): roll back.
+                self._restore_session(shuffled, outcomes, tokens, fi, parts,
+                                      mp, tmp_rel, bucket, obj)
+                raise se.OperationTimedOut(
+                    bucket, obj, "dsync lock quorum lost during commit; "
+                    "write rolled back")
 
         # Committed: drop what the commit displaced, the tmp leftovers of
         # drives whose commit failed, and the session.

@@ -66,7 +66,6 @@ import queue
 import threading
 import time
 import uuid
-from contextlib import contextmanager
 from typing import BinaryIO, Iterator
 
 from minio_tpu_torch import dataplane, hottier, metaplane, obs
@@ -155,34 +154,14 @@ def _read_full(data: BinaryIO, n: int) -> bytes:
     return bytes(buf)
 
 
-class _KeyLocks:
-    """Per-(bucket, object) mutex around mutating commits (the in-process
-    role of the reference's namespace lock, cmd/namespace-lock.go:48)."""
-
-    def __init__(self):
-        self._mu = threading.Lock()
-        self._locks: dict[tuple[str, str], list] = {}  # key -> [lock, refs]
-
-    @contextmanager
-    def lock(self, bucket: str, obj: str):
-        key = (bucket, obj)
-        with self._mu:
-            ent = self._locks.setdefault(key, [threading.Lock(), 0])
-            ent[1] += 1
-        try:
-            with ent[0]:
-                yield
-        finally:
-            with self._mu:
-                ent[1] -= 1
-                if ent[1] == 0:
-                    del self._locks[key]
-
-
 class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
     def __init__(self, drives: list[StorageAPI], parity: int | None = None,
                  block_size: int = DEFAULT_BLOCK_SIZE, device="cuda",
-                 enable_mrf: bool = False, bitrot_algorithm: str | None = None):
+                 enable_mrf: bool = False, bitrot_algorithm: str | None = None,
+                 nslock=None):
+        """nslock: the namespace lock around mutating commits; a cluster
+        passes its dsync one (dist/nslock.py), shared by the sets. By
+        default an in-process lock table."""
         if not drives:
             raise ValueError("empty drive set")
         self.device = device_mod.resolve(device)
@@ -202,7 +181,11 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         self.bitrot_algorithm = (bitrot_algorithm if bitrot_algorithm
                                  else bitrot.device_default_algorithm())
         bitrot.get_algorithm(self.bitrot_algorithm)
-        self.nslock = _KeyLocks()
+        if nslock is None:
+            from minio_tpu_torch.dist.nslock import NamespaceLockMap
+
+            nslock = NamespaceLockMap()
+        self.nslock = nslock
         self.mrf: MRFHealer | None = MRFHealer(self) if enable_mrf else None
         self._encode_gibps: float | None = None
         self._read_pool = None
@@ -410,7 +393,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             journal = XLMeta()
             journal.add_version(fi)
             raw = journal.serialize()
-            with self.nslock.lock(bucket, obj), \
+            with self.nslock.lock(bucket, obj) as lease, \
                     obs.span("commit", bucket=bucket, object=obj, inline=True):
                 # Each drive parks what the commit displaces and returns
                 # its token, as rename_data does.
@@ -425,7 +408,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                          for d in shuffled],
                         deadline=self._meta_deadline())
                 self._settle_commit(shuffled, outcomes, write_quorum,
-                                    bucket, obj, fi)
+                                    bucket, obj, fi, lease)
                 if self._setcache is not None:
                     # Write-through: the committed journal is what an
                     # election would return (index 0 on every drive).
@@ -464,14 +447,14 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             return drive.rename_data(SYS_VOL, tmp_rel, _clone_for_drive(fi, i + 1),
                                      bucket, obj, defer_reclaim=True)
 
-        with self.nslock.lock(bucket, obj), \
+        with self.nslock.lock(bucket, obj) as lease, \
                 obs.span("commit", bucket=bucket, object=obj):
             outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
                                      for i, d in enumerate(shuffled)],
                                     deadline=self._meta_deadline())
             try:
                 self._settle_commit(shuffled, outcomes, write_quorum,
-                                    bucket, obj, fi)
+                                    bucket, obj, fi, lease)
             except Exception:
                 cleanup_tmp()
                 raise
@@ -480,7 +463,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         return listing.fi_to_object_info(bucket, obj, fi)
 
     def _settle_commit(self, shuffled, outcomes, write_quorum: int,
-                       bucket: str, obj: str, fi: FileInfo) -> None:
+                       bucket: str, obj: str, fi: FileInfo, lease=None) -> None:
         """After a deferred-reclaim commit fan-out (outcomes: a reclaim
         token or None per drive that committed, an exception per drive
         that did not), in the reference's order
@@ -489,18 +472,28 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         back what it displaced (undo_rename), so an overwrite that fails
         keeps the previous object; at quorum, the displaced state goes for
         good (commit_rename). Either way the key's hot-tier residence is
-        dropped."""
+        dropped. A dsync `lease` that lost its refresh quorum during the
+        commit rolls it back too (minio_tpu/erasure/objects.py:515,630):
+        a writer on the other side of a partition may have committed."""
         self._meta_invalidate(bucket, obj)
-        try:
-            reduce_write_quorum(outcomes, write_quorum, bucket, obj)
-        except Exception:
+
+        def undo():
             undo_fi = FileInfo(volume=bucket, name=obj, version_id=fi.version_id,
                                data_dir=fi.data_dir)
             parallel_map([lambda d=d, t=t: d.undo_rename(bucket, obj, undo_fi, t)
                           for d, t in zip(shuffled, outcomes)
                           if not isinstance(t, Exception)],
                          deadline=self._meta_deadline())
+
+        try:
+            reduce_write_quorum(outcomes, write_quorum, bucket, obj)
+        except Exception:
+            undo()
             raise
+        if lease is not None and not lease.held:
+            undo()
+            raise se.OperationTimedOut(
+                bucket, obj, "dsync lock quorum lost during commit; write rolled back")
         parallel_map([lambda d=d, t=t: d.commit_rename(t)
                       for d, t in zip(shuffled, outcomes)
                       if t and not isinstance(t, Exception)],
@@ -516,19 +509,25 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
         pure memory on a bare armed drive and run inline; when a wrapper
         may block them they run under run_bounded, and a wedged loop
         falls back to the synchronous fan-out (a repeated store of the
-        same bytes is idempotent). None when a drive is not armed."""
+        same bytes is idempotent). None when a drive is not armed or has no
+        two-phase entry."""
         from concurrent.futures import TimeoutError as FutureTimeout
 
         from minio_tpu_torch.erasure.metadata import run_bounded
         from minio_tpu_torch.erasure.sysstore import submits_may_block
 
+        # A drive without the two-phase entry (a remote drive: the
+        # storage plane has no such route) takes the synchronous fan-out,
+        # as in the JAX package (minio_tpu/erasure/objects.py:2040-2047).
+        fns = [getattr(d, "journal_commit_async", None) for d in shuffled]
+        if any(fn is None for fn in fns):
+            return None
         futs: list = []
 
         def submit_all():
-            for d in shuffled:
+            for fn in fns:
                 try:
-                    f = d.journal_commit_async(bucket, obj, fi, raw, meta=journal,
-                                               defer_reclaim=True)
+                    f = fn(bucket, obj, fi, raw, meta=journal, defer_reclaim=True)
                 except Exception as e:  # noqa: BLE001 - per-drive outcome
                     futs.append(e)
                     continue

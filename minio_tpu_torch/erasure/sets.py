@@ -51,14 +51,17 @@ def _raise_first(outcomes: list) -> None:
 class ErasureSets:
     def __init__(self, drives: list[StorageAPI], set_drive_count: int | None = None,
                  parity: int | None = None, enable_mrf: bool = False,
-                 **set_kwargs):
+                 can_format_fresh: bool = True, **set_kwargs):
         """`drives` are formatted (or their format read) into sets of
         `set_drive_count` (default: one set); `enable_mrf` and
-        `set_kwargs` (block_size, device, bitrot_algorithm) go to every
-        set's engine."""
+        `set_kwargs` (block_size, device, bitrot_algorithm, nslock) go to
+        every set's engine. In a cluster (dist/cluster.py) `nslock` is the
+        dsync namespace lock shared by the sets, and only the node owning
+        the first endpoint may mint a fresh format (`can_format_fresh`)."""
         drives = list(drives)
         set_drive_count = set_drive_count or len(drives)
-        self.format = init_format_erasure(drives, set_drive_count)
+        self.format = init_format_erasure(drives, set_drive_count,
+                                          can_format_fresh=can_format_fresh)
         drives = wrap_with_healthcheck(wrap_with_id_check(drives, self.format),
                                        self.format)
         self.deployment_id = self.format.deployment_id

@@ -102,10 +102,12 @@ def _gen_secret_key() -> str:
 class IAMSys:
     """All identity state + the single authorization entry point."""
 
-    def __init__(self, root_access_key: str, root_secret_key: str, store=None):
+    def __init__(self, root_access_key: str, root_secret_key: str, store=None,
+                 notify=None):
         """store: sys-config store (read/write/delete/list_sys_config) or
-        None for memory-only. The port has no peers to tell of a change
-        (the JAX class takes a `notify` fan-out and a `reload` target)."""
+        None for memory-only; notify: callable() fanning a change out to
+        the peers of a cluster, whose reload() re-reads the store."""
+        self._notify = notify
         self.root_access_key = root_access_key
         self.root_secret_key = root_secret_key
         self._store = store
@@ -186,6 +188,20 @@ class IAMSys:
         else:
             self._store.write_sys_config(
                 f"iam/{key}", json.dumps(doc).encode())
+        if self._notify is not None:
+            self._notify()
+
+    def reload(self) -> None:
+        """Re-read every entry from the store (the peer plane's target,
+        PeerHooks.on_iam_reload)."""
+        if self._store is None:
+            return
+        with self._mu:
+            self.users.clear()
+            self.groups.clear()
+            self.policies = dict(CANNED_POLICIES)
+            self.temp_creds.clear()
+            self.load()
 
     # ------------------------------------------------------------------
     # credential resolution (cmd/auth-handler.go checkKeyValid role)

@@ -130,6 +130,7 @@ import hashlib
 import io
 import mimetypes
 import os
+import signal
 import tempfile
 import threading
 import time
@@ -143,6 +144,7 @@ from minio_tpu_torch.admin.configkv import ConfigSys
 from minio_tpu_torch.admin.handlers import ADMIN_PREFIX, AdminAPI
 from minio_tpu_torch.admin.metrics import (OPENMETRICS_CONTENT_TYPE,
                                            PROM_CONTENT_TYPE,
+                                           collect_cluster_metrics,
                                            collect_metrics,
                                            collect_node_metrics, maybe_gzip,
                                            wants_openmetrics)
@@ -346,20 +348,30 @@ class S3Server:
 
     def __init__(self, obj, creds: sigv4.Credentials,
                  address: str = "127.0.0.1:0", versioned_buckets: bool = False,
-                 listen: bool = True):
+                 listen: bool = True, notification_sys=None):
+        """notification_sys: a cluster node's peer fan-out (dist/peer.py
+        NotificationSys): bucket-document and IAM writes tell the peers,
+        and the cluster scrape, trace and perf/timeline federate."""
         self.obj = obj
         self.creds = creds
         # Every bucket versioned (a server-wide default), else each
         # bucket's own metadata document decides.
         self.versioned_buckets = versioned_buckets
-        self.bucket_meta = BucketMetadataSys(obj)
+        self.notification = notification_sys
+        self.cluster_node = None   # set by attach_cluster
+        self.local_locker = None   # the node's dsync locker (force-unlock)
+        self.bucket_meta = BucketMetadataSys(
+            obj, notify=(notification_sys.invalidate_bucket_metadata
+                         if notification_sys is not None else None))
         # Config and IAM are sealed at rest under the root secret; bucket
         # metadata stays plain, as in the JAX server
         # (minio_tpu/s3/server.py:166-203). IAM refuses to load when every
         # sealed entry fails to decrypt (a wrong root secret).
         self.config = ConfigSys(SealedSysStore(obj, creds.secret_key))
         self.iam = IAMSys(creds.access_key, creds.secret_key,
-                          store=SealedSysStore(obj, creds.secret_key))
+                          store=SealedSysStore(obj, creds.secret_key),
+                          notify=(notification_sys.reload_iam
+                                  if notification_sys is not None else None))
         self.kms = kms_from_config(self.config)
         self.atrest = AtRest(obj, creds, self.config, self.kms, self.bucket_meta)
         self.apply_storage_class_config()
@@ -384,7 +396,37 @@ class S3Server:
         return self.stats.current_requests
 
     def cluster_scrape(self, openmetrics: bool = False) -> bytes:
-        return collect_metrics(self.obj, self.stats, openmetrics=openmetrics)
+        """This node's cluster collectors, and on a cluster node every
+        peer's node scrape under a `server` label."""
+        if self.notification is None:
+            return collect_metrics(self.obj, self.stats, openmetrics=openmetrics)
+        node = self.cluster_node
+        return collect_cluster_metrics(self.obj, self.stats,
+                                       notification=self.notification,
+                                       local_name=(node.node_name if node is not None
+                                                   else obs.current_node()),
+                                       openmetrics=openmetrics)
+
+    def attach_cluster(self, node) -> None:
+        """Wire a cluster node (dist/cluster.py ClusterNode) into this
+        server, as the JAX server's attach_cluster does
+        (minio_tpu/s3/server.py:448-482): the node's name on trace
+        records, its dsync locker for force-unlock and top/locks, and the
+        peer hooks through which the other nodes invalidate this node's
+        bucket documents, reload its IAM and pull its scrape, trace,
+        server info, profiles and perf timelines."""
+        self.cluster_node = node
+        self.notification = node.notification
+        self.local_locker = node.locker
+        obs.set_default_node(node.node_name)
+        hooks = node.hooks
+        hooks.on_bucket_metadata_invalidate = self.bucket_meta.invalidate
+        hooks.on_iam_reload = self.iam.reload
+        hooks.trace_bus = obs.trace_bus()
+        hooks.server_info = self.admin._server_info
+        hooks.profiler = self.profiler
+        hooks.perf_timeline = self.admin._perf_timelines
+        hooks.metrics = lambda: collect_node_metrics(self.stats)
 
     def apply_storage_class_config(self) -> None:
         """Parse storageclass.standard / rrs ("EC:N") and stamp the parity
@@ -458,6 +500,9 @@ class S3Server:
         self.httpd.server_close()
         for h in self.auto_healer:
             h.close()
+        if self.cluster_node is not None:
+            self.cluster_node.close()   # its object layer, fabric and WALs
+            return
         close = getattr(self.obj, "close", None)
         if close is not None:
             close()   # the metacache renderer and the MRF threads
@@ -775,10 +820,11 @@ class S3Server:
 
     def _health(self, path: str, q: dict) -> _Response:
         """The unsigned probes (the JAX server's, minio_tpu/s3/server.py:
-        1012-1102, for one node): live answers while the process does;
-        ready and cluster answer 200 while every set keeps write quorum,
-        and with ?maintenance=true while every set would keep it with one
-        more drive down."""
+        1012-1102): live answers while the process does; ready and cluster
+        answer 200 while every set keeps write quorum, and with
+        ?maintenance=true while every set would keep it with one more
+        drive down; on a cluster node, 503 also while it reaches only a
+        strict minority of the nodes."""
         kind = path.rsplit("/", 1)[-1]
         if kind == "live":
             return _Response(200, {})
@@ -791,6 +837,19 @@ class S3Server:
             healthy = all(s.get("online", 0) >= s.get("write_quorum", 0) + 1
                           for s in sets)
         headers = {}
+        node = self.cluster_node
+        if node is not None and node.peer_nodes:
+            # A node that reaches only a strict minority of the cluster
+            # (open peer breakers) is on the minority side of a partition:
+            # 503, so a balancer drains it. An even split stays up.
+            fabric = node.peer_fabric_info()
+            open_peers = sum(1 for p in fabric if p["state"] == "open")
+            total = len(fabric) + 1
+            reachable = total - open_peers
+            if reachable * 2 < total:
+                healthy = False
+            headers["X-Minio-Peers-Online"] = str(reachable - 1)
+            headers["X-Minio-Peers-Offline"] = str(open_peers)
         if sets:
             headers["X-Minio-Write-Quorum"] = str(max(s.get("write_quorum", 0)
                                                       for s in sets))
@@ -1684,14 +1743,24 @@ def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                  parity: int | None = None,
                  set_drive_count: int | None = None,
                  versioned: bool = False, enable_mrf: bool = True,
-                 listen: bool = True) -> S3Server:
+                 listen: bool = True, rpc_port: int | None = None) -> S3Server:
     """Format (or read the format of) the drives as sets of
     `set_drive_count` (default: one set of all), put them in one pool and
     bind its S3 server (`listen=False`: bind nothing, S3Server.adopt and
     serve_socket feed it); `versioned` versions every bucket, `enable_mrf`
     (the JAX default, on) gives each set its MRF healer. Call .start() to
     serve in the background, .start_auto_heal() for the drive healer,
-    .close() to stop all of it."""
+    .close() to stop all of it.
+
+    URL endpoints (http://host:port/path, with {a...b} ellipses) boot one
+    node of a distributed deployment instead (build_cluster_server)."""
+    if any("://" in p for p in drive_paths):
+        return build_cluster_server(drive_paths, access_key, secret_key,
+                                    device=device, address=address,
+                                    parity=parity,
+                                    set_drive_count=set_drive_count,
+                                    versioned=versioned, enable_mrf=enable_mrf,
+                                    rpc_port=rpc_port)
     sets = ErasureSets([LocalDrive(p) for p in drive_paths],
                        set_drive_count=set_drive_count, parity=parity,
                        enable_mrf=enable_mrf, device=device)
@@ -1700,9 +1769,56 @@ def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                     versioned_buckets=versioned, listen=listen)
 
 
+def build_cluster_server(endpoints: list[str], access_key: str, secret_key: str,
+                         device="cuda", address: str = "127.0.0.1:9000",
+                         parity: int | None = None,
+                         set_drive_count: int | None = None,
+                         versioned: bool = False, enable_mrf: bool = True,
+                         rpc_port: int | None = None) -> S3Server:
+    """One node of a distributed deployment, as the JAX build_server boots
+    it (minio_tpu/s3/server.py:3007-3050): `address` is this node's
+    advertised S3 host:port (endpoints naming it are its local drives);
+    the node's RPC fabric listens on `rpc_port` (the S3 port + 1000 by
+    default, as every node assumes of its peers). The boot retries
+    bootstrap, format and the first quorum reads until MTPU_BOOT_TIMEOUT
+    (600 s) while peers start, in any order."""
+    from minio_tpu_torch.dist.cluster import ClusterNode
+
+    host, _, port = address.rpartition(":")
+    node = ClusterNode([endpoints], host=host or "127.0.0.1", port=int(port or 9000),
+                       secret=secret_key, set_drive_count=set_drive_count or 0,
+                       parity=parity, rpc_port=rpc_port, device=device)
+    boot_deadline = time.monotonic() + float(os.environ.get("MTPU_BOOT_TIMEOUT", "600"))
+    try:
+        while True:
+            layer = None
+            try:
+                node.wait_for_peers(timeout=max(1.0, boot_deadline - time.monotonic()))
+                layer = node.build_object_layer(enable_mrf=enable_mrf)
+                srv = S3Server(layer, sigv4.Credentials(access_key, secret_key),
+                               address, versioned_buckets=versioned,
+                               notification_sys=node.notification)
+                break
+            except (se.OperationTimedOut, se.InsufficientReadQuorum,
+                    se.InsufficientWriteQuorum):
+                if layer is not None:
+                    layer.close()
+                    node.object_layer = None
+                if time.monotonic() > boot_deadline:
+                    raise
+                time.sleep(0.5)
+    except BaseException:
+        node.close()
+        raise
+    srv.attach_cluster(node)
+    return srv
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="minio_tpu_torch S3 server")
-    ap.add_argument("drives", nargs="+", help="drive directories")
+    ap.add_argument("drives", nargs="+",
+                    help="drive directories, or URL endpoints with {a...b} "
+                         "ellipses for a node of a distributed deployment")
     ap.add_argument("--address", default="0.0.0.0:9000")
     ap.add_argument("--versioned", action="store_true",
                     help="version every bucket (else each bucket's ?versioning)")
@@ -1711,22 +1827,43 @@ def main(argv=None) -> None:
                     help="drives per erasure set (default: all in one set)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch kernels)")
+    ap.add_argument("--rpc-port", type=int, default=None,
+                    help="a cluster node's RPC fabric port (default: S3 port "
+                         "+ 1000, as its peers assume)")
     args = ap.parse_args(argv)
     srv = build_server(args.drives, os.environ.get("MTPU_ROOT_USER", "minioadmin"),
                        os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"),
                        device=args.device, address=args.address,
                        parity=args.parity, set_drive_count=args.set_drive_count,
-                       versioned=args.versioned)
+                       versioned=args.versioned, rpc_port=args.rpc_port)
     srv.start_auto_heal()
     sets = srv.obj.pools[0]
     es = sets.sets[0]
-    print(f"serving S3 on {srv.url} ({len(args.drives)} drives, {sets.set_count} "
-          f"set(s) of {es.n}, EC {es.n - es.parity}+{es.parity}, {es.device})",
-          flush=True)
+    n_drives = sum(len(p.drives) for p in srv.obj.pools)
+    node = (f", node {srv.cluster_node.node_name} of "
+            f"{len(srv.cluster_node.peer_nodes) + 1}" if srv.cluster_node else "")
+    print(f"serving S3 on {srv.url} ({n_drives} drives, {sets.set_count} "
+          f"set(s) of {es.n}, EC {es.n - es.parity}+{es.parity}, {es.device}"
+          f"{node})", flush=True)
+    # SIGTERM drains: the serve loop ends, close() stops the healers, the
+    # sets, the node's fabric and the WALs, and the process exits 0 after
+    # printing its exact kernel launch counts.
+    signal.signal(signal.SIGTERM, lambda signum, frame: threading.Thread(
+        target=srv.httpd.shutdown, daemon=True).start())
     try:
         srv.httpd.serve_forever()
     finally:
         srv.close()
+        if srv.cluster_node is None:   # a cluster node closes its own
+            from minio_tpu_torch.storage.healthcheck import unwrap
+
+            for d in srv.obj.all_drives():
+                close_wal = getattr(unwrap(d), "close_wal", None)
+                if close_wal is not None:
+                    close_wal()
+    from minio_tpu_torch.ops import kernels
+
+    print(f"drained; kernel launches {kernels.launches()}", flush=True)
 
 
 if __name__ == "__main__":

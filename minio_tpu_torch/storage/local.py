@@ -121,8 +121,11 @@ class LocalDrive(StorageAPI):
     _RACY_STAT_NS = 20_000_000
     _META_CACHE_CAP = 4096
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, endpoint: str = ""):
+        """endpoint: the drive's name in a cluster (its URL endpoint); the
+        root path by default."""
         self.root = os.path.abspath(root)
+        self._endpoint = endpoint or self.root
         # (volume, path) -> (signature, XLMeta, {version id: FileInfo})
         self._meta_cache: OrderedDict = OrderedDict()
         self._meta_mu = threading.Lock()
@@ -164,7 +167,7 @@ class LocalDrive(StorageAPI):
         return SYS_VOL
 
     def endpoint(self) -> str:
-        return self.root
+        return self._endpoint
 
     def disk_info(self, *, with_id: bool = True) -> DiskInfo:
         st = os.statvfs(self.root)
@@ -178,7 +181,7 @@ class LocalDrive(StorageAPI):
                         total=st.f_blocks * st.f_frsize,
                         used=(st.f_blocks - st.f_bfree) * st.f_frsize,
                         used_inodes=st.f_files - st.f_ffree,
-                        endpoint=self.root, mount_path=self.root, id=disk_id)
+                        endpoint=self._endpoint, mount_path=self.root, id=disk_id)
 
     # ---------- identity ----------
 
@@ -298,16 +301,24 @@ class LocalDrive(StorageAPI):
         self.stat_vol(volume)
         self._vol_ok[volume] = now + 2.0
 
-    def delete_vol(self, volume: str) -> None:
+    def delete_vol(self, volume: str, force: bool = False) -> None:
+        """Remove an empty volume; with `force`, the volume and all in it
+        (the storage plane's delete_vol route, as in the JAX package)."""
         d = self._vol_dir(volume)
         self._vol_ok.pop(volume, None)
         self._fresh_vols.pop(volume, None)
         if self._wal is not None:
-            # rmdir decides emptiness from the filesystem: acked journals
-            # still in the overlay must be on disk first.
-            self._wal.flush()
+            if force:
+                self._wal.forget_subtree(volume, "")
+            else:
+                # rmdir decides emptiness from the filesystem: acked
+                # journals still in the overlay must be on disk first.
+                self._wal.flush()
         try:
-            os.rmdir(d)
+            if force:
+                shutil.rmtree(d)
+            else:
+                os.rmdir(d)
         except FileNotFoundError:
             raise se.VolumeNotFound(volume) from None
         except OSError as e:
@@ -500,6 +511,18 @@ class LocalDrive(StorageAPI):
         except OSError as e:
             raise se.FaultyDisk(str(e)) from e
         return written
+
+    def append_file(self, volume: str, path: str, data: bytes) -> None:
+        """Append and fsync (the storage plane's append_file route)."""
+        fp = self._file_path(volume, path)
+        os.makedirs(os.path.dirname(fp), exist_ok=True)
+        try:
+            with open(fp, "ab") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
 
     def read_file_stream(self, volume: str, path: str) -> BinaryIO:
         fp = self._file_path(volume, path)
@@ -770,6 +793,23 @@ class LocalDrive(StorageAPI):
         if fi is None:
             fi = hit[2][version_id] = hit[1].to_fileinfo(volume, path, version_id)
         return fi.clone()
+
+    def read_xl(self, volume: str, path: str) -> bytes:
+        """The key's raw journal: the WAL overlay's while it has a pending
+        entry, else meta.mp (the storage plane's read_xl route)."""
+        if self._wal is not None:
+            pe = self._wal.pending_entry(volume, path)
+            if pe is not None:
+                if pe.removed:
+                    raise se.FileNotFound(f"{volume}/{path}")
+                return pe.raw
+        try:
+            with open(self._meta_path(volume, path), "rb") as f:
+                return f.read()
+        except (FileNotFoundError, NotADirectoryError):
+            raise se.FileNotFound(f"{volume}/{path}") from None
+        except OSError as e:
+            raise se.FaultyDisk(str(e)) from e
 
     def delete_version(self, volume: str, path: str, fi: FileInfo) -> None:
         try:

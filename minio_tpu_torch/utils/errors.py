@@ -22,6 +22,10 @@ class FaultyDisk(StorageError):
     """Drive returned an unexpected I/O error."""
 
 
+class DiskFull(StorageError):
+    pass
+
+
 class DiskAccessDenied(StorageError):
     pass
 
@@ -62,6 +66,14 @@ class FileAccessDenied(StorageError):
 class FileCorrupt(StorageError):
     """Bitrot verification failed on read (reference errFileCorrupt,
     cmd/bitrot-streaming.go:139-158)."""
+
+
+class FileNameTooLong(StorageError):
+    pass
+
+
+class MethodNotAllowed(StorageError):
+    pass
 
 
 class IsNotRegular(StorageError):
@@ -146,6 +158,14 @@ class InsufficientWriteQuorum(ObjectError):
     """Fewer than writeQuorum drives accepted the write."""
 
 
+class ObjectExistsAsDirectory(ObjectError):
+    pass
+
+
+class PreconditionFailed(ObjectError):
+    pass
+
+
 class InvalidRange(ObjectError):
     pass
 
@@ -195,3 +215,17 @@ class InvalidAccessKey(IAMError):
 
 class IAMActionNotAllowed(IAMError):
     pass
+
+
+def by_name(name: str, msg: str = "") -> Exception:
+    """Rebuild a typed storage or object error from its class name (the
+    fabric's error documents, minio_tpu/utils/errors.py by_name)."""
+    cls = globals().get(name)
+    if isinstance(cls, type) and issubclass(cls, ObjectError):
+        try:
+            return cls(msg=msg)
+        except TypeError:   # a subclass with its own fields
+            return cls()
+    if isinstance(cls, type) and issubclass(cls, StorageError):
+        return cls(msg)
+    return StorageError(f"{name}: {msg}")

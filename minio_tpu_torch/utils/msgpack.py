@@ -23,6 +23,10 @@ class UnpackError(ValueError):
     """Malformed or unsupported msgpack input."""
 
 
+class _Truncated(UnpackError):
+    """The input ends inside a document (a stream may bring the rest)."""
+
+
 def _pack_len(out: bytearray, n: int, fix_base: int, fix_max: int,
               codes: tuple[int, int, int]) -> None:
     if fix_base is not None and n <= fix_max:
@@ -115,7 +119,7 @@ def _unpack(buf, pos: int):
     try:
         c = buf[pos]
     except IndexError:
-        raise UnpackError("truncated msgpack data") from None
+        raise _Truncated("truncated msgpack data") from None
     pos += 1
     if c < 0x80:
         return c, pos
@@ -140,7 +144,7 @@ def _unpack(buf, pos: int):
         pos += w
         end = pos + n
         if end > len(buf):
-            raise UnpackError("truncated bin")
+            raise _Truncated("truncated bin")
         return bytes(buf[pos:end]), end
     if c == 0xCA:
         _need(buf, pos, 4)
@@ -170,7 +174,7 @@ def _unpack(buf, pos: int):
 
 def _need(buf, pos: int, n: int) -> None:
     if pos + n > len(buf):
-        raise UnpackError("truncated msgpack data")
+        raise _Truncated("truncated msgpack data")
 
 
 def _uint(buf, pos: int, w: int) -> int:
@@ -181,7 +185,7 @@ def _uint(buf, pos: int, w: int) -> int:
 def _str(buf, pos: int, n: int):
     end = pos + n
     if end > len(buf):
-        raise UnpackError("truncated str")
+        raise _Truncated("truncated str")
     try:
         return bytes(buf[pos:end]).decode("utf-8"), end
     except UnicodeDecodeError as e:
@@ -215,3 +219,30 @@ def unpackb(data):
     if pos != len(buf):
         raise UnpackError("extra data after msgpack document")
     return obj
+
+
+class Unpacker:
+    """A streaming decoder (msgpack-python's `Unpacker` with `feed`):
+    feed() bytes as they arrive, iterate for every document now whole; a
+    document cut short stays buffered until the rest is fed."""
+
+    def __init__(self):
+        self._buf = b""
+        self._pos = 0
+
+    def feed(self, data) -> None:
+        self._buf = self._buf[self._pos:] + bytes(data)
+        self._pos = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._pos >= len(self._buf):
+            raise StopIteration
+        try:
+            obj, pos = _unpack(self._buf, self._pos)
+        except _Truncated:
+            raise StopIteration from None
+        self._pos = pos
+        return obj

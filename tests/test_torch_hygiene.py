@@ -22,9 +22,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xxhash"}
 
 # Modules of the metadata plane and drive-resilience slice, of the
-# data-at-rest slice, of the identity-and-access slice and of the front
-# door and QoS slice, each its own copy of the JAX module it ports: they
-# must be in the scan.
+# data-at-rest slice, of the identity-and-access slice, of the front
+# door and QoS slice and of the distributed cluster slice, each its own
+# copy of the JAX module it ports: they must be in the scan.
 SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "metaplane/groupcommit.py", "metaplane/setcache.py",
                  "storage/idcheck.py", "storage/healthcheck.py",
@@ -39,7 +39,11 @@ SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "frontdoor/__main__.py", "frontdoor/shm.py",
                  "frontdoor/laneserver.py", "frontdoor/listener.py",
                  "frontdoor/router.py", "frontdoor/worker.py",
-                 "frontdoor/supervisor.py", "utils/sysres.py")
+                 "frontdoor/supervisor.py", "utils/sysres.py",
+                 "dist/__init__.py", "dist/faultplane.py", "dist/rpc.py",
+                 "dist/server.py", "dist/endpoint.py", "dist/storage_remote.py",
+                 "dist/dsync.py", "dist/nslock.py", "dist/peer.py",
+                 "dist/cluster.py", "utils/msgpack.py")
 
 
 def _port_files():

@@ -60,6 +60,37 @@ def test_msgpack_rejects_malformed():
             tmp.unpackb(bad)
 
 
+def test_streaming_unpacker_at_every_cut():
+    """The streaming decoder (the node fabric's iter_msgpack) yields what
+    msgpack-python's Unpacker yields, fed in two pieces cut at every byte
+    boundary and one byte at a time; a malformed byte raises."""
+    rng = np.random.default_rng(3)
+    docs = [{"n": "a/b", "m": rng.bytes(300)}, [1.5, None, True, "s" * 40],
+            {"hb": 1}, -(1 << 40), "\u00e9" * 20, {"x": {"y": [b"", 0xFFFF]}},
+            {"total": 1 << 40, "metrics": {}, "id": "u-1", "healing": False}]
+    raw = b"".join(msgpack.packb(d) for d in docs)
+    assert raw == b"".join(tmp.packb(d) for d in docs)
+    ref = msgpack.Unpacker(strict_map_key=False)
+    ref.feed(raw)
+    want = list(ref)
+    assert want == docs
+    for cut in range(len(raw) + 1):
+        u = tmp.Unpacker()
+        u.feed(raw[:cut])
+        got = list(u)
+        u.feed(raw[cut:])
+        assert got + list(u) == want, cut
+    u, got = tmp.Unpacker(), []
+    for i in range(len(raw)):
+        u.feed(raw[i:i + 1])
+        got += list(u)
+    assert got == want
+    u = tmp.Unpacker()
+    u.feed(b"\xc1")
+    with pytest.raises(tmp.UnpackError):
+        next(u)
+
+
 def test_crc32c_matches_native():
     rng = np.random.default_rng(2)
     # Short inputs take the byte loop, longer ones the lanes (power-of-two
