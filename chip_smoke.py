@@ -282,6 +282,44 @@ package beside it. Phases, each raising on failure:
    launches (node 1's exact K1 less its labeled K1 is the reconstructs of
    its degraded GET, which must be launched).
 
+17. the background plane (background_phase, run before phase 9): config
+   1's set (12 drives on /dev/shm, EC 8+4, 1 MiB blocks) behind the
+   server built in this process with its data scanner built as the CLI
+   builds it (heal_objects on) but its loop not started: each cycle is one
+   scan_once, with the scanner's pacing off (`scanner delay=0` by
+   config-kv, so a cycle's seconds are its crawl's own). Event and audit
+   targets are local webhooks (notify_webhook, audit_webhook by
+   config-kv), the FS tier COLD lives on /dev/shm (admin `tier`). (a) a
+   bucket of BG_SYNTH synthetic keys (utils/synthbucket.py, inline
+   journals dated 2023) and BG_MIX warp-mix objects PUT by 16 clients; one
+   cycle: its seconds and objects scanned/s, and datausageinfo's counts
+   and bytes equal to what was written; (b) an Expiration rule (1 day) on
+   BG_EXPIRE_PREFIX: the next cycle expires exactly its 100 keys (expired
+   keys/s), every other key of their directory stays, and the event
+   webhook receives one s3:ObjectRemoved:Delete from minio_tpu:ilm for
+   each; (c) BG_TIER
+   objects of 256 MiB under a Transition rule, the cycle at now + 2 days:
+   the transition's GiB/s with K2 launched as a GET of them launches it
+   and no K1, the shard files gone; a GET and a Range GET read through
+   byte-equal and launch no kernel; POST ?restore answers 202 at a restore
+   GiB/s whose K1/K2 equal a 256 MiB PUT's, the tier copy gone, the GET
+   from the drives byte-equal, sampled digests and parity equal to the
+   plain versions; (d) `heal bitrotscan=on`, one byte flipped in a shard
+   file of a 64 MiB object, the synthetic bucket dropped from the drives
+   (its inline keys hold no shard), every real bucket marked in the
+   update tracker as a write marks it, and the usage document persisted
+   one cycle short of a deep one and reloaded (a deep cycle comes every
+   HEAL_EVERY_N_CYCLES-th cycle, counted from that document): the deep
+   cycle rebuilds the shard equal to its copy, K2 digests at least every
+   block of every real object's 12 shards (the rows counted around
+   mxsum.digest), K1 reconstructs, its GiB/s verified; (e) every request's
+   audit entry arrives at the audit webhook under the request id its
+   answer carried. The servers that phases 12, 15 and 16 start through
+   the CLI run with --scan-interval 0, so no scanner launches a kernel
+   in their counts. Depth cut for phase 17 itself: 5,000 synthetic keys
+   and 100 expiries (of 20,000 and 1,000; alone on the card it took 231.3
+   s at those, run 68: 3 ms a key a cycle, 48 ms an expiry).
+
 Depth cut to make room under SMOKE_BUDGET_S, no width changed: for
 phase 11, phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
@@ -297,7 +335,7 @@ PUTs 500 real objects instead of 1,000 and may halve down to 6,250
 synthetic ones (12,500).
 
 The launch count of each kernel is reset just before each of phases 3-14
-(each run of phase 4) and read after it (phase 15's workers and phase
+and 17 (each run of phase 4) and read after it (phase 15's workers and phase
 16's nodes count in their own processes: their scrapes and drain logs);
 the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
@@ -372,6 +410,23 @@ LIST_PAGE = 1000                # ListObjectsV2 max-keys
 LIST_S_PER_OBJECT = 0.005
 LIST_FIXED_S = 110.0
 LIST_BYTES_PER_OBJECT = 12 * 8192
+BG_SYNTH = 5_000                # phase 17: synthetic keys scanned (inline journals),
+BG_EXPIRE_PREFIX = "p003/o0030"  # ... of which this prefix's 100 expire by rule,
+BG_MIX = 64                     # ... warp-mix objects (1-512 KiB) PUT by 16 clients,
+BG_TIER, BG_TIER_SIZE = 2, 256 << 20   # ... objects transitioned to the FS tier,
+BG_DEEP_SIZE = 64 << 20         # ... and the object whose flipped byte the deep cycle heals
+NOTIFY_ILM = (b"<NotificationConfiguration><QueueConfiguration><Id>ilm</Id>"
+              b"<Queue>arn:minio_tpu:sqs::webhook:webhook</Queue>"
+              b"<Event>s3:ObjectRemoved:*</Event></QueueConfiguration>"
+              b"</NotificationConfiguration>")
+BG_EXPIRE_RULE = (b"<LifecycleConfiguration><Rule><ID>expire-p003-o0030</ID><Status>Enabled"
+                  b"</Status><Filter><Prefix>" + BG_EXPIRE_PREFIX.encode() +
+                  b"</Prefix></Filter><Expiration><Days>1</Days></Expiration></Rule>"
+                  b"</LifecycleConfiguration>")
+BG_TIER_RULE = (b"<LifecycleConfiguration><Rule><ID>cold</ID><Status>Enabled</Status>"
+                b"<Filter><Prefix></Prefix></Filter><Transition><Days>1</Days>"
+                b"<StorageClass>COLD</StorageClass></Transition></Rule>"
+                b"</LifecycleConfiguration>")
 SMOKE_BUDGET_S = 1000.0         # what the whole script should stay under
 SMOKE_LIMIT_S = 1100.0          # what it must stay under: 1200 s less a margin
 S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
@@ -2779,7 +2834,7 @@ def _crash_child(paths: list[str], port: int, device: str, extra_env: dict | Non
     env = _child_env(extra_env)
     proc = subprocess.Popen(
         [sys.executable, "-m", "minio_tpu_torch.s3.server", *paths,
-         "--address", f"127.0.0.1:{port}", "--device", device],
+         "--address", f"127.0.0.1:{port}", "--device", device, "--scan-interval", "0"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
     line = proc.stdout.readline()
     if "serving S3" not in line:
@@ -4575,7 +4630,8 @@ class _Node:
         self.serving = threading.Event()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "minio_tpu_torch.s3.server", *endpoints,
-             "--address", f"127.0.0.1:{port}", "--device", device],
+             "--address", f"127.0.0.1:{port}", "--device", device,
+             "--scan-interval", "0"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
 
         def read():
@@ -5002,6 +5058,341 @@ def cluster_phase(seed: int, card: str, records: list[dict] | None, device: str 
     return out
 
 
+class _Sink:
+    """A local HTTP listener that keeps the JSON body of every POST (the
+    phase's event webhook and audit webhook)."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        docs: list = []
+
+        class H(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                docs.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.docs = docs
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.httpd.daemon_threads = True
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def wait(self, pred, timeout: float) -> bool:
+        end = time.monotonic() + timeout
+        while not pred(self.docs):
+            if time.monotonic() > end:
+                return False
+            time.sleep(0.05)
+        return True
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+class _RidClient(_Client):
+    """_Client that keeps the x-amz-request-id of every answer."""
+
+    def __init__(self, url: str, rids: list):
+        super().__init__(url)
+        self._rids = rids
+
+    def send(self, *a, **kw):
+        r = super().send(*a, **kw)
+        self._rids.append(r.getheader("x-amz-request-id"))
+        return r
+
+
+def background_phase(seed: int, card: str, device: str = "cuda", synth: int = BG_SYNTH,
+                     mix: int = BG_MIX, tier_size: int = BG_TIER_SIZE,
+                     deep_size: int = BG_DEEP_SIZE) -> None:
+    """Phase 17 (see the module's docstring): the background plane on
+    config 1's set, the scanner driven cycle by cycle through scan_once."""
+    import numpy as np
+
+    from minio_tpu_torch.ops import kernels, mxsum
+    from minio_tpu_torch.s3.server import build_server
+    from minio_tpu_torch.scanner import scanner as scanmod
+    from minio_tpu_torch.scanner import tiers as tiermod
+    from minio_tpu_torch.scanner.usage import DataUsageCache
+    from minio_tpu_torch.utils.synthbucket import make_synthetic_bucket, synthetic_key
+
+    rng = np.random.default_rng(seed + 17)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-bg-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    events, audit = _Sink(), _Sink()
+    prev_qdir = os.environ.get("MTPU_EVENT_QUEUE_DIR")
+    os.environ["MTPU_EVENT_QUEUE_DIR"] = os.path.join(work, "events")
+    st = _Stages()
+    lines = []
+    rids: list = []
+    srv = pool = None
+    real_digest = mxsum.digest
+    try:
+        srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+        # The scanner the CLI starts (heal_objects on), its loop not
+        # started: each cycle below is one scan_once.
+        srv.start_scanner(loop=False)
+        sc = srv.scanner
+        root = _RidClient(srv.url, rids)
+        es = srv.obj.pools[0].sets[0]
+        # The event and audit webhooks; the scanner's pacing off (delay 0:
+        # no sleep of 10x each page's time), so a cycle's seconds are its
+        # crawl's own.
+        root.request("PUT", "/minio/admin/v3/config-kv", json.dumps({
+            "notify_webhook": {"enable": "on", "endpoint": events.url},
+            "audit_webhook": {"enable": "on", "endpoint": audit.url},
+            "scanner": {"delay": "0"}}).encode())
+        cold = os.path.join(work, "cold")
+        root.request("PUT", "/minio/admin/v3/tier", json.dumps(
+            {"kind": "fs", "name": "COLD", "dir": cold}).encode())
+        for b in ("bgsynth", "bgmix", "bgtier", "bgdeep"):
+            root.request("PUT", f"/{b}")
+        root.request("PUT", "/bgsynth", NOTIFY_ILM, query={"notification": ""})
+        t0 = time.perf_counter()
+        make_synthetic_bucket(es.drives, "bgsynth", synth)
+        build_s = time.perf_counter() - t0
+        sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(512 << 10), mix)).astype(np.int64)
+        mixed = {f"w/{i:03d}": rng.bytes(int(n)) for i, n in enumerate(sizes)}
+        pool = _Pool(srv.url, 16)
+
+        def put_mix(c, kv):
+            r, _body = c.request("PUT", f"/bgmix/{kv[0]}", kv[1])
+            rids.append(r.getheader("x-amz-request-id"))
+
+        pool.run(put_mix, mixed.items())
+        print(f"  {synth} synthetic keys in {build_s:.3f} s, {mix} warp-mix objects "
+              f"({int(sizes.sum())} B) by 16 clients; drives on {shm or 'the tmp dir'}")
+
+        # (a) one cycle over everything: usage equal to what was written.
+        # The synthetic keys were written beside the server: the tracker is
+        # told, as a write through it would have marked the bucket.
+        srv.update_tracker.mark("bgsynth")
+        kernels.reset_launches()
+        st.mark("start")
+        usage = sc.scan_once()
+        st.mark("cycle")
+        sec, d = st.delta("cycle")
+        n_obj = synth + mix
+        lines.append(f"cycle 1 (usage) {sec:.6f} s ({n_obj / sec:.3f} objects scanned/s; "
+                     f"K1/K2 {d['gf2_matmul']}/{d['mxsum_digest']})")
+        _r, doc = root.request("GET", "/minio/admin/v3/datausageinfo")
+        info = json.loads(doc)
+        want = {"bgsynth": (synth, synth), "bgmix": (mix, int(sizes.sum()))}
+        for b, (count, size) in want.items():
+            got = info["bucketsUsage"].get(b, {})
+            if (got.get("objectsCount"), got.get("objectsTotalSize")) != (count, size):
+                raise AssertionError(f"datausageinfo {b}: {got}, want {count} objects "
+                                     f"of {size} B")
+        if info["objectsCount"] != n_obj or usage.cycles != 1:
+            raise AssertionError(f"datausageinfo counts {info['objectsCount']} objects "
+                                 f"(want {n_obj}), cycle {usage.cycles}")
+
+        # (b) an Expiration rule on one prefix: the next cycle expires
+        # exactly its 1,000 keys, each an ILM event at the webhook.
+        root.request("PUT", "/bgsynth", BG_EXPIRE_RULE, query={"lifecycle": ""})
+        due = [synthetic_key(i) for i in range(synth) if synthetic_key(i).startswith(
+            BG_EXPIRE_PREFIX)]
+        st.mark("rule")
+        sc.scan_once()
+        st.mark("expiry")
+        sec, d = st.delta("expiry")
+        lines.append(f"cycle 2 (expiry of {len(due)} keys) {sec:.6f} s "
+                     f"({len(due) / sec:.3f} expired keys/s; K1/K2 "
+                     f"{d['gf2_matmul']}/{d['mxsum_digest']})")
+        # The rule's prefix lies in one 1,000-key directory: every key of
+        # that directory outside the prefix stays.
+        home = BG_EXPIRE_PREFIX.split("/")[0] + "/"
+        _r, doc = root.request("GET", "/bgsynth", query={
+            "list-type": "2", "prefix": home, "max-keys": "1000"})
+        left = [k for k, _e, _s in _list_page(doc)[0]]
+        want_left = [synthetic_key(i) for i in range(synth) if synthetic_key(i).startswith(
+            home) and not synthetic_key(i).startswith(BG_EXPIRE_PREFIX)]
+        if left != want_left:
+            raise AssertionError(f"{home} holds {len(left)} keys after expiry, want "
+                                 f"{len(want_left)}: the rule's {len(due)} gone")
+
+        def ilm(docs):
+            return [x for x in docs if x["Records"][0]["userIdentity"]["principalId"]
+                    == "minio_tpu:ilm"]
+
+        t0 = time.perf_counter()
+        if not events.wait(lambda docs: len(ilm(docs)) >= len(due), 120):
+            raise AssertionError(f"the webhook holds {len(ilm(events.docs))} ILM events, "
+                                 f"want {len(due)}")
+        got = ilm(events.docs)
+        if (sorted(x["Key"] for x in got) != sorted(f"bgsynth/{k}" for k in due)
+                or {x["EventName"] for x in got} != {"s3:ObjectRemoved:Delete"}):
+            raise AssertionError("the ILM events are not one s3:ObjectRemoved:Delete "
+                                 "per expired key")
+        lines.append(f"{len(got)} ILM events delivered, the last "
+                     f"{time.perf_counter() - t0:.3f} s after the cycle")
+        root.request("DELETE", "/bgsynth", query={"lifecycle": ""})
+
+        # (c) two objects under a Transition rule, the cycle at now + 2
+        # days: their data moves to the FS tier (a GET's K2, no K1).
+        big = {f"t{i}": rng.bytes(tier_size) for i in range(BG_TIER)}
+        st.mark("tier put start")
+        for k, v in big.items():
+            root.request("PUT", f"/bgtier/{k}", v)
+        st.mark("tier put")
+        _s, put_d = st.delta("tier put")
+        for k in big:
+            root.request("GET", f"/bgtier/{k}")
+        st.mark("tier get")
+        _s, get_d = st.delta("tier get")
+        root.request("PUT", "/bgtier", BG_TIER_RULE, query={"lifecycle": ""})
+        st.mark("rule 2")
+        sc.scan_once(now=time.time() + 2 * 86400)
+        st.mark("transition")
+        sec, d = st.delta("transition")
+        nbytes = tier_size * len(big)
+        lines.append(f"transition of {len(big)} x {tier_size} B {sec:.6f} s "
+                     f"({nbytes / (1 << 30) / sec:.6f} GiB/s; K1/K2 "
+                     f"{d['gf2_matmul']}/{d['mxsum_digest']}; a GET of them "
+                     f"{get_d['gf2_matmul']}/{get_d['mxsum_digest']})")
+        if d["gf2_matmul"] or d["mxsum_digest"] != get_d["mxsum_digest"] \
+                or not d["mxsum_digest"]:
+            raise AssertionError(f"the transition launched {d}, want K2 as a GET of "
+                                 f"the objects ({get_d}) and no K1")
+        for k, v in big.items():
+            info = es.latest_fileinfo("bgtier", k)
+            if info.metadata.get(tiermod.TRANSITION_TIER) != "COLD" or info.data_dir:
+                raise AssertionError(f"bgtier/{k} was not transitioned")
+            if any(glob.glob(os.path.join(p, "bgtier", k, "*", "part.*")) for p in paths):
+                raise AssertionError(f"bgtier/{k}: shard files left on the drives")
+        st.mark("read start")
+        first = next(iter(big))
+        _r, got_b = root.request("GET", f"/bgtier/{first}")
+        _r2, part = root.request("GET", f"/bgtier/{first}",
+                                 headers={"Range": "bytes=1000000-2999999"})
+        st.mark("read-through")
+        sec, d = st.delta("read-through")
+        if got_b != big[first] or part != big[first][1000000:3000000]:
+            raise AssertionError("the read-through is not byte-equal")
+        if d["gf2_matmul"] or d["mxsum_digest"]:
+            raise AssertionError(f"the read-through launched {d}")
+        lines.append(f"read-through GET of {tier_size} B + a 2 MB Range {sec:.6f} s "
+                     f"({(tier_size + 2000000) / (1 << 30) / sec:.6f} GiB/s; no kernel)")
+        st.mark("restore start")
+        r, body = root.request("POST", f"/bgtier/{first}", b"", query={"restore": ""})
+        st.mark("restore")
+        sec, d = st.delta("restore")
+        if r.status != 202:
+            raise AssertionError(f"POST ?restore answered {r.status} {body[:200]!r}")
+        lines.append(f"restore of {tier_size} B {sec:.6f} s "
+                     f"({tier_size / (1 << 30) / sec:.6f} GiB/s; K1/K2 "
+                     f"{d['gf2_matmul']}/{d['mxsum_digest']}; a PUT of the same size "
+                     f"{put_d['gf2_matmul'] // len(big)}/{put_d['mxsum_digest'] // len(big)})")
+        if (d["gf2_matmul"], d["mxsum_digest"]) != (put_d["gf2_matmul"] // len(big),
+                                                    put_d["mxsum_digest"] // len(big)):
+            raise AssertionError(f"the restore launched {d}, want a PUT's")
+        if root.request("GET", f"/bgtier/{first}")[1] != big[first]:
+            raise AssertionError("the restored object does not read back byte-equal")
+        if os.path.exists(os.path.join(cold, "bgtier", first, "null")):
+            raise AssertionError("the restore left the tier copy")
+        _settle(es.drives)
+        _check_sampled_digests(paths, es, "bgtier", first, device)
+
+        # (d) heal bitrotscan=on: a byte flipped in a shard of a 64 MiB
+        # object; the synthetic bucket is dropped first (its 19,000 inline
+        # keys hold no shard to verify), then a deep cycle.
+        root.request("PUT", "/minio/admin/v3/config-kv",
+                     json.dumps({"heal": {"bitrotscan": "on"}}).encode())
+        deep = rng.bytes(deep_size)
+        root.request("PUT", "/bgdeep/obj", deep)
+        _settle(es.drives)
+        for p in paths:
+            shutil.rmtree(os.path.join(p, "bgsynth"), ignore_errors=True)
+        files = _shard_files(paths, "bgdeep", "obj")
+        victim = sorted(files)[5]
+        good = open(files[victim], "rb").read()
+        flipped = bytearray(good)
+        flipped[len(flipped) // 3] ^= 0x01
+        with open(files[victim], "wb") as f:
+            f.write(flipped)
+        # The tracker walks the buckets written since its last cycle: every
+        # real bucket, as a write to each would mark it.
+        for b in ("bgmix", "bgtier", "bgdeep"):
+            srv.update_tracker.mark(b)
+        expect_rows = 0
+        for b, keys in (("bgmix", mixed), ("bgtier", big), ("bgdeep", {"obj": deep})):
+            for k in keys:
+                fi = es.latest_fileinfo(b, k)
+                if fi.data_dir:
+                    expect_rows += es.n * -(-fi.size // es.block_size)
+        rows = [0, 0]
+
+        def counting(chunks, lens):
+            rows[0] += int(chunks.shape[0])
+            rows[1] += int(lens.sum())
+            return real_digest(chunks, lens)
+
+        mxsum.digest = counting
+        # The deep cycle comes every HEAL_EVERY_N_CYCLES-th cycle, counted
+        # from the persisted usage document: persist a count one short of
+        # it and reload, as a restarted server would.
+        persisted = DataUsageCache.load(srv.obj)
+        persisted.cycles = scanmod.HEAL_EVERY_N_CYCLES * 2 - 1
+        persisted.save(srv.obj)
+        sc.usage = DataUsageCache.load(srv.obj)
+        st.mark("deep start")
+        usage = sc.scan_once()
+        st.mark("deep")
+        mxsum.digest = real_digest
+        sec, d = st.delta("deep")
+        lines.append(f"deep cycle {usage.cycles} {sec:.6f} s ({rows[1] / (1 << 30) / sec:.6f} "
+                     f"GiB/s verified, {rows[0]} chunks; K1/K2 {d['gf2_matmul']}/"
+                     f"{d['mxsum_digest']})")
+        if usage.cycles % scanmod.HEAL_EVERY_N_CYCLES:
+            raise AssertionError(f"cycle {usage.cycles} is not a deep one")
+        _settle(es.drives)
+        if open(files[victim], "rb").read() != good:
+            raise AssertionError("the deep cycle did not rebuild the flipped shard")
+        if rows[0] < expect_rows:
+            raise AssertionError(f"K2 digested {rows[0]} chunks, want every block of "
+                                 f"every real object: {expect_rows}")
+        if not d["gf2_matmul"]:
+            raise AssertionError("the deep cycle's heal launched no K1")
+        if root.request("GET", "/bgdeep/obj")[1] != deep:
+            raise AssertionError("the healed object does not read back byte-equal")
+
+        # (e) every request's audit entry, under its answer's request id.
+        want_ids = set(filter(None, rids))
+        if not audit.wait(lambda docs: want_ids <= {x.get("requestID") for x in docs}, 60):
+            have = {x.get("requestID") for x in audit.docs}
+            raise AssertionError(f"{len(want_ids - have)} of {len(want_ids)} requests "
+                                 "have no audit entry")
+        lines.append(f"{len(want_ids)} requests, each with its audit entry "
+                     f"({len(audit.docs)} entries)")
+        for line in lines:
+            print(f"  {line} on {card}")
+    finally:
+        mxsum.digest = real_digest
+        if pool is not None:
+            pool.close()
+        if srv is not None:
+            _close_server(srv)
+        events.close()
+        audit.close()
+        if prev_qdir is None:
+            os.environ.pop("MTPU_EVENT_QUEUE_DIR", None)
+        else:
+            os.environ["MTPU_EVENT_QUEUE_DIR"] = prev_qdir
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _fd_get(url: str, key: str) -> bytes | None:
     cl = _Client(url)
     try:
@@ -5355,6 +5746,10 @@ def main() -> int:
               f"set, EC 12+4, 1 MiB blocks; bootstrap, the storage, lock and peer "
               f"planes; begun at {time.perf_counter() - t_start:.1f} s):")
         cluster_phase(args.seed, card, records)
+        print(f"background plane phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; the "
+              f"scanner, ILM expiry and tiers, deep heal, events and audit; begun at "
+              f"{time.perf_counter() - t_start:.1f} s):")
+        background_phase(args.seed, card)
         print(f"listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)

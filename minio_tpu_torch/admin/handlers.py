@@ -16,6 +16,14 @@ Routes served, under /minio/admin/v3/:
                                        ?traceid=, ?plane=), merged with every
                                        peer's on a cluster node (?all=false:
                                        this node's only)
+    GET  consolelog                    the logger's console bus as JSON lines,
+                                       merged with every peer's on a cluster
+                                       node (?all=false: this node's only)
+    GET  datausageinfo                 the scanner's last complete cycle
+                                       (objects, versions, sizes per bucket)
+    GET|PUT|DELETE tier                the ILM tiers: list (secrets
+                                       redacted), add one (body: its
+                                       document), remove ?name= (&force=true)
     GET  perf/timeline                 flight-recorder timelines (?traceid=,
                                        ?api=, ?worst=, ?tenant=), this
                                        worker's and its siblings', and the
@@ -51,8 +59,10 @@ user, policy or group, a policy that does not validate, ...).
 is authorized as the JAX server authorizes it (handlers.py:38-47): an
 anonymous request answers AccessDenied, any other is allowed where IAM
 allows its admin:* action under the request's condition context (the
-root always; the IAM ops need admin:*). The JAX package's other admin ops
-(consolelog, obd, data usage, faults, service...) answer NotImplemented
+root always; the IAM ops need admin:*). A config-kv PUT re-applies the
+log and audit targets (logger_webhook, audit_webhook, audit_file) and the
+event targets (notify_*) it touches. The JAX package's other admin ops
+(obd, slo, faults, service, replication...) answer NotImplemented
 until their planes land in the port (ROADMAP.md); so do force-unlock and
 top/locks on a server that is not a cluster node (no dsync locker). An op
 neither package has answers MethodNotAllowed, as the JAX server's does.
@@ -81,13 +91,14 @@ VERSION = "minio_tpu/1.0"
 ADMIN_PREFIX = "/minio/admin/v3/"
 
 _SERVED = frozenset({"info", "metrics", "heal", "top", "trace", "perf", "profiling",
-                     "config-kv", "config", "kms", "force-unlock"})
+                     "config-kv", "config", "kms", "force-unlock", "datausageinfo",
+                     "tier", "consolelog"})
 
 # Admin ops of the JAX package whose planes the port does not have yet.
 _NOT_YET = frozenset({
-    "datausageinfo", "slo", "consolelog", "set-remote-target", "list-remote-targets",
+    "slo", "set-remote-target", "list-remote-targets",
     "remove-remote-target", "replication-status", "replication-resync",
-    "cache", "bandwidth", "faults", "service", "update", "tier",
+    "cache", "bandwidth", "faults", "service", "update",
     "obdinfo", "healthinfo"})
 
 # The action each served op is authorized as (the JAX handlers').
@@ -96,7 +107,8 @@ _ACTIONS = {"info": "admin:ServerInfo", "metrics": "admin:Prometheus",
             "force-unlock": "admin:ForceUnlock",
             "trace": "admin:ServerTrace", "perf": "admin:ServerInfo",
             "profiling": "admin:Profiling", "config-kv": "admin:ConfigUpdate",
-            "config": "admin:ConfigUpdate"}
+            "config": "admin:ConfigUpdate", "datausageinfo": "admin:ServerInfo",
+            "tier": "admin:SetTier", "consolelog": "admin:ConsoleLog"}
 
 TRACE_HEARTBEAT_S = 0.5   # an idle trace stream writes a newline this often
 
@@ -173,8 +185,20 @@ class AdminAPI:
         notif = self.s.notification if q.get("all", "true") != "false" else None
         if op == "trace" and method == "GET":
             return 200, {"Content-Type": "application/json"}, self._bus_stream(
-                q.get("type", ""), q.get("traceid", ""), q.get("plane", ""),
-                notif)
+                obs.trace_bus(), "trace_stream", notif, q.get("type", ""),
+                q.get("traceid", ""), q.get("plane", ""))
+        if op == "consolelog" and method == "GET":
+            # The logger's console bus, merged with every peer's
+            # (handlers.py:183-188).
+            return 200, {"Content-Type": "application/json"}, self._bus_stream(
+                self.s.logger.console_bus, "console_stream", notif)
+        if op == "datausageinfo" and method == "GET":
+            # The scanner's last complete cycle (handlers.py:81-86).
+            scanner = self.s.scanner
+            return _json(scanner.usage.to_info() if scanner is not None
+                         else {"objectsCount": 0, "bucketsUsage": {}})
+        if op == "tier":
+            return self._tier(method, q, read_body)
         if op == "perf" and rest == "timeline" and method == "GET":
             out = self._perf_timelines(q)
             if notif is not None and notif.peers:
@@ -292,7 +316,8 @@ class AdminAPI:
 
     def _config_kv(self, method: str, path: str, q: dict, read_body):
         """config-kv GET and PUT (handlers.py:592-620). A PUT of
-        `storageclass` re-stamps every set's parity at once; the subsystems
+        `storageclass` re-stamps every set's parity at once, one of the log,
+        audit or notify_* subsystems rebuilds those targets; the subsystems
         of planes the port lacks are stored and applied by nothing."""
         cfg = self.s.config
         if method == "GET":
@@ -313,6 +338,10 @@ class AdminAPI:
                     cfg.set_kv(subsys, kv)
                 except (ConfigError, AttributeError) as e:
                     raise S3Error("InvalidArgument", str(e)) from None
+            if any(s in ("logger_webhook", "audit_webhook", "audit_file") for s in doc):
+                self.s.configure_logging()
+            if any(s.startswith("notify_") for s in doc):
+                self.s.configure_event_targets()
             if "storageclass" in doc:
                 self.s.apply_storage_class_config()
             return _json({"restart": [s for s in doc if not cfg.is_dynamic(s)]})
@@ -328,13 +357,38 @@ class AdminAPI:
                 "timelines": flight.collect(q.get("traceid", ""), q.get("api", ""),
                                             worst, q.get("tenant", ""))}
 
-    def _bus_stream(self, type_filter: str, traceid: str, plane_filter: str,
-                    notif=None):
-        """The process trace bus as JSON lines (handlers.py:638): a newline
-        every TRACE_HEARTBEAT_S while idle, so a client that went away is
-        seen at the next write; the stream ends then, or when the server
-        closes, and unsubscribes. With `notif` (a cluster node's peers),
-        one puller thread per peer feeds the peer's records into the same
+    def _tier(self, method: str, q: dict, read_body):
+        """The ILM tiers (handlers.py:352-373; madmin tier add/ls/rm): GET
+        lists them (secrets redacted), PUT adds one from its document,
+        DELETE removes one only with force=true (objects transitioned to
+        it lose their only copy)."""
+        from minio_tpu_torch.scanner.tiers import TierError, _from_doc
+
+        reg = self.s.tiers
+        if method == "GET":
+            return _json({"tiers": reg.list_docs()})
+        if method == "PUT":
+            try:
+                reg.add(_from_doc(json.loads(read_body())))
+            except (TierError, ValueError, KeyError) as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            return _json({})
+        if method == "DELETE":
+            try:
+                reg.remove(q.get("name", ""), force=q.get("force", "") in ("true", "1"))
+            except TierError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            return _json({})
+        raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + "tier")
+
+    def _bus_stream(self, bus, peer_stream: str, notif=None, type_filter: str = "",
+                    traceid: str = "", plane_filter: str = ""):
+        """A pubsub (the process trace bus, the logger's console bus) as
+        JSON lines (handlers.py:638): a newline every TRACE_HEARTBEAT_S
+        while idle, so a client that went away is seen at the next write;
+        the stream ends then, or when the server closes, and
+        unsubscribes. With `notif` (a cluster node's peers), one puller
+        thread per peer feeds the peer's `peer_stream` into the same
         stream; each ends with it."""
         import queue
 
@@ -344,7 +398,7 @@ class AdminAPI:
         def pull(peer):
             try:
                 # Heartbeats: the stop flag is re-checked on an idle peer.
-                for item in peer.trace_stream(heartbeats=True):
+                for item in getattr(peer, peer_stream)(heartbeats=True):
                     if stop.is_set():
                         return
                     if not item.get("hb"):
@@ -357,8 +411,8 @@ class AdminAPI:
 
         for p in (notif.peers if notif is not None else ()):
             threading.Thread(target=pull, args=(p,), daemon=True,
-                             name="trace-peer-pull").start()
-        sub = obs.trace_bus().subscribe()
+                             name=f"{peer_stream}-peer-pull").start()
+        sub = bus.subscribe()
 
         def next_item():
             try:

@@ -337,6 +337,7 @@ class MultipartMixin:
         # undo mutates the live namespace, and a PUT landing between the
         # commit and its undo must never lose its acknowledged version.
         with self.nslock.lock(bucket, obj) as lease:
+            self._check_put_precondition(bucket, obj, opts)
             # No fan-out deadline, as in the JAX package: a commit is
             # O(parts) renames, each bounded at the drive, and one stamped
             # timed out would race _restore_session's rollback.

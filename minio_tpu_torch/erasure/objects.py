@@ -72,7 +72,7 @@ from minio_tpu_torch import dataplane, hottier, metaplane, obs
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.codec import (BATCH_BLOCKS, DEFAULT_BLOCK_SIZE,
                                            ErasureCodec)
-from minio_tpu_torch.erasure.healing import HealingMixin, MRFHealer
+from minio_tpu_torch.erasure.healing import TRANSITION_TIER_KEY, HealingMixin, MRFHealer
 from minio_tpu_torch.erasure.metadata import (find_fileinfo_in_quorum,
                                               hash_order, note_leaked_worker,
                                               parallel_map, reduce_write_quorum,
@@ -93,6 +93,7 @@ from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.storage.xlmeta import XLMeta
 from minio_tpu_torch.utils import device as device_mod
 from minio_tpu_torch.utils import errors as se
+from minio_tpu_torch.utils.streams import IterReader
 
 
 # Objects at or below this size are inlined into the journal instead of
@@ -395,6 +396,7 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
             raw = journal.serialize()
             with self.nslock.lock(bucket, obj) as lease, \
                     obs.span("commit", bucket=bucket, object=obj, inline=True):
+                self._check_put_precondition(bucket, obj, opts)
                 # Each drive parks what the commit displaces and returns
                 # its token, as rename_data does.
                 outcomes = None
@@ -449,6 +451,11 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
 
         with self.nslock.lock(bucket, obj) as lease, \
                 obs.span("commit", bucket=bucket, object=obj):
+            try:
+                self._check_put_precondition(bucket, obj, opts)
+            except se.ObjectError:
+                cleanup_tmp()
+                raise
             outcomes = parallel_map([lambda i=i, d=d: commit(i, d)
                                      for i, d in enumerate(shuffled)],
                                     deadline=self._meta_deadline())
@@ -780,6 +787,23 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
                                   f"[{offset}, {offset + length}) of {fi.size}")
         if fi.inline_data:
             return iter([fi.inline_data[offset:offset + length]])
+        tier_name = fi.metadata.get(TRANSITION_TIER_KEY, "") if fi.metadata else ""
+        if tier_name and not fi.data_dir:
+            from minio_tpu_torch.scanner import tiers
+
+            # A transitioned version (minio_tpu/erasure/objects.py:754-770):
+            # its stored bytes stream from the tier, ahead of the hot tier
+            # and the erasure stream, so no kernel runs. The parts survive
+            # in the stub, so multipart SSE decrypts as from the drives. A
+            # tier that cannot serve answers ObjectNotFound, not a 500.
+            reg = tiers.global_registry()
+            try:
+                if reg is None:
+                    raise tiers.TierError("no tier registry configured")
+                return reg.get(tier_name).get(
+                    fi.metadata.get(tiers.TRANSITION_KEY, ""), offset, length)
+            except tiers.TierError as e:
+                raise se.ObjectNotFound(bucket, obj, f"tier {tier_name!r}: {e}") from e
         hot = hottier.maybe_tier(self.device)
         if hot is not None and pinned:
             # Latest-only tier: a read that names a version bypasses it.
@@ -1312,6 +1336,90 @@ class ErasureObjects(HealingMixin, MultipartMixin, SysConfigStore):
     def delete_object_tags(self, bucket: str, obj: str,
                            opts: ObjectOptions | None = None) -> ObjectInfo:
         return self.put_object_tags(bucket, obj, "", opts)
+
+    # ------------------------------------------------------------------
+    # ILM tiers (minio_tpu/erasure/objects.py:1660-1721)
+    # ------------------------------------------------------------------
+
+    def transition_version(self, bucket: str, obj: str, version_id: str,
+                           tier_name: str, tier_key: str,
+                           storage_class: str = "",
+                           expect_mod_time: float | None = None) -> None:
+        """Mark a version transitioned: the journal keeps size, etag and
+        parts (the part layout drives multipart-SSE decryption on
+        read-through), its data dir empties and every drive reclaims the
+        shard files (write_metadata drops the orphaned data dir).
+        expect_mod_time: abort if the version changed since the caller
+        copied its data to the tier (the scanner's TOCTOU guard)."""
+        with self.nslock.lock(bucket, obj):
+            fi = self._read_quorum_fileinfo(bucket, obj, version_id)
+            if fi.deleted:
+                raise se.ObjectNotFound(bucket, obj)
+            if fi.inline_data:
+                raise se.ObjectError(bucket, obj, "inline objects are too small to tier")
+            if expect_mod_time is not None and abs(fi.mod_time - expect_mod_time) > 1e-6:
+                raise se.ObjectError(bucket, obj,
+                                     "object changed while its data was being tiered")
+            fi = fi.clone()
+            fi.metadata[TRANSITION_TIER_KEY] = tier_name
+            fi.metadata["x-mtpu-internal-transition-key"] = tier_key
+            if storage_class:
+                fi.metadata["x-amz-storage-class"] = storage_class
+            fi.data_dir = ""
+            drives = (shuffle_by_distribution(self.drives, fi.erasure.distribution)
+                      if fi.erasure.distribution else self.drives)
+            results = parallel_map(
+                [lambda d=d, f=_clone_for_drive(fi, i + 1): d.write_metadata(bucket, obj, f)
+                 for i, d in enumerate(drives)],
+                deadline=self._meta_deadline())
+            self._meta_invalidate(bucket, obj)
+            reduce_write_quorum(results, self._write_quorum_meta(), bucket, obj)
+
+    def restore_transitioned(self, bucket: str, obj: str, version_id: str = "") -> None:
+        """Bring a transitioned version's data back from its tier
+        (RestoreObject): the stored bytes go through the normal PUT path
+        (K1 encode, K2 digests) as the same version, less the transition
+        markers, and the tier copy is removed. The conditional PUT
+        (expect_mod_time, checked under the commit lock) never lets stale
+        tier data clobber a client write that landed meanwhile."""
+        from minio_tpu_torch.scanner import tiers
+
+        fi = self._read_quorum_fileinfo(bucket, obj, version_id)
+        tier_name = fi.metadata.get(TRANSITION_TIER_KEY, "")
+        if not tier_name or fi.data_dir:
+            return   # nothing to restore
+        if len(fi.parts) > 1 and any(k.endswith("-sse") for k in fi.metadata):
+            # Multipart SSE decrypts by the original part boundaries, which
+            # a one-part restore would lose; reads stream through the tier.
+            raise se.ObjectError(bucket, obj, "restore of multipart SSE objects is "
+                                 "not supported; reads stream through the tier")
+        reg = tiers.global_registry()
+        if reg is None:
+            raise se.ObjectError(bucket, obj, "no tier registry configured")
+        tier = reg.get(tier_name)
+        key = fi.metadata.get(tiers.TRANSITION_KEY, "")
+        meta = {k: v for k, v in fi.metadata.items()
+                if not k.startswith("x-mtpu-internal-transition-")}
+        opts = ObjectOptions(version_id=fi.version_id, versioned=bool(fi.version_id),
+                             user_defined=meta, mod_time=0.0,
+                             expect_mod_time=fi.mod_time)
+        self.put_object(bucket, obj, IterReader(tier.get(key)), fi.size, opts)
+        tier.remove(key)
+
+    def _check_put_precondition(self, bucket: str, obj: str,
+                                opts: ObjectOptions) -> None:
+        """The conditional write's guard, called under the commit lock
+        (minio_tpu/erasure/objects.py:2090): abort unless the latest (or
+        named) version's mod_time is still opts.expect_mod_time."""
+        if opts.expect_mod_time is None:
+            return
+        try:
+            cur = self._read_quorum_fileinfo(bucket, obj, opts.version_id)
+        except (se.ObjectNotFound, se.VersionNotFound):
+            raise se.ObjectError(bucket, obj,
+                                 "precondition failed: object vanished") from None
+        if abs(cur.mod_time - opts.expect_mod_time) > 1e-6:
+            raise se.ObjectError(bucket, obj, "precondition failed: object changed")
 
 
 def _retire(readers: list, dead: set, i: int) -> None:

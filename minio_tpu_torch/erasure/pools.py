@@ -175,6 +175,19 @@ class ErasureServerPools:
         return self._owning_pool(bucket, obj, opts.version_id).put_object_tags(
             bucket, obj, tags, opts)
 
+    def transition_version(self, bucket: str, obj: str, version_id: str,
+                           tier_name: str, tier_key: str, storage_class: str = "",
+                           expect_mod_time: float | None = None) -> None:
+        self.metacache.mark_dirty(bucket)
+        return self._owning_pool(bucket, obj, version_id).transition_version(
+            bucket, obj, version_id, tier_name, tier_key, storage_class,
+            expect_mod_time)
+
+    def restore_transitioned(self, bucket: str, obj: str, version_id: str = "") -> None:
+        self.metacache.mark_dirty(bucket)
+        return self._owning_pool(bucket, obj, version_id).restore_transitioned(
+            bucket, obj, version_id)
+
     def put_object_metadata(self, bucket: str, obj: str, updates,
                             opts: ObjectOptions | None = None) -> ObjectInfo:
         opts = opts or ObjectOptions()

@@ -15,8 +15,9 @@ Once the format is known, every drive is wrapped as in the JAX package:
 a disk-ID check (a swapped drive answers DiskNotFound) under a health
 checker (adaptive per-call deadlines, ONLINE -> FAULTY -> OFFLINE, a
 background probe whose restore leaves a healing tracker for the
-AutoHealer). Left for later slices (ROADMAP.md): transition, and the JAX
-package's chaos wrapper between the two.
+AutoHealer). The ILM tier calls (transition_version,
+restore_transitioned) go to the object's set. Left for a later slice
+(ROADMAP.md): the JAX package's chaos wrapper between the two.
 """
 
 from __future__ import annotations
@@ -143,6 +144,16 @@ class ErasureSets:
     def delete_object_tags(self, bucket: str, obj: str,
                            opts: ObjectOptions | None = None) -> ObjectInfo:
         return self.get_hashed_set(obj).delete_object_tags(bucket, obj, opts)
+
+    def transition_version(self, bucket: str, obj: str, version_id: str,
+                           tier_name: str, tier_key: str, storage_class: str = "",
+                           expect_mod_time: float | None = None) -> None:
+        return self.get_hashed_set(obj).transition_version(
+            bucket, obj, version_id, tier_name, tier_key, storage_class,
+            expect_mod_time)
+
+    def restore_transitioned(self, bucket: str, obj: str, version_id: str = "") -> None:
+        return self.get_hashed_set(obj).restore_transitioned(bucket, obj, version_id)
 
     def latest_fileinfo(self, bucket: str, obj: str, version_id: str = "") -> FileInfo:
         return self.get_hashed_set(obj).latest_fileinfo(bucket, obj, version_id)

@@ -49,6 +49,10 @@ class ObjectOptions:
     versioned: bool = False     # the bucket keeps versions: ids and markers
     user_defined: dict[str, str] = field(default_factory=dict)
     mod_time: float = 0.0
+    # A conditional write (the JAX package's, minio_tpu/erasure/types.py:55):
+    # the commit aborts unless the latest (or named) version's mod_time is
+    # still this one (a tier restore's and a transition's lost-update guard).
+    expect_mod_time: float | None = None
 
 
 @dataclass

@@ -21,6 +21,9 @@ headers and error documents:
     PUT|GET /bucket?object-lock              the object-lock configuration;
                                              x-amz-bucket-object-lock-enabled
                                              on CreateBucket
+    PUT|GET|DELETE /bucket?lifecycle         the ILM rules the scanner applies
+    PUT|GET /bucket?notification             the event rules (their ARNs must
+                                             name a configured target)
     POST /bucket (multipart/form-data)       browser POST policy upload
     POST /  Action=AssumeRole...             STS: AssumeRole, AssumeRoleWith
                                              WebIdentity / ClientGrants /
@@ -32,6 +35,8 @@ headers and error documents:
     PUT|GET /bucket/key?retention            a version's retention; ?legal-hold
                                              its legal hold; x-amz-object-lock-*
                                              on PUT, else the bucket's default
+    POST /bucket/key?restore                 RestoreObject: a transitioned
+                                             version's data back from its tier
     POST /bucket/key?uploads                 CreateMultipartUpload
     PUT /bucket/key?partNumber=N&uploadId=U  UploadPart; with x-amz-copy-source
                                              (and -range), UploadPartCopy
@@ -47,7 +52,8 @@ headers and error documents:
     /minio/admin/v3/...                      the admin plane (admin/handlers.py:
                                              info, metrics, heal, top/api,
                                              trace, perf/timeline, profiling,
-                                             config-kv, kms)
+                                             config-kv, kms, datausageinfo, tier,
+                                             consolelog)
 
 Object calls take ?versionId (the literal "null" names the null version);
 GET and HEAD take If-Match and If-None-Match (412, or 304). A bucket's
@@ -81,9 +87,19 @@ context. A version under legal hold or an unexpired retention is not
 destroyed, by DELETE ?versionId or by DeleteObjects (GOVERNANCE yields to
 x-amz-bypass-governance-retention). Any other query string answers
 NotImplemented. Any other /minio/ path answers as the JAX server answers
-it, never as bucket "minio". The other bucket subresources (lifecycle,
-tagging, notification, replication...), the web console and the admin
-plane's other ops come in later slices (ROADMAP.md).
+it, never as bucket "minio". The other bucket subresources (tagging,
+replication, acl...), the web console and the admin plane's other ops
+come in later slices (ROADMAP.md).
+
+The background plane is the JAX server's (minio_tpu/s3/server.py:213-629):
+start_scanner builds the data scanner (scanner/) over the object layer,
+and main() starts it every --scan-interval seconds (default 60, 0 off);
+PutObject, Complete, the POST upload and DeleteObject mark the update
+tracker the scanner reads and send their S3 events to the bucket's
+matching targets (event/, built from the notify_* config); every request
+gets an audit entry on the audit targets (logger/, from audit_webhook and
+audit_file), its request id the trace id; the ILM tiers live in a sealed
+registry (scanner/tiers.py) that the object layer reads through.
 
 Every request is in flight in HTTPStats (admin/stats.py) from its first
 byte until just before the last byte of its answer is written, so a
@@ -117,8 +133,8 @@ max_io). The admin heal route (POST /minio/admin/v3/heal/<bucket>) heals
 on demand.
 
 Run: python -m minio_tpu_torch.s3.server --address 127.0.0.1:9000
-[--set-drive-count N] <drive dirs> (credentials from MTPU_ROOT_USER /
-MTPU_ROOT_PASSWORD, default minioadmin).
+[--set-drive-count N] [--scan-interval S] <drive dirs> (credentials from
+MTPU_ROOT_USER / MTPU_ROOT_PASSWORD, default minioadmin).
 """
 
 from __future__ import annotations
@@ -128,6 +144,7 @@ import datetime
 import email.utils
 import hashlib
 import io
+import json
 import mimetypes
 import os
 import signal
@@ -160,6 +177,9 @@ from minio_tpu_torch.erasure.pools import ErasureServerPools
 from minio_tpu_torch.erasure.sets import ErasureSets
 from minio_tpu_torch.erasure.types import (CompletePart, DeletedObject,
                                            ObjectOptions, ObjectToDelete)
+from minio_tpu_torch.event import event as evt
+from minio_tpu_torch.event import new_object_event
+from minio_tpu_torch.event.notifier import EventNotifier
 from minio_tpu_torch.iam import reqctx
 from minio_tpu_torch.iam.actions import action_for
 from minio_tpu_torch.iam.condition import NormalizedContext, normalize_values, scalar_str
@@ -167,12 +187,16 @@ from minio_tpu_torch.iam.ldap import LDAPError, LDAPValidator
 from minio_tpu_torch.iam.oidc import OIDCError, OpenIDValidator
 from minio_tpu_torch.iam.policy import Policy, PolicyArgs
 from minio_tpu_torch.iam.sys import ANONYMOUS, IAMSys
+from minio_tpu_torch.logger import FileTarget, HTTPTarget, audit_entry, get_logger
 from minio_tpu_torch.obs import flight
 from minio_tpu_torch.s3 import sigv2, sigv4, xmlutil
 from minio_tpu_torch.s3.atrest import AtRest, copy_metadata
 from minio_tpu_torch.s3.errors import S3Error, from_exception
+from minio_tpu_torch.scanner import tiers as tiermod
+from minio_tpu_torch.scanner.tracker import UpdateTracker
 from minio_tpu_torch.storage.local import LocalDrive
 from minio_tpu_torch.utils import errors as se
+from minio_tpu_torch.utils.streams import IterReader
 
 XML_TYPE = "application/xml"
 MAX_OBJECT_SIZE = 5 * (1 << 40)
@@ -271,29 +295,6 @@ class _Body:
         return data
 
 
-class _IterReader:
-    """read(n) over an iterator of byte chunks: a GET stream as the body
-    of a PUT (CopyObject, UploadPartCopy). Each chunk is copied as it
-    arrives: a stream may yield views of buffers its next step reuses."""
-
-    def __init__(self, chunks):
-        self._it = iter(chunks)
-        self._buf = b""
-
-    def read(self, n: int = -1) -> bytes:
-        buf = bytearray(self._buf)
-        while n < 0 or len(buf) < n:
-            chunk = next(self._it, None)
-            if chunk is None:
-                break
-            buf += chunk
-        self._buf = b""
-        if 0 <= n < len(buf):
-            self._buf = bytes(buf[n:])
-            del buf[n:]
-        return bytes(buf)
-
-
 class _Response:
     """An answer; `length` None with an iterator body sends it chunked
     (the trace stream)."""
@@ -312,7 +313,7 @@ class _Request:
     in-flight count, and the end of its accounting, done at most once."""
 
     __slots__ = ("id", "method", "path", "remote", "api", "t0", "ttfb", "rx",
-                 "left", "done", "tenant")
+                 "left", "done", "tenant", "access_key", "query", "headers")
 
     def __init__(self, request_id: str, method: str, path: str, remote: str, rx: int):
         self.id = request_id
@@ -326,6 +327,9 @@ class _Request:
         self.left = False
         self.done = False
         self.tenant = ""
+        self.access_key = ""     # the authenticated identity's (audit, events)
+        self.query = ""          # the raw query string (audit)
+        self.headers = None      # the request headers (audit)
 
 
 def _int_q(q: dict, name: str, default: int, lo: int = 0, hi: int = 100_000) -> int:
@@ -375,6 +379,27 @@ class S3Server:
         self.kms = kms_from_config(self.config)
         self.atrest = AtRest(obj, creds, self.config, self.kms, self.bucket_meta)
         self.apply_storage_class_config()
+        # The background plane (minio_tpu/s3/server.py:213-298): event
+        # targets with durable queues under MTPU_EVENT_QUEUE_DIR (else a
+        # directory of this server's own under the temp dir), the update
+        # tracker the scanner reads, the process logger with this
+        # server's log and audit targets, and the ILM tiers, whose
+        # documents carry remote credentials and are sealed like config.
+        queue_dir = os.environ.get("MTPU_EVENT_QUEUE_DIR") or os.path.join(
+            tempfile.gettempdir(), f"mtpu-torch-events-{os.getpid()}-{id(self):x}")
+        self.notifier = EventNotifier(queue_dir=queue_dir)
+        self._rules_loaded: set = set()
+        self._event_targets_cfg = ""
+        self.region = "us-east-1"
+        self.scanner = None
+        self.update_tracker = UpdateTracker(obj)
+        self.logger = get_logger()
+        self._log_targets: list = []    # the log targets this server installed
+        self._audit_targets: list = []  # and the audit targets
+        self.configure_logging()
+        self.configure_event_targets()
+        self.tiers = tiermod.TierRegistry(SealedSysStore(obj, creds.secret_key))
+        tiermod.set_global(self.tiers)
         host, _, port = address.rpartition(":")
         self.httpd = ThreadingHTTPServer((host or "0.0.0.0", int(port)), _Handler,
                                          bind_and_activate=listen)
@@ -423,6 +448,7 @@ class S3Server:
         hooks.on_bucket_metadata_invalidate = self.bucket_meta.invalidate
         hooks.on_iam_reload = self.iam.reload
         hooks.trace_bus = obs.trace_bus()
+        hooks.console_bus = self.logger.console_bus
         hooks.server_info = self.admin._server_info
         hooks.profiler = self.profiler
         hooks.perf_timeline = self.admin._perf_timelines
@@ -445,6 +471,188 @@ class S3Server:
                 stack.extend(getattr(node, attr, None) or [])
             if hasattr(node, "parity_for_class"):
                 node.sc_parity = dict(sc_map)
+
+    def start_scanner(self, interval: float = 60.0, heal_objects: bool = True,
+                      loop: bool = True) -> None:
+        """Build the data scanner (minio_tpu/s3/server.py:411-424; reference
+        initDataScanner, cmd/data-scanner.go:65) and, unless `loop` is
+        False, start its cycle every `interval` seconds (the live
+        scanner.cycle key overrides it once an operator sets it). With
+        loop=False the caller drives scanner.scan_once() itself."""
+        from minio_tpu_torch.scanner import DataScanner
+
+        self.scanner = DataScanner(self.obj, self.bucket_meta, notifier=self.notifier,
+                                   interval=interval, heal_objects=heal_objects,
+                                   tracker=self.update_tracker, config=self.config)
+        if loop:
+            self.scanner.start()
+
+    def configure_logging(self) -> None:
+        """(Re)build the log and audit targets from config
+        (minio_tpu/s3/server.py:483-510): logger_webhook, audit_webhook
+        (enable, endpoint, auth_token) and audit_file (path). The targets
+        this server installed before are closed and taken off the
+        process logger; the console target stays first."""
+        on = ("on", "1", "true")
+        log_targets: list = []
+        audit_targets: list = []
+        if (self.config.get("logger_webhook", "enable") or "") in on:
+            ep = self.config.get("logger_webhook", "endpoint") or ""
+            if ep:
+                log_targets.append(HTTPTarget(
+                    ep, self.config.get("logger_webhook", "auth_token") or ""))
+        if (self.config.get("audit_webhook", "enable") or "") in on:
+            ep = self.config.get("audit_webhook", "endpoint") or ""
+            if ep:
+                audit_targets.append(HTTPTarget(
+                    ep, self.config.get("audit_webhook", "auth_token") or ""))
+        audit_path = self.config.get("audit_file", "path") or ""
+        if audit_path:
+            audit_targets.append(FileTarget(audit_path))
+        self._drop_log_targets()
+        self.logger.targets = self.logger.targets + log_targets
+        self.logger.audit_targets = self.logger.audit_targets + audit_targets
+        self._log_targets, self._audit_targets = log_targets, audit_targets
+
+    def _drop_log_targets(self) -> None:
+        """Close this server's log and audit targets (each webhook holds a
+        drain thread) and take them off the process logger."""
+        mine = self._log_targets + self._audit_targets
+        for t in mine:
+            close = getattr(t, "close", None)
+            if close is not None:
+                close()
+        self.logger.targets = [t for t in self.logger.targets if t not in mine]
+        self.logger.audit_targets = [t for t in self.logger.audit_targets
+                                     if t not in mine]
+        self._log_targets, self._audit_targets = [], []
+
+    def configure_event_targets(self) -> None:
+        """(Re)apply the notification targets of the notify_* config
+        subsystems (minio_tpu/s3/server.py:512-629): enabled targets
+        register, changed ones are replaced, disabled ones unregister. A
+        target whose config cannot build one logs the error and is
+        skipped; the server still starts."""
+        from minio_tpu_torch.event import targets as tg
+
+        subsys_keys = {
+            "notify_webhook": ("enable", "endpoint", "auth_token"),
+            "notify_nats": ("enable", "address", "subject"),
+            "notify_redis": ("enable", "address", "key", "password", "format"),
+            "notify_mqtt": ("enable", "address", "topic"),
+            "notify_elasticsearch": ("enable", "url", "index"),
+            "notify_nsq": ("enable", "address", "topic"),
+            "notify_kafka": ("enable", "brokers", "topic"),
+            "notify_amqp": ("enable", "url", "exchange", "routing_key",
+                            "user", "password", "vhost"),
+            "notify_postgres": ("enable", "address", "table", "user",
+                                "password", "database"),
+            "notify_mysql": ("enable", "address", "table", "user",
+                             "password", "database"),
+        }
+        cfg = {sub: {k: self.config.get(sub, k) or "" for k in keys}
+               for sub, keys in subsys_keys.items()}
+        sig = json.dumps(cfg, sort_keys=True)
+        if sig == self._event_targets_cfg:
+            return
+        self._event_targets_cfg = sig
+
+        def on(sub):
+            return cfg[sub]["enable"] in ("on", "1", "true")
+
+        factories = []
+        if on("notify_webhook") and cfg["notify_webhook"]["endpoint"]:
+            c = cfg["notify_webhook"]
+            factories.append(lambda c=c: tg.WebhookTarget(c["endpoint"],
+                                                          auth_token=c["auth_token"]))
+        if on("notify_nats") and cfg["notify_nats"]["address"]:
+            c = cfg["notify_nats"]
+            factories.append(lambda c=c: tg.NATSTarget(c["address"], c["subject"]))
+        if on("notify_redis") and cfg["notify_redis"]["address"]:
+            c = cfg["notify_redis"]
+            factories.append(lambda c=c: tg.RedisTarget(
+                c["address"], c["key"], password=c["password"],
+                publish=c["format"] == "channel"))
+        if on("notify_mqtt") and cfg["notify_mqtt"]["address"]:
+            c = cfg["notify_mqtt"]
+            factories.append(lambda c=c: tg.MQTTTarget(c["address"], c["topic"]))
+        if on("notify_elasticsearch") and cfg["notify_elasticsearch"]["url"]:
+            c = cfg["notify_elasticsearch"]
+            factories.append(lambda c=c: tg.ElasticsearchTarget(c["url"], c["index"]))
+        if on("notify_nsq") and cfg["notify_nsq"]["address"]:
+            c = cfg["notify_nsq"]
+            factories.append(lambda c=c: tg.NSQTarget(c["address"], c["topic"]))
+        if on("notify_kafka") and cfg["notify_kafka"]["brokers"]:
+            c = cfg["notify_kafka"]
+            factories.append(lambda c=c: tg.KafkaTarget(c["brokers"], c["topic"]))
+        if on("notify_amqp") and cfg["notify_amqp"]["url"]:
+            c = cfg["notify_amqp"]
+            factories.append(lambda c=c: tg.AMQPTarget(
+                c["url"], c["exchange"], c["routing_key"], user=c["user"],
+                password=c["password"], vhost=c["vhost"]))
+        for sub, cls in (("notify_postgres", tg.PostgresTarget),
+                         ("notify_mysql", tg.MySQLTarget)):
+            c = cfg[sub]
+            if on(sub) and c["address"] and c["table"]:
+                factories.append(lambda c=c, cls=cls: cls(
+                    c["address"], c["table"], user=c["user"], password=c["password"],
+                    database=c["database"]))
+        targets = []
+        for factory in factories:
+            try:
+                targets.append(factory())
+            except (ValueError, OSError, KeyError) as e:
+                self.logger.error(f"event target config invalid: {e}")
+        # Replace-or-remove over the config-managed ARN space.
+        managed_kinds = ("webhook", "nats", "redis", "mqtt", "elasticsearch", "nsq",
+                         "kafka", "amqp", "postgresql", "mysql")
+        want = {t.arn: t for t in targets}
+        for arn in list(self.notifier.target_arns):
+            if arn.rsplit(":", 1)[-1] in managed_kinds and arn not in want:
+                self.notifier.unregister_target(arn)
+        for arn, t in want.items():
+            if arn in self.notifier.target_arns:
+                self.notifier.unregister_target(arn)   # config changed
+            self.notifier.register_target(t)
+
+    def _ensure_rules(self, bucket: str) -> None:
+        """Load a bucket's stored notification rules once
+        (minio_tpu/s3/server.py:2378-2387)."""
+        if bucket in self._rules_loaded:
+            return
+        self._rules_loaded.add(bucket)
+        xml_cfg = self.bucket_meta.get(bucket).notification_xml
+        if xml_cfg:
+            try:
+                self.notifier.set_bucket_rules(bucket, xml_cfg)
+            except ValueError:
+                pass   # the stored rules name a target gone from config
+
+    def _emit(self, req: "_Request", event_name: str, bucket: str, key: str,
+              size: int = 0, etag: str = "", version_id: str = "") -> None:
+        """Send one S3 event to the bucket's matching targets
+        (minio_tpu/s3/server.py:2389-2399)."""
+        self._ensure_rules(bucket)
+        if not self.notifier.has_rules(bucket):
+            return
+        self.notifier.send(new_object_event(
+            event_name, bucket, key, size=size, etag=etag, version_id=version_id,
+            user=req.access_key or "anonymous", host=req.remote or "",
+            region=self.region))
+
+    def _client_ip(self, headers, remote: str) -> str:
+        """The requester's address for the condition context and audit
+        records (minio_tpu/s3/server.py:987-1000): X-Forwarded-For's
+        leftmost hop, else X-Real-IP, only when api.trust_proxy_headers is
+        on; they are client-spoofable otherwise."""
+        if (self.config.get("api", "trust_proxy_headers") or "") in ("on", "1", "true"):
+            fwd = headers.get("X-Forwarded-For", "")
+            if fwd:
+                return fwd.split(",")[0].strip()
+            real = headers.get("X-Real-IP", "")
+            if real:
+                return real.strip()
+        return remote or ""
 
     def start_auto_heal(self, interval: float = 10.0) -> None:
         """Start the background drive healer (reference initAutoHeal,
@@ -491,6 +699,9 @@ class S3Server:
         return self
 
     def close(self) -> None:
+        """Stop serving, then the background plane (the scanner, the event
+        delivery workers, this server's log targets) and the healers,
+        before the object layer."""
         self.closing.set()
         if self.profiler.running:
             self.profiler.stop_collect()
@@ -498,6 +709,12 @@ class S3Server:
             self.httpd.shutdown()
             self._thread.join()
         self.httpd.server_close()
+        if self.scanner is not None:
+            self.scanner.close()
+        self.notifier.close()
+        self._drop_log_targets()
+        if tiermod.global_registry() is self.tiers:
+            tiermod.set_global(None)
         for h in self.auto_healer:
             h.close()
         if self.cluster_node is not None:
@@ -563,19 +780,12 @@ class S3Server:
         lists. The port serves plain HTTP: aws:SecureTransport is true only
         behind a trusted proxy that says https."""
         now = time.time()
-        trust = (self.config.get("api", "trust_proxy_headers") or "") in ("on", "1", "true")
         secure = False
-        source_ip = remote
-        if trust:
+        if (self.config.get("api", "trust_proxy_headers") or "") in ("on", "1", "true"):
             fwd_proto = headers.get("X-Forwarded-Proto", "")
             if fwd_proto:
                 secure = fwd_proto.split(",")[0].strip().lower() == "https"
-            fwd = headers.get("X-Forwarded-For", "")
-            real = headers.get("X-Real-IP", "")
-            if fwd:
-                source_ip = fwd.split(",")[0].strip()
-            elif real:
-                source_ip = real.strip()
+        source_ip = self._client_ip(headers, remote)
         ctx: dict[str, list[str]] = {
             "aws:sourceip": [source_ip],
             "aws:securetransport": ["true" if secure else "false"],
@@ -647,6 +857,7 @@ class S3Server:
             return self._health(path, q)
         auth = self._authenticate(method, path, query_items, q, headers)
         identity = auth.identity
+        req.access_key = identity.access_key or ""
         # The tenant, bound once here beside the trace id (the handler
         # resets it when the request ends). The /minio/ planes stay on the
         # unattributed lane: only the exact reserved segment, so a bucket
@@ -700,7 +911,7 @@ class S3Server:
             self._check_access(identity, action, bucket, key, cond, meta.policy_json)
         if not key:
             return self._bucket_call(method, path, bucket, q, headers, body, auth,
-                                     hdr, cond, post_form, req.remote, meta)
+                                     hdr, cond, post_form, req, meta)
         # S3's literal versionId "null" names the null version; it goes
         # down verbatim, so it never means "latest".
         opts = ObjectOptions(version_id=q.get("versionId", ""),
@@ -710,6 +921,14 @@ class S3Server:
         if "retention" in q or "legal-hold" in q:
             return self._object_lock(method, bucket, key, q, opts, headers, body,
                                      auth, hdr)
+        if method == "POST" and "restore" in q:
+            # RestoreObject (minio_tpu/s3/server.py:1476-1490): the version's
+            # data back from its tier through the PUT path (K1, K2).
+            req.api = "RestoreObject"
+            self._check_access(identity, "s3:RestoreObject", bucket, key, cond,
+                               meta.policy_json)
+            self.obj.restore_transitioned(bucket, key, opts.version_id)
+            return _Response(202, hdr)
         if "versionId" in q and method in ("PUT", "POST"):
             # Versions are immutable: no write names the version it makes
             # (the JAX server would give the new version the client's id,
@@ -717,14 +936,14 @@ class S3Server:
             raise S3Error("InvalidArgument", "a write takes no versionId")
         if "uploads" in q or "uploadId" in q:
             return self._multipart(method, bucket, key, q, headers, body,
-                                   auth, hdr, opts)
+                                   auth, hdr, opts, req)
         if q.keys() - {"versionId"}:
             raise S3Error("NotImplemented")
         if method == "PUT":
             src = headers.get("x-amz-copy-source")
             if src:
                 return self._copy_object(bucket, key, src, opts, headers, hdr)
-            return self._put_object(bucket, key, opts, headers, body, auth, hdr)
+            return self._put_object(bucket, key, opts, headers, body, auth, hdr, req)
         if method == "GET":
             return self._get_object(bucket, key, opts, headers, hdr)
         if method == "HEAD":
@@ -749,6 +968,10 @@ class S3Server:
                 extra["x-amz-delete-marker"] = "true"
             if info.version_id:
                 extra["x-amz-version-id"] = info.version_id
+            self.update_tracker.mark(bucket)
+            self._emit(req, evt.OBJECT_REMOVED_DELETE_MARKER if info.delete_marker
+                       else evt.OBJECT_REMOVED_DELETE, bucket, key,
+                       version_id=info.version_id)
             return _Response(204, {**hdr, **extra})
         raise S3Error("MethodNotAllowed", resource=path)
 
@@ -771,7 +994,7 @@ class S3Server:
             raise S3Error("AccessDenied", str(e)) from None
 
     def _bucket_call(self, method, path, bucket, q, headers, body: _Body, auth,
-                     hdr, cond, post_form: bool, remote: str, meta) -> _Response:
+                     hdr, cond, post_form: bool, req: _Request, meta) -> _Response:
         """The calls on a bucket, its subresources and the browser POST
         (`meta`: the bucket's metadata document as dispatch read it)."""
         if "versioning" in q:
@@ -780,6 +1003,10 @@ class S3Server:
             return self._bucket_policy(method, bucket, headers, body, auth, hdr)
         if "object-lock" in q:
             return self._bucket_object_lock(method, bucket, headers, body, auth, hdr)
+        if "lifecycle" in q:
+            return self._bucket_lifecycle(method, bucket, headers, body, auth, hdr)
+        if "notification" in q:
+            return self._bucket_notification(method, bucket, headers, body, auth, hdr)
         if method == "GET" and "versions" in q and q.keys() <= _VERSIONS_PARAMS:
             res = self.obj.list_object_versions(
                 bucket, q.get("prefix", ""), q.get("key-marker", ""),
@@ -793,7 +1020,7 @@ class S3Server:
         if method == "POST" and "delete" in q:
             return self._delete_objects(bucket, headers, body, auth, hdr, cond, meta)
         if post_form and not q:
-            return self._post_policy_upload(bucket, headers, body, hdr, remote)
+            return self._post_policy_upload(bucket, headers, body, hdr, req)
         if method == "GET" and q.keys() <= _LIST_PARAMS:
             return self._list_objects(bucket, q, hdr)
         if "encryption" in q:
@@ -906,6 +1133,53 @@ class S3Server:
             return _Response(204, hdr)
         raise S3Error("NotImplemented")
 
+    def _bucket_lifecycle(self, method, bucket, headers, body: _Body, auth,
+                          hdr) -> _Response:
+        """?lifecycle PUT, GET and DELETE (minio_tpu/s3/server.py:1731-1893):
+        the XML stored verbatim once it is well formed; the scanner parses
+        it each cycle."""
+        self.obj.get_bucket_info(bucket)
+        if method == "PUT":
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
+            try:
+                ET.fromstring(raw)
+            except ET.ParseError:
+                raise S3Error("MalformedXML") from None
+            self.bucket_meta.update(bucket, lifecycle_xml=raw)
+            return _Response(200, hdr)
+        if method in ("GET", "HEAD"):
+            raw = self.bucket_meta.get(bucket).lifecycle_xml
+            if not raw:
+                raise S3Error("NoSuchLifecycleConfiguration", resource=f"/{bucket}")
+            return _xml(hdr, raw)
+        if method == "DELETE":
+            self.bucket_meta.update(bucket, lifecycle_xml=b"")
+            return _Response(204, hdr)
+        raise S3Error("MethodNotAllowed", resource=f"/{bucket}")
+
+    def _bucket_notification(self, method, bucket, headers, body: _Body, auth,
+                             hdr) -> _Response:
+        """?notification PUT and GET (minio_tpu/s3/server.py:1856-1873): a
+        PUT whose rules name an ARN no target has answers InvalidArgument;
+        a GET of a bucket without rules answers the empty document."""
+        self.obj.get_bucket_info(bucket)
+        if method == "PUT":
+            raw = _with_body(headers, body, auth, lambda data, size: data.read())
+            try:
+                self.notifier.set_bucket_rules(bucket, raw)
+            except ValueError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            self._rules_loaded.add(bucket)
+            self.bucket_meta.update(bucket, notification_xml=raw)
+            return _Response(200, hdr)
+        if method in ("GET", "HEAD"):
+            raw = self.bucket_meta.get(bucket).notification_xml or (
+                b'<?xml version="1.0" encoding="UTF-8"?><NotificationConfiguration '
+                b'xmlns="http://s3.amazonaws.com/doc/2006-03-01/">'
+                b'</NotificationConfiguration>')
+            return _xml(hdr, raw)
+        raise S3Error("MethodNotAllowed", resource=f"/{bucket}")
+
     def _bucket_object_lock(self, method, bucket, headers, body: _Body, auth,
                             hdr) -> _Response:
         """?object-lock PUT and GET (:1838-1852): the configuration stored
@@ -1003,7 +1277,7 @@ class S3Server:
         raise S3Error("NotImplemented")
 
     def _multipart(self, method, bucket, key, q, headers, body: _Body,
-                   auth, hdr, opts: ObjectOptions) -> _Response:
+                   auth, hdr, opts: ObjectOptions, req: _Request) -> _Response:
         """The six object-level multipart calls (the JAX server's routes,
         minio_tpu/s3/server.py:1530-1611). An encrypted upload seals its
         object key at create; each part is encrypted on its own, ListParts
@@ -1055,6 +1329,9 @@ class S3Server:
                 bucket, key, upload_id, [CompletePart(n, e) for n, e in pairs], opts)
             self.atrest.forget_upload(upload_id)
             extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
+            self.update_tracker.mark(bucket)
+            self._emit(req, evt.OBJECT_CREATED_COMPLETE_MULTIPART, bucket, key,
+                       size=info.size, etag=info.etag, version_id=info.version_id)
             return _xml({**hdr, **extra}, xmlutil.complete_multipart_xml(
                 f"/{bucket}/{key}", bucket, key, info.etag))
         raise S3Error("NotImplemented")
@@ -1119,7 +1396,8 @@ class S3Server:
                 deleted.append(r)
         return _xml(hdr, xmlutil.delete_result_xml(deleted, errors))
 
-    def _put_object(self, bucket, key, opts, headers, body: _Body, auth, hdr):
+    def _put_object(self, bucket, key, opts, headers, body: _Body, auth, hdr,
+                    req: _Request):
         user_defined = _metadata_headers(headers)
         if "content-type" not in user_defined:
             guessed, _ = mimetypes.guess_type(key)
@@ -1136,6 +1414,9 @@ class S3Server:
 
         info = _with_body(headers, body, auth, put)
         extra = {"x-amz-version-id": info.version_id} if info.version_id else {}
+        self.update_tracker.mark(bucket)
+        self._emit(req, evt.OBJECT_CREATED_PUT, bucket, key, size=info.size,
+                   etag=info.etag, version_id=info.version_id)
         return _Response(200, {**hdr, "ETag": f'"{info.etag}"', **extra})
 
     def _apply_object_lock(self, headers, bucket: str, user_defined: dict) -> None:
@@ -1234,7 +1515,7 @@ class S3Server:
             hdr["x-amz-request-id"], action=action, subject=subject))
 
     def _post_policy_upload(self, bucket, headers, body: _Body, hdr,
-                            remote: str) -> _Response:
+                            req: _Request) -> _Response:
         """A browser form upload (:1658-1720; reference
         PostPolicyBucketHandler, cmd/postpolicyform.go): the signed policy
         document is the auth, its conditions are checked against the
@@ -1250,9 +1531,11 @@ class S3Server:
             raise S3Error("InvalidArgument", "POST form requires key")
         key = key.replace("${filename}", filename)
         identity = self.iam.identify(creds.access_key)
+        req.access_key = identity.access_key or ""   # the signer (events, audit)
         meta = self.bucket_meta.get(bucket)
         self._check_access(identity, "s3:PutObject", bucket, key, self._condition_context(
-            identity, headers, None, remote, ("POST", sigv4.ALGORITHM)), meta.policy_json)
+            identity, headers, None, req.remote, ("POST", sigv4.ALGORITHM)),
+            meta.policy_json)
         opts = ObjectOptions(versioned=self._versioned(meta))
         if "content-type" in form:
             opts.user_defined["content-type"] = form["content-type"]
@@ -1261,6 +1544,9 @@ class S3Server:
                 opts.user_defined[k] = v
         info = self.obj.put_object(bucket, key, io.BytesIO(file_bytes),
                                    len(file_bytes), opts)
+        self.update_tracker.mark(bucket)
+        self._emit(req, evt.OBJECT_CREATED_POST, bucket, key, size=info.size,
+                   etag=info.etag, version_id=info.version_id)
         status = int(form.get("success_action_status", "204"))
         if status == 201:
             doc = (f'<?xml version="1.0" encoding="UTF-8"?>'
@@ -1322,7 +1608,7 @@ class S3Server:
         stream = open_plain()
         try:
             reader, stored = self.atrest.encrypt_put(headers, bucket, key, user_defined,
-                                                     _IterReader(stream), size)
+                                                     IterReader(stream), size)
             new_info = self.obj.put_object(bucket, key, reader, stored, opts)
         finally:
             _close(stream)
@@ -1345,7 +1631,7 @@ class S3Server:
         stream = open_plain()
         try:
             reader, stored = self.atrest.encrypt_part(headers, bucket, key, upload_id,
-                                                      _IterReader(stream), length)
+                                                      IterReader(stream), length)
             res = self.obj.put_object_part(bucket, key, upload_id, part_number,
                                            reader, stored)
         finally:
@@ -1506,6 +1792,8 @@ class _Handler(BaseHTTPRequestHandler):
             length = -1
         body = _Body(self.rfile, max(length, 0))
         req = _Request(request_id, method, path, self.client_address[0], max(length, 0))
+        req.query = qs
+        req.headers = self.headers
         # The request id is the trace id: bound to this handler thread's
         # context for the request, and carried by obs.ctx_wrap into every
         # thread that works on its behalf.
@@ -1555,6 +1843,19 @@ class _Handler(BaseHTTPRequestHandler):
             mkey = qos.metric_key(req.tenant)
             _TENANT_LATENCY.labels(tenant=mkey).observe(dt)
             _TENANT_REQS.labels(tenant=mkey, code=f"{status // 100}xx").inc()
+        if s3.logger.audit_targets:
+            # The per-request audit record (minio_tpu/s3/server.py:939-960;
+            # reference logger.AuditLog): its request id is the trace id.
+            parts = req.path.lstrip("/").split("/", 1)
+            s3.logger.audit(audit_entry(
+                api=api,
+                bucket=parts[0] if parts and not parts[0].startswith("minio") else "",
+                object=parts[1] if len(parts) > 1 else "",
+                status_code=status, access_key=req.access_key,
+                remote_host=s3._client_ip(req.headers, req.remote),
+                user_agent=req.headers.get("User-Agent", ""), request_id=req.id,
+                rx_bytes=req.rx, tx_bytes=tx or 0, duration_ms=dt * 1000,
+                query=dict(urllib.parse.parse_qsl(req.query))))
         if obs.has_subscribers():
             rec = {"type": "http", "time": time.time(), "api": api,
                    "method": req.method, "path": req.path, "status": status,
@@ -1830,12 +2131,16 @@ def main(argv=None) -> None:
     ap.add_argument("--rpc-port", type=int, default=None,
                     help="a cluster node's RPC fabric port (default: S3 port "
                          "+ 1000, as its peers assume)")
+    ap.add_argument("--scan-interval", type=float, default=60.0,
+                    help="background scanner cycle pause (seconds; 0 disables)")
     args = ap.parse_args(argv)
     srv = build_server(args.drives, os.environ.get("MTPU_ROOT_USER", "minioadmin"),
                        os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"),
                        device=args.device, address=args.address,
                        parity=args.parity, set_drive_count=args.set_drive_count,
                        versioned=args.versioned, rpc_port=args.rpc_port)
+    if args.scan_interval > 0:
+        srv.start_scanner(interval=args.scan_interval)
     srv.start_auto_heal()
     sets = srv.obj.pools[0]
     es = sets.sets[0]

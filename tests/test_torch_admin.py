@@ -28,6 +28,7 @@ from tests.test_observability import parse_exposition
 from tests.torch_atrest import JaxServer as _JaxServer
 
 BUCKET = "adm"
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # A family is registered when its module is imported, in both packages:
 # import every module that defines one on both sides, so the two
@@ -110,6 +111,62 @@ def pair(tmp_path_factory, planes_off):
     js.close()
 
 
+class _ChildServer:
+    """One package's server in a child interpreter of its own (this module
+    imported there, so its registries hold the same families), serving
+    until its stdin closes. The scrape comparison runs on two of them:
+    the kernel-launch families are process-global, and a pytest worker
+    holds whatever layers the files it ran before left alive (one run of
+    the whole suite under pytest-xdist counted a `bitrot_verify_sip256`
+    launch of a JAX layer outside the pair in the script's window)."""
+
+    CODE = ("import sys; from tests import test_torch_admin as t; "
+            "srv = t._child_server(sys.argv[1], sys.argv[2]); "
+            "print(srv.url, flush=True); sys.stdin.read(); srv.close()")
+
+    def __init__(self, pkg: str, root):
+        import subprocess
+        import sys
+
+        env = dict(os.environ, MTPU_METAPLANE="0", MTPU_BATCHED_DATAPLANE="0",
+                   JAX_PLATFORMS="cpu")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", self.CODE, pkg, str(root)], cwd=_ROOT, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.url = ""
+
+    def wait_url(self) -> "_ChildServer":
+        self.url = self.proc.stdout.readline().strip()
+        assert self.url.startswith("http://"), self.url
+        return self
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        assert self.proc.wait(60) == 0
+
+
+def _child_server(pkg: str, root: str):
+    """The server a _ChildServer runs: the pair's, over 4 drives in root."""
+    from minio_tpu_torch.s3.server import build_server
+
+    paths = [os.path.join(root, f"{pkg[0]}{i:02d}") for i in range(4)]
+    if pkg == "jax":
+        return _JaxServer(paths)
+    return build_server(paths, S3_ACCESS, S3_SECRET, device="cpu",
+                        enable_mrf=False).start()
+
+
+@pytest.fixture
+def isolated_pair(tmp_path):
+    """The pair of servers, each in a process of its own."""
+    kids = {k: _ChildServer(k, tmp_path) for k in ("jax", "torch")}
+    try:
+        yield {k: c.wait_url() for k, c in kids.items()}
+    finally:
+        for c in kids.values():
+            c.close()
+
+
 def _clients(pair):
     return {"jax": SigV4Client(pair["jax"].url, S3_ACCESS, S3_SECRET),
             "torch": SigV4Client(pair["torch"].url, S3_ACCESS, S3_SECRET)}
@@ -167,7 +224,8 @@ def _script(bucket):
             ("DELETE", f"/{bucket}/small", {}, b"")]
 
 
-def test_scrape_families_and_counters_match_jax(pair):
+def test_scrape_families_and_counters_match_jax(isolated_pair):
+    pair = isolated_pair
     cls = _clients(pair)
     before = {k: _scrape(c) for k, c in cls.items()}
     for method, path, headers, body in _script(BUCKET):
@@ -496,8 +554,118 @@ def test_device_capture_that_lost_the_kernels_is_refused(pair, monkeypatch, capt
 
 def test_admin_ops_of_other_planes_answer_not_implemented(pair):
     cls = _clients(pair)
-    for op in ("consolelog", "obdinfo", "datausageinfo", "top/locks"):
+    for op in ("obdinfo", "slo", "faults", "top/locks"):
         assert cls["torch"].get(f"/minio/admin/v3/{op}").status_code == 501, op
+
+
+def _usage_doc(doc):
+    return {k: v for k, v in doc.items() if k != "lastUpdate"}
+
+
+def test_datausageinfo_matches_jax(pair):
+    from minio_tpu.scanner import DataScanner as JaxScanner
+
+    cls = _clients(pair)
+    before = {k: c.get("/minio/admin/v3/datausageinfo") for k, c in cls.items()}
+    assert [r.status_code for r in before.values()] == [200, 200]
+    assert before["torch"].json() == before["jax"].json() == \
+        {"objectsCount": 0, "bucketsUsage": {}}
+    for k, c in cls.items():
+        c.put("/usage")
+        for i, size in enumerate((0, 1000, 300 << 10)):
+            assert c.put(f"/usage/o{i}", data=_payload(size, i)).status_code == 200
+    js, ts = pair["jax"].srv, pair["torch"]
+    js.scanner = JaxScanner(js.obj, js.bucket_meta, tracker=js.update_tracker,
+                            config=js.config)
+    ts.start_scanner(loop=False)
+    try:
+        js.scanner.scan_once()
+        ts.scanner.scan_once()
+        got = {k: c.get("/minio/admin/v3/datausageinfo").json() for k, c in cls.items()}
+        assert _usage_doc(got["torch"]) == _usage_doc(got["jax"])
+        assert got["torch"]["bucketsUsage"]["usage"]["objectsCount"] == 3
+        assert got["torch"]["lastUpdate"] > 0
+        anon = requests.get(ts.url + "/minio/admin/v3/datausageinfo", timeout=30)
+        assert anon.status_code == 403
+    finally:
+        js.scanner = None
+        ts.scanner = None
+
+
+def test_tier_admin_matches_jax(pair, tmp_path):
+    cls = _clients(pair)
+    fs_doc = {"kind": "fs", "name": "COLD", "dir": str(tmp_path / "cold")}
+    s3_doc = {"kind": "s3", "name": "WARM", "endpoint": "http://127.0.0.1:9",
+              "accessKey": "ak", "secretKey": "very-secret", "bucket": "b",
+              "prefix": "p", "region": "us-east-1"}
+    script = [("GET", {}, b""), ("PUT", {}, json.dumps(fs_doc).encode()),
+              ("PUT", {}, json.dumps(fs_doc).encode()),
+              ("PUT", {}, json.dumps(s3_doc).encode()),
+              ("PUT", {}, b'{"kind": "tape", "name": "T"}'), ("PUT", {}, b"not json"),
+              ("GET", {}, b""), ("DELETE", {"name": "COLD"}, b""),
+              ("DELETE", {"name": "COLD", "force": "true"}, b""),
+              ("DELETE", {"name": "WARM", "force": "1"}, b""), ("GET", {}, b"")]
+    got = {}
+    for k, c in cls.items():
+        out = []
+        for method, query, body in script:
+            r = c.request(method, "/minio/admin/v3/tier", query=query, data=body)
+            out.append((r.status_code, r.json() if r.status_code == 200 else
+                        r.content.split(b"<Code>")[1].split(b"</Code>")[0]))
+        got[k] = out
+    assert got["torch"] == got["jax"]
+    listed = got["torch"][6][1]["tiers"]
+    assert {t["name"]: t.get("secretKey") for t in listed} == {"COLD": None,
+                                                               "WARM": "*REDACTED*"}
+    assert got["torch"][-1] == (200, {"tiers": []})
+
+
+def _stream_lines(url, cl, path, out, stop):
+    signed = cl._sign("GET", path, {}, {}, b"")
+    with requests.get(url + path, headers=signed, stream=True, timeout=30) as r:
+        assert r.status_code == 200
+        for line in r.iter_lines():
+            if line:
+                out.append(json.loads(line))
+            if stop.is_set():
+                return
+
+
+def test_consolelog_matches_jax(pair):
+    cls = _clients(pair)
+    got = {}
+    for k, s3 in (("jax", pair["jax"].srv), ("torch", pair["torch"])):
+        url = pair[k].url
+        lines, stop = [], threading.Event()
+        t = threading.Thread(target=_stream_lines, daemon=True,
+                             args=(url, cls[k], "/minio/admin/v3/consolelog", lines, stop))
+        t.start()
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and not s3.logger.console_bus.has_subscribers:
+            time.sleep(0.02)
+        s3.logger.warning(f"console line {k}", bucket="b", n=7)
+        while time.monotonic() < deadline and not any(
+                x.get("message") == f"console line {k}" for x in lines):
+            time.sleep(0.02)
+        stop.set()
+        s3.logger.info("wake the stream")   # the client leaves at its next line
+        t.join(10)
+        # The server sees the client gone at its next write (a heartbeat):
+        # the stream unsubscribes and leaves the in-flight count.
+        while time.monotonic() < deadline + 10 and s3.logger.console_bus.has_subscribers:
+            time.sleep(0.05)
+        assert not s3.logger.console_bus.has_subscribers
+        mine = [x for x in lines if x.get("message") == f"console line {k}"]
+        assert len(mine) == 1, lines
+        got[k] = {**mine[0], "time": "T", "message": "M"}
+    assert got["torch"] == got["jax"]
+    assert got["torch"]["level"] == "WARNING" and got["torch"]["n"] == 7
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and pair["torch"].current_requests:
+        time.sleep(0.05)
+    assert pair["torch"].current_requests == 0
+    anon = requests.get(pair["torch"].url + "/minio/admin/v3/consolelog", timeout=30)
+    assert anon.status_code == 403
 
 
 def test_request_accounting_ends_before_the_answer_is_read(pair):

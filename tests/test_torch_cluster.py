@@ -320,3 +320,61 @@ def test_locks_admin_and_readiness(pair):
     r = ac.get("/minio/v2/metrics/cluster")
     assert r.status_code == 200 and time.monotonic() - t0 < 10
     assert "minio_tpu_peer_scrape_errors_total" in r.text
+
+
+def _console_lines(node, query, out, stop):
+    import requests
+
+    cl = _client(node)
+    path = "/minio/admin/v3/consolelog"
+    signed = cl._sign("GET", path, query, {}, b"")
+    with requests.get(node.url + path, params=query, headers=signed, stream=True,
+                      timeout=30) as r:
+        assert r.status_code == 200
+        for line in r.iter_lines():
+            if line:
+                out.append(json.loads(line))
+            if stop.is_set():
+                return
+
+
+def test_consolelog_federates_across_packages(mixed):
+    """Each node's consolelog stream carries the other node's log lines
+    (the peer plane's consolelog route, fed by the logger's console bus
+    that attach_cluster hands the peer hooks), and ?all=false this node's
+    only. The two packages' loggers are separate buses in this process,
+    so a line logged on one node reaches the other only over the peer
+    plane."""
+    port_node, jax_node = mixed
+    got = {}
+    for reader, writer in ((port_node, jax_node), (jax_node, port_node)):
+        for query in ({}, {"all": "false"}):
+            lines, stop = [], threading.Event()
+            t = threading.Thread(target=_console_lines, daemon=True,
+                                 args=(reader, query, lines, stop))
+            t.start()
+            bus = reader.srv.logger.console_bus
+            deadline = time.monotonic() + 15
+            while time.monotonic() < deadline and not bus.has_subscribers:
+                time.sleep(0.02)
+            time.sleep(1.0)   # the peer pullers subscribe on the other node
+            msg = f"from {type(writer).__name__} all={query.get('all', 'true')}"
+            writer.srv.logger.warning(msg, n=1)
+            reader.srv.logger.info(f"local {msg}")
+            while time.monotonic() < deadline and not any(
+                    x.get("message") == f"local {msg}" for x in lines):
+                time.sleep(0.05)
+            if not query:
+                while time.monotonic() < deadline and not any(
+                        x.get("message") == msg for x in lines):
+                    time.sleep(0.05)
+            stop.set()
+            reader.srv.logger.info("wake the stream")
+            t.join(10)
+            got[(type(reader).__name__, query.get("all", "true"))] = sorted(
+                x["message"] for x in lines if x.get("message", "").endswith(msg))
+    for reader in ("_TorchNode", "_JaxNode"):
+        writer = "_JaxNode" if reader == "_TorchNode" else "_TorchNode"
+        assert got[(reader, "true")] == sorted([f"from {writer} all=true",
+                                                f"local from {writer} all=true"])
+        assert got[(reader, "false")] == [f"local from {writer} all=false"]

@@ -23,8 +23,9 @@ FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xx
 
 # Modules of the metadata plane and drive-resilience slice, of the
 # data-at-rest slice, of the identity-and-access slice, of the front
-# door and QoS slice and of the distributed cluster slice, each its own
-# copy of the JAX module it ports: they must be in the scan.
+# door and QoS slice, of the distributed cluster slice and of the
+# background plane slice, each its own copy of the JAX module it ports:
+# they must be in the scan.
 SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "metaplane/groupcommit.py", "metaplane/setcache.py",
                  "storage/idcheck.py", "storage/healthcheck.py",
@@ -43,7 +44,13 @@ SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "dist/__init__.py", "dist/faultplane.py", "dist/rpc.py",
                  "dist/server.py", "dist/endpoint.py", "dist/storage_remote.py",
                  "dist/dsync.py", "dist/nslock.py", "dist/peer.py",
-                 "dist/cluster.py", "utils/msgpack.py")
+                 "dist/cluster.py", "utils/msgpack.py",
+                 "scanner/__init__.py", "scanner/lifecycle.py", "scanner/usage.py",
+                 "scanner/tracker.py", "scanner/tiers.py", "scanner/scanner.py",
+                 "event/__init__.py", "event/event.py", "event/rules.py",
+                 "event/targets.py", "event/notifier.py", "logger/__init__.py",
+                 "logger/logger.py", "replication/__init__.py",
+                 "replication/client.py", "utils/streams.py")
 
 
 def _port_files():
