@@ -320,6 +320,36 @@ package beside it. Phases, each raising on failure:
    and 100 expiries (of 20,000 and 1,000; alone on the card it took 231.3
    s at those, run 68: 3 ms a key a cycle, 48 ms an expiry).
 
+18. the SLO plane and the composed chaos plane (chaos_phase, run before
+   phase 9): config 1's set (12 drives on /dev/shm, EC 8+4, 1 MiB blocks)
+   behind the server's CLI in a child process (as phases 12, 15 and 16
+   start it, --scan-interval 0) with MTPU_CHAOS_DRIVE_WRAP=1 (an inert
+   NaughtyDisk over each drive), MTPU_FAULT_INJECTION=1 (the admin
+   `faults` route), MTPU_CHAOS_SEED=--seed and its SLO ring sampled every
+   second (MTPU_SLO_SAMPLE_S=1). CH_BIG objects of 64 MiB PUT first; then
+   one ChaosProgram from the seed, applied over the admin route by the
+   ChaosScheduler: a hang of read_file_stream on the drive holding a data
+   shard of the most big objects, create_file errors on two other drives
+   and a 20 ms trickle on every read of a fourth's streams, each cleared
+   before the storm ends; under it, for CH_STORM_S seconds, a
+   MixedWorkload of CH_CLIENTS stdlib clients (warp-mix sizes 1-512 KiB,
+   deletes, lists and 5 MiB multipart uploads) recording every
+   acknowledged write in a WriteLedger, and the big objects read while
+   the hang holds (degraded: K1 reconstructs around the hung shard). Then
+   the faults cleared and the four invariants: heal convergence (every
+   drive back online, a deep heal leaving every object's shards ok, its
+   seconds), zero lost and zero torn acknowledged writes, agreement of two
+   connections, and the SLO check (PUT and GET p99 within CH_P99_S, 5xx
+   within CH_ERR) on a window of the server's own ring read back from
+   `slo/history` through window_from_ring; GET /minio/admin/v3/slo's burn
+   rates and breaches printed. The server's exact K1/K2 launches come
+   from its drain line (a fresh process: counted from 0 over the phase),
+   the labeled ones from its scrape; K1 beyond the labeled is the
+   degraded GETs' decodes and must be launched. Sampled shard digests and
+   parity of the big objects and of warp-mix ones, read from the drives,
+   equal the plain versions. Phase 15 also asks its pool's `slo` route,
+   whose answer must merge every worker's StateSpool mailbox.
+
 Depth cut to make room under SMOKE_BUDGET_S, no width changed: for
 phase 11, phase 4 runs twice (on, off) instead of four times, phase 7
 copies 32 of phase 6's parts instead of 64, and the listing phase may
@@ -332,11 +362,13 @@ objects instead of 512, phases 4 and 12 PUT 256 warp-mix objects a run
 instead of 512, phase 15's warp mix is 128 objects instead of 512
 (through the pool and through the one process alike), and the listing
 PUTs 500 real objects instead of 1,000 and may halve down to 6,250
-synthetic ones (12,500).
+synthetic ones (12,500). Phase 18 cut nothing else: the listing's halving
+to fit SMOKE_BUDGET_S takes up its time.
 
 The launch count of each kernel is reset just before each of phases 3-14
-and 17 (each run of phase 4) and read after it (phase 15's workers and phase
-16's nodes count in their own processes: their scrapes and drain logs);
+and 17 (each run of phase 4) and read after it (phase 15's workers, phase
+16's nodes and phase 18's server count in their own processes: their
+scrapes and drain logs);
 the JSON line carries phase 4's
 counts from its first run, the plane at its default. It prints a JSON line with every kernel's numbers at
 every shape, then, as the last line,
@@ -4384,6 +4416,25 @@ def frontdoor_phase(seed: int, card: str, device: str = "cuda",
             raise AssertionError("front door: the ring served nothing in (a)")
         if da["0"]["k1"] <= 0 or da["0"]["k2"] <= 0 or da["0"]["served"].get("encode", 0) <= 0:
             raise AssertionError(f"front door: worker 0 launched no K1/K2 for ring work {da['0']}")
+        # The SLO plane's mailboxes: any worker's answer merges every
+        # worker's latest evaluation (a worker evaluates every 5 s).
+        deadline = time.perf_counter() + 30
+        while True:
+            r, body = root.request("GET", "/minio/admin/v3/slo")
+            local = json.loads(body)["nodes"]["local"]
+            if (sorted(local["workers"]) == list(range(n_workers))
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.5)
+        merged = sorted(local["workers"])
+        print(f"  (a) GET /minio/admin/v3/slo through worker {r.getheader('X-Mtpu-Worker')}: "
+              f"the mailboxes of workers {merged} merged; burn fast/slow, breach "
+              + "; ".join(f"{k} {s['windows']['fast']['burn']}/{s['windows']['slow']['burn']}"
+                          f", {s['breach']}" for k, s in sorted(local["slos"].items())))
+        if merged != list(range(n_workers)) or len(local["slos"]) != 4:
+            raise AssertionError(f"front door: the slo answer merged workers {merged} of "
+                                 f"{n_workers}")
+        out["slo_workers"] = merged
 
         child = child_f.result()
         surl = f"http://127.0.0.1:{sport}"
@@ -5393,6 +5444,288 @@ def background_phase(seed: int, card: str, device: str = "cuda", synth: int = BG
         shutil.rmtree(work, ignore_errors=True)
 
 
+CH_STORM_S = 30.0               # phase 18: seconds of the mixed workload under the storm,
+CH_CLIENTS = 16                 # ... its client threads (warp mix of 1-512 KiB),
+CH_BIG = 4                      # ... and the objects whose GETs go degraded,
+CH_BIG_SIZE = 64 << 20          # ... each of 64 MiB
+CH_P99_S, CH_ERR = 12.0, 0.5    # ... the storm window's SLO bounds (the JAX soak's)
+
+
+def chaos_phase(seed: int, card: str, device: str = "cuda", storm_s: float = CH_STORM_S,
+                clients: int = CH_CLIENTS, n_big: int = CH_BIG,
+                big_size: int = CH_BIG_SIZE) -> dict:
+    """Phase 18 (see the module's docstring): the SLO plane and the
+    composed chaos plane on config 1 behind the server's CLI; -> the
+    numbers it printed."""
+    import random
+    import threading
+
+    import numpy as np
+
+    from minio_tpu_torch import chaos
+    from minio_tpu_torch.chaos import invariants, schedule
+    from minio_tpu_torch.chaos.ledger import WriteLedger, digest
+    from minio_tpu_torch.chaos.workload import MixedWorkload, S3Client
+    from minio_tpu_torch.erasure.metadata import hash_order
+    from minio_tpu_torch.ops import kernels
+    from minio_tpu_torch.s3.server import build_server
+
+    backend = "gpu" if device == "cuda" else "cpu"
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    work = tempfile.mkdtemp(prefix="mtpu-torch-chaos-", dir=shm)
+    paths = [os.path.join(work, f"d{i:02d}") for i in range(12)]
+    bucket = "chaos"
+    out: dict = {}
+    t_phase = time.perf_counter()
+    node = _Node(paths, _free_port(), device, _child_env({
+        "MTPU_CHAOS_DRIVE_WRAP": "1", "MTPU_FAULT_INJECTION": "1",
+        "MTPU_CHAOS_SEED": str(seed), "MTPU_SLO_SAMPLE_S": "1"}))
+    try:
+        node.wait_serving(time.monotonic() + 120)
+        boot_s = time.perf_counter() - t_phase
+        cl = S3Client(node.url, ACCESS, SECRET, timeout=120)
+        if cl.put(f"/{bucket}").status_code != 200:
+            raise AssertionError("chaos: bucket not made")
+
+        # The big objects, acknowledged before the storm.
+        lgr = WriteLedger(path=os.path.join(work, "ledger.jsonl"))
+        rng = np.random.default_rng(seed + 18)
+        bigs = {f"big{i}": rng.bytes(big_size) for i in range(n_big)}
+        for key, body in bigs.items():
+            e = lgr.intent("put", key, digest(body), len(body))
+            r = cl.put(f"/{bucket}/{key}", data=body)
+            if r.status_code != 200:
+                raise AssertionError(f"chaos: PUT {key}: {r.status_code} {r.content[:300]!r}")
+            lgr.ack(e, r.headers.get("ETag", ""))
+
+        # The storm, from the seed: a hang on the shard reads of the drive
+        # holding a data shard of the most big objects, create_file errors
+        # on two others, a trickling read stream on a fourth; each cleared
+        # before the storm ends.
+        srng = random.Random(chaos.subseed(seed, "drive-schedule"))
+        held = [sum(hash_order(f"{bucket}/{k}", 12)[i] <= 8 for k in bigs)
+                for i in range(12)]
+        hang = srng.choice([i for i in range(12) if held[i] == max(held)])
+        rest = [i for i in range(12) if i != hang]
+        srng.shuffle(rest)
+        err1, err2, slow = rest[:3]
+        prog = schedule.ChaosProgram(seed)
+        prog.add(2.0, schedule.DRIVE_HANG, paths[hang], method="read_file_stream")
+        prog.add(3.0, schedule.DRIVE_DELAY, paths[err1], method="create_file", error="faulty")
+        prog.add(3.0, schedule.DRIVE_DELAY, paths[err2], method="create_file", error="faulty")
+        prog.add(4.0, schedule.DRIVE_SLOW, paths[slow], chunkDelay=0.02)
+        prog.add(storm_s * 0.6, schedule.DRIVE_CLEAR, paths[hang])
+        prog.add(storm_s * 0.7, schedule.DRIVE_CLEAR, paths[err1])
+        prog.add(storm_s * 0.7, schedule.DRIVE_CLEAR, paths[err2])
+        prog.add(storm_s * 0.8, schedule.DRIVE_CLEAR, paths[slow])
+        admin = S3Client(node.url, ACCESS, SECRET, timeout=30)
+
+        def fault(doc):
+            r = admin.post("/minio/admin/v3/faults", data=json.dumps(doc).encode())
+            if r.status_code != 200:
+                raise AssertionError(f"chaos: fault {doc}: {r.status_code} {r.content[:300]!r}")
+
+        def drive_fault(ev):
+            doc = {"op": "drive", "endpoint": ev.target, "method": ev.params["method"]}
+            if "error" in ev.params:
+                doc["error"] = ev.params["error"]
+            else:
+                doc["delay"] = "hang"
+            fault(doc)
+
+        sched = schedule.ChaosScheduler(prog, {
+            schedule.DRIVE_HANG: drive_fault, schedule.DRIVE_DELAY: drive_fault,
+            schedule.DRIVE_SLOW: lambda ev: fault({
+                "op": "drive_slow", "endpoint": ev.target,
+                "chunkDelay": ev.params["chunkDelay"]}),
+            schedule.DRIVE_CLEAR: lambda ev: fault({"op": "drive_clear",
+                                                   "endpoint": ev.target})})
+        print(f"  program (seed {seed}): hang read_file_stream on d{hang:02d} (a data "
+              f"shard of {held[hang]} of the {n_big} big objects), create_file errors on "
+              f"d{err1:02d} and d{err2:02d}, a 20 ms trickle on d{slow:02d}; "
+              f"{len(prog.schedule())} events over {prog.duration():.1f} s")
+
+        # The degraded GETs: the big objects read while the hang holds.
+        big_gets: list[tuple[str, int, float, bool]] = []
+
+        def read_bigs():
+            time.sleep(2.5)
+            gcl = S3Client(node.url, ACCESS, SECRET, timeout=120)
+            while time.perf_counter() - t_storm < storm_s * 0.55:
+                for key, body in bigs.items():
+                    t0 = time.perf_counter()
+                    r = gcl.get(f"/{bucket}/{key}")
+                    big_gets.append((key, r.status_code, time.perf_counter() - t0,
+                                     r.status_code == 200 and r.content == body))
+            gcl.close()
+
+        sizes = tuple(int(s) for s in np.unique(np.geomspace(1 << 10, 512 << 10, 40)
+                                               .astype(np.int64)))
+        fleet = MixedWorkload(lambda: S3Client(node.url, ACCESS, SECRET, timeout=60),
+                              lgr, bucket, seed=seed, workers=clients, sizes=sizes,
+                              mp_size=5 << 20, op_timeout=60.0)
+        reader = threading.Thread(target=read_bigs, name="smoke-chaos-bigs")
+        t_storm = time.perf_counter()
+        sched.start()
+        reader.start()
+        try:
+            fleet.run_for(storm_s)
+        finally:
+            sched.stop()
+            sched.join(60.0)
+            reader.join(300)
+        storm_wall = time.perf_counter() - t_storm
+        ops = fleet.stats.total_ops()
+        out["storm"] = {"s": storm_wall, "ops": ops, "ops_s": ops / storm_wall,
+                        "acked": lgr.acked_count(), "codes": fleet.stats.codes}
+        print(f"  storm on {card}: {storm_wall:.3f} s, {clients} clients, {ops} ops "
+              f"({ops / storm_wall:.3f} ops/s; {dict(sorted(fleet.stats.ops.items()))}), "
+              f"errors {dict(sorted(fleet.stats.errors.items()))}, statuses "
+              f"{dict(sorted(fleet.stats.codes.items()))}; ledger {lgr.describe()}; "
+              f"p99 {fleet.stats.p99():.3f} s")
+        bad_big = [g for g in big_gets if not g[3]]
+        print(f"  degraded GETs of the big objects under the hang: {len(big_gets)}, "
+              f"{sum(g[2] for g in big_gets) / max(1, len(big_gets)):.3f} s each on "
+              f"average, {sum(g[1] == 200 for g in big_gets)} answered 200, "
+              f"{len(bad_big)} not byte-equal")
+        if sched.errors() or sched.applied() != prog.schedule():
+            raise AssertionError(f"chaos: the program was not applied as previewed: "
+                                 f"{sched.errors()}")
+        if not big_gets or bad_big:
+            raise AssertionError(f"chaos: the big objects' GETs under the hang {big_gets}")
+        if fleet.stats.violations:
+            raise AssertionError(f"chaos: in-storm read violations "
+                                 f"{fleet.stats.violations[:5]} (seed {seed})")
+        if lgr.acked_count() < 50 + n_big:
+            raise AssertionError(f"chaos: the storm acknowledged too little {lgr.describe()}")
+
+        # Converge: faults cleared, every drive back, then the invariants.
+        t0 = time.perf_counter()
+        r = admin.post("/minio/admin/v3/faults", data=b'{"op": "clear_all"}')
+        if r.status_code != 200:
+            raise AssertionError(f"chaos: clear_all {r.status_code}")
+
+        def info():
+            r = admin.get("/minio/admin/v3/info")
+            return json.loads(r.content) if r.status_code == 200 else {}
+
+        heal_s = []
+
+        def deep_heal():
+            t1 = time.perf_counter()
+            r = S3Client(node.url, ACCESS, SECRET, timeout=600).post(
+                f"/minio/admin/v3/heal/{bucket}",
+                data=json.dumps({"scanMode": "deep"}).encode())
+            heal_s.append(time.perf_counter() - t1)
+            if r.status_code != 200:
+                raise AssertionError(f"chaos: deep heal {r.status_code} {r.content[:300]!r}")
+            return [i for i in json.loads(r.content)["items"] if i.get("object")]
+
+        def get_via(c):
+            def get_fn(key):
+                r = c.get(f"/{bucket}/{key}")
+                return r.status_code, (r.content if r.status_code == 200 else b"")
+            return get_fn
+
+        healed = invariants.check_heal_convergence(info, deep_heal, want_drives=12,
+                                                   seed=seed, timeout=120)
+        converge_s = time.perf_counter() - t0
+        acked_rep = invariants.check_acknowledged_writes(get_via(cl), lgr, seed=seed)
+        lost = sum("lost" in f or "HTTP" in f for f in acked_rep.failures)
+        torn = len(acked_rep.failures) - lost
+        agree = invariants.check_cross_node_agreement(
+            [get_via(cl), get_via(S3Client(node.url, ACCESS, SECRET, timeout=120))],
+            lgr, seed=seed)
+        window_s = time.perf_counter() - t_storm
+        r = cl.get("/minio/admin/v3/slo/history", query={"seconds": str(window_s + 5)})
+        if r.status_code != 200:
+            raise AssertionError(f"chaos: slo/history {r.status_code} {r.content[:300]!r}")
+        window = invariants.window_from_history(json.loads(r.content)["history"], window_s)
+        slo_rep = invariants.check_slos(window, seed=seed, p99_bound=CH_P99_S,
+                                        error_rate_bound=CH_ERR)
+        fam = "minio_tpu_s3_requests_latency_seconds"
+        p99 = {api: invariants.histogram_quantile(window, fam, 0.99, {"api": api})
+               for api in ("PutObject", "GetObject")}
+        total = invariants.counter_sum(window, "minio_tpu_s3_requests_total")
+        errs = invariants.counter_sum(window, "minio_tpu_s3_requests_5xx_errors_total")
+        r = cl.get("/minio/admin/v3/slo")
+        doc = json.loads(r.content) if r.status_code == 200 else {}
+        (state,) = (doc.get("nodes") or {"": {}}).values()
+        burns = {name: (s["windows"]["fast"]["burn"], s["windows"]["slow"]["burn"],
+                        s["breach"]) for name, s in (state.get("slos") or {}).items()}
+        out.update({"lost": lost, "torn": torn, "heal_s": heal_s[0] if heal_s else None,
+                    "converge_s": converge_s, "burns": burns, "p99": p99,
+                    "err_rate": errs / max(1.0, total)})
+        print(f"  converged in {converge_s:.3f} s (deep heal {heal_s[0] if heal_s else 0:.3f} s"
+              f" over {healed.checked - 1} objects); {healed.summary()}")
+        print(f"  acknowledged writes: {lgr.acked_count()} acked, {lost} lost, {torn} torn; "
+              f"{acked_rep.summary()}; {agree.summary()}")
+        print(f"  SLO window of the server's ring ({window_s:.1f} s): {total:.0f} requests, "
+              f"5xx {errs:.0f} ({errs / max(1.0, total):.4f}), p99 PUT "
+              f"{p99['PutObject']:.3f} s, GET {p99['GetObject']:.3f} s; "
+              f"{slo_rep.summary()}")
+        print(f"  GET /minio/admin/v3/slo on {card}: burn (fast, slow, breach) "
+              + "; ".join(f"{k} {v[0]}, {v[1]}, {v[2]}" for k, v in sorted(burns.items()))
+              + f"; any breach: {any(v[2] for v in burns.values())}")
+        for rep in (healed, acked_rep, agree, slo_rep):
+            rep.assert_ok()
+        if set(burns) != {"put_latency_p99", "get_latency_p99", "s3_error_ratio",
+                          "tenant_latency_p99"} or doc.get("errors"):
+            raise AssertionError(f"chaos: the slo answer {doc}")
+
+        # The launches: labeled by the scrape, exact at the drain.
+        labeled = node.scrape(backend)
+        scrape = invariants.parse_exposition(cl.get("/minio/v2/metrics/node").content.decode())
+        hedged = (invariants.counter_sum(scrape, "minio_tpu_hedged_reads_total"),
+                  invariants.counter_sum(scrape, "minio_tpu_hedged_reads_won_total"))
+        cl.close()
+        admin.close()
+        node.term()
+        exact = node.drain()
+        print(f"  launches of the server over the phase (fresh process; exact at drain): "
+              f"K1 {exact['gf2_matmul']}, K2 {exact['mxsum_digest']}; labeled K1 "
+              f"{labeled['k1']} (reconstructs {labeled['k1_rec']}), K2 {labeled['k2']}; "
+              f"unlabeled K1 (degraded GET decodes) {exact['gf2_matmul'] - labeled['k1']}; "
+              f"hedged reads {hedged[0]:.0f}, won {hedged[1]:.0f}")
+        out["launches"] = {"k1": exact["gf2_matmul"], "k2": exact["mxsum_digest"],
+                           "k1_degraded": exact["gf2_matmul"] - labeled["k1"]}
+        if device == "cuda" and (exact["gf2_matmul"] <= 0 or exact["mxsum_digest"] <= 0
+                                 or exact["gf2_matmul"] <= labeled["k1"]):
+            raise AssertionError(f"chaos: K1/K2 launches {exact}, labeled {labeled}: the "
+                                 "storm's PUTs, verify and degraded GETs must launch them")
+
+        # Sampled shard digests and parity against the plain versions.
+        kernels.reset_launches()
+        srv = build_server(paths, ACCESS, SECRET, device=device, enable_mrf=False).start()
+        try:
+            es = srv.obj.pools[0].sets[0]
+            for key in bigs:
+                _check_sampled_digests(paths, es, bucket, key, device)
+            # Warp-mix keys written once (one data directory), past the
+            # inline size.
+            once = {}
+            for e in lgr.entries():
+                once[e.key] = once.get(e.key, 0) + 1
+            small = [k for k, st in sorted(lgr.expected().items())
+                     if k not in bigs and once[k] == 1 and st.must_exist
+                     and st.settled.op == "put" and st.settled.size > 256 << 10][:2]
+            for key in small:
+                _check_sampled_digests(paths, es, bucket, key, device)
+        finally:
+            _close_server(srv)
+        counts = kernels.launches()
+        out["s"] = time.perf_counter() - t_phase
+        print(f"  sampled shard digests and parity of {n_big} big and {len(small)} small "
+              f"objects equal the plain versions (K1 {counts['gf2_matmul']}, K2 "
+              f"{counts['mxsum_digest']} in the check); boot {boot_s:.3f} s; phase "
+              f"{out['s']:.1f} s on {card}")
+        return out
+    finally:
+        if node.proc.poll() is None:
+            node.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _fd_get(url: str, key: str) -> bytes | None:
     cl = _Client(url)
     try:
@@ -5750,6 +6083,11 @@ def main() -> int:
               f"scanner, ILM expiry and tiers, deep heal, events and audit; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         background_phase(args.seed, card)
+        print(f"SLO and chaos phase (EC 8+4, 1 MiB blocks, drives on /dev/shm; the "
+              f"server's CLI with the drive wrap and fault injection, a seeded drive "
+              f"storm under a mixed workload; begun at "
+              f"{time.perf_counter() - t_start:.1f} s):")
+        chaos_phase(args.seed, card)
         print(f"listing phase (EC 8+4, 1 MiB blocks; drives on /dev/shm; begun at "
               f"{time.perf_counter() - t_start:.1f} s):")
         listing_phase(args.seed, card, mp, time.perf_counter() - t_start)

@@ -12,3 +12,7 @@ Entry points take `device=` and default to "cuda"; without CUDA they raise
 unless the caller asks for "cpu", where the plain PyTorch versions of the
 kernels run.
 """
+
+# The JAX package's version: a calibration profile or build-info label
+# names the same release whichever package wrote it.
+__version__ = "0.1.0"

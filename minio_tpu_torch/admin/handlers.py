@@ -24,6 +24,20 @@ Routes served, under /minio/admin/v3/:
     GET|PUT|DELETE tier                the ILM tiers: list (secrets
                                        redacted), add one (body: its
                                        document), remove ?name= (&force=true)
+    GET  slo                           the SLO burn-rate state: this
+                                       worker's merged with its front-door
+                                       siblings' mailboxes, and on a cluster
+                                       node every peer's (?all=false: this
+                                       node's only); gzip when asked
+    GET  slo/history                   this node's metric ring (?seconds=,
+                                       ?prefix=); gzip when asked
+    GET|POST faults                    the fault planes (admin:* and
+                                       MTPU_FAULT_INJECTION=1): GET the
+                                       network plane and the armed drives,
+                                       POST one document to either plane
+                                       ("drive..." ops to chaos/naughty.py,
+                                       "clear_all" to both, the rest to
+                                       dist/faultplane.py)
     GET  perf/timeline                 flight-recorder timelines (?traceid=,
                                        ?api=, ?worst=, ?tenant=), this
                                        worker's and its siblings', and the
@@ -62,10 +76,10 @@ allows its admin:* action under the request's condition context (the
 root always; the IAM ops need admin:*). A config-kv PUT re-applies the
 log and audit targets (logger_webhook, audit_webhook, audit_file) and the
 event targets (notify_*) it touches. The JAX package's other admin ops
-(obd, slo, faults, service, replication...) answer NotImplemented
-until their planes land in the port (ROADMAP.md); so do force-unlock and
-top/locks on a server that is not a cluster node (no dsync locker). An op
-neither package has answers MethodNotAllowed, as the JAX server's does.
+(obd, service, replication...) answer NotImplemented until their planes
+land in the port (ROADMAP.md); so do force-unlock and top/locks on a
+server that is not a cluster node (no dsync locker). An op neither
+package has answers MethodNotAllowed, as the JAX server's does.
 """
 
 from __future__ import annotations
@@ -92,13 +106,13 @@ ADMIN_PREFIX = "/minio/admin/v3/"
 
 _SERVED = frozenset({"info", "metrics", "heal", "top", "trace", "perf", "profiling",
                      "config-kv", "config", "kms", "force-unlock", "datausageinfo",
-                     "tier", "consolelog"})
+                     "tier", "consolelog", "slo", "faults"})
 
 # Admin ops of the JAX package whose planes the port does not have yet.
 _NOT_YET = frozenset({
-    "slo", "set-remote-target", "list-remote-targets",
+    "set-remote-target", "list-remote-targets",
     "remove-remote-target", "replication-status", "replication-resync",
-    "cache", "bandwidth", "faults", "service", "update",
+    "cache", "bandwidth", "service", "update",
     "obdinfo", "healthinfo"})
 
 # The action each served op is authorized as (the JAX handlers').
@@ -108,7 +122,8 @@ _ACTIONS = {"info": "admin:ServerInfo", "metrics": "admin:Prometheus",
             "trace": "admin:ServerTrace", "perf": "admin:ServerInfo",
             "profiling": "admin:Profiling", "config-kv": "admin:ConfigUpdate",
             "config": "admin:ConfigUpdate", "datausageinfo": "admin:ServerInfo",
-            "tier": "admin:SetTier", "consolelog": "admin:ConsoleLog"}
+            "tier": "admin:SetTier", "consolelog": "admin:ConsoleLog",
+            "slo": "admin:Prometheus", "faults": "admin:*"}
 
 TRACE_HEARTBEAT_S = 0.5   # an idle trace stream writes a newline this often
 
@@ -192,6 +207,10 @@ class AdminAPI:
             # (handlers.py:183-188).
             return 200, {"Content-Type": "application/json"}, self._bus_stream(
                 self.s.logger.console_bus, "console_stream", notif)
+        if op == "slo" and method == "GET":
+            return self._slo(rest, q, headers, notif)
+        if op == "faults":
+            return self._faults(method, read_body)
         if op == "datausageinfo" and method == "GET":
             # The scanner's last complete cycle (handlers.py:81-86).
             scanner = self.s.scanner
@@ -284,6 +303,58 @@ class AdminAPI:
                            if self.s.cluster_node is not None else []),
             "stats": self.s.stats.snapshot(),
         }
+
+    def _node_name(self) -> str:
+        node = self.s.cluster_node
+        return node.node_name if node is not None else ""
+
+    def _slo(self, rest: str, q: dict, headers, notif):
+        """GET slo and slo/history (handlers.py:98-120): the burn-rate
+        state federated over the front-door siblings and the peers, or
+        this node's metric ring."""
+        if rest == "history":
+            from minio_tpu_torch.obs import tsdb
+
+            doc = tsdb.get().history(float(q.get("seconds", "0") or 0),
+                                     q.get("prefix", ""))
+            return _gzjson({"node": self._node_name(), "history": doc}, headers)
+        if rest:
+            raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + "slo/" + rest)
+        from minio_tpu_torch.admin.metrics import collect_cluster_slo
+
+        return _gzjson(collect_cluster_slo(notif, self._node_name()), headers)
+
+    def _faults(self, method: str, read_body):
+        """GET and POST faults (handlers.py:280-320): the fault planes can
+        sever a cluster, so beyond admin:* the process must have opted in
+        (MTPU_FAULT_INJECTION=1)."""
+        import os
+
+        from minio_tpu_torch import chaos
+        from minio_tpu_torch.chaos import naughty
+        from minio_tpu_torch.dist import faultplane
+
+        if os.environ.get("MTPU_FAULT_INJECTION", "") != "1":
+            raise S3Error("NotImplemented",
+                          "fault injection disabled (set MTPU_FAULT_INJECTION=1)")
+        if method == "GET":
+            return _json({**faultplane.describe(), "drives": naughty.describe()})
+        if method != "POST":
+            raise S3Error("MethodNotAllowed", resource=ADMIN_PREFIX + "faults")
+        try:
+            doc = json.loads(read_body())
+            if not isinstance(doc, dict):
+                raise ValueError("fault document must be a JSON object")
+            dop = doc.get("op", "")
+            if not isinstance(dop, str):
+                raise ValueError("fault op must be a string")
+            if dop == "clear_all":
+                return _json(chaos.clear_all())
+            if dop.startswith("drive"):
+                return _json(naughty.apply_admin(doc))
+            return _json(faultplane.apply_admin(doc))
+        except (ValueError, KeyError, TypeError) as e:
+            raise S3Error("InvalidArgument", str(e)) from None
 
     def _heal(self, method: str, rest: str, read_body):
         """POST heal/{bucket}[/{prefix}]: runs the heal and returns the
@@ -544,3 +615,13 @@ def heal_item(i) -> dict:
 
 def _json(doc):
     return 200, {"Content-Type": "application/json"}, json.dumps(doc).encode()
+
+
+def _gzjson(doc, headers):
+    """JSON, gzipped when the request accepts it (the SLO answers carry
+    whole metric rings and compress about tenfold)."""
+    body, enc = maybe_gzip(json.dumps(doc).encode(), headers.get("Accept-Encoding"))
+    hdr = {"Content-Type": "application/json"}
+    if enc:
+        hdr["Content-Encoding"] = enc
+    return 200, hdr, body

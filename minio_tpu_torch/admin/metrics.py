@@ -246,6 +246,34 @@ def collect_cluster_metrics(object_layer, stats, *, notification=None,
     return merge_expositions(texts)
 
 
+def collect_cluster_slo(notification=None, local_name: str = "",
+                        deadline: float | None = None) -> dict:
+    """The federated /slo answer (minio_tpu/admin/metrics.py:266): this
+    node's worker-merged state plus every peer's, pulled over the peer
+    `slo` route under the cluster scrape's deadline. A hung or dead peer
+    becomes an entry of `errors` and a
+    `minio_tpu_peer_scrape_errors_total{peer=}` increment: the fan-out
+    returns within the deadline."""
+    from minio_tpu_torch.obs import slo as _slo
+
+    out: dict = {"nodes": {local_name or "local": _slo.collect_local()},
+                 "errors": []}
+    peers = list(notification.peers) if notification is not None else []
+    if peers:
+        from minio_tpu_torch.erasure.metadata import parallel_map
+
+        results = parallel_map(
+            [p.slo for p in peers],
+            deadline=PEER_SCRAPE_DEADLINE if deadline is None else deadline)
+        for p, r in zip(peers, results):
+            if isinstance(r, Exception) or not isinstance(r, dict):
+                _PEER_SCRAPE_ERRORS.labels(peer=p.name).inc()
+                out["errors"].append(p.name)
+                continue
+            out["nodes"][p.name] = r
+    return out
+
+
 def merge_expositions(sources: list[tuple[str, str]]) -> bytes:
     """Merge per-node exposition texts into one document: families keep
     one HELP/TYPE block (first seen wins) with every source's samples

@@ -21,15 +21,13 @@ without consuming them).
 The plane is process-global but *addressed*: in-process multi-node tests
 give every node's clients a `fault_src` identity, so an asymmetric
 partition (A→B dead, B→A alive) works with both nodes in one process.
-Install from tests via `install()` (the port's admin `faults` route
-answers NotImplemented until the chaos plane is ported); when nothing is
-installed the RestClient pays one module-attribute read per call.
+Install from tests via `install()`, or over the guarded admin `faults`
+route (`apply_admin`); when nothing is installed the RestClient pays one
+module-attribute read per call.
 """
 
 from __future__ import annotations
 
-import hashlib
-import os
 import random
 import threading
 
@@ -250,35 +248,18 @@ class FaultPlane:
 
 _PLANE: FaultPlane | None = None
 
-# The composed-chaos master seed's variable (the JAX package's chaos/
-# plane, which the port does not have yet, reads the same one).
-MASTER_SEED_ENV = "MTPU_CHAOS_SEED"
-
-
-def master_seed(default: int = 0) -> int:
-    """The composed-chaos master seed (`MTPU_CHAOS_SEED`, default 0)."""
-    try:
-        return int(os.environ.get(MASTER_SEED_ENV, "") or default)
-    except ValueError:
-        return default
-
-
-def subseed(master: int, plane: str) -> int:
-    """Stable per-plane child seed (sha256, not the per-process salted
-    `hash()` of a string), the JAX chaos plane's derivation."""
-    h = hashlib.sha256(f"{master}:{plane}".encode()).digest()
-    return int.from_bytes(h[:8], "big") & 0x7FFFFFFFFFFFFFFF
-
 
 def install(plane: FaultPlane | None = None,
             seed: int | None = None) -> FaultPlane:
     """Install the process-global plane. With seed=None the plane seed
     derives from the composed-chaos master (`MTPU_CHAOS_SEED`, via
-    subseed(master, "net")), as in the JAX package. An explicit seed
+    chaos.subseed(master, "net")), as in the JAX package. An explicit seed
     overrides — single-plane tests keep their pinning."""
     global _PLANE
     if plane is None and seed is None:
-        seed = subseed(master_seed(), "net")
+        from minio_tpu_torch import chaos
+
+        seed = chaos.subseed(chaos.master_seed(), "net")
     _PLANE = plane if plane is not None else FaultPlane(seed=seed)
     return _PLANE
 
@@ -290,3 +271,41 @@ def uninstall() -> None:
 
 def get() -> FaultPlane | None:
     return _PLANE
+
+
+def describe() -> dict:
+    return {"installed": _PLANE is not None,
+            **(_PLANE.describe() if _PLANE is not None else {})}
+
+
+def apply_admin(doc: dict) -> dict:
+    """Apply one document of the admin `faults` route to the global plane
+    (installing it on first use). Shapes:
+      {"op": "rule", "action": "...", ...FaultRule kwargs}
+      {"op": "partition", "name": "...", "groups": [["a:1"], ["b:2"]]}
+      {"op": "isolate", "name": "...", "src": "a:1", "dst": "b:2"}
+      {"op": "heal", "name": "..."}
+      {"op": "clear"}
+    """
+    plane = _PLANE if _PLANE is not None else install(
+        seed=int(doc["seed"]) if doc.get("seed") is not None else None)
+    op = doc.get("op", "")
+    if op == "rule":
+        kw = {k: doc[k] for k in ("src", "peer", "route", "plane", "delay",
+                                  "jitter", "times", "xor")
+              if doc.get(k) is not None}
+        if doc.get("afterBytes") is not None:
+            kw["after_bytes"] = doc["afterBytes"]
+        plane.add_rule(doc.get("action", ""), **kw)
+    elif op == "partition":
+        plane.partition(doc.get("name", ""), *doc.get("groups", []))
+    elif op == "isolate":
+        plane.isolate(doc.get("name", ""), doc.get("src", ""),
+                      doc.get("dst", ""))
+    elif op == "heal":
+        plane.heal(doc.get("name", ""))
+    elif op == "clear":
+        plane.clear()
+    else:
+        raise ValueError(f"unknown faultplane op {op!r}")
+    return plane.describe()

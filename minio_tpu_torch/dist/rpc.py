@@ -42,6 +42,7 @@ import socket
 import threading
 import time
 import urllib.parse
+import weakref
 from typing import Iterable, Iterator
 
 from minio_tpu_torch import obs
@@ -123,6 +124,24 @@ _RPC_SHED = obs.counter(
     "minio_tpu_rpc_retry_shed_total",
     "Retries shed because the per-peer retry budget was exhausted",
     ("peer",))
+
+# Every live RestClient, weakly: the chaos plane's teardown
+# (chaos.clear_all) re-closes breakers a storm opened, so an aborted storm
+# cannot bleed OPEN peers into what runs next.
+_CLIENTS: "weakref.WeakSet" = weakref.WeakSet()
+_CLIENTS_MU = threading.Lock()
+
+
+def _clients() -> list:
+    with _CLIENTS_MU:
+        return list(_CLIENTS)
+
+
+def reset_breakers() -> int:
+    """Force every OPEN or HALF_OPEN breaker in the process back to
+    CLOSED (chaos teardown). Returns how many breakers were reset."""
+    return sum(1 for c in _clients() if c.reset_breaker())
+
 
 # --- auth tokens -------------------------------------------------------------
 
@@ -363,6 +382,8 @@ class RestClient:
         self._obs_retry = _RPC_RETRIES.labels(peer=peer)
         self._obs_shed = _RPC_SHED.labels(peer=peer)
         self._obs_breaker.set(BREAKER_CLOSED)
+        with _CLIENTS_MU:
+            _CLIENTS.add(self)
 
     def _transport_error(self, e: Exception) -> se.StorageError:
         """Typed per-drive error for a NETWORK failure, tagged so the
@@ -470,6 +491,20 @@ class RestClient:
         if closed:
             self._enter_state(BREAKER_CLOSED)
 
+    def reset_breaker(self) -> bool:
+        """Force the breaker back to CLOSED: chaos teardown only (a live
+        breaker heals through the probe and HALF_OPEN). The probe loop
+        sees the flip and retires; a closed client is left alone. True
+        when a breaker that was not CLOSED was reset."""
+        with self._lock:
+            if self._closed or self._state == BREAKER_CLOSED:
+                return False
+            self._state = BREAKER_CLOSED
+            self._half_open_busy = False
+            self._consec = 0
+        self._enter_state(BREAKER_CLOSED)
+        return True
+
     def mark_offline(self) -> None:
         start_probe = False
         with self._lock:
@@ -502,6 +537,12 @@ class RestClient:
         delay = HEALTH_INTERVAL
         failures = 0
         while not self._probe_stop.wait(delay * random.uniform(0.6, 1.0)):
+            with self._lock:
+                # A breaker forced CLOSED out of band (reset_breaker)
+                # retires the probe.
+                if self._state != BREAKER_OPEN:
+                    self._probing = False
+                    return
             try:
                 conn = self._new_conn(timeout=2.0, path="/health")
                 conn.request("GET", "/health")
@@ -511,6 +552,11 @@ class RestClient:
                 ok = False
             if ok:
                 with self._lock:
+                    # A reset_breaker() that landed during this round trip
+                    # has closed the breaker: keep it CLOSED.
+                    if self._state != BREAKER_OPEN:
+                        self._probing = False
+                        return
                     self._state = BREAKER_HALF_OPEN
                     self._half_open_busy = False
                     self._probing = False

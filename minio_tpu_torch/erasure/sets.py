@@ -15,15 +15,18 @@ Once the format is known, every drive is wrapped as in the JAX package:
 a disk-ID check (a swapped drive answers DiskNotFound) under a health
 checker (adaptive per-call deadlines, ONLINE -> FAULTY -> OFFLINE, a
 background probe whose restore leaves a healing tracker for the
-AutoHealer). The ILM tier calls (transition_version,
-restore_transitioned) go to the object's set. Left for a later slice
-(ROADMAP.md): the JAX package's chaos wrapper between the two.
+AutoHealer). With `MTPU_CHAOS_DRIVE_WRAP=1` each local drive also gets an
+inert NaughtyDisk (chaos/naughty.py) between the two, which the guarded
+admin `faults` route programs, so injected hangs and errors run through
+the real ONLINE -> FAULTY -> OFFLINE machinery. The ILM tier calls
+(transition_version, restore_transitioned) go to the object's set.
 """
 
 from __future__ import annotations
 
 from typing import BinaryIO, Iterator
 
+from minio_tpu_torch.chaos import naughty
 from minio_tpu_torch.erasure import listing
 from minio_tpu_torch.erasure.format import init_format_erasure
 from minio_tpu_torch.erasure.healing import HealResultItem
@@ -63,8 +66,10 @@ class ErasureSets:
         set_drive_count = set_drive_count or len(drives)
         self.format = init_format_erasure(drives, set_drive_count,
                                           can_format_fresh=can_format_fresh)
-        drives = wrap_with_healthcheck(wrap_with_id_check(drives, self.format),
-                                       self.format)
+        drives = wrap_with_id_check(drives, self.format)
+        if naughty.wrap_enabled():
+            drives = naughty.wrap_drives(drives)
+        drives = wrap_with_healthcheck(drives, self.format)
         self.deployment_id = self.format.deployment_id
         self.set_drive_count = set_drive_count
         self.set_count = len(drives) // set_drive_count

@@ -416,3 +416,27 @@ class FlightSpool:
                 self._shm.unlink()
             except OSError:
                 return
+
+
+# -- SLO state spool ----------------------------------------------------
+#
+# The SLO route (obs/slo.py) needs every worker's latest evaluation, and
+# there is exactly ONE current state per worker: the spool is a
+# single-slot mailbox that the engine overwrites after every evaluation,
+# and siblings attach read-only at query time. Same torn-write tolerance
+# as FlightSpool; the bytes are the JAX StateSpool's.
+
+STATE_MAGIC = b"MTPUSLS1"
+DEFAULT_STATE_BYTES = 32768
+
+
+class StateSpool(FlightSpool):
+    """Per-worker latest-JSON-state mailbox (a FlightSpool with one slot
+    and its own magic)."""
+
+    MAGIC = STATE_MAGIC
+
+    @classmethod
+    def create(cls, name: str, nslots: int = 1,
+               cap: int = DEFAULT_STATE_BYTES) -> "StateSpool":
+        return super().create(name, nslots, cap)

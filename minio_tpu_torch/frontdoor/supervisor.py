@@ -133,6 +133,8 @@ class Supervisor:
             # Flight-recorder spool base: worker i owns shm segment
             # f"{base}w{i}"; siblings attach read-only at query time.
             "MTPU_FLIGHT_SPOOL": self.flight_base,
+            # SLO state mailbox base: worker i owns f"{base}slo{i}".
+            "MTPU_SLO_SPOOL": self.flight_base,
         })
         if self.ring is not None:
             env[frontdoor.RING_ENV] = self.ring.name
@@ -300,17 +302,18 @@ class Supervisor:
             self.ring.close()
             self.ring.unlink()
             self.ring = None
-        # Workers unlink their own flight spools on a clean drain; sweep
+        # Workers unlink their own flight and SLO spools on a clean drain; sweep
         # whatever a SIGKILLed straggler left behind.
         from multiprocessing import shared_memory
 
         for i in range(self.workers):
-            try:
-                stale = shared_memory.SharedMemory(name=f"{self.flight_base}w{i}")
-            except OSError:
-                continue
-            stale.close()
-            try:
-                stale.unlink()
-            except OSError:
-                pass
+            for name in (f"{self.flight_base}w{i}", f"{self.flight_base}slo{i}"):
+                try:
+                    stale = shared_memory.SharedMemory(name=name)
+                except OSError:
+                    continue
+                stale.close()
+                try:
+                    stale.unlink()
+                except OSError:
+                    pass

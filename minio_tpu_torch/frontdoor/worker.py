@@ -20,8 +20,10 @@ segment), and optionally `MTPU_FRONTDOOR_RING` (the shared lane ring) and
   connections, lets the requests in flight finish inside
   `MTPU_FRONTDOOR_DRAIN_S`, closes its WAL segments and exits 0.
 
-The JAX worker also arms its SLO engine's mailbox (`_arm_slo`); the port
-has no obs/slo.py yet.
+Each worker also mirrors its flight recorder and its SLO engine's latest
+evaluation into shm spools of its own (`_arm_flight`, `_arm_slo`), which
+its siblings read at query time: perf/timeline and slo answer for the
+whole pool from any worker.
 """
 
 from __future__ import annotations
@@ -134,6 +136,52 @@ def _arm_flight(wid: int):
     return stop
 
 
+def _arm_slo(wid: int):
+    """Mirror this worker's SLO evaluations into its shm StateSpool
+    mailbox (`<base>slo<id>`, base from MTPU_SLO_SPOOL) and read the
+    siblings' mailboxes on query (obs.slo.collect_local), as _arm_flight
+    does for timelines. Returns a stop callable."""
+    from minio_tpu_torch.frontdoor import shm
+    from minio_tpu_torch.obs import slo, tsdb
+
+    slo.set_worker(wid)
+    base = os.environ.get("MTPU_SLO_SPOOL", "")
+    if not (base and tsdb.armed()):
+        return lambda: None
+    try:
+        spool = shm.StateSpool.create(f"{base}slo{wid}")
+    except (OSError, ValueError):
+        return lambda: None  # no spool: this worker's state still serves
+    slo.attach_sink(spool.put)
+    nworkers = frontdoor.worker_count()
+
+    def read_siblings() -> list[dict]:
+        # Attach per query, for the same respawn reason as _arm_flight.
+        out = []
+        for o in range(nworkers):
+            if o == wid:
+                continue
+            try:
+                sib = shm.StateSpool.attach(f"{base}slo{o}")
+            except (OSError, ValueError):
+                continue
+            try:
+                out.extend(sib.read_all())
+            finally:
+                sib.close()
+        return out
+
+    slo.set_sibling_reader(read_siblings)
+
+    def stop():
+        slo.attach_sink(None)
+        slo.set_sibling_reader(None)
+        spool.close()
+        spool.unlink()
+
+    return stop
+
+
 def _drain_requests(srv, timeout: float) -> None:
     """Wait until no request is in flight, at most `timeout` seconds."""
     deadline = time.monotonic() + timeout
@@ -186,6 +234,7 @@ def main(argv=None) -> int:
     device = srv.obj.pools[0].sets[0].device
     stop_lanes = _arm_shared_lanes(wid, srv, device)
     stop_flight = _arm_flight(wid)
+    stop_slo = _arm_slo(wid)
     if wid == 0:
         # One healer per pool of workers: N healers racing over the same
         # sets would repeat every heal.
@@ -217,6 +266,7 @@ def main(argv=None) -> int:
     up.set(0)
     stop_lanes()
     stop_flight()
+    stop_slo()
     srv.close()
     # Close this worker's WAL segments: a clean drain leaves nothing for
     # the next mount's replay fold.

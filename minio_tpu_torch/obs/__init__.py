@@ -16,8 +16,9 @@ primitives:
 
 The bus is process-global: every S3Server and drive in the process
 shares it, so `mc admin trace` sees the node's whole request path. The
-JAX package's calibration, SLO and metric-history modules are not
-ported yet (ROADMAP.md).
+SLO plane rides on the registry: `tsdb` (the on-node metric ring),
+`slo` (burn-rate objectives over it) and `calibration` (the per-host
+profile and the build-info gauge).
 """
 
 import time as _time
@@ -34,7 +35,10 @@ from minio_tpu_torch.obs.histogram import (  # noqa: F401
     registry,
     render_into,
 )
+from minio_tpu_torch.obs import calibration  # noqa: F401
 from minio_tpu_torch.obs import flight  # noqa: F401
+from minio_tpu_torch.obs import slo  # noqa: F401
+from minio_tpu_torch.obs import tsdb  # noqa: F401
 from minio_tpu_torch.obs.span import (  # noqa: F401
     Span,
     ctx_wrap,

@@ -152,6 +152,18 @@ class TargetBreaker:
             threading.Thread(target=self._probe_loop, daemon=True,
                              name=f"repl-health-{self.target}").start()
 
+    def reset(self) -> bool:
+        """Force CLOSED (chaos teardown; a live breaker heals through
+        the probe and HALF_OPEN). True when it was not CLOSED."""
+        with self._lock:
+            if self._state == _rpc.BREAKER_CLOSED:
+                return False
+            self._state = _rpc.BREAKER_CLOSED
+            self._half_open_busy = False
+            self._consec = 0
+        self._enter(_rpc.BREAKER_CLOSED)
+        return True
+
     def begin_trial(self) -> bool:
         """Claim the single HALF_OPEN trial slot."""
         with self._lock:
@@ -233,6 +245,14 @@ def breaker_for(target: str, host: str, port: int, https: bool,
         else:
             b.fault_src = fault_src or b.fault_src
         return b
+
+
+def reset_breakers() -> int:
+    """Chaos teardown, as rpc.reset_breakers: force every OPEN or
+    HALF_OPEN target breaker back to CLOSED."""
+    with _TARGETS_MU:
+        targets = list(_TARGETS.values())
+    return sum(1 for b in targets if b.reset())
 
 
 # Verbs whose replay is safe: reads, checks, DELETE (S3 DELETE is

@@ -188,7 +188,7 @@ from minio_tpu_torch.iam.oidc import OIDCError, OpenIDValidator
 from minio_tpu_torch.iam.policy import Policy, PolicyArgs
 from minio_tpu_torch.iam.sys import ANONYMOUS, IAMSys
 from minio_tpu_torch.logger import FileTarget, HTTPTarget, audit_entry, get_logger
-from minio_tpu_torch.obs import flight
+from minio_tpu_torch.obs import calibration, flight, slo
 from minio_tpu_torch.s3 import sigv2, sigv4, xmlutil
 from minio_tpu_torch.s3.atrest import AtRest, copy_metadata
 from minio_tpu_torch.s3.errors import S3Error, from_exception
@@ -414,6 +414,16 @@ class S3Server:
         self.admin = AdminAPI(self)
         self.profiler = Profiler()
         self.closing = threading.Event()   # ends the trace streams
+        # The SLO plane (minio_tpu/s3/server.py:301-311): the build-info
+        # gauge, the metric ring and burn-rate engine (none under
+        # MTPU_SLO=0) with its coarse history persisted through the sys
+        # store, and the per-API counters, which live in HTTPStats, fed to
+        # the ring under a key a rebuilt server replaces.
+        calibration.publish_build_info()
+        engine = slo.ensure_started(
+            store=obj if hasattr(obj, "read_sys_config") else None)
+        if engine is not None:
+            engine.db.add_source(self._slo_stats_source, key="s3-stats")
 
     @property
     def current_requests(self) -> int:
@@ -431,6 +441,16 @@ class S3Server:
                                        local_name=(node.node_name if node is not None
                                                    else obs.current_node()),
                                        openmetrics=openmetrics)
+
+    def _slo_stats_source(self):
+        """The ring's source of the per-API request, error and 5xx
+        counters (obs/tsdb.py add_source)."""
+        snap = self.stats.snapshot()
+        for api, st in snap["apis"].items():
+            lbl = {"api": api}
+            yield "minio_tpu_s3_requests_total", lbl, st["count"]
+            yield "minio_tpu_s3_requests_errors_total", lbl, st["errors"]
+            yield "minio_tpu_s3_requests_5xx_errors_total", lbl, st["5xx"]
 
     def attach_cluster(self, node) -> None:
         """Wire a cluster node (dist/cluster.py ClusterNode) into this
@@ -453,6 +473,9 @@ class S3Server:
         hooks.profiler = self.profiler
         hooks.perf_timeline = self.admin._perf_timelines
         hooks.metrics = lambda: collect_node_metrics(self.stats)
+        # The federated GET /minio/admin/v3/slo pulls this node's
+        # worker-merged burn-rate state.
+        hooks.slo = slo.collect_local
 
     def apply_storage_class_config(self) -> None:
         """Parse storageclass.standard / rrs ("EC:N") and stamp the parity
@@ -715,6 +738,9 @@ class S3Server:
         self._drop_log_targets()
         if tiermod.global_registry() is self.tiers:
             tiermod.set_global(None)
+        engine = slo.engine()
+        if engine is not None:
+            engine.db.detach_store(self.obj)
         for h in self.auto_healer:
             h.close()
         if self.cluster_node is not None:
@@ -2062,6 +2088,10 @@ def build_server(drive_paths: list[str], access_key: str, secret_key: str,
                                     set_drive_count=set_drive_count,
                                     versioned=versioned, enable_mrf=enable_mrf,
                                     rpc_port=rpc_port)
+    # The calibration profile on drive 0 (minio_tpu/s3/server.py:3061-3067):
+    # written at the first boot, compared at later ones; a host that
+    # differs raises minio_tpu_calibration_stale.
+    calibration.boot(drive_paths[0])
     sets = ErasureSets([LocalDrive(p) for p in drive_paths],
                        set_drive_count=set_drive_count, parity=parity,
                        enable_mrf=enable_mrf, device=device)

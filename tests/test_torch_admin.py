@@ -554,7 +554,10 @@ def test_device_capture_that_lost_the_kernels_is_refused(pair, monkeypatch, capt
 
 def test_admin_ops_of_other_planes_answer_not_implemented(pair):
     cls = _clients(pair)
-    for op in ("obdinfo", "slo", "faults", "top/locks"):
+    # `slo` is served since the SLO plane landed; `faults` answers
+    # NotImplemented until the process opts in (MTPU_FAULT_INJECTION=1),
+    # as the JAX route does.
+    for op in ("obdinfo", "faults", "top/locks"):
         assert cls["torch"].get(f"/minio/admin/v3/{op}").status_code == 501, op
 
 

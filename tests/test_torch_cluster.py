@@ -230,14 +230,44 @@ def test_put_commits_with_one_nodes_drives_refused_and_heal_matches(mixed):
     assert jc.get(f"/{BUCKET}/degraded").content == data
 
 
-def test_federated_scrape_carries_both_servers(mixed):
-    tn, jn = mixed
+def _scrapes_and_fabric(tn, jn):
+    """Both nodes' cluster scrapes and the port node's admin info."""
+    scrapes = {}
     for node in (tn, jn):
         r = _client(node).get("/minio/v2/metrics/cluster")
         assert r.status_code == 200
-        for other in (tn, jn):
-            assert f'server="{other.node.node_name}"' in r.text, node
-    info = json.loads(_client(tn).get("/minio/admin/v3/info").content)
+        scrapes[node] = r.text
+    return scrapes, json.loads(_client(tn).get("/minio/admin/v3/info").content)
+
+
+def test_federated_scrape_carries_both_servers(mixed, monkeypatch):
+    tn, jn = mixed
+    # A peer's part of the scrape is its whole process registry, rendered
+    # by the peer: in a test process that has run many files before this
+    # one (an xdist worker) that is every earlier test's label sets, and
+    # on a loaded host it can outlast the 2 s peer deadline, which drops
+    # the peer from that scrape. The fabric breaker may also be in the
+    # HALF_OPEN state the boot left it in until a fabric call closes it.
+    # So wait, with a bound, for the state the test asserts: the peers'
+    # deadline is raised for it, and each round sends one ListBuckets
+    # through the port node, which reaches the JAX node's drives.
+    for m in (td.jax_metrics, td.torch_metrics):
+        monkeypatch.setattr(m, "PEER_SCRAPE_DEADLINE", 15.0)
+    names = [n.node.node_name for n in (tn, jn)]
+    deadline = time.monotonic() + 90
+    while True:
+        scrapes, info = _scrapes_and_fabric(tn, jn)
+        if ((all(f'server="{o}"' in text for text in scrapes.values()
+                 for o in names)
+             and info["peerFabric"]
+             and info["peerFabric"][0]["state"] == "closed")
+                or time.monotonic() > deadline):
+            break
+        _client(tn).get("/")
+        time.sleep(0.2)
+    for node, text in scrapes.items():
+        for other in names:
+            assert f'server="{other}"' in text, node
     assert [p["peer"] for p in info["peerFabric"]] == [jn.node.node_name]
     assert info["peerFabric"][0]["state"] == "closed"
 

@@ -105,9 +105,11 @@ def test_faultplane_schedule_equal_for_a_seed():
             fp.isolate("half", "a:1", "d:4")
         assert planes[0].schedule(16) == planes[1].schedule(16)
         assert planes[0].describe() == planes[1].describe()
+    from minio_tpu import chaos as jax_chaos
+    from minio_tpu_torch import chaos as torch_chaos
+
     for name in ("net", "drive"):
-        assert td.torch_faultplane.subseed(5, name) == __import__(
-            "minio_tpu.chaos", fromlist=["subseed"]).subseed(5, name)
+        assert torch_chaos.subseed(5, name) == jax_chaos.subseed(5, name)
 
 
 # -- every route, each client against each server ------------------------------

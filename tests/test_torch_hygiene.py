@@ -23,8 +23,9 @@ FORBIDDEN = {"jax", "jaxlib", "minio_tpu", "aiohttp", "msgpack", "requests", "xx
 
 # Modules of the metadata plane and drive-resilience slice, of the
 # data-at-rest slice, of the identity-and-access slice, of the front
-# door and QoS slice, of the distributed cluster slice and of the
-# background plane slice, each its own copy of the JAX module it ports:
+# door and QoS slice, of the distributed cluster slice, of the background
+# plane slice and of the SLO and chaos slice, each its own copy of the JAX
+# module it ports:
 # they must be in the scan.
 SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "metaplane/groupcommit.py", "metaplane/setcache.py",
@@ -50,7 +51,10 @@ SLICE_MODULES = ("metaplane/__init__.py", "metaplane/wal.py",
                  "event/__init__.py", "event/event.py", "event/rules.py",
                  "event/targets.py", "event/notifier.py", "logger/__init__.py",
                  "logger/logger.py", "replication/__init__.py",
-                 "replication/client.py", "utils/streams.py")
+                 "replication/client.py", "utils/streams.py",
+                 "obs/tsdb.py", "obs/slo.py", "obs/calibration.py",
+                 "chaos/__init__.py", "chaos/naughty.py", "chaos/schedule.py",
+                 "chaos/ledger.py", "chaos/workload.py", "chaos/invariants.py")
 
 
 def _port_files():

@@ -16,6 +16,7 @@ import uuid
 
 import pytest
 
+from minio_tpu.admin import metrics as jax_metrics
 from minio_tpu.dist import cluster as jax_cluster
 from minio_tpu.dist import dsync as jax_dsync
 from minio_tpu.dist import endpoint as jax_endpoint
@@ -26,6 +27,7 @@ from minio_tpu.dist import rpc as jax_rpc
 from minio_tpu.dist import server as jax_server
 from minio_tpu.dist import storage_remote as jax_storage
 from minio_tpu.storage import local as jax_local
+from minio_tpu_torch.admin import metrics as torch_metrics
 from minio_tpu_torch.dist import cluster as torch_cluster
 from minio_tpu_torch.dist import dsync as torch_dsync
 from minio_tpu_torch.dist import endpoint as torch_endpoint
